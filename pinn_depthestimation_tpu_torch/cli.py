@@ -1,0 +1,123 @@
+"""Command-line interface of the port.
+
+Counterpart of the JAX package's ``cli.py`` for the serving slice:
+
+    python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
+                                                       [--save OUT.mat] [--device cuda|cpu]
+    python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
+    python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
+
+``--device`` defaults to ``cuda``; without a CUDA device the verb fails
+unless ``--device cpu`` is given. ``train``, ``plot-log``, ``video``,
+``parity``, ``test --plot`` and the CMB/legacy ``synth`` outputs come with
+later slices (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def cmd_test(args) -> int:
+    import numpy as np
+    from scipy.io import savemat
+
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.device import resolve_device
+    from pinn_depthestimation_tpu_torch.inference import Predictor
+
+    device = resolve_device(args.device)  # no CUDA device: raise, never the CPU
+    try:
+        config = load_config(args.config)
+    except Exception as e:
+        if args.debug:
+            raise
+        print(f"Error reading config file: {e}")
+        return 1
+    try:
+        predictor = Predictor(config, checkpoint_path=args.model, device=device)
+    except Exception as e:
+        if args.debug:
+            raise
+        print(f"Error loading model: {e}")
+        return 1
+    result = predictor.run()
+    for key, arr in result.pred.items():
+        # masked (NaN) grid cells are data-driven; summarize over wet cells
+        nan_pct = 100.0 * float(np.isnan(arr).mean())
+        line = f"pred_{key}: shape {arr.shape}, mean {float(np.nanmean(arr)):.5f}"
+        if nan_pct:
+            line += f" ({nan_pct:.1f}% masked cells)"
+        print(line)
+    if args.save:
+        savemat(args.save, {f"pred_{k}": v for k, v in result.pred.items()})
+        print(f"Predictions saved to {args.save}")
+    print("Prediction done!")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from pinn_depthestimation_tpu_torch import benchmarks
+
+    print(json.dumps(benchmarks.run_residual_bench(
+        n_points=args.points, backend=args.backend, precision=args.precision,
+        device=args.device,
+    )))
+    return 0
+
+
+def cmd_synth(args) -> int:
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    os.makedirs(args.out, exist_ok=True)
+    mat = os.path.join(args.out, "data_synth.mat")
+    synthetic.make_newmethod_mat(mat, nx=args.nx, ny=args.ny, seed=args.seed)
+    print(f"Wrote {mat}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m pinn_depthestimation_tpu_torch.cli", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    te = sub.add_parser("test", help="predict the test grid")
+    te.add_argument("--config", required=True, help="JSON config (reference schema)")
+    te.add_argument("--model", default=None,
+                    help="weights: reference .pth/.pt or exchange .npz "
+                         "(default: data_test.model)")
+    te.add_argument("--save", default=None, help="write predictions to this .mat")
+    te.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    te.add_argument("--debug", action="store_true",
+                    help="re-raise errors with a full traceback instead of "
+                         "the friendly exit-1 message")
+    te.set_defaults(fn=cmd_test)
+
+    b = sub.add_parser("bench", help="residual-evaluation benchmark (one JSON line)")
+    b.add_argument("--points", type=int, default=10_000_000)
+    b.add_argument("--backend", choices=["kernel", "plain"], default="kernel")
+    b.add_argument("--precision", choices=["f32", "f32x3", "bf16"], default="f32")
+    b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    b.set_defaults(fn=cmd_bench)
+
+    s = sub.add_parser("synth", help="write a synthetic newmethod .mat (reference schema)")
+    s.add_argument("--out", required=True)
+    s.add_argument("--nx", type=int, default=81)
+    s.add_argument("--ny", type=int, default=261)
+    s.add_argument("--seed", type=int, default=0)
+    s.set_defaults(fn=cmd_synth)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,127 @@
+"""Build and bind the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` is compiled by ``nvcc`` into shared
+libraries with a plain C interface and loaded with ``ctypes``. The build
+runs at first use, from the sources in the package only, into
+``_build/<name>-<hash>/`` beside ``csrc/`` (listed in ``.gitignore``); the
+hash covers the source, the flags and the variants, so a second process
+reuses the libraries and an edited source builds anew. A source compiled in
+several variants (K2: one per hidden width) runs one ``nvcc`` per variant,
+all started together.
+
+Nothing here runs at import: this module is imported on machines without
+``nvcc`` or a GPU, where only the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into build.log
+)
+
+K2_SOURCE = "mlp_fwd_tangents.cu"
+# Hidden widths K2 is compiled for: the repo's configs use 10 (CMB) and 20
+# (flagship); the rest cover the narrow test nets and a wider option.
+K2_WIDTHS = (8, 10, 16, 20, 32)
+
+
+@dataclass
+class KernelLibrary:
+    """The loaded variants of one kernel source."""
+
+    name: str
+    libs: dict[int, ctypes.CDLL]
+    build_seconds: float   # wall time of this process's build; 0 if reused
+    log_path: Path
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on ``PATH``, or
+    the toolkit's default prefix."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in candidates:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels are built from csrc/ at first use"
+    )
+
+
+def _build(name: str, source: str, variants: dict[int, tuple[str, ...]], bind) -> KernelLibrary:
+    src = CSRC_DIR / source
+    key = hashlib.sha256(
+        src.read_bytes() + repr((NVCC_FLAGS, sorted(variants.items()))).encode()
+    ).hexdigest()[:16]
+    out_dir = BUILD_DIR / f"{name}-{key}"
+    targets = {v: out_dir / f"lib{name}_{v}.so" for v in variants}
+    log_path = out_dir / "build.log"
+    seconds = 0.0
+    if not all(p.exists() for p in targets.values()):
+        out_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        t0 = time.perf_counter()
+        procs = {}
+        for v, extra in variants.items():
+            tmp = out_dir / f".{targets[v].name}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            procs[v] = (cmd, proc, tmp)
+        logs, failed = [], []
+        for v, (cmd, proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            logs.append(f"== {name} variant {v} (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+            if proc.returncode == 0:
+                os.replace(tmp, targets[v])  # atomic: a concurrent build is safe
+            else:
+                failed.append(v)
+        seconds = time.perf_counter() - t0
+        log_path.write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {name} variants {failed}; full log in {log_path}\n"
+                + "\n".join(logs)[-4000:]
+            )
+    libs = {v: bind(ctypes.CDLL(str(p))) for v, p in targets.items()}
+    return KernelLibrary(name=name, libs=libs, build_seconds=seconds, log_path=log_path)
+
+
+def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k2_mlp_fwd_tangents.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.k2_mlp_fwd_tangents.restype = i
+    lib.k2_error_string.argtypes = [i]
+    lib.k2_error_string.restype = ctypes.c_char_p
+    lib.k2_width.argtypes = []
+    lib.k2_width.restype = i
+    lib.k2_chunk_layers.argtypes = [i]
+    lib.k2_chunk_layers.restype = i
+    return lib
+
+
+@functools.cache
+def k2_library() -> KernelLibrary:
+    """K2 (``csrc/mlp_fwd_tangents.cu``), one library per width in
+    :data:`K2_WIDTHS`; built on the first call in a process."""
+    return _build("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}, _bind_k2)

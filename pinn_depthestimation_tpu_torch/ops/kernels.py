@@ -1,0 +1,211 @@
+"""K2: the fused MLP forward + coordinate-tangents kernel, for Hopper.
+
+Replaces the JAX package's TPU kernel ``ops/kernels.py::_mlp_kernel``
+(launched by ``packed_mlp_fwd_tangents_raw``; wrapped by
+``packed_mlp_fwd_tangents`` and ``fused_residual_continuity``). The kernel
+is CUDA C++ in ``csrc/mlp_fwd_tangents.cu``, built by ``ops.cuda_build``.
+It computes what ``models.mlp.mlp_apply_with_tangents`` computes for the
+coordinate-basis tangents, and none of the TPU's lane packing carries over:
+one thread per point keeps the primal and K tangent streams in registers,
+with the hidden weights broadcast from shared memory.
+
+What bounds it on the H100: FLOPs, not bytes. Per point it does
+``2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K)`` FLOPs (about 238,000 for the
+2->[20]x100->3 flagship at K=2, plus 100*W tanh) against about 12 B of
+device memory, so the f32 tier is bound by the CUDA cores' FMA rate
+(``SMs x 128 lanes x 2 x SM clock``). The design keeps every intermediate
+on chip and shares each shared-memory weight load among the 1+K streams;
+tensor-core tiers (3xTF32, bf16) are later work (``ROADMAP.md``).
+
+Beside the kernel, per the port's rules:
+
+* the plain PyTorch version (:func:`mlp_fwd_tangents_plain`,
+  :func:`residual_continuity_plain`), which the CPU runs and the card
+  checks the kernel against;
+* the wrappers :func:`mlp_fwd_tangents` and
+  :func:`fused_residual_continuity`: for a CPU tensor they take the plain
+  version, for a CUDA tensor they launch the kernel or raise — no fallback;
+* a launch count on each wrapper (``mlp_fwd_tangents.launches``,
+  ``fused_residual_continuity.launches``), raised by one per launch.
+
+Only the ``f32`` tier exists so far; ``f32x3``/``bf16`` raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from pinn_depthestimation_tpu_torch.models.mlp import MLPSpec, mlp_apply_with_tangents
+from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS, k2_library
+from pinn_depthestimation_tpu_torch.physics import continuity_only_residuals
+
+MAX_D_IN = 8
+MAX_D_OUT = 8
+MAX_TANGENTS = 3
+_MAX_POINTS = 2**31 - 256  # the kernel indexes blocks and points with int
+_ACT = {"xavier": 0, "kaiming": 1}  # tanh, LeakyReLU(0.01)
+
+
+def kernel_supports(spec: MLPSpec) -> bool:
+    """Whether K2 takes this architecture: at least one hidden layer, a
+    compiled width, ``d_in <= 8`` and ``d_out <= 8``."""
+    return (
+        spec.n_hidden >= 1
+        and spec.width in K2_WIDTHS
+        and spec.d_in <= MAX_D_IN
+        and spec.d_out <= MAX_D_OUT
+    )
+
+
+def check_precision(precision: str) -> None:
+    if precision == "f32":
+        return
+    if precision in ("f32x3", "bf16"):
+        raise NotImplementedError(
+            f"K2 precision tier {precision!r} is not ported yet (ROADMAP.md "
+            "Queue 2, 'K2 tiers f32x3 and bf16'); use kernel_precision "
+            "'f32' or 'auto'"
+        )
+    raise ValueError(f"precision must be 'f32', 'f32x3' or 'bf16', got {precision!r}")
+
+
+def _coordinate_tangents(coords: torch.Tensor, n_tangents: int) -> torch.Tensor:
+    t = torch.zeros((n_tangents,) + tuple(coords.shape), dtype=coords.dtype, device=coords.device)
+    for k in range(n_tangents):
+        t[k, :, k] = 1.0
+    return t
+
+
+# ----------------------------------------------------------- plain versions
+
+def mlp_fwd_tangents_plain(params, coords, spec: MLPSpec, n_tangents: int):
+    """Plain PyTorch K2: ``(y (N, d_out), dy (K, N, d_out))`` for the first
+    ``n_tangents`` coordinate directions."""
+    return mlp_apply_with_tangents(
+        params, coords, _coordinate_tangents(coords, n_tangents), spec
+    )
+
+
+def residual_continuity_plain(params, coords, spec: MLPSpec) -> torch.Tensor:
+    """Plain PyTorch K2 with the continuity epilogue: per-point
+    ``d(hU)/dx + d(hV)/dy`` with heads ``(U, V, h)`` and inputs ``(x, y)``."""
+    y, dy = mlp_fwd_tangents_plain(params, coords, spec, 2)
+    fields = {"U": y[:, 0], "V": y[:, 1], "h": y[:, 2]}
+    grads = {c: {"U": dy[k][:, 0], "V": dy[k][:, 1], "h": dy[k][:, 2]}
+             for k, c in enumerate(("x", "y"))}
+    return continuity_only_residuals(fields, grads)
+
+
+# ------------------------------------------------------------ CUDA launch
+
+def _check_launch(params: Mapping[str, torch.Tensor], coords: torch.Tensor,
+                  spec: MLPSpec, n_tangents: int) -> None:
+    if not kernel_supports(spec):
+        raise ValueError(
+            f"K2 takes >= 1 hidden layer, width in {K2_WIDTHS}, "
+            f"d_in <= {MAX_D_IN} and d_out <= {MAX_D_OUT}; got sizes {spec.sizes}"
+        )
+    if not 0 <= n_tangents <= min(MAX_TANGENTS, spec.d_in):
+        raise ValueError(f"K2 takes 0 <= n_tangents <= min(3, d_in), got {n_tangents}")
+    if coords.dim() != 2 or coords.shape[1] != spec.d_in or coords.shape[0] > _MAX_POINTS:
+        raise ValueError(f"coords must be (N, {spec.d_in}) with N < 2^31, got {tuple(coords.shape)}")
+    W, n_stack = spec.width, spec.n_hidden - 1
+    shapes = {
+        "w_in": (spec.d_in, W), "b_in": (W,), "w_hidden": (n_stack, W, W),
+        "b_hidden": (n_stack, W), "w_out": (W, spec.d_out), "b_out": (spec.d_out,),
+    }
+    for name, t in [("coords", coords)] + [(k, params[k]) for k in shapes]:
+        if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"K2 takes contiguous float32 tensors on {coords.device}; {name} is "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
+            )
+        if name != "coords" and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+
+
+def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, *, epilogue: bool,
+               y=None, dy=None, fc=None) -> None:
+    lib = k2_library().libs[spec.width]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream(coords.device).cuda_stream
+        err = lib.k2_mlp_fwd_tangents(
+            ptr(coords), ptr(params["w_in"]), ptr(params["b_in"]),
+            ptr(params["w_hidden"]), ptr(params["b_hidden"]),
+            ptr(params["w_out"]), ptr(params["b_out"]),
+            ptr(y), ptr(dy), ptr(fc),
+            coords.shape[0], spec.d_in, spec.d_out, spec.n_hidden - 1,
+            n_tangents, _ACT[spec.init_type], int(epilogue), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"K2 launch failed: CUDA error {err} "
+            f"({lib.k2_error_string(err).decode()}) at sizes {spec.sizes}, "
+            f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}"
+        )
+
+
+def _on_cuda(coords: torch.Tensor) -> bool:
+    if coords.device.type == "cpu":
+        return False
+    if coords.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA tensors (CPU: plain version), got {coords.device}")
+    return True
+
+
+# --------------------------------------------------------------- wrappers
+
+def mlp_fwd_tangents(params, coords: torch.Tensor, spec: MLPSpec, n_tangents: int,
+                     *, precision: str = "f32"):
+    """Fused forward + the first ``n_tangents`` coordinate tangents.
+    Returns ``(y (N, d_out), dy (n_tangents, N, d_out))``.
+
+    Counterpart of the JAX ``ops.kernels.packed_mlp_fwd_tangents``. A CPU
+    ``coords`` runs :func:`mlp_fwd_tangents_plain`; a CUDA one launches K2.
+    """
+    check_precision(precision)
+    if not _on_cuda(coords):
+        return mlp_fwd_tangents_plain(params, coords, spec, n_tangents)
+    _check_launch(params, coords, spec, n_tangents)
+    n = coords.shape[0]
+    y = torch.empty((n, spec.d_out), dtype=torch.float32, device=coords.device)
+    dy = torch.empty((n_tangents, n, spec.d_out), dtype=torch.float32, device=coords.device)
+    if n:
+        _launch_k2(params, coords, spec, n_tangents, epilogue=False,
+                   y=y, dy=dy if n_tangents else None)
+        mlp_fwd_tangents.launches += 1
+    return y, dy
+
+
+mlp_fwd_tangents.launches = 0
+
+
+def fused_residual_continuity(params, coords: torch.Tensor, spec: MLPSpec,
+                              *, precision: str = "f32") -> torch.Tensor:
+    """Per-point continuity residual ``d(hU)/dx + d(hV)/dy`` (the residual
+    bench's hot path), computed inside K2: one ``(N,)`` output.
+
+    Needs heads ``(U, V, h)`` (``d_out == 3``) and inputs ``(x, y, ...)``.
+    Counterpart of the JAX ``ops.kernels.fused_residual_continuity``.
+    """
+    check_precision(precision)
+    if spec.d_out != 3 or spec.d_in < 2:
+        raise ValueError(
+            "the continuity epilogue needs d_out=3 heads (U, V, h) and "
+            f"inputs (x, y, ...); got sizes {spec.sizes}"
+        )
+    if not _on_cuda(coords):
+        return residual_continuity_plain(params, coords, spec)
+    _check_launch(params, coords, spec, 2)
+    fc = torch.empty((coords.shape[0],), dtype=torch.float32, device=coords.device)
+    if coords.shape[0]:
+        _launch_k2(params, coords, spec, 2, epilogue=True, fc=fc)
+        fused_residual_continuity.launches += 1
+    return fc
+
+
+fused_residual_continuity.launches = 0

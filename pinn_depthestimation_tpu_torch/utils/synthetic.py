@@ -1,0 +1,97 @@
+"""Synthetic nearshore datasets in the reference's file schema.
+
+Port of the newmethod part of the JAX package's ``utils/synthetic.py``
+(numpy and ``scipy.io.savemat`` only). The reference consumes private
+FUNWAVE-TVD products that are not shipped; these generators write
+physically plausible stand-ins with the same layout, so the serving path
+runs end to end:
+
+* newmethod ``.mat``: columns ``x, y, U, V, h`` of shape ``(N, 1)`` on an
+  ``ny x nx`` grid with optional NaN rows in the observed fields (reference
+  ``train_newmethod.py:226-250``).
+
+The CMB CSV/``.mat`` pair and the FUNWAVE snapshot directory come with the
+CMB and legacy slices (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.io import savemat
+
+
+def beach_fields_structured(x: np.ndarray, y: np.ndarray, *, q0=-0.7, x0=25.0):
+    """Analytic fields where continuity genuinely constrains a structured
+    bathymetry: a sloped ``h(x)`` with a sand bar around the 0.75 m anchor
+    depth, and a cross-shore flux ``h*U = q(y)`` conserved exactly with
+    ``V = 0``, so the true continuity residual is 0 in any coordinates."""
+    h = 0.75 - 0.14 * np.tanh((x - 29.0) / 2.0) - 0.10 * np.exp(-((x - 27.5) / 0.7) ** 2)
+    q = q0 * (1.0 + 0.15 * np.sin(0.24 * y))
+    U = q / h
+    V = np.zeros_like(U)
+    eta_mean = 0.01 * np.cos(0.4 * (x - x0))
+    hrms = 0.2 + 0.05 * np.tanh(0.3 * (x - x0))
+    k = 1.5 + 0.2 * np.sin(0.2 * y)
+    return {"h": h, "U": U, "V": V, "eta_mean": eta_mean, "Hrms": hrms, "k": k}
+
+
+def beach_fields(x: np.ndarray, y: np.ndarray, *, h0=0.75, slope=0.02, x0=25.0):
+    """Analytic depth + velocity + wave fields on arbitrary coordinates: a
+    planar beach under a longshore current from a streamfunction, so the
+    continuity residual is small but nonzero."""
+    h = h0 - slope * (x - x0)
+    U = -(-0.3 * 0.05 * np.sin(0.5 * (x - x0)) * np.sin(0.3 * y))  # -dpsi/dy
+    V = 0.5 * 0.05 * np.cos(0.5 * (x - x0)) * np.cos(0.3 * y)      # dpsi/dx
+    eta_mean = 0.01 * np.cos(0.4 * (x - x0))
+    hrms = 0.2 + 0.05 * np.tanh(0.3 * (x - x0))
+    k = 1.5 + 0.2 * np.sin(0.2 * y)
+    return {"h": h, "U": U, "V": V, "eta_mean": eta_mean, "Hrms": hrms, "k": k}
+
+
+FIELD_PROFILES = {"plane": beach_fields, "structured": beach_fields_structured}
+
+
+def grid(nx=81, ny=261, x_min=25.0, x_max=33.0, y_min=-13.0, y_max=13.0):
+    """Meshgrid in the reference test geometry (reference config_CMB.json:66-73)."""
+    xs = np.linspace(x_min, x_max, nx)
+    ys = np.linspace(y_min, y_max, ny)
+    return np.meshgrid(xs, ys)  # shapes (ny, nx)
+
+
+def make_newmethod_mat(
+    path: str,
+    *,
+    nx=81,
+    ny=261,
+    nan_fraction=0.05,
+    seed=0,
+    x_min=25.0,
+    x_max=33.0,
+    y_min=-13.0,
+    y_max=13.0,
+    fields="plane",
+) -> dict[str, np.ndarray]:
+    """Write a ``data_60percent.mat``-style file: ``x, y, U, V, h`` columns.
+
+    ``fields`` picks the analytic field family (:data:`FIELD_PROFILES`).
+    Same draws as the JAX package's generator for the same arguments, so
+    both packages read one file's worth of identical data."""
+    rng = np.random.RandomState(seed)
+    X, Y = grid(nx, ny, x_min, x_max, y_min, y_max)
+    f = FIELD_PROFILES[fields](X, Y)
+    cols = {
+        "x": X.reshape(-1, 1),
+        "y": Y.reshape(-1, 1),
+        "U": f["U"].reshape(-1, 1),
+        "V": f["V"].reshape(-1, 1),
+        "h": f["h"].reshape(-1, 1),
+    }
+    n = cols["x"].shape[0]
+    n_nan = int(nan_fraction * n)
+    if n_nan:
+        nan_rows = rng.choice(n, n_nan, replace=False)
+        for key in ("U", "V"):  # NaNs live in the observed fields
+            cols[key] = cols[key].copy()
+            cols[key][nan_rows] = np.nan
+    savemat(path, cols)
+    return cols
