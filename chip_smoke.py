@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: K2 (``csrc/mlp_fwd_tangents.cu``) from the checkout's sources;
+2. build: K2 (``csrc/mlp_fwd_tangents.cu``) and K1
+   (``csrc/continuity_train_step.cu``) from the checkout's sources, every
+   ``nvcc`` started together; registers and spills per width;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -18,11 +20,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 5. residual evaluation: ``run_residual_bench`` at 10M points, checked
    against the plain version at the same inputs;
 6. times (CUDA events, median of reps) of each kernel beside its plain
-   version and its bound.
+   version and its bound;
+7. K1 against its plain version on the card: the flagship on the 12,516
+   points of the 81x261 grid with 40.8 % NaN rows, anchored with two
+   observed heads, under parity (every point selected) and parity=false
+   (some selected), twice for determinism; width 10 anchorless with three
+   heads; width 16 leaky-relu; a width-32 stack deeper than one
+   shared-memory chunk; a batch with masked rows;
+8. the training path through its entry points: CLI ``train`` on
+   ``examples/newmethod.json`` with the synthetic grid (Adam, the snapshot,
+   L-BFGS, ``model.npz``), then CLI ``test`` on the trained model; the log,
+   the files and the loss trend are checked, and K1's launch count must
+   equal the number of loss evaluations;
+9. iteration-1 equality and a 20-step Adam prefix of a Trainer on K1
+   against one on the plain autograd path, from the same numpy weights;
+10. training times: K1 beside its plain version and bound, the flagship
+   Adam step (``run_train_step_bench``) and L-BFGS evaluations per second
+   (median, min and max of 5 runs of the configured 500-iteration phase).
 
-Launch counts are set to 0 before phase 4 and read after phase 5: each
-kernel must have launched on that main path. The last two lines are the
-``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 before phase 4 and read after phase 5 (the
+serving path), and set to 0 again before phase 8 and read after it (the
+training path): each kernel must have launched on each path that runs it.
+The last two lines are the ``kernels`` JSON object and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,6 +58,8 @@ import time
 
 REPLACES = "pinn_depthestimation_tpu/ops/kernels.py:217"  # _mlp_kernel
 K2_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_fwd_tangents.cu"
+K1_REPLACES = "pinn_depthestimation_tpu/ops/kernels_step.py:205"  # _stats_and_grads
+K1_SOURCE = "pinn_depthestimation_tpu_torch/csrc/continuity_train_step.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # kernel vs plain: max|kernel - plain| <= REL_TOL * max|plain| + ABS_TOL. f32 FMA
 # chains against f32 cuBLAS products over ~100 layers agree to ~1e-5 of the
@@ -140,6 +162,257 @@ def k2_bytes(params, n_points: int, spec, out_floats_per_point: int) -> float:
     return float(weights + n_points * (spec.d_in + out_floats_per_point) * 4)
 
 
+def k1_flops(spec, n_points: int) -> float:
+    """K1's operations: the forward with two tangents, 2*(d_in*W + (L-1)*W^2
+    + W*d_out)*3 per point, and the backward, 2*2*3*((L-1)*W^2 + W*d_out) +
+    2*d_in*W per point (the weight-gradient and cotangent products of every
+    layer; the input layer has no cotangent product); tanh not counted."""
+    W, d_in, d_out, n_stack = spec.width, spec.d_in, spec.d_out, spec.n_hidden - 1
+    fwd = 2 * (d_in * W + n_stack * W * W + W * d_out) * 3
+    bwd = 2 * 2 * 3 * (n_stack * W * W + W * d_out) + 2 * d_in * W
+    return float(n_points) * (fwd + bwd)
+
+
+def k1_bytes(params, n_points: int, d_in: int, n_true: int) -> float:
+    """Each input read once (coords, trues, sel, mask, the weights) and each
+    output written once (the gradients, the statistics)."""
+    weights = sum(int(t.numel()) for t in params.values()) * 4
+    return float(2 * weights + 8 * 4 + n_points * (d_in + n_true + 2) * 4)
+
+
+def newmethod_config(tmp: str, repo: str, **overrides) -> str:
+    """``examples/newmethod.json`` on the synthetic 81x261 grid with 40.8 %
+    NaN rows (12,516 training points), with ``overrides`` merged in; returns
+    the config path."""
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = os.path.join(tmp, "grid_0408.mat")
+    if not os.path.exists(mat):
+        synthetic.make_newmethod_mat(mat, nx=81, ny=261, nan_fraction=0.408, seed=21)
+    with open(os.path.join(repo, "examples", "newmethod.json")) as f:
+        raw = json.load(f)
+    raw["data"]["file"] = mat
+    raw["data_test"]["file"] = mat
+    for key, value in overrides.items():
+        if isinstance(value, dict):
+            raw[key] = {**raw.get(key, {}), **value}
+        else:
+            raw[key] = value
+    path = os.path.join(tmp, f"newmethod_{len(os.listdir(tmp))}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def training_phases(dev, repo: str, bound) -> dict:
+    """Phases 7-10; returns K1's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    with tempfile.TemporaryDirectory() as tmp:
+        # 7. K1 vs plain ---------------------------------------------------
+        print("== phase 7: K1 against its plain version on the card")
+        td = load_training_data(load_config(newmethod_config(tmp, repo)))
+        coords = torch.as_tensor(td.residual_input).to(dev)
+        trues = torch.as_tensor(td.fidelity_true).to(dev)
+        n_grid = coords.shape[0]
+        ones = torch.ones(n_grid, device=dev)
+        lo, hi = td.input_min_max["x"]
+        x_anchor = 2 * (25.5 - lo) / (hi - lo) - 1  # parity=false: physical 25.5 m
+        rng = np.random.RandomState(11)
+
+        def batch(x, tr, sel, mask, n_true, has_anchor):
+            weights = [1.0, 1.0, 1.0][:n_true]
+            return kernels_step.make_step_batch(x, tr, sel, mask, weights, n_true, 1.0, 1.0,
+                                                anchor_depth=0.75, has_anchor=has_anchor)
+
+        def rand_batch(n, n_true, has_anchor, masked):
+            x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
+            tr = torch.as_tensor((rng.randn(n, n_true) * 0.1).astype(np.float32)).to(dev)
+            m = torch.as_tensor((rng.rand(n) > (0.15 if masked else -1)).astype(np.float32)).to(dev)
+            return batch(x, tr, (x[:, 0] < 0.3).float() * m, m, n_true, has_anchor)
+
+        flag_params = params_from_numpy(numpy_params(flagship.sizes, "xavier", 4), dev)
+        cases = [
+            ("flagship, parity (all selected)", flagship, flag_params,
+             batch(coords, trues, (coords[:, 0] < 25.5).float(), ones, 2, True)),
+            ("flagship, parity=false", flagship, flag_params,
+             batch(coords, trues, (coords[:, 0] < x_anchor).float(), ones, 2, True)),
+            ("width 10, anchorless, 3 heads", MLPSpec(sizes=(2,) + (10,) * 10 + (3,)), None,
+             rand_batch(3_001, 3, False, False)),
+            ("width 16, leaky-relu", MLPSpec(sizes=(2,) + (16,) * 6 + (3,), init_type="kaiming"),
+             None, rand_batch(2_000, 2, True, False)),
+            ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (3,)),
+             None, rand_batch(1_500, 2, True, False)),
+            ("flagship, masked rows", flagship, flag_params, rand_batch(4_099, 2, True, True)),
+        ]
+        err_k1 = 0.0
+        for name, spec, params, b in cases:
+            params = params or params_from_numpy(numpy_params(spec.sizes, spec.init_type, 5), dev)
+            chunk = kernels_step.k1_library().libs[spec.width].k1_chunk_layers(spec.n_hidden - 1)
+            print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
+                  f"{spec.init_type}, N={b.coords.shape[0]}, selected {int(b.n_sel)}, "
+                  f"{chunk} hidden layers per smem chunk")
+            (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec)
+            torch.cuda.synchronize()
+            (t2, (f2, r2)), g2 = kernels_step.fused_loss_and_grad_plain(params, b, spec)
+            errs = [compare(f"{term}", got, want)
+                    for term, got, want in (("total", t1, t2), ("fidelity", f1, f2),
+                                            ("residual", r1, r2))]
+            errs += [compare(f"d{k}", g1[k], g2[k]) for k in kernels_step.FLAT_KEYS]
+            if spec is flagship:
+                err_k1 = max(err_k1, *errs)
+                (t3, _), g3 = kernels_step.fused_loss_and_grad(params, b, spec)
+                if not (torch.equal(t1, t3) and all(torch.equal(g1[k], g3[k]) for k in g1)):
+                    fail(f"{name}: two K1 launches on the same inputs differ")
+                print("  two launches bit-identical")
+        flag_batch = cases[0][3]
+
+        # 8. the training path ---------------------------------------------
+        print("== phase 8: training path (CLI train, then CLI test on the trained model)")
+        cfg_path = newmethod_config(
+            tmp, repo, adam_optimizer={"max_it": 300}, snapshot_iteration=300,
+            # tolerances below what 300 Adam steps reach, so L-BFGS runs
+            lbfgs_optimizer={"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
+                             "tolerance_change": 1e-12})
+        run_name = "train_smoke"
+        kernels_step.fused_loss_and_grad.launches = 0
+        kernels.mlp_fwd_tangents.launches = 0
+        kernels.fused_residual_continuity.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run_name,
+                       "--device", "cuda", "--debug"])
+        train_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI train exited {rc}")
+        run_dir = os.path.join(tmp, run_name)
+        model = os.path.join(run_dir, "model.npz")
+        pred_out = os.path.join(tmp, "pred_trained.mat")
+        rc = cli.main(["test", "--config", cfg_path, "--model", model, "--save", pred_out,
+                       "--device", "cuda", "--debug"])
+        if rc != 0:
+            fail(f"CLI test on the trained model exited {rc}")
+        train_launches = {
+            "fused_loss_and_grad": kernels_step.fused_loss_and_grad.launches,
+            "mlp_fwd_tangents": kernels.mlp_fwd_tangents.launches,
+        }
+        print(f"  training-path launches: {train_launches}")
+        epochs, _, _, totals = read_log(run_dir)
+        n_evals = len(epochs)
+        if epochs != list(range(1, n_evals + 1)) or n_evals < 302:
+            fail(f"log.txt rows are not epochs 1..n with n >= 302: {epochs[:3]}..{epochs[-3:]}")
+        if not all(math.isfinite(v) for v in totals):
+            fail("log.txt holds a non-finite total")
+        if not totals[299] < totals[0]:
+            fail(f"Adam did not lower the loss: {totals[0]} -> {totals[299]}")
+        if not min(totals[300:]) <= totals[299]:
+            fail(f"L-BFGS minimum {min(totals[300:])} above the last Adam total {totals[299]}")
+        for fname in ("model.npz", "data_at300.mat", "log.txt"):
+            if not os.path.exists(os.path.join(run_dir, fname)):
+                fail(f"the run wrote no {fname}")
+        if train_launches["fused_loss_and_grad"] != n_evals:
+            fail(f"K1 launched {train_launches['fused_loss_and_grad']} times for {n_evals} "
+                 "loss evaluations: some evaluation bypassed the kernel")
+        if train_launches["mlp_fwd_tangents"] < 2:
+            fail("the snapshot and CLI test did not both go through K2")
+        from scipy.io import loadmat
+
+        served = loadmat(pred_out)
+        for key in ("U", "V", "h"):
+            arr = served[f"pred_{key}"]
+            if arr.shape != (261, 81) or not np.isfinite(arr).all():
+                fail(f"trained model served pred_{key} of shape {arr.shape}, finite "
+                     f"{bool(np.isfinite(arr).all())}")
+        print(f"  {n_evals} loss evaluations (300 Adam + {n_evals - 300} L-BFGS), total "
+              f"{totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} "
+              f"(L-BFGS); CLI train wall time {train_s:.2f} s")
+
+        # 9. iteration-1 equality and a tracked prefix ----------------------
+        print("== phase 9: iteration 1 and a 20-step Adam prefix, K1 against the plain path")
+        init = numpy_params(flagship.sizes, "xavier", 6)
+        runs = {}
+        for mode in ("on", "off"):
+            path = newmethod_config(tmp, repo, fused_kernel=mode)
+            os.makedirs(os.path.join(tmp, f"prefix_{mode}"))
+            tr = Trainer(load_config(path), run_dir=os.path.join(tmp, f"prefix_{mode}"),
+                         echo_every=0, initial_params=init, device=dev)
+            losses = tr._adam_steps(20).cpu().numpy()
+            runs[mode] = (losses, {k: v.clone() for k, v in tr.state.params.items()})
+        (l_on, p_on), (l_off, p_off) = runs["on"], runs["off"]
+        rel1 = np.abs(l_on[0] - l_off[0]) / np.abs(l_off[0])
+        print(f"  iteration 1 (fid, res, total): K1 {l_on[0]} plain {l_off[0]} rel {rel1}")
+        if not (rel1 <= 1e-5).all():
+            fail("iteration-1 losses of K1 and the plain path differ by more than 1e-5")
+        dp = max(float((p_on[k] - p_off[k]).abs().max()) for k in p_on)
+        drift = float(np.max(np.abs(l_on - l_off) / np.abs(l_off)))
+        # K1's gradients agree with the plain path's to ~1e-6 of their scale;
+        # through 20 Adam steps of lr 1e-4 that kept the parameters within
+        # 4.5e-8 on an H100. 1e-6 is 0.05 % of the largest move 20 steps
+        # can make (20 * lr); one gradient entry flipping sign on noise
+        # would break it, and the run would say so.
+        prefix_tol = 1e-6
+        print(f"  after 20 steps: max |p_K1 - p_plain| {dp:.3e} (tolerance {prefix_tol:.1e}); "
+              f"max relative loss gap over the prefix {drift:.3e}")
+        if not dp <= prefix_tol:
+            fail("the 20-step Adam prefix of K1 and the plain path diverged")
+
+        # 10. training times -------------------------------------------------
+        print("== phase 10: training times")
+        ms_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship), 7, 20)
+        plain_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad_plain(flag_params, flag_batch, flagship), 5, 3)
+        b_k1, by_k1 = bound(k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2))
+        step = benchmarks.run_train_step_bench(device=dev)
+        print(f"  K1 + reduction, {n_grid} points: {ms_k1:.4f} ms (plain {plain_k1:.4f} ms, bound "
+              f"{b_k1:.4f} ms by {by_k1}, {b_k1 / ms_k1:.1%} of bound; "
+              f"{k1_flops(flagship, 1):,.0f} FLOP per point)")
+        print(f"  run_train_step_bench: {json.dumps(step)}; K1 is "
+              f"{ms_k1 / step['ms_per_iter']:.1%} of the Adam step")
+        # the L-BFGS phase as examples/newmethod.json configures it (500
+        # iterations, 625 evaluations), its tolerances lowered so that it
+        # runs to those limits; several repetitions from the same weights
+        def lbfgs_phase(max_it: int, max_eval: int):
+            path = newmethod_config(tmp, repo, adam_optimizer={"max_it": 0},
+                                    lbfgs_optimizer={"max_it": max_it, "max_evaluation": max_eval,
+                                                     "tolerance_grad": 1e-9,
+                                                     "tolerance_change": 1e-12})
+            run = os.path.join(tmp, f"lbfgs_timing_{len(os.listdir(tmp))}")
+            os.makedirs(run)
+            tr = Trainer(load_config(path), run_dir=run, echo_every=0, initial_params=init,
+                         device=dev)
+            t0 = time.perf_counter()
+            tr.train_lbfgs()
+            torch.cuda.synchronize()
+            return tr.state.iteration, time.perf_counter() - t0, tr.lbfgs_stop_reason
+
+        lbfgs_phase(30, 40)  # warm-up: allocations, first launches
+        lbfgs_reps = [lbfgs_phase(500, 625) for _ in range(5)]
+        rates = sorted(n / s for n, s, _ in lbfgs_reps)
+        lbfgs_rate = rates[len(rates) // 2]
+        n_lbfgs = [n for n, _, _ in lbfgs_reps]
+        print(f"  L-BFGS (500 iterations / 625 evaluations configured), 5 repetitions: "
+              f"evaluations {n_lbfgs} ({lbfgs_reps[0][2]}), seconds "
+              f"{[round(s, 4) for _, s, _ in lbfgs_reps]}; evaluations/s median "
+              f"{lbfgs_rate:.1f}, min {rates[0]:.1f}, max {rates[-1]:.1f} (host clock, "
+              f"{ms_k1 * lbfgs_rate / 1e3:.1%} of it in K1)")
+
+    return {"name": "k1_continuity_train_step", "route": "cuda", "source": K1_SOURCE,
+            "replaces": K1_REPLACES, "launches": train_launches["fused_loss_and_grad"],
+            "max_abs_err": err_k1, "ms": ms_k1, "plain_ms": plain_k1, "bound_ms": b_k1,
+            "bound_by": by_k1, "points": n_grid, "library_ms": None,
+            "adam_ms_per_iter": step["ms_per_iter"],
+            "lbfgs_evals_per_s": lbfgs_rate,
+            "lbfgs_evals_per_s_min_max": [rates[0], rates[-1]]}
+
+
 def main() -> None:
     import torch
 
@@ -176,16 +449,22 @@ def main() -> None:
 
     # 2. build --------------------------------------------------------------
     print("== phase 2: build")
-    lib = cuda_build.k2_library()
-    print(f"  K2 built in {lib.build_seconds:.1f} s ({len(lib.libs)} widths: {sorted(lib.libs)}); "
-          f"log {os.path.relpath(lib.log_path, repo)}")
-    log = lib.log_path.read_text() if lib.log_path.exists() else ""
-    for block in log.split("== k2 variant ")[1:]:
-        width = block.split(" ", 1)[0]
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", block)]
-        print(f"  ptxas width {width}: registers {min(regs, default=0)}..{max(regs, default=0)}, "
-              f"max spill stores {max(spills, default=0)} B over {len(regs)} kernels")
+    t_build = time.perf_counter()
+    lib = cuda_build.k2_library()  # builds K1 and K2 together
+    lib_k1 = cuda_build.k1_library()
+    print(f"  K2 and K1 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
+          f"(kernel, width), all at once")
+    for name, built in (("k2", lib), ("k1", lib_k1)):
+        print(f"  {name.upper()}: {len(built.libs)} widths {sorted(built.libs)}; "
+              f"log {os.path.relpath(built.log_path, repo)}")
+        log = built.log_path.read_text() if built.log_path.exists() else ""
+        for block in log.split(f"== {name} variant ")[1:]:
+            width = block.split(" ", 1)[0]
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
+            spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", block)]
+            print(f"  ptxas {name.upper()} width {width}: registers "
+                  f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
+                  f"{max(spills, default=0)} B over {len(regs)} kernels")
 
     # 3. kernel vs plain ----------------------------------------------------
     print("== phase 3: K2 against its plain version on the card")
@@ -318,6 +597,8 @@ def main() -> None:
           f"{n_res / ms_res * 1e3:.4g} evals/s)")
     print(f"  K2 residual, 1M points: {ms_res_1m:.3f} ms (plain {plain_res_1m:.3f} ms, "
           f"bound {b_1m:.3f} ms, {b_1m / ms_res_1m:.1%} of bound)")
+    # 7.-10. the training slice ------------------------------------------
+    k1_report = training_phases(dev, repo, bound)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     common = {"route": "cuda", "source": K2_SOURCE, "replaces": REPLACES, "library_ms": None}
@@ -330,6 +611,7 @@ def main() -> None:
          "launches": launches["fused_residual_continuity"], "max_abs_err": err_res,
          "ms": ms_res, "plain_ms": plain_res, "bound_ms": b_res, "bound_by": by_res,
          "points": n_res, "ms_1m": ms_res_1m, "plain_ms_1m": plain_res_1m},
+        k1_report,
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

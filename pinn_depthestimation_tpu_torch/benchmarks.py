@@ -1,10 +1,14 @@
-"""Residual-evaluation benchmark of the port.
+"""Benchmarks of the port.
 
-Port of the JAX package's ``benchmarks.py::residual_eval_fn`` and
-``run_residual_bench``. Metric: collocation-point residual evaluations per
-second on one device, on the flagship newmethod network (2 -> [20]x100 -> 3,
-tanh, ``continuity_only`` residual: forward + x/y tangents + residual
-algebra per point), in true f32.
+Port of the JAX package's ``benchmarks.py``:
+
+* ``residual_eval_fn`` / ``run_residual_bench``: collocation-point residual
+  evaluations per second on one device, on the flagship newmethod network
+  (2 -> [20]x100 -> 3, tanh, ``continuity_only`` residual: forward + x/y
+  tangents + residual algebra per point), in true f32;
+* ``run_train_step_bench``: the flagship Adam step in ms per iteration on
+  the 81x261 grid with 40.8 % NaN rows (12,516 points), through the
+  ``Trainer``'s own step loop — K1, the reduction and the Adam update.
 
 Unlike the JAX bench, a kernel failure is an error: nothing falls back to
 the plain path and reports that instead. ``vs_baseline`` is null: the JAX
@@ -101,4 +105,82 @@ def run_residual_bench(
         "unit": f"collocation-point residual evals/s on {where} "
                 "(2->[20]x100->3 MLP, continuity)",
         "vs_baseline": None,
+    }
+
+
+def make_train_config(mat_path: str, adam_iters: int, lbfgs_iters: int,
+                      tol_grad: float = 1e-5, tol_change: float = 1e-7,
+                      hidden_layers: int = 3, hidden_width: int = 16,
+                      weight_res: float = 1.0) -> dict:
+    """A newmethod config (raw dict) on ``mat_path``: the port's copy of the
+    JAX package's ``parity.make_config``."""
+    return {
+        "layers": {"input_features": 2, "hidden_layers": hidden_layers,
+                   "hidden_width": hidden_width,
+                   "output_features": 3, "dropout_rate": 0.0, "init_type": "xavier"},
+        "adam_optimizer": {"max_it": adam_iters, "learning_rate": 1e-4,
+                           "scheduler_step_size": 10000, "scheduler_gamma": 0.8},
+        "lbfgs_optimizer": {"max_it": lbfgs_iters, "learning_rate": 1,
+                            "max_evaluation": round(lbfgs_iters * 1.25),
+                            "history_size": 100, "tolerance_grad": tol_grad,
+                            "tolerance_change": tol_change,
+                            "line_search_fn": "strong_wolfe"},
+        "loss": {"weight_fid_loss": 1, "weight_res_loss": weight_res},
+        "data": {"file": mat_path,
+                 "inputs": {"x": {"requires_grad": ["true"]},
+                            "y": {"requires_grad": ["true"]}},
+                 "trues": ["U", "V"], "unknowns": ["h"]},
+        "data_test": {"x_min": 25.0, "x_max": 33.0, "y_min": -13.0, "y_max": 13.0},
+    }
+
+
+def run_train_step_bench(
+    *,
+    n_iters: int = 500,
+    reps: int = 3,
+    nx: int = 81,
+    ny: int = 261,
+    hidden_layers: int = 100,
+    width: int = 20,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Flagship Adam-step time, ms per iteration (median of ``reps`` runs of
+    ``n_iters`` steps after one warm-up run), on the workload the reference's
+    primary product trains: 2->[20]x100->3 on an 81x261 grid with 40.8 % NaN
+    rows (12,516 points shared by the fidelity and residual terms). Each run
+    ends in ``torch.cuda.synchronize()``. Returns ``{"ms_per_iter", "points",
+    "path", "device"}``."""
+    import os
+    import tempfile
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mat = os.path.join(tmp, "data.mat")
+        synthetic.make_newmethod_mat(mat, nx=nx, ny=ny, nan_fraction=0.408, seed=21)
+        raw = make_train_config(mat, n_iters, 0, hidden_layers=hidden_layers, hidden_width=width)
+        run_dir = os.path.join(tmp, "run")
+        os.makedirs(run_dir)
+        trainer = Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=dev)
+        trainer._adam_steps(n_iters)  # warm-up (the first call in a process builds K1)
+        sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            trainer._adam_steps(n_iters)
+            sync()
+            times.append(time.perf_counter() - t0)
+    return {
+        "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
+        "points": int(trainer.data.residual_input.shape[0]),
+        "path": "k1" if trainer.fused_step_fn is not None else "autograd",
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }

@@ -1,16 +1,21 @@
 """Command-line interface of the port.
 
-Counterpart of the JAX package's ``cli.py`` for the serving slice:
+Counterpart of the JAX package's ``cli.py`` for the serving and training
+slices:
 
+    python -m pinn_depthestimation_tpu_torch.cli train --config CFG [--log-root DIR]
+                                                       [--run-name NAME] [--resume CKPT.npz]
+                                                       [--init-from PTH|NPZ] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
                                                        [--save OUT.mat] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda``; without a CUDA device the verb fails
-unless ``--device cpu`` is given. ``train``, ``plot-log``, ``video``,
-``parity``, ``test --plot`` and the CMB/legacy ``synth`` outputs come with
-later slices (``ROADMAP.md``).
+unless ``--device cpu`` is given. ``train --mesh``, ``--f64-polish`` and
+``--precision-schedule`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
+``video``, ``parity``, ``test --plot`` and the CMB/legacy ``synth`` outputs
+come with later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +24,72 @@ import argparse
 import json
 import os
 import sys
+
+
+def cmd_train(args) -> int:
+    import time
+
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.device import resolve_device
+    from pinn_depthestimation_tpu_torch.models import MLPSpec
+    from pinn_depthestimation_tpu_torch.training.checkpoint import restore_params_any
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import make_run_dir
+
+    device = resolve_device(args.device)  # no CUDA device: raise, never the CPU
+    for flag, item in (("mesh", "M11"), ("f64_polish", "M10"), ("precision_schedule", "M10")):
+        if getattr(args, flag) is not None:
+            print(f"Error: --{flag.replace('_', '-')} is not ported yet "
+                  f"(ROADMAP.md Queue 1, {item})")
+            return 1
+    try:
+        config = load_config(args.config)
+    except Exception as e:
+        if args.debug:
+            raise
+        print(f"Error reading config file: {e}")
+        return 1
+    if args.init_from and args.resume:
+        # --resume restores the checkpoint's own weights, which would
+        # silently discard the --init-from weights
+        print("Error: --init-from and --resume are mutually exclusive "
+              "(--resume restores the checkpoint's own weights)")
+        return 1
+    initial_params = None
+    if args.init_from:
+        try:
+            initial_params = restore_params_any(
+                args.init_from, spec=MLPSpec.from_layers(config.layers), device="cpu")
+        except Exception as e:
+            if args.debug:
+                raise
+            print(f"Error loading --init-from weights: {e}")
+            return 1
+
+    run_dir = make_run_dir(args.log_root, args.run_name)
+    print(f"Run directory: {run_dir}")
+    try:
+        trainer = Trainer(config, run_dir=run_dir, initial_params=initial_params,
+                          device=device)
+    except NotImplementedError as e:
+        if args.debug:
+            raise
+        print(f"Error: {e}")
+        return 1
+    if args.init_from:
+        print(f"Initialized weights from {args.init_from}")
+    if args.resume:
+        trainer.restore(args.resume)
+        print(f"Resumed from {args.resume} at iteration {trainer.state.iteration}")
+    start = time.time()
+    trainer.train()
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    # the reference's only perf instrumentation (train.py:286)
+    print("Training time: %.4f" % (time.time() - start))
+    return 0
 
 
 def cmd_test(args) -> int:
@@ -85,6 +156,21 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    tr = sub.add_parser("train", help="train a model (Adam, then L-BFGS)")
+    tr.add_argument("--config", required=True, help="JSON config (reference schema)")
+    tr.add_argument("--log-root", default="./log", help="parent of the run directory")
+    tr.add_argument("--run-name", default=None,
+                    help="run directory name (default: YYYYmmdd_HHMM)")
+    tr.add_argument("--resume", default=None, help="continue from a model_<iter>.npz")
+    tr.add_argument("--init-from", default=None,
+                    help="start from these weights: reference .pth/.pt or exchange .npz")
+    tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    tr.add_argument("--debug", action="store_true",
+                    help="re-raise errors with a full traceback")
+    for flag in ("--mesh", "--f64-polish", "--precision-schedule"):
+        tr.add_argument(flag, default=None, help="not ported yet (exits 1)")
+    tr.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="predict the test grid")
     te.add_argument("--config", required=True, help="JSON config (reference schema)")

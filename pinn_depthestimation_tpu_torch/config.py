@@ -2,9 +2,11 @@
 
 A whole copy of the JAX package's ``config.py`` (stdlib only): the port
 imports nothing of that package, so both parse one file into equal values.
-The Pallas-specific fields (``fused_kernel``, ``precision_schedule``,
-``f64_polish``) parse here too; the port reads only ``kernel_precision`` so
-far, through :meth:`Config.resolved_kernel_precision`.
+The kernel fields parse here too: the port reads ``kernel_precision``
+(:meth:`Config.resolved_kernel_precision`) and ``fused_kernel`` (whether
+training takes K1; ``'off'`` also sends the Trainer's predictions through
+the plain ``mlp_apply``), and refuses a set ``precision_schedule`` or
+``f64_polish``, which it has not ported yet.
 
 The reference drives everything from plain JSON with no schema or defaults
 (reference ``train.py:35``, ``test.py:137``): sections ``layers``,

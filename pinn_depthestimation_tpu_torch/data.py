@@ -1,16 +1,23 @@
-"""Host-side test-grid loading with the reference's exact layout.
+"""Host-side data loading with the reference's exact layout.
 
-Port of the serving subset of the JAX package's ``data.py``: the ``.mat``
-reader and :func:`load_test_data` — full-grid inputs normalized with
-dict-wide min/max and flattened in C order (reference ``test.py:156-183``).
-The train-time loaders (CSV via pandas, the residual grid's Fortran-order
-flatten in use) come with the training slice; :func:`_fortran_column` is
-kept here for them.
+Port of the JAX package's ``data.py`` for the newmethod pipeline:
+
+* :func:`load_newmethod_training_data` — one ``.mat`` supplying inputs
+  (normalized per key, with the config's x/y bounds) and raw true fields,
+  with the NaN mask of the trues applied to both (reference
+  ``train_newmethod.py:226-255``);
+* :func:`load_test_data` — full-grid inputs normalized with dict-wide
+  min/max and flattened in C order (reference ``test.py:156-183``).
+
+The CMB and legacy loaders read CSV files through pandas in the JAX
+package; they come with those pipelines (``ROADMAP.md`` M8, M9), and
+:func:`load_training_data` raises for them. :func:`_fortran_column` is kept
+for the CMB residual grid.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 from scipy.io import loadmat
@@ -32,6 +39,66 @@ def load_mat_var(path: str, key: str) -> np.ndarray:
     if key not in data:
         raise KeyError(f"{path!r} has no variable {key!r}")
     return data[key]
+
+
+@dataclass
+class TrainingData:
+    """Assembled full-batch training arrays (host NumPy, float32)."""
+
+    fidelity_input: np.ndarray          # (Nf, d_in) normalized
+    fidelity_true: np.ndarray           # (Nf, n_true_outputs)
+    residual_input: np.ndarray          # (Nr, d_in) normalized
+    input_min_max: dict[str, tuple[float, float]] = field(default_factory=dict)
+    # Loader-asserted contract: the fidelity rows ARE the residual rows (the
+    # newmethod pipeline slices one forward for both, reference
+    # train_newmethod.py:126-156); never inferred from shapes.
+    fidelity_is_residual: bool = False
+
+
+def load_newmethod_training_data(config: Config) -> TrainingData:
+    dc = config.data
+    if dc is None:
+        raise ValueError("the newmethod loader needs a 'data' section")
+
+    input_min_max: dict[str, tuple[float, float]] = {}
+    input_cols = []
+    for key in dc.inputs:
+        arr = load_mat_var(dc.file, key)
+        # per-key 3-arg min/max with the config x/y override
+        # (reference train_newmethod.py:231-232)
+        lo, hi = ops.get_min_max({key: arr}, key, config.raw)[key]
+        input_min_max[key] = (lo, hi)
+        input_cols.append(ops.normalize(arr, lo, hi))
+    data_input = input_cols[0] if len(input_cols) == 1 else np.hstack(input_cols)
+
+    # trues are used raw, never normalized (reference train_newmethod.py:241-250)
+    true_cols = [load_mat_var(dc.file, key) for key in dc.trues]
+    data_true = true_cols[0] if len(true_cols) == 1 else np.hstack(true_cols)
+
+    # NaN mask from the trues, applied to both (reference train_newmethod.py:252-255)
+    mask = np.isnan(data_true).any(axis=1)
+    data_input = data_input[~mask]
+    data_true = data_true[~mask]
+
+    # no separate collocation set: the residual runs on the same (masked)
+    # inputs (reference train_newmethod.py:156)
+    return TrainingData(
+        fidelity_input=np.asarray(data_input, dtype=np.float32),
+        fidelity_true=np.asarray(data_true, dtype=np.float32),
+        residual_input=np.asarray(data_input, dtype=np.float32),
+        input_min_max=input_min_max,
+        fidelity_is_residual=True,
+    )
+
+
+def load_training_data(config: Config) -> TrainingData:
+    if config.kind == "newmethod":
+        return load_newmethod_training_data(config)
+    item = "M9, legacy pipeline" if config.numerical_model is not None else "M8, CMB pipeline"
+    raise NotImplementedError(
+        f"the {config.kind!r} training loader is not ported yet "
+        f"(ROADMAP.md Queue 1, {item})"
+    )
 
 
 @dataclass

@@ -8,11 +8,12 @@ Port of the JAX package's ``inference.py::Predictor`` for the serving path:
 * predict the full test grid, reshaped ``(ny, nx)``, with the inputs
   denormalized for plotting (reference ``test.py:60-89``).
 
-On a CUDA device, and for an architecture K2 takes, prediction runs through
-the K2 kernel (``ops.kernels.mlp_fwd_tangents`` with no tangents); the
-decision is made once, in ``__init__``, from the spec and the device, as
-the JAX package decides from the spec. Otherwise it is the plain
-``models.mlp.mlp_apply``.
+On a CUDA device prediction runs through the K2 kernel
+(``ops.kernels.mlp_fwd_tangents`` with no tangents) unless the caller asks
+for the plain ``models.mlp.mlp_apply`` with ``use_kernel=False``, the
+counterpart of the JAX package's ``use_fused_kernel``. An architecture K2
+was not compiled for raises instead of serving quietly through the plain
+path (:func:`resolve_use_kernel`).
 
 Test-time adaptation (``adapt``, ``perform_optimization``) needs L-BFGS and
 parameter gradients, which come with the training slice (``ROADMAP.md``
@@ -32,12 +33,34 @@ from pinn_depthestimation_tpu_torch.config import Config
 from pinn_depthestimation_tpu_torch.device import resolve_device
 from pinn_depthestimation_tpu_torch.models import MLPSpec, init_mlp_params, mlp_apply
 from pinn_depthestimation_tpu_torch.ops import kernels
+from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS
 from pinn_depthestimation_tpu_torch.training.checkpoint import restore_params_any
 
 _ADAPT_TODO = (
     "test-time adaptation (Predictor.adapt, perform_optimization) needs "
     "L-BFGS and gradients and is not ported yet (ROADMAP.md Queue 1, M6)"
 )
+
+
+def resolve_use_kernel(spec: MLPSpec, device_type: str, use_kernel: bool | None) -> bool:
+    """Whether prediction goes through K2.
+
+    ``None`` means K2 on a CUDA device and the plain path on the CPU. On a
+    CUDA device an architecture K2 does not take raises, naming
+    ``K2_WIDTHS`` and ``use_kernel=False``, the explicit request for the
+    plain path. On the CPU the K2 wrapper takes its plain version anyway."""
+    if device_type != "cuda":
+        return bool(use_kernel)
+    if use_kernel is False:
+        return False
+    if not kernels.kernel_supports(spec):
+        raise ValueError(
+            f"K2 does not take sizes {spec.sizes} (it needs >= 1 hidden layer, "
+            f"a width in K2_WIDTHS={K2_WIDTHS}, d_in <= {kernels.MAX_D_IN} and "
+            f"d_out <= {kernels.MAX_D_OUT}); pass use_kernel=False (in a "
+            "Trainer: fused_kernel='off') to predict through the plain mlp_apply"
+        )
+    return True
 
 
 @dataclass
@@ -57,12 +80,14 @@ class Predictor:
         checkpoint_path: str | None = None,
         *,
         device: str | torch.device = "cuda",
+        use_kernel: bool | None = None,
     ):
         """Weights come from ``checkpoint_path`` (else ``data_test.model``);
         with neither, from :func:`init_mlp_params` with a CPU
         ``torch.Generator`` seeded by ``config.seed`` — other numbers than
         the JAX package's ``jax.random`` init for the same seed, which is
-        why tests hand both packages one weights file."""
+        why tests hand both packages one weights file. ``use_kernel``: see
+        :func:`resolve_use_kernel`."""
         self.config = config
         self.device = resolve_device(device)
         self.spec = MLPSpec.from_layers(config.layers)
@@ -78,7 +103,7 @@ class Predictor:
             gen = torch.Generator().manual_seed(config.seed)
             self.params = init_mlp_params(gen, self.spec, device=self.device)
 
-        self.use_kernel = self.device.type == "cuda" and kernels.kernel_supports(self.spec)
+        self.use_kernel = resolve_use_kernel(self.spec, self.device.type, use_kernel)
         self.precision = config.resolved_kernel_precision()
         if self.use_kernel:
             kernels.check_precision(self.precision)

@@ -5,9 +5,10 @@ libraries with a plain C interface and loaded with ``ctypes``. The build
 runs at first use, from the sources in the package only, into
 ``_build/<name>-<hash>/`` beside ``csrc/`` (listed in ``.gitignore``); the
 hash covers the source, the flags and the variants, so a second process
-reuses the libraries and an edited source builds anew. A source compiled in
-several variants (K2: one per hidden width) runs one ``nvcc`` per variant,
-all started together.
+reuses the libraries and an edited source builds anew. Each source is
+compiled in several variants (one per hidden width), and every ``nvcc`` of
+every kernel (K1 and K2: ten) is started together, at the first use of
+either kernel.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -36,9 +37,11 @@ NVCC_FLAGS = (
 )
 
 K2_SOURCE = "mlp_fwd_tangents.cu"
-# Hidden widths K2 is compiled for: the repo's configs use 10 (CMB) and 20
-# (flagship); the rest cover the narrow test nets and a wider option.
+K1_SOURCE = "continuity_train_step.cu"
+# Hidden widths K2 and K1 are compiled for: the repo's configs use 10 (CMB)
+# and 20 (flagship); the rest cover the narrow test nets and a wider option.
 K2_WIDTHS = (8, 10, 16, 20, 32)
+K1_WIDTHS = K2_WIDTHS
 
 
 @dataclass
@@ -67,36 +70,43 @@ def nvcc_path() -> str:
     )
 
 
-def _build(name: str, source: str, variants: dict[int, tuple[str, ...]], bind) -> KernelLibrary:
+def _start(name: str, source: str, variants: dict[int, tuple[str, ...]]) -> dict:
+    """Start one ``nvcc`` per variant that is not built yet; returns what
+    :func:`_finish` needs."""
     src = CSRC_DIR / source
     key = hashlib.sha256(
         src.read_bytes() + repr((NVCC_FLAGS, sorted(variants.items()))).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{name}-{key}"
     targets = {v: out_dir / f"lib{name}_{v}.so" for v in variants}
-    log_path = out_dir / "build.log"
-    seconds = 0.0
+    job = {"name": name, "targets": targets, "log_path": out_dir / "build.log",
+           "procs": {}, "t0": time.perf_counter()}
     if not all(p.exists() for p in targets.values()):
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
-        t0 = time.perf_counter()
-        procs = {}
         for v, extra in variants.items():
             tmp = out_dir / f".{targets[v].name}.{os.getpid()}.tmp"
             cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
-            procs[v] = (cmd, proc, tmp)
+            job["procs"][v] = (cmd, proc, tmp)
+    return job
+
+
+def _finish(job: dict, bind) -> KernelLibrary:
+    name, targets, log_path = job["name"], job["targets"], job["log_path"]
+    seconds = 0.0
+    if job["procs"]:
         logs, failed = [], []
-        for v, (cmd, proc, tmp) in procs.items():
+        for v, (cmd, proc, tmp) in job["procs"].items():
             out, _ = proc.communicate()
             logs.append(f"== {name} variant {v} (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
             if proc.returncode == 0:
                 os.replace(tmp, targets[v])  # atomic: a concurrent build is safe
             else:
                 failed.append(v)
-        seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - job["t0"]
         log_path.write_text("\n".join(logs))
         if failed:
             raise RuntimeError(
@@ -120,8 +130,45 @@ def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k1_train_step.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.k1_train_step.restype = i
+    lib.k1_error_string.argtypes = [i]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    for fn in (lib.k1_width, lib.k1_threads):
+        fn.argtypes = []
+        fn.restype = i
+    lib.k1_chunk_layers.argtypes = [i]
+    lib.k1_chunk_layers.restype = i
+    return lib
+
+
 @functools.cache
+def _libraries() -> dict[str, KernelLibrary]:
+    """Every kernel's libraries, built together on the first call in a
+    process: one ``nvcc`` per (kernel, width), all running at once."""
+    jobs = [
+        (_start("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}), _bind_k2),
+        (_start("k1", K1_SOURCE, {w: (f"-DK1_WIDTH={w}",) for w in K1_WIDTHS}), _bind_k1),
+    ]
+    try:
+        return {job["name"]: _finish(job, bind) for job, bind in jobs}
+    finally:  # a failed build leaves no compiler running behind it
+        for job, _ in jobs:
+            for _, proc, _ in job["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
 def k2_library() -> KernelLibrary:
     """K2 (``csrc/mlp_fwd_tangents.cu``), one library per width in
-    :data:`K2_WIDTHS`; built on the first call in a process."""
-    return _build("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}, _bind_k2)
+    :data:`K2_WIDTHS`."""
+    return _libraries()["k2"]
+
+
+def k1_library() -> KernelLibrary:
+    """K1 (``csrc/continuity_train_step.cu``), one library per width in
+    :data:`K1_WIDTHS`."""
+    return _libraries()["k1"]

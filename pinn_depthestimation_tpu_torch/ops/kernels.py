@@ -60,13 +60,13 @@ def kernel_supports(spec: MLPSpec) -> bool:
     )
 
 
-def check_precision(precision: str) -> None:
+def check_precision(precision: str, kernel: str = "K2") -> None:
     if precision == "f32":
         return
     if precision in ("f32x3", "bf16"):
         raise NotImplementedError(
-            f"K2 precision tier {precision!r} is not ported yet (ROADMAP.md "
-            "Queue 2, 'K2 tiers f32x3 and bf16'); use kernel_precision "
+            f"{kernel} precision tier {precision!r} is not ported yet (ROADMAP.md "
+            f"Queue 2, '{kernel} tiers f32x3 and bf16'); use kernel_precision "
             "'f32' or 'auto'"
         )
     raise ValueError(f"precision must be 'f32', 'f32x3' or 'bf16', got {precision!r}")
@@ -149,11 +149,11 @@ def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, *, epilogue: bool
         )
 
 
-def _on_cuda(coords: torch.Tensor) -> bool:
+def _on_cuda(coords: torch.Tensor, kernel: str = "K2") -> bool:
     if coords.device.type == "cpu":
         return False
     if coords.device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA tensors (CPU: plain version), got {coords.device}")
+        raise ValueError(f"{kernel} runs on CUDA tensors (CPU: plain version), got {coords.device}")
     return True
 
 

@@ -1,0 +1,299 @@
+"""K1: the one-kernel training step of the continuity losses, for Hopper.
+
+Replaces the JAX package's TPU kernel ``ops/kernels_step.py::_stats_and_grads``
+(``pallas_call`` at ``:272``, the body ``ops/kernels_vjp.py::
+_make_bwd_kernel_stream`` with ``train_epilogue``). For the flagship
+configuration — newmethod, fidelity and residual on one point set,
+``continuity_only``/``continuity_ftemp`` physics, heads ``(U, V, h)``, no
+dropout — the loss and every parameter gradient come from one evaluation:
+
+* residual = mean_masked(fc^2) [+ sum(sel*(h-depth)^2)/sum(sel) for
+  ``continuity_only``], fc = d(hU)/dx + d(hV)/dy;
+* fidelity = sum_j w_j * mean_masked((y_j - true_j)^2) over the true heads;
+* total = w_fid*fidelity + w_res*residual.
+
+The kernel is CUDA C++ in ``csrc/continuity_train_step.cu`` (design and
+bound in its header), built by ``ops.cuda_build``. K1 *is* the value and
+the gradient, so it is no ``torch.autograd.Function``: callers assign its
+gradients to ``.grad`` themselves.
+
+Beside the kernel, per the port's rules:
+
+* the plain PyTorch version :func:`fused_loss_and_grad_plain` —
+  ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`, the same
+  loss built on ``models.mlp.mlp_apply_with_tangents``, for any width;
+* the wrapper :func:`fused_loss_and_grad`: a CPU batch takes the plain
+  version, a CUDA batch launches K1 or raises — no fallback;
+* the launch count ``fused_loss_and_grad.launches``, one per evaluation (K1
+  and its fixed-order reduction).
+
+The per-batch constants (``sel``, ``mask``, the trues, the denominators
+and the cotangent scales) are built once by :func:`make_step_batch`; an
+evaluation is then the kernel, the reduction and the combination of three
+statistics, with no host synchronisation. Only the ``f32`` tier exists;
+``f32x3``/``bf16`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec, mlp_apply_with_tangents
+from pinn_depthestimation_tpu_torch.ops.cuda_build import K1_WIDTHS, k1_library
+from pinn_depthestimation_tpu_torch.ops.kernels import (
+    _ACT,
+    _MAX_POINTS,
+    MAX_D_IN,
+    _coordinate_tangents,
+    _on_cuda,
+    check_precision,
+)
+
+KT = 2  # the continuity losses differentiate w.r.t. (x, y) only
+N_STATS = 8  # [sum fc^2, sum anch^2, sum err_j^2 (j < 3), unused]
+# the order of JAX's ravel_pytree over the parameter dict (sorted keys), in
+# which the kernel writes its gradients
+FLAT_KEYS = tuple(sorted(PARAM_KEYS))
+
+
+def _check_step_spec(spec: MLPSpec, n_true: int, has_anchor: bool) -> None:
+    if spec.dropout_rate:
+        raise ValueError("fused training step does not support dropout")
+    if spec.d_out < 3 or not (0 < n_true <= 3):
+        raise ValueError("fused training step needs (U, V, h) heads")
+    if has_anchor and n_true > 2:
+        raise ValueError(
+            "the anchor selector rides the h column of the packed obs rows; "
+            "3 observed fidelity heads collide with it (use the generic "
+            "loss path for anchored 3-head configurations)"
+        )
+
+
+def kernel_supports(spec: MLPSpec) -> bool:
+    """Whether K1 takes this architecture: at least one hidden layer, a
+    compiled width, ``2 <= d_in <= 8``, heads ``(U, V, h)`` only."""
+    return (
+        spec.n_hidden >= 1
+        and spec.width in K1_WIDTHS
+        and 2 <= spec.d_in <= MAX_D_IN
+        and spec.d_out == 3
+    )
+
+
+def _loss_scales(sel, mask, fid_weights, n_true, w_fid, w_res, anchor_depth, has_anchor):
+    """Global denominators and the cotangent-scale vector
+    ``[res_scale, anchor_scale, anchor_depth, fid_scale_0..]`` (8 floats).
+    The masked counts are batch statistics with zero parameter gradient."""
+    n_res = torch.sum(mask)
+    n_sel = torch.sum(sel)
+    res_scale = 2.0 * w_res / n_res
+    anchor_scale = (2.0 * w_res / n_sel) if has_anchor else torch.zeros_like(n_res)
+    fid_scales = 2.0 * w_fid * fid_weights.to(torch.float32) / n_res
+    scal = torch.zeros((8,), dtype=torch.float32, device=mask.device)
+    scal[0] = res_scale
+    scal[1] = anchor_scale
+    scal[2] = anchor_depth
+    scal[3 : 3 + n_true] = fid_scales
+    return n_res, n_sel, scal
+
+
+def _combine_stats(stats, fid_weights, n_res, n_sel, n_true, w_fid, w_res, has_anchor):
+    """Loss terms ``(total, fidelity, residual)`` from the statistics."""
+    residual = stats[0] / n_res
+    if has_anchor:
+        residual = residual + stats[1] / n_sel
+    fidelity = torch.sum(fid_weights.to(torch.float32) * stats[2 : 2 + n_true]) / n_res
+    total = w_fid * fidelity + w_res * residual
+    return total, fidelity, residual
+
+
+@dataclass(frozen=True)
+class StepBatch:
+    """The per-batch constants of a training step, on one device."""
+
+    coords: torch.Tensor        # (N, d_in) residual == fidelity points
+    trues: torch.Tensor         # (N, n_true) observed true heads
+    sel: torch.Tensor           # (N,) anchor selector, already mask-multiplied
+    mask: torch.Tensor          # (N,) validity (1.0 = real point)
+    fid_weights: torch.Tensor   # (n_true,) per-output fidelity weights
+    n_res: torch.Tensor         # sum(mask)
+    n_sel: torch.Tensor         # sum(sel)
+    scal: torch.Tensor          # (8,) cotangent scales (_loss_scales)
+    n_true: int
+    w_fid: float
+    w_res: float
+    anchor_depth: float
+    has_anchor: bool
+
+
+def make_step_batch(coords, trues, sel, mask, fid_weights, n_true: int, w_fid: float,
+                    w_res: float, anchor_depth: float = 0.75,
+                    has_anchor: bool = True) -> StepBatch:
+    """Build the constants once; every later evaluation reuses them.
+    Arguments are those of the JAX ``fused_loss_and_grad``."""
+    f32 = torch.float32
+    coords = coords.to(f32).contiguous()
+    dev = coords.device
+    mask = mask.to(dev, f32).contiguous()
+    sel = sel.to(dev, f32).contiguous()
+    fid_weights = torch.as_tensor(fid_weights, dtype=f32).to(dev)
+    n_res, n_sel, scal = _loss_scales(sel, mask, fid_weights, n_true, float(w_fid),
+                                      float(w_res), float(anchor_depth), has_anchor)
+    return StepBatch(
+        coords=coords, trues=trues.to(dev, f32)[:, :n_true].contiguous(), sel=sel,
+        mask=mask, fid_weights=fid_weights, n_res=n_res, n_sel=n_sel, scal=scal,
+        n_true=n_true, w_fid=float(w_fid), w_res=float(w_res),
+        anchor_depth=float(anchor_depth), has_anchor=has_anchor,
+    )
+
+
+# ------------------------------------------------------------ plain version
+
+def _step_stats_plain(params, b: StepBatch, spec: MLPSpec) -> torch.Tensor:
+    """The (8,) statistics of K1, in plain PyTorch (differentiable)."""
+    y, dy = mlp_apply_with_tangents(params, b.coords, _coordinate_tangents(b.coords, KT), spec)
+    U, V, h = y[:, 0], y[:, 1], y[:, 2]
+    fc = (dy[0][:, 2] * U + h * dy[0][:, 0] + (dy[1][:, 2] * V + h * dy[1][:, 1])) * b.mask
+    stats = [torch.sum(fc * fc)]
+    if b.has_anchor:
+        anch = b.sel * (h - b.anchor_depth)
+        stats.append(torch.sum(anch * anch))
+    else:
+        stats.append(torch.zeros((), dtype=y.dtype, device=y.device))
+    err = b.mask[:, None] * (y[:, : b.n_true] - b.trues)
+    stats += list(torch.sum(err * err, dim=0))
+    stats += [torch.zeros((), dtype=y.dtype, device=y.device)] * (N_STATS - len(stats))
+    return torch.stack(stats)
+
+
+def shared_forward_loss_plain(params, b: StepBatch, spec: MLPSpec):
+    """``(total, fidelity, residual)`` of the shared-forward continuity loss
+    in plain PyTorch, differentiable. The one plain form of this loss: K1's
+    plain version differentiates it, and so does ``training.loss.
+    build_loss_fn`` for a configuration inside the one-kernel gate."""
+    _check_step_spec(spec, b.n_true, b.has_anchor)
+    return _combine_stats(_step_stats_plain(params, b, spec), b.fid_weights, b.n_res,
+                          b.n_sel, b.n_true, b.w_fid, b.w_res, b.has_anchor)
+
+
+def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec):
+    """Plain PyTorch K1: ``((total, (fidelity, residual)), grads)`` by
+    ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`. Any width."""
+    leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
+    with torch.enable_grad():
+        total, fid, res = shared_forward_loss_plain(leaves, b, spec)
+        grads = torch.autograd.grad(total, [leaves[k] for k in PARAM_KEYS],
+                                        allow_unused=True, materialize_grads=True)
+    return (total.detach(), (fid.detach(), res.detach())), dict(zip(PARAM_KEYS, grads))
+
+
+# -------------------------------------------------------------- CUDA launch
+
+def _check_launch(params, b: StepBatch, spec: MLPSpec) -> None:
+    if not kernel_supports(spec):
+        raise ValueError(
+            f"K1 takes >= 1 hidden layer, width in {K1_WIDTHS}, 2 <= d_in <= "
+            f"{MAX_D_IN} and heads (U, V, h) (d_out = 3); got sizes {spec.sizes}"
+        )
+    n = b.coords.shape[0]
+    if b.coords.dim() != 2 or b.coords.shape[1] != spec.d_in or n > _MAX_POINTS:
+        raise ValueError(f"coords must be (N, {spec.d_in}) with N < 2^31, got {tuple(b.coords.shape)}")
+    W, n_stack = spec.width, spec.n_hidden - 1
+    shapes = {
+        "w_in": (spec.d_in, W), "b_in": (W,), "w_hidden": (n_stack, W, W),
+        "b_hidden": (n_stack, W), "w_out": (W, 3), "b_out": (3,),
+        "trues": (n, b.n_true), "sel": (n,), "mask": (n,), "scal": (8,),
+    }
+    tensors = {"coords": b.coords, "trues": b.trues, "sel": b.sel, "mask": b.mask,
+               "scal": b.scal, **{k: params[k] for k in PARAM_KEYS}}
+    for name, t in tensors.items():
+        if t.device != b.coords.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"K1 takes contiguous float32 tensors on {b.coords.device}; {name} is "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
+            )
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+
+
+def n_flat(spec: MLPSpec) -> int:
+    """Flat parameter count (the JAX ``ravel_pytree`` length)."""
+    W, n_stack = spec.width, spec.n_hidden - 1
+    return n_stack * W * (W + 1) + W + spec.d_out + spec.d_in * W + W * spec.d_out
+
+
+def unflatten(flat: torch.Tensor, spec: MLPSpec) -> dict[str, torch.Tensor]:
+    """Views of a flat vector in :data:`FLAT_KEYS` order as the parameter dict."""
+    W, n_stack = spec.width, spec.n_hidden - 1
+    shapes = {
+        "b_hidden": (n_stack, W), "b_in": (W,), "b_out": (spec.d_out,),
+        "w_hidden": (n_stack, W, W), "w_in": (spec.d_in, W), "w_out": (W, spec.d_out),
+    }
+    out, off = {}, 0
+    for k in FLAT_KEYS:
+        size = 1
+        for s in shapes[k]:
+            size *= s
+        out[k] = flat[off : off + size].view(shapes[k])
+        off += size
+    return out
+
+
+def _launch_k1(params, b: StepBatch, spec: MLPSpec) -> torch.Tensor:
+    """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result."""
+    lib = k1_library().libs[spec.width]
+    dev = b.coords.device
+    n, W, n_stack = b.coords.shape[0], spec.width, spec.n_hidden - 1
+    threads = lib.k1_threads()
+    n_tiles = -(-n // threads)
+    grid = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_ent = n_flat(spec) + N_STATS
+    partial = torch.empty((grid, n_ent), dtype=torch.float32, device=dev)
+    states = torch.empty((grid * (n_stack + 1) * 3 * W * threads,), dtype=torch.float32, device=dev)
+    out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.k1_train_step(
+            b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
+            b.scal.data_ptr(),
+            *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
+            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            n, spec.d_in, n_stack, b.n_true, int(b.has_anchor), _ACT[spec.init_type], grid,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"K1 launch failed: CUDA error {err} ({lib.k1_error_string(err).decode()}) "
+            f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}"
+        )
+    return out
+
+
+# ------------------------------------------------------------------ wrapper
+
+def fused_loss_and_grad(params, b: StepBatch, spec: MLPSpec, *, precision: str = "f32"):
+    """Returns ``((total, (fidelity, residual)), grads)``: the value and the
+    parameter gradients of the shared-forward continuity loss. Counterpart
+    of the JAX ``ops.kernels_step.fused_loss_and_grad``.
+
+    A CPU batch runs :func:`fused_loss_and_grad_plain`; a CUDA batch
+    launches K1. An empty anchor selection gives NaN, as the reference's
+    ``torch.mean`` of an empty tensor does."""
+    check_precision(precision, "K1")
+    _check_step_spec(spec, b.n_true, b.has_anchor)
+    if not _on_cuda(b.coords, "K1"):
+        return fused_loss_and_grad_plain(params, b, spec)
+    _check_launch(params, b, spec)
+    if b.coords.shape[0] == 0:
+        raise ValueError("K1 needs at least one point")
+    out = _launch_k1(params, b, spec)
+    fused_loss_and_grad.launches += 1
+    n = n_flat(spec)
+    total, fid, res = _combine_stats(out[n:], b.fid_weights, b.n_res, b.n_sel, b.n_true,
+                                     b.w_fid, b.w_res, b.has_anchor)
+    return (total, (fid, res)), unflatten(out[:n], spec)
+
+
+fused_loss_and_grad.launches = 0

@@ -1,7 +1,21 @@
-"""Weights files the port reads.
+"""Checkpoints the port writes, and the weights files it reads.
 
-Port of the JAX package's ``training/checkpoint.py::restore_params_any``
-for the serving path. Two formats:
+Port of the JAX package's ``training/checkpoint.py``. A training
+checkpoint is one ``.npz`` (the card's machine has no flax, msgpack or
+orbax), written to a temporary file and moved into place with
+``os.replace``, so a crash never leaves a torn file. Its keys:
+
+* the six parameter arrays at the top level (``w_in`` ... ``b_out``), so
+  :func:`restore_params_any` and ``Predictor`` read a trained model as it is;
+* ``iteration`` (completed loss evaluations);
+* ``opt/...`` (the Adam state: ``step``, ``lr``, ``exp_avg/<key>``,
+  ``exp_avg_sq/<key>``);
+* ``lbfgs/<field>`` in checkpoints cut during the L-BFGS phase (the
+  runner's exported state: iterate, s/y history, counters).
+
+The reference keeps the ``model_<iter>`` naming and cadence
+(:func:`checkpoint_due`, :func:`checkpoint_points`). Weights files read by
+:func:`restore_params_any`, two formats:
 
 * a reference torch ``.pth``/``.pt`` — a whole pickled ``dnn.DNN`` module
   or a ``state_dict`` (``utils.torch_interop``);
@@ -17,6 +31,9 @@ package's ``utils.torch_interop.torch_state_dict_from_params`` and
 """
 
 from __future__ import annotations
+
+import os
+import re
 
 import numpy as np
 import torch
@@ -58,3 +75,74 @@ def restore_params_any(
             f"{path!r}: unknown weights format (expected .pth, .pt or .npz)"
         )
     return params_from_numpy(arrays, device)
+
+
+def save_checkpoint(path: str, state: dict) -> str:
+    """Write ``state`` (nested dicts of arrays, flattened to ``a/b`` keys)
+    as ``<path>.npz``, atomically. Returns the file name."""
+    flat: dict[str, np.ndarray] = {}
+
+    def put(prefix: str, tree) -> None:
+        for k, v in tree.items():
+            key = f"{prefix}{k}"
+            if isinstance(v, dict):
+                put(key + "/", v)
+            elif isinstance(v, torch.Tensor):
+                flat[key] = v.detach().cpu().numpy()
+            else:
+                flat[key] = np.asarray(v)
+
+    put("", state)
+    full = path + ".npz"
+    tmp = full + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, full)
+    return full
+
+
+def load_raw(path: str) -> dict:
+    """A checkpoint back as nested dicts of numpy arrays."""
+    out: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            node = out
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = f[key]
+    return out
+
+
+def latest_checkpoint(run_dir: str, prefix: str = "model_") -> str | None:
+    """The highest-iteration ``model_<iter>.npz`` in a run directory."""
+    best, best_it = None, -1
+    pat = re.compile(re.escape(prefix) + r"(\d+)\.npz$")
+    if not os.path.isdir(run_dir):
+        return None
+    for name in os.listdir(run_dir):
+        m = pat.match(name)
+        if m and int(m.group(1)) > best_it:
+            best_it = int(m.group(1))
+            best = os.path.join(run_dir, name)
+    return best
+
+
+def checkpoint_due(iteration: int, kind: str) -> bool:
+    """Reference checkpoint cadence. CMB: every 1000 iterations (reference
+    ``train.py:175``). newmethod: every 10000 until 45000, then every 1000
+    (reference ``train_newmethod.py:181-188``)."""
+    if iteration <= 0:
+        return False
+    if kind == "newmethod":
+        if iteration <= 45_000:
+            return iteration % 10_000 == 0
+        return iteration % 1000 == 0
+    return iteration % 1000 == 0
+
+
+def checkpoint_points(start: int, end: int, kind: str) -> list[int]:
+    """All cadence points in ``(start, end]``, in order: one record block
+    can cross several, and each gets its own ``model_<point>`` file holding
+    the block-end state."""
+    return [i for i in range(start + 1, end + 1) if checkpoint_due(i, kind)]

@@ -1,0 +1,439 @@
+"""Training driver: an Adam phase, then L-BFGS.
+
+Port of the JAX package's ``training/driver.py`` for the newmethod
+pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
+
+* Adam is ``torch.optim.Adam`` (its defaults equal optax's) under
+  ``StepLR(step_size, gamma)`` stepped once per iteration — optax's
+  staircase ``exponential_decay``;
+* the L-BFGS phase is ``optim.lbfgs.LBFGSRunner`` (torch semantics plus
+  the JAX package's stall restarts and cautious curvature update);
+* every loss evaluation goes through one value-and-gradient function: K1
+  (``ops.kernels_step``, the one-kernel training step) when the
+  configuration qualifies and the batch is on the card, else autograd of
+  ``training.loss.build_loss_fn`` (:func:`decide_kernels`, which raises
+  rather than train through autograd on the card where K1 lacks the width);
+* ``log.txt`` gets one reference-format row per evaluation, flushed once
+  per 1000-step chunk from a device buffer (no host sync per Adam step);
+* ``model_<iter>.npz`` checkpoints at the reference cadence carry the
+  parameters, the Adam state, the counter and, inside the L-BFGS phase, the
+  optimizer state, so ``--resume`` continues bit for bit;
+* the ``data_at<N>.mat`` snapshot is written when the evaluation counter
+  reaches ``snapshot_iteration``; it and :meth:`Trainer.predict` run K2 on
+  the card (``mlp_apply`` under ``fused_kernel='off'``).
+
+The iteration counter counts loss evaluations, as the reference's
+``self.iter`` does (reference ``train.py:160``).
+
+Not ported yet, and refused with ``NotImplementedError``: the precision
+schedule and the f64 polish (``ROADMAP.md`` M10), data parallelism (M11).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from scipy.io import savemat
+
+from pinn_depthestimation_tpu_torch import data as data_mod
+from pinn_depthestimation_tpu_torch.config import Config
+from pinn_depthestimation_tpu_torch.device import resolve_device
+from pinn_depthestimation_tpu_torch.inference import resolve_use_kernel
+from pinn_depthestimation_tpu_torch.models import MLPSpec, init_mlp_params, mlp_apply, params_from_numpy
+from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+from pinn_depthestimation_tpu_torch.optim import lbfgs as lbfgs_mod
+from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
+from pinn_depthestimation_tpu_torch.training.logging_utils import LossLog, make_run_dir
+from pinn_depthestimation_tpu_torch.training.loss import (
+    build_loss_fn,
+    build_value_and_grad_fn,
+    one_kernel_step_applicable,
+    resolve_names,
+    value_and_grad,
+)
+
+_CHUNK = 1000  # Adam steps per log flush; divides every reference cadence
+
+
+def make_adam_optimizer(config: Config, params: list[torch.Tensor]):
+    """``(torch.optim.Adam, StepLR)``: Adam with torch's defaults (equal to
+    optax's) and ``StepLR(step_size, gamma)`` stepped once per iteration
+    (reference ``train.py:103-113,193``), which is optax's staircase
+    ``exponential_decay`` on the step count."""
+    optimizer = torch.optim.Adam(params, lr=config.adam.learning_rate)
+    scheduler = torch.optim.lr_scheduler.StepLR(
+        optimizer, step_size=config.adam.scheduler_step_size, gamma=config.adam.scheduler_gamma
+    )
+    return optimizer, scheduler
+
+
+@dataclass
+class TrainState:
+    params: dict[str, torch.Tensor]
+    iteration: int  # completed loss evaluations
+
+
+def _queued(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
+
+
+def decide_kernels(config: Config, spec: MLPSpec, fidelity_is_residual: bool,
+                   device_type: str) -> tuple[bool, bool]:
+    """``(K1 for every loss evaluation, K2 for the snapshot and predict)``
+    on a device of ``device_type``.
+
+    ``fused_kernel``: ``'off'`` is the caller's request for the plain paths
+    (autograd of the loss, ``mlp_apply``). ``'on'`` takes K1 and raises for
+    a configuration outside the one-kernel gate. ``'auto'`` takes K1 on the
+    card whenever the gate holds — no size or depth gate: the JAX package's
+    were TPU measurements — and autograd where the gate does not hold, as
+    the JAX ``'auto'`` takes XLA. Where the gate holds on the card but K1
+    was not compiled for the width, both raise, naming ``K1_WIDTHS`` and
+    ``fused_kernel='off'``; K2 likewise (:func:`inference.resolve_use_kernel`).
+    On the CPU the wrappers run their plain versions."""
+    mode = config.fused_kernel
+    on_card = device_type == "cuda"
+    use_k1 = False
+    if mode != "off":
+        if one_kernel_step_applicable(config, spec, fidelity_is_residual):
+            if on_card and not kernels_step.kernel_supports(spec):
+                raise ValueError(
+                    f"K1 was not compiled for sizes {spec.sizes}: it takes >= 1 hidden "
+                    f"layer and a width in K1_WIDTHS={kernels_step.K1_WIDTHS}; set "
+                    "fused_kernel='off' to train through plain autograd"
+                )
+            use_k1 = mode == "on" or on_card
+        elif mode == "on":
+            raise ValueError(
+                "fused_kernel='on' needs the one-kernel training step (K1): "
+                "newmethod shared points, continuity physics, heads (U, V, h) and "
+                f"no dropout; sizes {spec.sizes}, physics {config.physics!r} do not "
+                "qualify. The generic fused backward (K3) is not ported yet "
+                "(ROADMAP.md Queue 2, K3)"
+            )
+    use_k2 = resolve_use_kernel(spec, device_type, False if mode == "off" else None)
+    return use_k1, use_k2
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: Config,
+        *,
+        run_dir: str | None = None,
+        log_root: str = "./log",
+        echo_every: int = 1000,
+        initial_params=None,
+        lbfgs_record_capacity: int | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        """``initial_params``: the parameter exchange dict (numpy arrays or
+        tensors); without it, :func:`init_mlp_params` from a CPU
+        ``torch.Generator`` seeded with ``config.seed``. ``device``: the
+        card by default; ``"cpu"`` runs the plain versions."""
+        if config.parallel.data:
+            raise _queued("data-parallel training (parallel.data)", "M11")
+        sched = config.precision_schedule
+        if sched is not None and sched.prefix_iters > 0:
+            raise _queued("the precision schedule", "M10")
+        if config.f64_polish is not None and config.f64_polish.max_it > 0:
+            raise _queued("the f64 L-BFGS polish", "M10")
+        self.config = config
+        self.device = resolve_device(device)
+        self.spec = MLPSpec.from_layers(config.layers)
+        self.echo_every = echo_every
+        self._lbfgs_record_capacity = lbfgs_record_capacity
+
+        self.data = data_mod.load_training_data(config)
+        for name, arr in (("fidelity", self.data.fidelity_input),
+                          ("residual", self.data.residual_input)):
+            if arr.shape[0] == 0:
+                raise ValueError(
+                    f"{name} batch is empty after loading/NaN-masking — refusing to train"
+                )
+        self.run_dir = run_dir or make_run_dir(log_root)
+        self.log = LossLog(self.run_dir)
+
+        self.batch = {
+            k: torch.as_tensor(np.asarray(getattr(self.data, k), np.float32)).to(self.device)
+            for k in ("fidelity_input", "fidelity_true", "residual_input")
+        }
+        fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
+        self.use_fused_kernel, self._predict_kernel = decide_kernels(
+            config, self.spec, fidelity_is_residual, self.device.type)
+        self.loss_fn = build_loss_fn(
+            config, self.spec, residual_chunk_size=config.residual_chunk_size,
+            input_min_max=self.data.input_min_max, fidelity_is_residual=fidelity_is_residual,
+        )
+        self.fused_step_fn = build_value_and_grad_fn(
+            config, self.spec, input_min_max=self.data.input_min_max,
+            fused_kernel=self.use_fused_kernel,
+            fused_precision=config.resolved_kernel_precision(),
+            fidelity_is_residual=fidelity_is_residual,
+        )
+        self.value_and_grad_fn = self.fused_step_fn or value_and_grad(self.loss_fn)
+        step = ("K1, the one-kernel training step" + (" (CUDA)" if self.device.type == "cuda"
+                                                      else " (plain version on the CPU)")
+                if self.fused_step_fn else "autograd of the loss (plain PyTorch)")
+        predict = "K2" if self._predict_kernel else "plain mlp_apply"
+        print(f"Training step: {step}; snapshot/predict: {predict}; device {self.device}")
+
+        if initial_params is not None:
+            arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                      for k, v in initial_params.items()}
+            params = params_from_numpy(arrays, self.device)
+        else:
+            gen = torch.Generator().manual_seed(config.seed)
+            params = init_mlp_params(gen, self.spec, device=self.device)
+        # a copy of its own: Adam updates in place, and a CPU tensor made
+        # from numpy shares the caller's memory
+        params = {k: params[k].detach().clone().contiguous() for k in PARAM_KEYS}
+        self.state = TrainState(params=params, iteration=0)
+        self.optimizer, self.scheduler = make_adam_optimizer(
+            config, [params[k] for k in PARAM_KEYS])
+        self._lbfgs_runner: lbfgs_mod.LBFGSRunner | None = None
+        self._live_lbfgs_state = None       # exported into checkpoints
+        self._pending_lbfgs_resume = None   # raw dict from a restored checkpoint
+        self._snapshot_done = False
+
+    # ------------------------------------------------------------------ Adam
+
+    def _dropout_generator(self, iteration: int):
+        if self.spec.dropout_rate <= 0.0:
+            return None
+        # keyed by the absolute iteration, so a resumed run replays the
+        # dropout masks an uninterrupted run would have drawn
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(self.config.seed + 1 + iteration)
+
+    def _adam_steps(self, n: int) -> torch.Tensor:
+        """``n`` Adam steps from the current state; returns the ``(n, 3)``
+        ``(fid, res, total)`` rows on the device (no host sync)."""
+        losses = torch.empty((n, 3), dtype=torch.float32, device=self.device)
+        params = self.state.params
+        for i in range(n):
+            gen = self._dropout_generator(self.state.iteration + i)
+            (total, (fid, res)), grads = self.value_and_grad_fn(params, self.batch, gen)
+            losses[i] = torch.stack((fid, res, total))
+            for k in PARAM_KEYS:
+                params[k].grad = grads[k]
+            self.optimizer.step()
+            self.scheduler.step()
+        for k in PARAM_KEYS:
+            params[k].grad = None
+        return losses
+
+    def train_adam(self) -> None:
+        """The Adam phase (reference ``train.py:188-193``). Resume-aware: a
+        restored counter of N means N Adam steps are done (N <= max_it)."""
+        remaining = max(0, self.config.adam.max_it - self.state.iteration)
+        while remaining > 0:
+            n = min(_CHUNK, remaining)
+            self._record(self._adam_steps(n).cpu().numpy())
+            remaining -= n
+
+    # ---------------------------------------------------------------- L-BFGS
+
+    def _set_params(self, new: dict) -> None:
+        """Copy into the live tensors, which the Adam optimizer holds too."""
+        with torch.no_grad():
+            for k in PARAM_KEYS:
+                self.state.params[k].copy_(new[k])
+
+    def train_lbfgs(self) -> None:
+        """The L-BFGS phase (reference ``train.py:195-200``)."""
+        cfg = self.config.lbfgs
+        if cfg.max_it <= 0:
+            return
+        if self._lbfgs_runner is None:
+            self._lbfgs_runner = lbfgs_mod.LBFGSRunner(
+                loss_fn=self.loss_fn,
+                value_and_grad_fn=self.value_and_grad_fn,
+                params_template=self.state.params,
+                options=lbfgs_mod.LBFGSOptions(
+                    lr=cfg.learning_rate,
+                    max_iter=cfg.max_it,
+                    max_eval=cfg.max_evaluation,
+                    history_size=cfg.history_size,
+                    tolerance_grad=cfg.tolerance_grad,
+                    tolerance_change=cfg.tolerance_change,
+                    line_search=cfg.line_search_fn,
+                ),
+                # ~1000-evaluation chunks: checkpoint and snapshot cadence
+                # inside the phase quantizes as in the Adam phase
+                record_capacity=(
+                    self._lbfgs_record_capacity
+                    if self._lbfgs_record_capacity is not None
+                    else 1000 + 2 * (lbfgs_mod.MAX_LS + 2)
+                ),
+            )
+        runner = self._lbfgs_runner
+        if self._pending_lbfgs_resume is not None:
+            # exact continuation: the checkpoint carried the whole optimizer
+            # state, so no init evaluation and no history warm restart
+            state = runner.restore_state(self._pending_lbfgs_resume)
+            self._pending_lbfgs_resume = None
+        else:
+            state = runner.init(self.state.params, self.batch)
+        self._live_lbfgs_state = state
+        while not runner.finished(state):
+            state, records = runner.run_chunk(state, self.batch)
+            # the live iterate first: checkpoints and the snapshot cut while
+            # recording must see current weights (reference train.py:179)
+            self._set_params(runner.get_params(state))
+            self._record(records)
+        # the init evaluation's row may still be unflushed (immediate stop):
+        # the reference logs every closure call (train.py:162)
+        state, leftover = runner.drain_records(state)
+        self._set_params(runner.get_params(state))
+        if leftover.size:
+            self._record(leftover)
+        self.lbfgs_stop_reason = runner.stop_reason(state)
+
+    # ------------------------------------------------------------- lifecycle
+
+    def train(self) -> None:
+        """Both phases, the snapshot and the final save (reference
+        ``train.py:185-200``; snapshot as ``train_newmethod.py:141-153``)."""
+        t0 = time.time()
+        start_evals = self.state.iteration
+        self.train_adam()
+        t_adam = time.time()
+        self._maybe_snapshot()
+        self.train_lbfgs()
+        t_lbfgs = time.time()
+        self.save("model")  # final save (reference train.py:288)
+
+        evals = self.state.iteration - start_evals
+        points = int(self.data.residual_input.shape[0])
+        total_t = max(t_lbfgs - t0, 1e-9)
+        self.stats = {
+            "adam_seconds": t_adam - t0,
+            "lbfgs_seconds": t_lbfgs - t_adam,
+            "loss_evaluations": evals,
+            "collocation_points": points,
+            "residual_point_evals_per_sec": evals * points / total_t,
+        }
+        print(
+            f"Phase times: adam {self.stats['adam_seconds']:.1f}s, "
+            f"lbfgs {self.stats['lbfgs_seconds']:.1f}s | "
+            f"{evals} loss evals x {points} collocation pts -> "
+            f"{self.stats['residual_point_evals_per_sec']:.3e} residual point-evals/s "
+            f"on {self.device}"
+        )
+
+    def _record(self, losses: np.ndarray) -> None:
+        """Flush a (n, 3) loss block to log.txt, stdout and checkpoints."""
+        start = self.state.iteration
+        rows = [(start + i + 1, *(float(v) for v in losses[i])) for i in range(losses.shape[0])]
+        self.log.append(rows)
+        self.state.iteration = start + losses.shape[0]
+        for epoch, fid, res, total in rows:
+            if self.echo_every and epoch % self.echo_every == 0:
+                LossLog.echo(epoch, fid, res, total)
+        it = self.state.iteration
+        points = ckpt_mod.checkpoint_points(start, it, self.config.kind)
+        # one file per crossed cadence point, each with the block-end state;
+        # only the last carries the L-BFGS history
+        for point in points[:-1]:
+            self.save(f"model_{point}", include_lbfgs=False)
+        for point in points[-1:]:
+            self.save(f"model_{point}")
+        snap = self.config.snapshot_iteration
+        if snap is not None and start < snap <= it:
+            self._maybe_snapshot()
+
+    def _snapshot_name(self) -> str:
+        snap = self.config.snapshot_iteration
+        return "data_at50k.mat" if snap == 50_000 else f"data_at{snap}.mat"
+
+    def _maybe_snapshot(self) -> None:
+        """Write the prediction snapshot once the counter has reached
+        ``snapshot_iteration`` (reference ``train_newmethod.py:141-153``)."""
+        snap = self.config.snapshot_iteration
+        if snap is None or self.state.iteration < snap or self._snapshot_done:
+            return
+        self._snapshot_done = True
+        names = resolve_names(self.config)
+        pred = self.predict(self.data.residual_input)
+        out = {f"pred_{key}": pred[:, i : i + 1] for i, key in enumerate(names["network_outputs"])}
+        fname = self._snapshot_name()
+        savemat(os.path.join(self.run_dir, fname), out)
+        print(f"Data saved to {fname} after {snap:,} iterations.")
+
+    @torch.no_grad()
+    def predict(self, inputs: np.ndarray) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(inputs, np.float32)).to(self.device)
+        if self._predict_kernel:
+            y, _ = kernels.mlp_fwd_tangents(self.state.params, x, self.spec, 0,
+                                            precision=self.config.resolved_kernel_precision())
+        else:
+            y = mlp_apply(self.state.params, x, self.spec)
+        return y.cpu().numpy()
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _checkpoint_state(self, include_lbfgs: bool = True) -> dict:
+        state: dict = {k: self.state.params[k] for k in PARAM_KEYS}
+        state["iteration"] = np.asarray(self.state.iteration, np.int64)
+        opt_state = self.optimizer.state
+        live = [self.state.params[k] for k in PARAM_KEYS if self.state.params[k] in opt_state]
+        if live:
+            first = opt_state[self.state.params[PARAM_KEYS[0]]]
+            state["opt"] = {
+                "step": np.asarray(float(first["step"]), np.float32),
+                "lr": np.asarray(self.optimizer.param_groups[0]["lr"], np.float64),
+                "last_epoch": np.asarray(self.scheduler.last_epoch, np.int64),
+                "exp_avg": {k: opt_state[self.state.params[k]]["exp_avg"] for k in PARAM_KEYS},
+                "exp_avg_sq": {k: opt_state[self.state.params[k]]["exp_avg_sq"] for k in PARAM_KEYS},
+            }
+        run = self._live_lbfgs_state
+        if (include_lbfgs and run is not None and self._lbfgs_runner is not None
+                and run.reason == lbfgs_mod.RUNNING):
+            # mid-phase checkpoints carry the whole optimizer state, so
+            # --resume continues the exact trajectory; finished states are
+            # not exported (resuming a finished run warm-restarts)
+            state["lbfgs"] = self._lbfgs_runner.export_state(run)
+        return state
+
+    def save(self, name: str, include_lbfgs: bool = True) -> str:
+        return ckpt_mod.save_checkpoint(
+            os.path.join(self.run_dir, name), self._checkpoint_state(include_lbfgs)
+        )
+
+    def restore(self, path: str) -> None:
+        raw = ckpt_mod.load_raw(path)
+        self._set_params(params_from_numpy(raw, self.device))
+        self.state.iteration = int(raw["iteration"])
+        opt = raw.get("opt")
+        if opt is not None:
+            sd = self.optimizer.state_dict()
+            sd["state"] = {
+                i: {
+                    "step": torch.tensor(float(opt["step"]), dtype=torch.float32),
+                    "exp_avg": torch.as_tensor(opt["exp_avg"][k]),
+                    "exp_avg_sq": torch.as_tensor(opt["exp_avg_sq"][k]),
+                }
+                for i, k in enumerate(PARAM_KEYS)
+            }
+            sd["param_groups"][0]["lr"] = float(opt["lr"])
+            self.optimizer.load_state_dict(sd)
+            self.scheduler.last_epoch = int(opt["last_epoch"])
+            self.scheduler._last_lr = [float(opt["lr"])]
+        self._pending_lbfgs_resume = raw.get("lbfgs")
+        # a run resumed past the snapshot point does not rewrite the
+        # snapshot with later parameters
+        snap = self.config.snapshot_iteration
+        if snap is not None and self.state.iteration >= snap:
+            self._snapshot_done = True
+            if not os.path.exists(os.path.join(self.run_dir, self._snapshot_name())):
+                print(
+                    f"Warning: resumed at iteration {self.state.iteration} >= "
+                    f"snapshot_iteration {snap} but {self._snapshot_name()} is missing; "
+                    "it will NOT be rewritten (current parameters are from a later iteration)"
+                )

@@ -1,0 +1,285 @@
+"""Loss assembly: weighted fidelity MSE + physics residual.
+
+Port of the JAX package's ``training/loss.py`` (reference
+``train.py:128-157``, ``train_newmethod.py:120-159``):
+
+* fidelity: per-output weighted MSE between predictions and the stored
+  truths (``loss.weight_<key>_loss``; unit weights in the newmethod
+  pipeline);
+* residual: the configured physics equation on the collocation batch, with
+  derivatives from one forward-with-tangents pass;
+* total = ``weight_fid_loss * fidelity + weight_res_loss * residual``.
+
+Ported: the plain path and the shared-forward path (newmethod: fidelity and
+residual on one point set, certified by the loader's
+``fidelity_is_residual``), the quirk-2 anchor toggle, the one-kernel gate
+and :func:`build_value_and_grad_fn` (K1). The chunked path under
+``jax.checkpoint`` is not ported yet: a set ``residual_chunk_size`` raises
+(``ROADMAP.md`` Queue 1, M3 chunked path); neither are the fused custom-VJP
+kernels of the CMB and legacy pipelines (K3, K4).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from pinn_depthestimation_tpu_torch import physics
+from pinn_depthestimation_tpu_torch.config import Config
+from pinn_depthestimation_tpu_torch.models import MLPSpec, mlp_apply, mlp_apply_with_tangents
+from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+from pinn_depthestimation_tpu_torch.ops import kernels_step
+
+
+def resolve_names(config: Config) -> dict:
+    """Input/output name lists per pipeline kind."""
+    if config.kind == "newmethod":
+        d = config.data
+        return {
+            "fidelity_inputs": list(d.inputs),
+            "fidelity_outputs": list(d.trues),
+            "residual_inputs": list(d.inputs),
+            "residual_grad_inputs": [n for n, g in zip(d.inputs, d.requires_grad) if g],
+            "network_outputs": list(d.outputs),  # true heads then unknown heads
+        }
+    fd, rd = config.data_fidelity, config.data_residual
+    return {
+        "fidelity_inputs": list(fd.inputs),
+        "fidelity_outputs": list(fd.outputs),
+        "residual_inputs": list(rd.inputs),
+        "residual_grad_inputs": [n for n, g in zip(rd.inputs, rd.requires_grad) if g],
+        "network_outputs": list(rd.outputs),
+    }
+
+
+def _anchor_kwargs(config: Config, input_min_max: dict | None) -> dict:
+    """Quirk-2 toggle (SURVEY.md §5): the reference compares its depth-anchor
+    threshold (physical 25.5 m) against NORMALIZED x, selecting every point.
+    parity=True reproduces that; parity=False maps the threshold into
+    normalized space (the same as comparing against denormalized x)."""
+    equation_kwargs: dict = {}
+    if not config.parity and config.physics == "continuity_only":
+        if (
+            not input_min_max
+            or "x" not in input_min_max
+            or input_min_max["x"][0] == input_min_max["x"][1]
+        ):
+            # failing loudly, not falling back: without the x bounds the
+            # threshold would be compared raw against normalized x and select
+            # every point — the quirk-2 behavior parity=false opts out of
+            raise ValueError(
+                "parity=false with continuity_only physics needs "
+                "input_min_max with non-degenerate 'x' bounds to place the "
+                "anchor threshold in normalized coordinates (pass the "
+                "loader's input_min_max to build_loss_fn/"
+                "build_value_and_grad_fn)"
+            )
+        lo, hi = input_min_max["x"]
+        anchor_raw = config.raw.get("anchor", {})
+        threshold = float(anchor_raw.get("threshold", 25.5))
+        equation_kwargs["anchor_threshold"] = 2 * (threshold - lo) / (hi - lo) - 1
+        if "depth" in anchor_raw:
+            equation_kwargs["anchor_depth"] = float(anchor_raw["depth"])
+    return equation_kwargs
+
+
+def build_loss_fn(
+    config: Config,
+    spec: MLPSpec,
+    *,
+    residual_chunk_size: int | None = None,
+    input_min_max: dict | None = None,
+    fidelity_is_residual: bool = False,
+) -> Callable:
+    """Returns ``loss_fn(params, batch, dropout_generator=None) -> (total,
+    (fid, res))``, differentiable by autograd. ``batch`` holds
+    ``fidelity_input``, ``fidelity_true``, ``residual_input`` and optionally
+    ``fidelity_mask``/``residual_mask`` (masked means). A configuration
+    inside the one-kernel gate (:func:`one_kernel_step_applicable`) gets
+    ``ops.kernels_step.shared_forward_loss_plain``, the plain form K1 is
+    held to; one point set there carries one mask, ``residual_mask``."""
+    if residual_chunk_size is not None:
+        raise NotImplementedError(
+            "the chunked residual loss (residual_chunk_size) is not ported yet "
+            "(ROADMAP.md Queue 1, M3 chunked path)"
+        )
+    names = resolve_names(config)
+    fid_outputs = names["fidelity_outputs"]
+    net_outputs = names["network_outputs"]
+    residual_inputs = names["residual_inputs"]
+
+    equation = physics.residual_loss(config.physics)
+    needed = physics.required_grad_coords(config.physics)
+    missing = [c for c in needed if c not in residual_inputs]
+    if missing:
+        raise ValueError(
+            f"physics equation {config.physics!r} needs input coordinates {needed}, "
+            f"but residual inputs are {residual_inputs} (missing {missing})"
+        )
+    no_grad = [c for c in needed if c not in names["residual_grad_inputs"]]
+    if no_grad:
+        raise ValueError(
+            f"physics equation {config.physics!r} differentiates w.r.t. {needed}, "
+            f"but the config marks {no_grad} as requires_grad=false"
+        )
+    grad_coords = list(needed)
+    fid_weight_list = [config.output_weight(k) for k in fid_outputs]
+    parity = config.parity
+    equation_kwargs = _anchor_kwargs(config, input_min_max)
+    # reuse the residual forward for the fidelity term only when the loader
+    # certifies one point set and the forward is deterministic
+    share_forward = fidelity_is_residual and spec.dropout_rate == 0.0
+
+    if one_kernel_step_applicable(config, spec, fidelity_is_residual):
+        # inside the one-kernel gate the shared-forward loss has one plain
+        # form, the one K1's plain version differentiates
+        step_batch = _step_batch_fn(config, input_min_max)
+
+        def shared_loss_fn(params, batch, dropout_generator=None):
+            del dropout_generator  # dropout == 0 is part of the gate
+            total, fid, res = kernels_step.shared_forward_loss_plain(params, step_batch(batch), spec)
+            return total, (fid, res)
+
+        return shared_loss_fn
+
+    def loss_fn(params, batch, dropout_generator=None):
+        res_input = batch["residual_input"]
+        fid_weights = torch.as_tensor(fid_weight_list, dtype=res_input.dtype,
+                                      device=res_input.device)
+
+        def fidelity_from(pred):
+            err2 = (batch["fidelity_true"] - pred[..., : len(fid_outputs)]) ** 2
+            fid_mask = batch.get("fidelity_mask")
+            per_output = (
+                torch.mean(err2, dim=0)
+                if fid_mask is None
+                else torch.sum(err2 * fid_mask[:, None], dim=0) / torch.sum(fid_mask)
+            )
+            return torch.sum(fid_weights * per_output)
+
+        coords, fields, grads = physics.model_fields_and_grads(
+            lambda x, t: mlp_apply_with_tangents(params, x, t, spec),
+            res_input, residual_inputs, grad_coords, net_outputs,
+        )
+        residual = equation(coords, fields, grads, mask=batch.get("residual_mask"),
+                            parity=parity, **equation_kwargs)
+        if share_forward:
+            # fidelity output i == network output i for the true heads
+            fidelity = fidelity_from(torch.stack([fields[k] for k in net_outputs], dim=-1))
+        else:
+            # separate fidelity forward (reference train.py:131-141)
+            fidelity = fidelity_from(mlp_apply(params, batch["fidelity_input"], spec,
+                                               dropout_generator=dropout_generator))
+        total = config.weight_fidelity * fidelity + config.weight_residual * residual
+        return total, (fidelity, residual)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``fn(params, batch, dropout_generator=None) -> ((total, (fid, res)),
+    grads)`` by autograd — the generic path, counterpart of
+    ``jax.value_and_grad(loss_fn, has_aux=True)``."""
+
+    def fn(params, batch, dropout_generator=None):
+        leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
+        with torch.enable_grad():
+            total, (fid, res) = loss_fn(leaves, batch, dropout_generator)
+            grads = torch.autograd.grad(total, [leaves[k] for k in PARAM_KEYS],
+                                        allow_unused=True, materialize_grads=True)
+        return (total.detach(), (fid.detach(), res.detach())), dict(zip(PARAM_KEYS, grads))
+
+    return fn
+
+
+def one_kernel_step_applicable(config: Config, spec: MLPSpec, fidelity_is_residual: bool) -> bool:
+    """Does this configuration qualify for the one-kernel training step
+    (K1)? The semantics of the JAX package's gate, verbatim."""
+    if not fidelity_is_residual or spec.dropout_rate:
+        return False
+    if config.physics not in ("continuity_only", "continuity_ftemp"):
+        return False
+    names = resolve_names(config)
+    net_outputs = names["network_outputs"]
+    fid_outputs = names["fidelity_outputs"]
+    n_true = len(fid_outputs)
+    has_anchor = config.physics == "continuity_only"
+    if net_outputs[:3] != ["U", "V", "h"] or spec.d_out != 3:
+        return False
+    if fid_outputs != net_outputs[:n_true]:
+        return False
+    if n_true > (2 if has_anchor else 3):
+        return False
+    if names["residual_inputs"][:2] != ["x", "y"]:
+        return False
+    return True
+
+
+def _step_batch_fn(config: Config, input_min_max: dict | None) -> Callable:
+    """``step_batch(batch) -> kernels_step.StepBatch`` for a configuration
+    inside the one-kernel gate: the selector ``sel`` (as the JAX package
+    builds it), the mask and the scales, built once per batch dict. One
+    point set carries one mask, ``residual_mask``."""
+    names = resolve_names(config)
+    n_true = len(names["fidelity_outputs"])
+    # the anchor selector rides the h head; a 3-head anchored fidelity is
+    # refused by the gate
+    has_anchor = config.physics == "continuity_only"
+    kwargs = _anchor_kwargs(config, input_min_max)
+    anchor_threshold = kwargs.get("anchor_threshold", 25.5)
+    anchor_depth = kwargs.get("anchor_depth", 0.75)
+    fid_weights = [config.output_weight(k) for k in names["fidelity_outputs"]]
+    ix = names["residual_inputs"].index("x")
+    cache: dict = {}
+
+    def step_batch(batch) -> kernels_step.StepBatch:
+        if cache.get("batch") is not batch:
+            coords = batch["residual_input"]
+            mask = batch.get("residual_mask")
+            if mask is None:
+                mask = torch.ones((coords.shape[0],), dtype=torch.float32, device=coords.device)
+            sel = torch.where(coords[:, ix] < anchor_threshold, 1.0, 0.0) * mask
+            cache["batch"] = batch
+            cache["step"] = kernels_step.make_step_batch(
+                coords, batch["fidelity_true"], sel, mask, fid_weights, n_true,
+                float(config.weight_fidelity), float(config.weight_residual),
+                anchor_depth=anchor_depth, has_anchor=has_anchor,
+            )
+        return cache["step"]
+
+    return step_batch
+
+
+def build_value_and_grad_fn(
+    config: Config,
+    spec: MLPSpec,
+    *,
+    input_min_max: dict | None = None,
+    fused_kernel: bool = False,
+    fused_precision: str = "f32",
+    fidelity_is_residual: bool = False,
+):
+    """Loss and gradient from the one-kernel training step (K1,
+    ``ops.kernels_step.fused_loss_and_grad``) when ``fused_kernel`` is set
+    and the configuration permits, else ``None`` (the caller takes
+    :func:`value_and_grad` of :func:`build_loss_fn`).
+
+    Returns ``fn(params, batch, dropout_generator=None) -> ((total, (fid,
+    res)), grads)`` with exactly ``build_loss_fn``'s semantics: K1 for a
+    batch on a CUDA device, its plain version for one on the CPU. The
+    selector ``sel``, the mask and the scales are built once per batch
+    (``make_step_batch``), not per evaluation."""
+    if not fused_kernel:
+        return None
+    if not one_kernel_step_applicable(config, spec, fidelity_is_residual):
+        return None
+    kernels_step.check_precision(fused_precision, "K1")
+    step_batch = _step_batch_fn(config, input_min_max)
+
+    def value_and_grad_fn(params, batch, dropout_generator=None):
+        del dropout_generator  # dropout == 0 is part of the gate
+        return kernels_step.fused_loss_and_grad(params, step_batch(batch), spec,
+                                                precision=fused_precision)
+
+    return value_and_grad_fn

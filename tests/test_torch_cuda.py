@@ -1,4 +1,5 @@
-"""The port's CUDA kernel K2 on a card, against its plain PyTorch version.
+"""The port's CUDA kernels K2 and K1 on a card, against their plain PyTorch
+versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a CUDA kernel has no CPU mode). The file imports no JAX, so it runs on the
@@ -9,7 +10,9 @@ card's machine, which has none:
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| + 1e-7 per output —
 f32 FMA chains in the kernel against f32 cuBLAS products in the plain
 version, over up to 120 layers, agree to ~1e-5 of the output's scale
-(``PERF.md``); the 1e-7 only covers outputs that are all near zero.
+(``PERF.md``); the 1e-7 only covers outputs that are all near zero. K1's
+loss terms and gradients are held to the same tolerance: on the card they
+agree with the plain version to ~1e-6 of their scale (``PERF.md``).
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
-from pinn_depthestimation_tpu_torch.ops import kernels
+from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
 
 
 def numpy_params(sizes, init_type="xavier", seed=0):
@@ -92,3 +95,68 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         torch.zeros(0, 2, device=cuda_device), spec, 2,
     )
     assert empty[0].shape == (0, 3) and empty[1].shape == (2, 0, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,init_type,n_true,has_anchor", [
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, True),    # the flagship
+    ((2,) + (10,) * 10 + (3,), "xavier", 3, False),    # anchorless, three heads
+    ((2,) + (16,) * 5 + (3,), "kaiming", 2, True),     # leaky-relu
+    ((2, 8, 3), "xavier", 1, True),                    # one hidden layer, no stack
+    ((2,) + (32,) * 120 + (3,), "xavier", 2, True),    # deeper than one smem chunk
+])
+def test_cuda_train_step_matches_plain_on_card(cuda_device, sizes, init_type, n_true, has_anchor):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=3), cuda_device)
+    rs = np.random.RandomState(4)
+    n = 1_003
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    trues = torch.from_numpy((rs.randn(n, n_true) * 0.1).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy((rs.rand(n) > 0.1).astype(np.float32)).to(cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float() * mask, mask,
+                                     [1.0, 2.0, 0.5][:n_true], n_true, 0.7, 1.3,
+                                     anchor_depth=0.6, has_anchor=has_anchor)
+    before = kernels_step.fused_loss_and_grad.launches
+    (t, (f, r)), g = kernels_step.fused_loss_and_grad(params, b, spec)
+    assert kernels_step.fused_loss_and_grad.launches == before + 1
+    (t_p, (f_p, r_p)), g_p = kernels_step.fused_loss_and_grad_plain(params, b, spec)
+    for got, want in [(t, t_p), (f, f_p), (r, r_p)] + [(g[k], g_p[k]) for k in g]:
+        assert_close_to_plain(got, want)
+    (t2, _), g2 = kernels_step.fused_loss_and_grad(params, b, spec)
+    assert torch.equal(t, t2) and all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+def test_cuda_training_launches_k1_once_per_evaluation(cuda_device, tmp_path):
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = str(tmp_path / "d.mat")
+    synthetic.make_newmethod_mat(mat, nx=16, ny=20, nan_fraction=0.05, seed=2)
+    raw = {
+        "layers": {"input_features": 2, "hidden_layers": 4, "hidden_width": 20,
+                   "output_features": 3, "dropout_rate": 0.0, "init_type": "xavier"},
+        "adam_optimizer": {"max_it": 30, "learning_rate": 1e-3,
+                           "scheduler_step_size": 10, "scheduler_gamma": 0.8},
+        "lbfgs_optimizer": {"max_it": 5, "learning_rate": 1, "max_evaluation": 8,
+                            "history_size": 10, "tolerance_grad": 1e-12,
+                            "tolerance_change": 1e-14, "line_search_fn": "strong_wolfe"},
+        "loss": {"weight_fid_loss": 1, "weight_res_loss": 1},
+        "data": {"file": mat, "inputs": {"x": {"requires_grad": ["true"]},
+                                         "y": {"requires_grad": ["true"]}},
+                 "trues": ["U", "V"], "unknowns": ["h"]},
+        "snapshot_iteration": 30,
+    }
+    run = str(tmp_path / "run")
+    import os
+
+    os.makedirs(run)
+    trainer = Trainer(parse_config(raw), run_dir=run, echo_every=0, device=cuda_device)
+    assert trainer.fused_step_fn is not None
+    before = kernels_step.fused_loss_and_grad.launches
+    trainer.train()
+    epochs, _, _, totals = read_log(run)
+    assert kernels_step.fused_loss_and_grad.launches - before == len(epochs) > 30
+    assert np.isfinite(totals).all() and totals[29] < totals[0]
