@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: K2 (``csrc/mlp_fwd_tangents.cu``) and K1
-   (``csrc/continuity_train_step.cu``) from the checkout's sources, every
-   ``nvcc`` started together; registers and spills per width;
+2. build: K2 (``csrc/mlp_fwd_tangents.cu``), K1
+   (``csrc/continuity_train_step.cu``) and K3 (``csrc/mlp_bwd.cu``) from the
+   checkout's sources, every ``nvcc`` started together; registers and
+   spills per width;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -36,11 +37,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    against one on the plain autograd path, from the same numpy weights;
 10. training times: K1 beside its plain version and bound, the flagship
    Adam step (``run_train_step_bench``) and L-BFGS evaluations per second
-   (median, min and max of 5 runs of the configured 500-iteration phase).
+   (median, min and max of 5 runs of the configured 500-iteration phase);
+11. K3 (``csrc/mlp_bwd.cu``) against its plain version on the card: the
+   2->[10]x10->6 CMB net at K=2 on the ~20,500 points of the CMB bench grid
+   and at K=0 on its 200 fidelity rows, the flagship at K=2 on the 12,516
+   grid points, a leaky-relu net at K=1 and K=3, a width-32 stack deeper
+   than one shared-memory chunk, a ragged N; two launches bit-identical;
+12. the CMB training path through its entry points: ``synth`` writes the
+   CMB pair, CLI ``train`` runs ``examples/cmb.json`` on it (interval 1,
+   300 Adam steps, L-BFGS cut to 20 iterations), CLI ``test`` serves the
+   trained model; the log, the files, the loss trend and the launch counts
+   (K3 == 2 x loss evaluations) are checked; then iteration 1 and a
+   20-step Adam prefix of a K2+K3 Trainer against an autograd Trainer from
+   the same numpy weights, under parity and parity=false;
+13. times: K3 beside its plain version and bound at the CMB and flagship
+   shapes, and the CMB Adam step (``run_cmb_step_bench``) with K2 + K3's
+   share of it.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
-serving path), and set to 0 again before phase 8 and read after it (the
-training path): each kernel must have launched on each path that runs it.
+serving path), set to 0 again before phase 8 and read after it (the
+flagship training path), and again before phase 12's CLI ``train`` and
+read after its CLI ``test`` (the CMB path): each kernel must have launched
+on each path that runs it.
 The last two lines are the ``kernels`` JSON object and ``{"ok": true,
 "device": {...}}``.
 """
@@ -60,6 +78,8 @@ REPLACES = "pinn_depthestimation_tpu/ops/kernels.py:217"  # _mlp_kernel
 K2_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_fwd_tangents.cu"
 K1_REPLACES = "pinn_depthestimation_tpu/ops/kernels_step.py:205"  # _stats_and_grads
 K1_SOURCE = "pinn_depthestimation_tpu_torch/csrc/continuity_train_step.cu"
+K3_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:701"  # packed_mlp_bwd(impl='stream')
+K3_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # kernel vs plain: max|kernel - plain| <= REL_TOL * max|plain| + ABS_TOL. f32 FMA
 # chains against f32 cuBLAS products over ~100 layers agree to ~1e-5 of the
@@ -204,6 +224,63 @@ def newmethod_config(tmp: str, repo: str, **overrides) -> str:
     return path
 
 
+def k1_cases(dev, repo: str, tmp: str):
+    """Phase 7's cases ``[(name, spec, params or None, StepBatch)]``, the
+    grid's point count and the flagship weights: the flagship on the 12,516
+    points of the 81x261 grid with 40.8 % NaN rows, anchored with two
+    observed heads, under parity (every point selected) and parity=false
+    (some selected); width 10 anchorless with three heads; width 16
+    leaky-relu; a width-32 stack deeper than one shared-memory chunk; a
+    batch with masked rows."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels_step
+
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    td = load_training_data(load_config(newmethod_config(tmp, repo)))
+    coords = torch.as_tensor(td.residual_input).to(dev)
+    trues = torch.as_tensor(td.fidelity_true).to(dev)
+    n_grid = coords.shape[0]
+    ones = torch.ones(n_grid, device=dev)
+    lo, hi = td.input_min_max["x"]
+    x_anchor = 2 * (25.5 - lo) / (hi - lo) - 1  # parity=false: physical 25.5 m
+    rng = np.random.RandomState(11)
+
+    def batch(x, tr, sel, mask, n_true, has_anchor):
+        weights = [1.0, 1.0, 1.0][:n_true]
+        return kernels_step.make_step_batch(x, tr, sel, mask, weights, n_true, 1.0, 1.0,
+                                            anchor_depth=0.75, has_anchor=has_anchor)
+
+    def rand_batch(n, n_true, has_anchor, masked):
+        x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
+        tr = torch.as_tensor((rng.randn(n, n_true) * 0.1).astype(np.float32)).to(dev)
+        m = torch.as_tensor((rng.rand(n) > (0.15 if masked else -1)).astype(np.float32)).to(dev)
+        return batch(x, tr, (x[:, 0] < 0.3).float() * m, m, n_true, has_anchor)
+
+    flag_params = params_from_numpy(numpy_params(flagship.sizes, "xavier", 4), dev)
+    cases = [
+        ("flagship, parity (all selected)", flagship, flag_params,
+         batch(coords, trues, (coords[:, 0] < 25.5).float(), ones, 2, True)),
+        ("flagship, parity=false", flagship, flag_params,
+         batch(coords, trues, (coords[:, 0] < x_anchor).float(), ones, 2, True)),
+        ("width 10, anchorless, 3 heads", MLPSpec(sizes=(2,) + (10,) * 10 + (3,)), None,
+         rand_batch(3_001, 3, False, False)),
+        ("width 16, leaky-relu", MLPSpec(sizes=(2,) + (16,) * 6 + (3,), init_type="kaiming"),
+         None, rand_batch(2_000, 2, True, False)),
+        ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (3,)),
+         None, rand_batch(1_500, 2, True, False)),
+        ("flagship, masked rows", flagship, flag_params, rand_batch(4_099, 2, True, True)),
+    ]
+    cases = [(name, spec, params or params_from_numpy(numpy_params(spec.sizes, spec.init_type, 5), dev), b)
+             for name, spec, params, b in cases]
+    return cases, n_grid, flag_params
+
+
 def training_phases(dev, repo: str, bound) -> dict:
     """Phases 7-10; returns K1's entry of the ``kernels`` line."""
     import numpy as np
@@ -211,8 +288,7 @@ def training_phases(dev, repo: str, bound) -> dict:
 
     from pinn_depthestimation_tpu_torch import benchmarks, cli
     from pinn_depthestimation_tpu_torch.config import load_config
-    from pinn_depthestimation_tpu_torch.data import load_training_data
-    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.models import MLPSpec
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
@@ -221,43 +297,9 @@ def training_phases(dev, repo: str, bound) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         # 7. K1 vs plain ---------------------------------------------------
         print("== phase 7: K1 against its plain version on the card")
-        td = load_training_data(load_config(newmethod_config(tmp, repo)))
-        coords = torch.as_tensor(td.residual_input).to(dev)
-        trues = torch.as_tensor(td.fidelity_true).to(dev)
-        n_grid = coords.shape[0]
-        ones = torch.ones(n_grid, device=dev)
-        lo, hi = td.input_min_max["x"]
-        x_anchor = 2 * (25.5 - lo) / (hi - lo) - 1  # parity=false: physical 25.5 m
-        rng = np.random.RandomState(11)
-
-        def batch(x, tr, sel, mask, n_true, has_anchor):
-            weights = [1.0, 1.0, 1.0][:n_true]
-            return kernels_step.make_step_batch(x, tr, sel, mask, weights, n_true, 1.0, 1.0,
-                                                anchor_depth=0.75, has_anchor=has_anchor)
-
-        def rand_batch(n, n_true, has_anchor, masked):
-            x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
-            tr = torch.as_tensor((rng.randn(n, n_true) * 0.1).astype(np.float32)).to(dev)
-            m = torch.as_tensor((rng.rand(n) > (0.15 if masked else -1)).astype(np.float32)).to(dev)
-            return batch(x, tr, (x[:, 0] < 0.3).float() * m, m, n_true, has_anchor)
-
-        flag_params = params_from_numpy(numpy_params(flagship.sizes, "xavier", 4), dev)
-        cases = [
-            ("flagship, parity (all selected)", flagship, flag_params,
-             batch(coords, trues, (coords[:, 0] < 25.5).float(), ones, 2, True)),
-            ("flagship, parity=false", flagship, flag_params,
-             batch(coords, trues, (coords[:, 0] < x_anchor).float(), ones, 2, True)),
-            ("width 10, anchorless, 3 heads", MLPSpec(sizes=(2,) + (10,) * 10 + (3,)), None,
-             rand_batch(3_001, 3, False, False)),
-            ("width 16, leaky-relu", MLPSpec(sizes=(2,) + (16,) * 6 + (3,), init_type="kaiming"),
-             None, rand_batch(2_000, 2, True, False)),
-            ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (3,)),
-             None, rand_batch(1_500, 2, True, False)),
-            ("flagship, masked rows", flagship, flag_params, rand_batch(4_099, 2, True, True)),
-        ]
+        cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
         err_k1 = 0.0
         for name, spec, params, b in cases:
-            params = params or params_from_numpy(numpy_params(spec.sizes, spec.init_type, 5), dev)
             chunk = kernels_step.k1_library().libs[spec.width].k1_chunk_layers(spec.n_hidden - 1)
             print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
                   f"{spec.init_type}, N={b.coords.shape[0]}, selected {int(b.n_sel)}, "
@@ -269,7 +311,7 @@ def training_phases(dev, repo: str, bound) -> dict:
                     for term, got, want in (("total", t1, t2), ("fidelity", f1, f2),
                                             ("residual", r1, r2))]
             errs += [compare(f"d{k}", g1[k], g2[k]) for k in kernels_step.FLAT_KEYS]
-            if spec is flagship:
+            if spec.sizes == flagship.sizes:
                 err_k1 = max(err_k1, *errs)
                 (t3, _), g3 = kernels_step.fused_loss_and_grad(params, b, spec)
                 if not (torch.equal(t1, t3) and all(torch.equal(g1[k], g3[k]) for k in g1)):
@@ -413,6 +455,249 @@ def training_phases(dev, repo: str, bound) -> dict:
             "lbfgs_evals_per_s_min_max": [rates[0], rates[-1]]}
 
 
+def k3_flops(spec, n_points: int, n_tangents: int) -> float:
+    """K3's operations: the forward replay with K tangents, 2*(d_in*W +
+    (L-1)*W^2 + W*d_out)*(1+K) per point, and the backward, 2*2*(1+K)*((L-1)*W^2
+    + W*d_out) + 2*d_in*W per point; tanh not counted."""
+    W, d_in, d_out, n_stack = spec.width, spec.d_in, spec.d_out, spec.n_hidden - 1
+    fwd = 2 * (d_in * W + n_stack * W * W + W * d_out) * (1 + n_tangents)
+    bwd = 2 * 2 * (1 + n_tangents) * (n_stack * W * W + W * d_out) + 2 * d_in * W
+    return float(n_points) * (fwd + bwd)
+
+
+def k3_bytes(params, spec, n_points: int, n_tangents: int) -> float:
+    """Each input read once (coords, ybar, dybar, the weights) and each
+    output written once (the gradients)."""
+    weights = sum(int(t.numel()) for t in params.values()) * 4
+    return float(2 * weights + n_points * (spec.d_in + (1 + n_tangents) * spec.d_out) * 4)
+
+
+def cmb_config(tmp: str, repo: str, csv: str, mat: str, **overrides) -> str:
+    """``examples/cmb.json`` with its files replaced by ``csv``/``mat`` and
+    ``overrides`` merged in; returns the config path."""
+    with open(os.path.join(repo, "examples", "cmb.json")) as f:
+        raw = json.load(f)
+    raw["data_fidelity"]["file"] = csv
+    raw["data_residual"]["file"] = mat
+    raw["data_test"]["file"] = mat
+    for key, value in overrides.items():
+        if isinstance(value, dict):
+            raw[key] = {**raw.get(key, {}), **value}
+        else:
+            raw[key] = value
+    path = os.path.join(tmp, f"cmb_{len(os.listdir(tmp))}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def cmb_phases(dev, repo: str, bound) -> dict:
+    """Phases 11-13; returns K3's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import load_config, parse_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the workload of run_cmb_step_bench: ~20,500 grid points, 200 rows
+        csv, mat = os.path.join(tmp, "fid.csv"), os.path.join(tmp, "res.mat")
+        synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6,
+                                   nan_fraction=0.03)
+        bench_raw = make_cmb_config(csv, mat, 0, 0, interval=1, training_points=200)
+        td = load_training_data(parse_config(bench_raw))
+        res_pts = torch.as_tensor(td.residual_input).to(dev)
+        fid_pts = torch.as_tensor(td.fidelity_input).to(dev)
+        n_res, n_fid = res_pts.shape[0], fid_pts.shape[0]
+
+        # 11. K3 vs plain ------------------------------------------------------
+        print("== phase 11: K3 against its plain version on the card")
+        rng = np.random.RandomState(13)
+        flag_pts = torch.as_tensor(  # phase 7's 12,516 grid points
+            load_training_data(load_config(newmethod_config(tmp, repo))).residual_input).to(dev)
+
+        def rand_pts(n, d_in):
+            return torch.as_tensor(rng.uniform(-1, 1, (n, d_in)).astype(np.float32)).to(dev)
+
+        cases = [
+            ("CMB net, residual grid", cmb_net, res_pts, 2),
+            ("CMB net, fidelity rows", cmb_net, fid_pts, 0),
+            ("flagship, train grid", flagship, flag_pts, 2),
+            ("leaky-relu, K=1", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
+             rand_pts(4_099, 3), 1),
+            ("leaky-relu, K=3", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
+             rand_pts(4_099, 3), 3),
+            ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (5,)),
+             rand_pts(1_500, 2), 2),
+            ("CMB net, ragged N", cmb_net, rand_pts(1_001, 2), 2),
+        ]
+        main_path = ("CMB net, residual grid", "CMB net, fidelity rows")
+        inputs, err_k3 = {}, 0.0
+        for name, spec, x, kt in cases:
+            params = params_from_numpy(numpy_params(spec.sizes, spec.init_type, 8), dev)
+            n = x.shape[0]
+            ybar = torch.as_tensor(rng.randn(n, spec.d_out).astype(np.float32)).to(dev)
+            dybar = torch.as_tensor(rng.randn(kt, n, spec.d_out).astype(np.float32)).to(dev)
+            chunk = kernels_vjp.k3_library().libs[spec.width].k3_chunk_layers(spec.n_hidden - 1, kt)
+            print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
+                  f"{spec.init_type}, K={kt}, N={n}, {chunk} hidden layers per smem chunk")
+            g1 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
+            torch.cuda.synchronize()
+            g2 = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt)
+            errs = [compare(f"d{k}", g1[k], g2[k]) for k in g1]
+            if name in main_path:
+                err_k3 = max(err_k3, *errs)
+            g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
+            if not all(torch.equal(g1[k], g3[k]) for k in g1):
+                fail(f"{name}: two K3 launches on the same inputs differ")
+            print("  two launches bit-identical")
+            inputs[name] = (params, x, ybar, dybar, spec, kt)
+
+        # 12. the CMB training path ---------------------------------------------
+        print("== phase 12: CMB training path (CLI synth, train, then test on the trained model)")
+        synth = os.path.join(tmp, "synth")
+        if cli.main(["synth", "--out", synth]) != 0:
+            fail("synth failed")
+        synth_csv, synth_mat = (os.path.join(synth, f) for f in ("input_fid.csv", "input_res.mat"))
+        cfg_path = cmb_config(
+            tmp, repo, synth_csv, synth_mat, adam_optimizer={"max_it": 300},
+            data_residual={"interval_x": 1, "interval_y": 1},
+            # tolerances below what 300 Adam steps reach, so L-BFGS runs
+            lbfgs_optimizer={"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
+                             "tolerance_change": 1e-12})
+        run_name = "cmb_smoke"
+        kernels.mlp_fwd_tangents.launches = 0
+        kernels_vjp.packed_mlp_bwd.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run_name,
+                       "--device", "cuda", "--debug"])
+        train_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI train on the CMB config exited {rc}")
+        train_launches = {"k2": kernels.mlp_fwd_tangents.launches,
+                          "k3": kernels_vjp.packed_mlp_bwd.launches}
+        run_dir = os.path.join(tmp, run_name)
+        pred_out = os.path.join(tmp, "pred_cmb.mat")
+        rc = cli.main(["test", "--config", cfg_path, "--model", os.path.join(run_dir, "model.npz"),
+                       "--save", pred_out, "--device", "cuda", "--debug"])
+        if rc != 0:
+            fail(f"CLI test on the trained CMB model exited {rc}")
+        predict_launches = kernels.mlp_fwd_tangents.launches - train_launches["k2"]
+        launches = {"k2": kernels.mlp_fwd_tangents.launches,
+                    "k3": kernels_vjp.packed_mlp_bwd.launches}
+        print(f"  CMB-path launches: {launches} (CLI train {train_launches}, CLI test "
+              f"{predict_launches} K2)")
+        epochs, _, _, totals = read_log(run_dir)
+        n_evals = len(epochs)
+        if epochs != list(range(1, n_evals + 1)) or n_evals < 302:
+            fail(f"log.txt rows are not epochs 1..n with n >= 302: {epochs[:3]}..{epochs[-3:]}")
+        if not all(math.isfinite(v) for v in totals):
+            fail("log.txt holds a non-finite total")
+        if not totals[299] < totals[0]:
+            fail(f"Adam did not lower the CMB loss: {totals[0]} -> {totals[299]}")
+        if not min(totals[300:]) <= totals[299]:
+            fail(f"L-BFGS minimum {min(totals[300:])} above the last Adam total {totals[299]}")
+        for fname in ("model.npz", "log.txt"):
+            if not os.path.exists(os.path.join(run_dir, fname)):
+                fail(f"the CMB run wrote no {fname}")
+        if launches["k3"] != 2 * n_evals:
+            fail(f"K3 launched {launches['k3']} times for {n_evals} loss evaluations "
+                 "(2 per evaluation): some evaluation bypassed the kernel")
+        if train_launches["k2"] != 2 * n_evals or predict_launches < 1:
+            fail(f"K2 launched {train_launches['k2']} times in training for {n_evals} loss "
+                 f"evaluations (2 per evaluation) and {predict_launches} in CLI test")
+        served, grid_x = loadmat(pred_out), loadmat(synth_mat)["x"]
+        for key in ("h", "U", "V", "eta_mean", "Hrms", "k"):
+            arr = served[f"pred_{key}"]
+            if arr.shape != (261, 81) or not np.array_equal(np.isnan(arr), np.isnan(grid_x)):
+                fail(f"trained CMB model served pred_{key} of shape {arr.shape}, with NaN "
+                     "elsewhere than at the grid's masked cells")
+        print(f"  {n_evals} loss evaluations (300 Adam + {n_evals - 300} L-BFGS) on "
+              f"{load_training_data(load_config(cfg_path)).residual_input.shape[0]} collocation "
+              f"points, total {totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> "
+              f"{min(totals[300:]):.5e} (L-BFGS); CLI train wall time {train_s:.2f} s")
+
+        # iteration 1 and a tracked prefix, K2 + K3 against autograd ----------
+        print("== phase 12b: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
+        init = numpy_params(cmb_net.sizes, "xavier", 6)
+        init["b_out"][3] += 1.0  # the eta head shifted, so eta + h stays away from 0
+        prefix = {}
+        for parity in (True, False):
+            runs = {}
+            for mode in ("auto", "off"):
+                raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
+                           fused_kernel=mode, parity=parity)
+                run = os.path.join(tmp, f"prefix_{parity}_{mode}")
+                os.makedirs(run)
+                tr = Trainer(parse_config(raw), run_dir=run, echo_every=0, initial_params=init,
+                             device=dev)
+                if tr.kernel_plan.fused != (mode == "auto"):
+                    fail(f"fused_kernel={mode!r} chose {tr.kernel_plan} on the card")
+                losses = tr._adam_steps(20).cpu().numpy()
+                runs[mode] = (losses, {k: v.clone() for k, v in tr.state.params.items()})
+            (l_on, p_on), (l_off, p_off) = runs["auto"], runs["off"]
+            rel1 = np.abs(l_on[0] - l_off[0]) / np.abs(l_off[0])
+            dp = max(float((p_on[k] - p_off[k]).abs().max()) for k in p_on)
+            drift = float(np.max(np.abs(l_on - l_off) / np.abs(l_off)))
+            print(f"  parity={parity}: iteration 1 (fid, res, total): K2+K3 {l_on[0]} "
+                  f"autograd {l_off[0]} rel {rel1}; after 20 steps max |p_kernels - p_plain| "
+                  f"{dp:.3e}, max relative loss gap {drift:.3e}")
+            if not (rel1 <= 1e-5).all():
+                fail("iteration-1 CMB losses of K2+K3 and autograd differ by more than 1e-5")
+            prefix[parity] = dp
+        # K2 + K3 against autograd kept the parameters within 2.98e-8 after
+        # 20 steps on an H100, under both parity modes; 1e-6 is a ~34x
+        # margin and 0.05 % of the largest move 20 steps of lr 1e-4 can make
+        prefix_tol = 1e-6
+        print(f"  prefix tolerance {prefix_tol:.1e}")
+        if not max(prefix.values()) <= prefix_tol:
+            fail("the 20-step Adam prefix of K2+K3 and autograd diverged")
+
+        # 13. times ---------------------------------------------------------------
+        print("== phase 13: CMB times")
+        times = {}
+        for name in ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid"):
+            params, x, ybar, dybar, spec, kt = inputs[name]
+            ms = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt), 7, 20)
+            plain = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt), 5, 3)
+            b, by = bound(k3_flops(spec, x.shape[0], kt), k3_bytes(params, spec, x.shape[0], kt))
+            times[name] = (ms, plain, b, by)
+            print(f"  K3 {name} (K={kt}, {x.shape[0]} points): {ms:.4f} ms (plain {plain:.4f} ms, "
+                  f"bound {b:.5f} ms by {by}, {b / ms:.1%} of bound; "
+                  f"{k3_flops(spec, 1, kt):,.0f} FLOP per point)")
+        params = inputs["CMB net, residual grid"][0]
+        fwd = {kt: cuda_ms(lambda kt=kt, x=x: kernels.mlp_fwd_tangents(params, x, cmb_net, kt), 7, 20)
+               for kt, x in ((2, res_pts), (0, fid_pts))}
+        kernel_ms = fwd[2] + fwd[0] + times["CMB net, residual grid"][0] + times["CMB net, fidelity rows"][0]
+        step = benchmarks.run_cmb_step_bench(device=dev)
+        print(f"  K2 forward: residual (K=2, {n_res} points) {fwd[2]:.4f} ms, fidelity (K=0, "
+              f"{n_fid} rows) {fwd[0]:.4f} ms")
+        print(f"  run_cmb_step_bench: {json.dumps(step)}; K2 + K3 take {kernel_ms:.4f} ms, "
+              f"{kernel_ms / step['ms_per_iter']:.1%} of the Adam step")
+
+    ms, plain, b, by = times["CMB net, residual grid"]
+    return {"name": "k3_mlp_bwd", "route": "cuda", "source": K3_SOURCE,
+            "replaces": K3_REPLACES, "launches": launches["k3"], "max_abs_err": err_k3,
+            "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by, "points": n_res,
+            "library_ms": None,
+            "ms_fidelity_k0": times["CMB net, fidelity rows"][0],
+            "bound_ms_fidelity_k0": times["CMB net, fidelity rows"][2],
+            "ms_flagship_k2": times["flagship, train grid"][0],
+            "bound_ms_flagship_k2": times["flagship, train grid"][2],
+            "cmb_adam_ms_per_iter": step["ms_per_iter"],
+            "cmb_prefix_gap": max(prefix.values())}
+
+
 def main() -> None:
     import torch
 
@@ -450,11 +735,11 @@ def main() -> None:
     # 2. build --------------------------------------------------------------
     print("== phase 2: build")
     t_build = time.perf_counter()
-    lib = cuda_build.k2_library()  # builds K1 and K2 together
-    lib_k1 = cuda_build.k1_library()
-    print(f"  K2 and K1 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
+    lib = cuda_build.k2_library()  # builds K1, K2 and K3 together
+    lib_k1, lib_k3 = cuda_build.k1_library(), cuda_build.k3_library()
+    print(f"  K2, K1 and K3 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
           f"(kernel, width), all at once")
-    for name, built in (("k2", lib), ("k1", lib_k1)):
+    for name, built in (("k2", lib), ("k1", lib_k1), ("k3", lib_k3)):
         print(f"  {name.upper()}: {len(built.libs)} widths {sorted(built.libs)}; "
               f"log {os.path.relpath(built.log_path, repo)}")
         log = built.log_path.read_text() if built.log_path.exists() else ""
@@ -599,6 +884,8 @@ def main() -> None:
           f"bound {b_1m:.3f} ms, {b_1m / ms_res_1m:.1%} of bound)")
     # 7.-10. the training slice ------------------------------------------
     k1_report = training_phases(dev, repo, bound)
+    # 11.-13. the CMB slice ------------------------------------------------
+    k3_report = cmb_phases(dev, repo, bound)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     common = {"route": "cuda", "source": K2_SOURCE, "replaces": REPLACES, "library_ms": None}
@@ -612,6 +899,7 @@ def main() -> None:
          "ms": ms_res, "plain_ms": plain_res, "bound_ms": b_res, "bound_by": by_res,
          "points": n_res, "ms_1m": ms_res_1m, "plain_ms_1m": plain_res_1m},
         k1_report,
+        k3_report,
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ Port of the JAX package's ``benchmarks.py``:
   tangents + residual algebra per point), in true f32;
 * ``run_train_step_bench``: the flagship Adam step in ms per iteration on
   the 81x261 grid with 40.8 % NaN rows (12,516 points), through the
-  ``Trainer``'s own step loop — K1, the reduction and the Adam update.
+  ``Trainer``'s own step loop — K1, the reduction and the Adam update;
+* ``run_cmb_step_bench``: the CMB Adam step in ms per iteration (the
+  reference CMB net 2->[10]x10->6, ``wave_averaged``, 200 fidelity rows and
+  ~20,500 collocation points), through the ``Trainer``'s step loop — K2 and
+  K3 for the residual and the fidelity term, the physics in PyTorch, Adam.
 
 Unlike the JAX bench, a kernel failure is an error: nothing falls back to
 the plain path and reports that instead. ``vs_baseline`` is null: the JAX
@@ -182,5 +186,66 @@ def run_train_step_bench(
         "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
         "points": int(trainer.data.residual_input.shape[0]),
         "path": "k1" if trainer.fused_step_fn is not None else "autograd",
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+
+
+def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device):
+    """A ``Trainer`` on the workload of the JAX package's
+    ``run_cmb_step_bench``, its files under ``tmp``: the reference
+    ``config_CMB.json`` net (2->[10]x10->6, ``make_cmb_config``'s per-output
+    weights), a synthetic CMB pair (``make_cmb_dataset(nx=81, ny=261,
+    n_csv=400, seed=6, nan_fraction=0.03)``), 200 fidelity rows and the
+    residual grid at interval 1 (~20,500 points after the NaN rows are
+    dropped), ``n_iters`` Adam steps."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = os.path.join(tmp, "fid.csv"), os.path.join(tmp, "res.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, n_iters, 0, interval=1, training_points=200)
+    run_dir = os.path.join(tmp, "run")
+    os.makedirs(run_dir)
+    return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
+
+
+def run_cmb_step_bench(
+    *,
+    n_iters: int = 500,
+    reps: int = 3,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """CMB Adam-step time, ms per iteration (median of ``reps`` runs of
+    ``n_iters`` steps after one warm-up run), on :func:`cmb_bench_trainer`'s
+    workload. Each run ends in ``torch.cuda.synchronize()``. Returns
+    ``{"ms_per_iter", "points", "fidelity_points", "path", "device"}``."""
+    import tempfile
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = cmb_bench_trainer(tmp, n_iters, dev)
+        trainer._adam_steps(n_iters)  # warm-up (the first call in a process builds the kernels)
+        sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            trainer._adam_steps(n_iters)
+            sync()
+            times.append(time.perf_counter() - t0)
+    plan = trainer.kernel_plan
+    return {
+        "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
+        "points": int(trainer.data.residual_input.shape[0]),
+        "fidelity_points": int(trainer.data.fidelity_input.shape[0]),
+        "path": "k1" if plan.k1 else ("k2+k3" if plan.fused else "autograd"),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }

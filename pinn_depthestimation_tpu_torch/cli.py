@@ -11,11 +11,13 @@ slices:
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda``; without a CUDA device the verb fails
-unless ``--device cpu`` is given. ``train --mesh``, ``--f64-polish`` and
-``--precision-schedule`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
-``video``, ``parity``, ``test --plot`` and the CMB/legacy ``synth`` outputs
-come with later slices.
+``train`` and ``test`` take newmethod and CMB configs. ``synth`` writes the
+newmethod grid ``data_synth.mat`` and the CMB pair ``input_fid.csv`` +
+``input_res.mat``. ``--device`` defaults to ``cuda``; without a CUDA device
+the verb fails unless ``--device cpu`` is given. ``train --mesh``,
+``--f64-polish`` and ``--precision-schedule`` exit 1 (``ROADMAP.md`` M10,
+M11); ``plot-log``, ``video``, ``parity``, ``test --plot`` and the legacy
+``synth`` outputs come with later slices.
 """
 
 from __future__ import annotations
@@ -147,6 +149,9 @@ def cmd_synth(args) -> int:
     mat = os.path.join(args.out, "data_synth.mat")
     synthetic.make_newmethod_mat(mat, nx=args.nx, ny=args.ny, seed=args.seed)
     print(f"Wrote {mat}")
+    csv, res = os.path.join(args.out, "input_fid.csv"), os.path.join(args.out, "input_res.mat")
+    synthetic.make_cmb_dataset(csv, res, nx=args.nx, ny=args.ny, seed=args.seed)
+    print(f"Wrote {csv} and {res}")
     return 0
 
 
@@ -191,7 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     b.set_defaults(fn=cmd_bench)
 
-    s = sub.add_parser("synth", help="write a synthetic newmethod .mat (reference schema)")
+    s = sub.add_parser("synth", help="write synthetic newmethod and CMB data (reference schema)")
     s.add_argument("--out", required=True)
     s.add_argument("--nx", type=int, default=81)
     s.add_argument("--ny", type=int, default=261)

@@ -1,7 +1,14 @@
 """Host-side data loading with the reference's exact layout.
 
-Port of the JAX package's ``data.py`` for the newmethod pipeline:
+Port of the JAX package's ``data.py`` for the newmethod and CMB pipelines:
 
+* :func:`load_cmb_training_data` — CSV fidelity set (round(3), normalize
+  with dict-wide min/max, random subsample of ``training_points`` rows;
+  reference ``train.py:216-240``) plus ``.mat`` residual grid
+  (``[::interval_x, ::interval_y]`` stride, normalized with the *fidelity*
+  bounds, Fortran-order flatten, NaN-row drop; reference
+  ``train.py:246-277``). The CSV is read with the ``csv`` module, not
+  pandas, and ``np.round(., 3)`` stands for ``frame.round(3)``;
 * :func:`load_newmethod_training_data` — one ``.mat`` supplying inputs
   (normalized per key, with the config's x/y bounds) and raw true fields,
   with the NaN mask of the trues applied to both (reference
@@ -9,14 +16,13 @@ Port of the JAX package's ``data.py`` for the newmethod pipeline:
 * :func:`load_test_data` — full-grid inputs normalized with dict-wide
   min/max and flattened in C order (reference ``test.py:156-183``).
 
-The CMB and legacy loaders read CSV files through pandas in the JAX
-package; they come with those pipelines (``ROADMAP.md`` M8, M9), and
-:func:`load_training_data` raises for them. :func:`_fortran_column` is kept
-for the CMB residual grid.
+The legacy loader comes with its pipeline (``ROADMAP.md`` M9), and
+:func:`load_training_data` raises for it.
 """
 
 from __future__ import annotations
 
+import csv
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -53,6 +59,71 @@ class TrainingData:
     # newmethod pipeline slices one forward for both, reference
     # train_newmethod.py:126-156); never inferred from shapes.
     fidelity_is_residual: bool = False
+
+
+def read_csv_columns(path: str) -> dict[str, np.ndarray]:
+    """A CSV with a header row as float64 columns keyed by name (what
+    ``pandas.read_csv`` gives for an all-numeric file; empty cells are NaN).
+    Python's ``float`` rounds each decimal correctly, pandas' fast parser
+    not always: single values may differ in their last bit, which the CMB
+    loader's ``round(3)`` removes (the tests hold the two loaders equal,
+    array for array)."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if not rows:
+        raise ValueError(f"{path!r} is empty")
+    header, body = rows[0], [r for r in rows[1:] if r]
+    values = np.array([[float(v) if v.strip() else np.nan for v in r] for r in body],
+                      dtype=np.float64).reshape(len(body), len(header))
+    return {name: values[:, i] for i, name in enumerate(header)}
+
+
+def load_cmb_training_data(config: Config,
+                           rng: np.random.RandomState | None = None) -> TrainingData:
+    fd, rd = config.data_fidelity, config.data_residual
+    if fd is None or rd is None:
+        raise ValueError("the CMB loader needs data_fidelity and data_residual sections")
+    if rng is None:
+        rng = np.random.RandomState(config.seed)
+
+    # fidelity: CSV -> round(3) -> column dicts (reference train.py:216-225)
+    frame = {k: np.round(v, 3) for k, v in read_csv_columns(fd.file).items()}
+    fidelity_input = {k: frame[k] for k in frame if k in fd.inputs}
+    fidelity_true = {k: frame[k] for k in frame if k in fd.outputs}
+
+    # dict-wide min/max with the x/y config override (reference train.py:228)
+    input_min_max = ops.get_min_max(fidelity_input, config.raw)
+    for key in fidelity_input:
+        lo, hi = input_min_max[key]
+        fidelity_input[key] = ops.normalize(fidelity_input[key], lo, hi)
+
+    fid_in = np.column_stack([fidelity_input[k] for k in fd.inputs])
+    fid_true = np.column_stack([fidelity_true[k] for k in fd.outputs])
+
+    # random subsample of training_points rows (reference train.py:237-240);
+    # 0/absent keeps all rows, and so does a request >= the row count
+    if fd.training_points and fd.training_points < fid_in.shape[0]:
+        idx = rng.choice(fid_in.shape[0], fd.training_points, replace=False)
+        fid_in, fid_true = fid_in[idx, :], fid_true[idx, :]
+
+    # residual: per-variable .mat -> stride -> normalize with the fidelity
+    # bounds -> Fortran-order column -> hstack (reference train.py:257-273)
+    columns = []
+    for key in rd.inputs:
+        arr = load_mat_var(rd.file, key)[:: rd.interval_x, :: rd.interval_y]
+        lo, hi = input_min_max[key]
+        columns.append(_fortran_column(ops.normalize(arr, lo, hi)))
+    residual_input = columns[0] if len(columns) == 1 else np.hstack(columns)
+
+    # NaN-row drop (reference train.py:276-277)
+    residual_input = residual_input[~np.isnan(residual_input).any(axis=1)]
+
+    return TrainingData(
+        fidelity_input=np.asarray(fid_in, dtype=np.float32),
+        fidelity_true=np.asarray(fid_true, dtype=np.float32),
+        residual_input=np.asarray(residual_input, dtype=np.float32),
+        input_min_max=dict(input_min_max),
+    )
 
 
 def load_newmethod_training_data(config: Config) -> TrainingData:
@@ -94,11 +165,13 @@ def load_newmethod_training_data(config: Config) -> TrainingData:
 def load_training_data(config: Config) -> TrainingData:
     if config.kind == "newmethod":
         return load_newmethod_training_data(config)
-    item = "M9, legacy pipeline" if config.numerical_model is not None else "M8, CMB pipeline"
-    raise NotImplementedError(
-        f"the {config.kind!r} training loader is not ported yet "
-        f"(ROADMAP.md Queue 1, {item})"
-    )
+    rd = config.data_residual
+    if config.numerical_model is not None and rd is not None and rd.snapshots and not rd.file:
+        raise NotImplementedError(
+            f"the {config.kind!r} training loader is not ported yet "
+            "(ROADMAP.md Queue 1, M9, legacy pipeline)"
+        )
+    return load_cmb_training_data(config)
 
 
 @dataclass

@@ -4,11 +4,11 @@ Each kernel source under ``csrc/`` is compiled by ``nvcc`` into shared
 libraries with a plain C interface and loaded with ``ctypes``. The build
 runs at first use, from the sources in the package only, into
 ``_build/<name>-<hash>/`` beside ``csrc/`` (listed in ``.gitignore``); the
-hash covers the source, the flags and the variants, so a second process
-reuses the libraries and an edited source builds anew. Each source is
-compiled in several variants (one per hidden width), and every ``nvcc`` of
-every kernel (K1 and K2: ten) is started together, at the first use of
-either kernel.
+hash covers the source, the headers of ``csrc/``, the flags and the
+variants, so a second process reuses the libraries and an edited source
+builds anew. Each source is compiled in several variants (one per hidden
+width), and every ``nvcc`` of every kernel (K1, K2 and K3: fifteen) is
+started together, at the first use of any kernel.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -38,10 +38,13 @@ NVCC_FLAGS = (
 
 K2_SOURCE = "mlp_fwd_tangents.cu"
 K1_SOURCE = "continuity_train_step.cu"
-# Hidden widths K2 and K1 are compiled for: the repo's configs use 10 (CMB)
-# and 20 (flagship); the rest cover the narrow test nets and a wider option.
+K3_SOURCE = "mlp_bwd.cu"  # with K1, the walk of mlp_bwd_common.cuh
+# Hidden widths the kernels are compiled for: the repo's configs use 10
+# (CMB) and 20 (flagship); the rest cover the narrow test nets and a wider
+# option.
 K2_WIDTHS = (8, 10, 16, 20, 32)
 K1_WIDTHS = K2_WIDTHS
+K3_WIDTHS = K2_WIDTHS
 
 
 @dataclass
@@ -74,8 +77,9 @@ def _start(name: str, source: str, variants: dict[int, tuple[str, ...]]) -> dict
     """Start one ``nvcc`` per variant that is not built yet; returns what
     :func:`_finish` needs."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(
-        src.read_bytes() + repr((NVCC_FLAGS, sorted(variants.items()))).encode()
+        src.read_bytes() + headers + repr((NVCC_FLAGS, sorted(variants.items()))).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{name}-{key}"
     targets = {v: out_dir / f"lib{name}_{v}.so" for v in variants}
@@ -144,6 +148,20 @@ def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_k3(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k3_mlp_bwd.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.k3_mlp_bwd.restype = i
+    lib.k3_error_string.argtypes = [i]
+    lib.k3_error_string.restype = ctypes.c_char_p
+    for fn in (lib.k3_width, lib.k3_threads):
+        fn.argtypes = []
+        fn.restype = i
+    lib.k3_chunk_layers.argtypes = [i, i]
+    lib.k3_chunk_layers.restype = i
+    return lib
+
+
 @functools.cache
 def _libraries() -> dict[str, KernelLibrary]:
     """Every kernel's libraries, built together on the first call in a
@@ -151,6 +169,7 @@ def _libraries() -> dict[str, KernelLibrary]:
     jobs = [
         (_start("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}), _bind_k2),
         (_start("k1", K1_SOURCE, {w: (f"-DK1_WIDTH={w}",) for w in K1_WIDTHS}), _bind_k1),
+        (_start("k3", K3_SOURCE, {w: (f"-DK3_WIDTH={w}",) for w in K3_WIDTHS}), _bind_k3),
     ]
     try:
         return {job["name"]: _finish(job, bind) for job, bind in jobs}
@@ -172,3 +191,9 @@ def k1_library() -> KernelLibrary:
     """K1 (``csrc/continuity_train_step.cu``), one library per width in
     :data:`K1_WIDTHS`."""
     return _libraries()["k1"]
+
+
+def k3_library() -> KernelLibrary:
+    """K3 (``csrc/mlp_bwd.cu``), one library per width in
+    :data:`K3_WIDTHS`, each holding K = 0..3."""
+    return _libraries()["k3"]

@@ -241,9 +241,10 @@ def unflatten(flat: torch.Tensor, spec: MLPSpec) -> dict[str, torch.Tensor]:
     return out
 
 
-def _launch_k1(params, b: StepBatch, spec: MLPSpec) -> torch.Tensor:
-    """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result."""
-    lib = k1_library().libs[spec.width]
+def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None) -> torch.Tensor:
+    """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result. ``lib``:
+    another build of K1 for this width (a check of a rebuilt source)."""
+    lib = lib or k1_library().libs[spec.width]
     dev = b.coords.device
     n, W, n_stack = b.coords.shape[0], spec.width, spec.n_hidden - 1
     threads = lib.k1_threads()

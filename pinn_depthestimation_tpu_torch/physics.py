@@ -1,23 +1,35 @@
 """PDE residuals over field values and their coordinate derivatives.
 
-Port of the forward subset of the JAX package's ``physics.py``: the two
-continuity equations of the flagship newmethod pipeline,
+Port of the JAX package's ``physics.py`` for the newmethod and CMB
+pipelines:
 
 * ``continuity_only``  — depth-anchored continuity (reference ``physics.py:18-33``);
 * ``continuity_ftemp`` — anchor-free continuity (reference ``physics.py:37-47``);
+* ``wave_averaged``    — wave-averaged momentum with bottom friction and
+  radiation stresses (reference ``physics.py:91-120``), with its
+  sufficient-statistics form;
 
 and the model -> physics bridge :func:`model_fields_and_grads`. Callers
 supply ``grads[coord][field]``, forward-mode derivatives of every network
 output from one fused pass (``models.mlp.mlp_apply_with_tangents`` or the
-K2 kernel in ``ops.kernels``).
+K2 kernel in ``ops.kernels``). The coordinate derivatives of the radiation
+stresses, which the JAX package takes with ``jax.jvp`` of a pointwise
+function of ``(h, Hrms, k)``, are the chain rule written out, so plain
+autograd differentiates them.
 
-``navier_stokes`` and ``wave_averaged`` belong to the legacy and CMB
-pipelines and are queued in ``ROADMAP.md`` (M8, M9).
+``navier_stokes`` belongs to the legacy pipeline and is queued in
+``ROADMAP.md`` (M9).
 
-Parity quirk 2 (SURVEY.md §5), kept: ``continuity_only``'s depth anchor
-compares the x coordinate exactly as stored (normalized, in the shipped
-pipeline) against 25.5, and an empty selection gives NaN, as
-``torch.mean`` of an empty tensor does in the reference.
+Parity quirks (SURVEY.md §5), kept:
+
+1. the reference's radiation-stress prefactor ``E = 1/8**rho*g*Hrms**2``
+   parses as ``(1/8**1025)*...``, exactly 0.0: ``parity=True`` keeps
+   ``E = 0`` (and its zero products, so ``0*inf`` stays NaN), ``parity=False``
+   computes the intended ``rho*g*Hrms**2/8``;
+2. ``continuity_only``'s depth anchor compares the x coordinate exactly as
+   stored (normalized, in the shipped pipeline) against 25.5, and an empty
+   selection gives NaN, as ``torch.mean`` of an empty tensor does in the
+   reference.
 """
 
 from __future__ import annotations
@@ -25,6 +37,10 @@ from __future__ import annotations
 from typing import Callable, Mapping
 
 import torch
+
+G = 9.81          # m/s^2 (reference physics.py:75,97)
+RHO = 1025.0      # kg/m^3 (reference physics.py:98)
+CD = 0.002        # drag coefficient (reference physics.py:71,99)
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -80,6 +96,113 @@ def continuity_ftemp(coords, fields, grads, *, mask=None, parity: bool = True):
     return masked_mean(fc**2, mask)
 
 
+# ---------------------------------------------------------------------------
+# wave_averaged — reference physics.py:91-120 (``physics_equation``)
+# ---------------------------------------------------------------------------
+
+def _radiation_prefactor(hrms, d_hrms, parity: bool):
+    """``(E, dE/dc)`` for the coordinate derivative ``d_hrms`` of Hrms."""
+    if parity:
+        # Reference: E = 1/8**rho*g*Hrms**2 -> (1/8**1025)*... == 0.0 exactly
+        # (operator precedence). Kept in the graph, so downstream hazards
+        # (inf * 0) match.
+        return torch.zeros_like(hrms), torch.zeros_like(d_hrms)
+    return RHO * G * hrms**2 / 8.0, RHO * G * (2.0 * hrms * d_hrms) / 8.0
+
+
+def _t_over_sinh(t):
+    """``(r, dr/dt)`` of ``r = t / sinh(t)``, numerically stable under AD.
+
+    The even Taylor series serves ``|t| < 0.5``: the quotient rule's
+    numerator ``sinh t - t cosh t`` cancels catastrophically at small ``t``
+    (the JAX package's ``_t_over_sinh`` docstring has the measurement). The
+    direct branch serves ``|t| >= 0.5``, its argument set to 1 where unused
+    so ``sinh`` is never 0 (``where``-guarded, as in JAX)."""
+    small = torch.abs(t) < 0.5
+    ts = torch.where(small, t, torch.zeros_like(t))   # series arg (0 where unused)
+    tb = torch.where(small, torch.ones_like(t), t)    # direct arg (never 0)
+    t2 = ts * ts
+    series = 1.0 + t2 * (
+        -1.0 / 6.0 + t2 * (7.0 / 360.0 + t2 * (
+            -31.0 / 15120.0 + t2 * (127.0 / 604800.0)))
+    )
+    # d(series)/dt = 2 t P'(t^2)
+    d_series = 2.0 * ts * (
+        -1.0 / 6.0 + t2 * (2.0 * 7.0 / 360.0 + t2 * (
+            3.0 * -31.0 / 15120.0 + t2 * (4.0 * 127.0 / 604800.0)))
+    )
+    sinh_b = torch.sinh(tb)
+    d_direct = 1.0 / sinh_b - tb * torch.cosh(tb) / sinh_b**2
+    return (torch.where(small, series, tb / sinh_b),
+            torch.where(small, d_series, d_direct))
+
+
+def _stress_derivatives(fields, dfields, parity: bool):
+    """``(d Sxx/dc, d Syy/dc)`` for one coordinate c, with
+    ``Sxx = E*(r + 1/2)`` and ``Syy = E*r/2``, ``r = t/sinh(t)``,
+    ``t = 2*k*h``: the chain rule ``E_c*(r + 1/2) + E*r'(t)*t_c`` with
+    ``t_c = 2*(k_c*h + k*h_c)``, written out where the JAX package takes
+    ``jax.jvp`` (``derived_and_grad``)."""
+    h, k = fields["h"], fields["k"]
+    e, e_c = _radiation_prefactor(fields["Hrms"], dfields["Hrms"], parity)
+    r, dr = _t_over_sinh(2.0 * k * h)
+    t_c = 2.0 * (dfields["k"] * h + k * dfields["h"])
+    r_c = dr * t_c
+    return e_c * (r + 0.5) + e * r_c, e_c * (0.5 * r) + e * (0.5 * r_c)
+
+
+def wave_averaged_residuals(fields, grads, *, parity: bool = True):
+    """Pointwise (continuity, x-momentum, y-momentum) residuals."""
+    h, U, V = fields["h"], fields["U"], fields["V"]
+    eta = fields["eta_mean"]
+    dx, dy = grads["x"], grads["y"]
+
+    u_x, u_y = dx["U"], dy["U"]
+    v_x, v_y = dx["V"], dy["V"]
+    z_x, z_y = dx["eta_mean"], dy["eta_mean"]
+
+    tau_bx = RHO * CD * U * torch.abs(U)
+    tau_by = RHO * CD * V * torch.abs(V)
+
+    sxx_x, _ = _stress_derivatives(fields, dx, parity)
+    _, syy_y = _stress_derivatives(fields, dy, parity)
+
+    inv_rho_d = 1.0 / (RHO * (eta + h))
+    fc = u_x + v_y
+    fx = U * u_x + V * u_y + G * z_x + inv_rho_d * sxx_x + inv_rho_d * tau_bx
+    fy = U * v_x + V * v_y + G * z_y + inv_rho_d * syy_y + inv_rho_d * tau_by
+    return fc, fx, fy
+
+
+def wave_averaged(coords, fields, grads, *, mask=None, parity: bool = True):
+    del coords
+    fc, fx, fy = wave_averaged_residuals(fields, grads, parity=parity)
+    return masked_mean(fc**2, mask) + masked_mean(fx**2, mask) + masked_mean(fy**2, mask)
+
+
+def _mask_of(values, mask):
+    return torch.ones_like(values) if mask is None else mask.to(values.dtype)
+
+
+def wave_averaged_stats(coords, fields, grads, *, mask=None, parity: bool = True):
+    """The sums ``wave_averaged`` is a ratio of: summed over chunks of the
+    points and combined by :func:`_three_term_from_stats`, they give the
+    full-batch loss exactly."""
+    del coords
+    fc, fx, fy = wave_averaged_residuals(fields, grads, parity=parity)
+    m = _mask_of(fc, mask)
+    return {
+        "sum_fc2": torch.sum(fc**2 * m),
+        "sum_fx2": torch.sum(fx**2 * m),
+        "sum_fy2": torch.sum(fy**2 * m),
+        "n": torch.sum(m),
+    }
+
+
+def _three_term_from_stats(s):
+    return (s["sum_fc2"] + s["sum_fx2"] + s["sum_fy2"]) / s["n"]
+
+
 def model_fields_and_grads(
     apply_with_tangents: Callable,
     coords: torch.Tensor,
@@ -118,10 +241,11 @@ def model_fields_and_grads(
 EQUATIONS: dict[str, tuple[Callable, tuple[str, ...]]] = {
     "continuity_only": (continuity_only, ("x", "y")),
     "continuity_ftemp": (continuity_ftemp, ("x", "y")),
+    "wave_averaged": (wave_averaged, ("x", "y")),
 }
 
 # Equations of the JAX package that the port has not reached yet.
-_QUEUED = {"navier_stokes": "M9", "wave_averaged": "M8"}
+_QUEUED = {"navier_stokes": "M9"}
 
 
 def _lookup(name: str):

@@ -8,11 +8,12 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
   staircase ``exponential_decay``;
 * the L-BFGS phase is ``optim.lbfgs.LBFGSRunner`` (torch semantics plus
   the JAX package's stall restarts and cautious curvature update);
-* every loss evaluation goes through one value-and-gradient function: K1
-  (``ops.kernels_step``, the one-kernel training step) when the
-  configuration qualifies and the batch is on the card, else autograd of
-  ``training.loss.build_loss_fn`` (:func:`decide_kernels`, which raises
-  rather than train through autograd on the card where K1 lacks the width);
+* every loss evaluation goes through one value-and-gradient function
+  (:func:`decide_kernels`): K1 (``ops.kernels_step``, the one-kernel
+  training step) when the configuration qualifies, else autograd of
+  ``training.loss.build_loss_fn`` — on the card through the generic fused
+  path (K2 forward, K3 backward, ``ops.kernels_vjp``) wherever its
+  structural conditions hold, so the CMB pipeline runs kernels only;
 * ``log.txt`` gets one reference-format row per evaluation, flushed once
   per 1000-step chunk from a device buffer (no host sync per Adam step);
 * ``model_<iter>.npz`` checkpoints at the reference cadence carry the
@@ -34,18 +35,20 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from scipy.io import savemat
 
 from pinn_depthestimation_tpu_torch import data as data_mod
+from pinn_depthestimation_tpu_torch import physics
 from pinn_depthestimation_tpu_torch.config import Config
 from pinn_depthestimation_tpu_torch.device import resolve_device
 from pinn_depthestimation_tpu_torch.inference import resolve_use_kernel
 from pinn_depthestimation_tpu_torch.models import MLPSpec, init_mlp_params, mlp_apply, params_from_numpy
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
-from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
 from pinn_depthestimation_tpu_torch.optim import lbfgs as lbfgs_mod
 from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
 from pinn_depthestimation_tpu_torch.training.logging_utils import LossLog, make_run_dir
@@ -82,23 +85,57 @@ def _queued(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
 
+class KernelPlan(NamedTuple):
+    """Which kernels a Trainer runs (:func:`decide_kernels`)."""
+
+    k1: bool       # the one-kernel training step for every loss evaluation
+    fused: bool    # the generic fused path: K2 forward + K3 backward
+    predict: bool  # K2 for the snapshot and predict
+
+
+def fused_structurally_ok(config: Config, spec: MLPSpec) -> bool:
+    """The JAX package's structural conditions for the generic fused path
+    (``training/driver.py:228-232``, ``:257-260``): no dropout, at least one
+    hidden layer, width/d_in/d_out within 128, and the differentiated
+    coordinates leading the residual inputs, in order."""
+    if spec.dropout_rate or spec.n_hidden < 1 or max(spec.width, spec.d_in, spec.d_out) > 128:
+        return False
+    inputs = resolve_names(config)["residual_inputs"]
+    needed = physics.required_grad_coords(config.physics)
+    return all(c in inputs for c in needed) and (
+        [inputs.index(c) for c in needed] == list(range(len(needed))))
+
+
 def decide_kernels(config: Config, spec: MLPSpec, fidelity_is_residual: bool,
-                   device_type: str) -> tuple[bool, bool]:
-    """``(K1 for every loss evaluation, K2 for the snapshot and predict)``
-    on a device of ``device_type``.
+                   device_type: str) -> KernelPlan:
+    """Which kernels run on a device of ``device_type``: K1, the generic
+    fused path (K2 + K3) and K2-predict.
 
     ``fused_kernel``: ``'off'`` is the caller's request for the plain paths
-    (autograd of the loss, ``mlp_apply``). ``'on'`` takes K1 and raises for
-    a configuration outside the one-kernel gate. ``'auto'`` takes K1 on the
-    card whenever the gate holds — no size or depth gate: the JAX package's
-    were TPU measurements — and autograd where the gate does not hold, as
-    the JAX ``'auto'`` takes XLA. Where the gate holds on the card but K1
-    was not compiled for the width, both raise, naming ``K1_WIDTHS`` and
-    ``fused_kernel='off'``; K2 likewise (:func:`inference.resolve_use_kernel`).
-    On the CPU the wrappers run their plain versions."""
+    (autograd of the loss, ``mlp_apply``). ``'auto'`` and ``'on'`` take K1
+    wherever the one-kernel gate holds; otherwise the generic fused path
+    (residual forward and fidelity forward through K2, their backward
+    through K3) wherever the JAX structural conditions hold
+    (:func:`fused_structurally_ok`). Where those fail, ``'on'`` raises and
+    ``'auto'`` takes autograd, as the JAX ``'auto'`` takes XLA. On the card
+    ``'auto'`` takes the kernels; on the CPU only ``'on'`` does (their plain
+    versions).
+
+    Divergence from the JAX ``'auto'`` (the values are the same, only the
+    route differs): no size or depth gate. The JAX package keeps the fused
+    path off below 8192 collocation points or 16 hidden layers outside the
+    one-kernel gate, and the separate fidelity forward on XLA below
+    ``FUSED_FIDELITY_MIN_POINTS``; those were TPU measurements, so on the
+    card the CMB net (10 hidden layers) trains through K2 + K3 and its 200
+    fidelity rows go through K2 (K=0) + K3 (K=0).
+
+    Where a gate holds on the card but its kernel was not compiled for the
+    width, this raises, naming ``K1_WIDTHS`` or ``K3_WIDTHS`` and
+    ``fused_kernel='off'``; K2-predict likewise
+    (:func:`inference.resolve_use_kernel`)."""
     mode = config.fused_kernel
     on_card = device_type == "cuda"
-    use_k1 = False
+    use_k1 = use_fused = False
     if mode != "off":
         if one_kernel_step_applicable(config, spec, fidelity_is_residual):
             if on_card and not kernels_step.kernel_supports(spec):
@@ -108,16 +145,28 @@ def decide_kernels(config: Config, spec: MLPSpec, fidelity_is_residual: bool,
                     "fused_kernel='off' to train through plain autograd"
                 )
             use_k1 = mode == "on" or on_card
+        elif fused_structurally_ok(config, spec):
+            n_tangents = len(physics.required_grad_coords(config.physics))
+            if on_card and not (kernels_vjp.kernel_supports(spec)
+                                and n_tangents <= min(kernels.MAX_TANGENTS, spec.d_in)):
+                raise ValueError(
+                    f"K2 and K3 were not compiled for sizes {spec.sizes} with "
+                    f"{n_tangents} tangents: they take a width in "
+                    f"K3_WIDTHS={kernels_vjp.K3_WIDTHS}, d_in <= {kernels.MAX_D_IN}, "
+                    f"d_out <= {kernels.MAX_D_OUT} and <= 3 tangents; set "
+                    "fused_kernel='off' to train through plain autograd"
+                )
+            use_fused = mode == "on" or on_card
         elif mode == "on":
             raise ValueError(
-                "fused_kernel='on' needs the one-kernel training step (K1): "
-                "newmethod shared points, continuity physics, heads (U, V, h) and "
-                f"no dropout; sizes {spec.sizes}, physics {config.physics!r} do not "
-                "qualify. The generic fused backward (K3) is not ported yet "
-                "(ROADMAP.md Queue 2, K3)"
+                "fused_kernel='on' needs the one-kernel training step (K1) or the "
+                "generic fused path (K2 forward + K3 backward): no dropout, >= 1 "
+                "hidden layer, width/d_in/d_out <= 128 and the differentiated "
+                f"coordinates leading the residual inputs; sizes {spec.sizes}, "
+                f"dropout {spec.dropout_rate} and physics {config.physics!r} do not qualify"
             )
     use_k2 = resolve_use_kernel(spec, device_type, False if mode == "off" else None)
-    return use_k1, use_k2
+    return KernelPlan(use_k1, use_fused, use_k2)
 
 
 class Trainer:
@@ -164,23 +213,29 @@ class Trainer:
             for k in ("fidelity_input", "fidelity_true", "residual_input")
         }
         fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
-        self.use_fused_kernel, self._predict_kernel = decide_kernels(
-            config, self.spec, fidelity_is_residual, self.device.type)
+        self.kernel_plan = decide_kernels(config, self.spec, fidelity_is_residual,
+                                          self.device.type)
         self.loss_fn = build_loss_fn(
             config, self.spec, residual_chunk_size=config.residual_chunk_size,
-            input_min_max=self.data.input_min_max, fidelity_is_residual=fidelity_is_residual,
+            input_min_max=self.data.input_min_max, fused_kernel=self.kernel_plan.fused,
+            fused_precision=config.resolved_kernel_precision(),
+            fidelity_is_residual=fidelity_is_residual,
         )
         self.fused_step_fn = build_value_and_grad_fn(
             config, self.spec, input_min_max=self.data.input_min_max,
-            fused_kernel=self.use_fused_kernel,
+            fused_kernel=self.kernel_plan.k1,
             fused_precision=config.resolved_kernel_precision(),
             fidelity_is_residual=fidelity_is_residual,
         )
         self.value_and_grad_fn = self.fused_step_fn or value_and_grad(self.loss_fn)
-        step = ("K1, the one-kernel training step" + (" (CUDA)" if self.device.type == "cuda"
-                                                      else " (plain version on the CPU)")
-                if self.fused_step_fn else "autograd of the loss (plain PyTorch)")
-        predict = "K2" if self._predict_kernel else "plain mlp_apply"
+        where = " (CUDA)" if self.device.type == "cuda" else " (plain versions on the CPU)"
+        if self.fused_step_fn:
+            step = "K1, the one-kernel training step" + where
+        elif self.kernel_plan.fused:
+            step = "autograd of the loss through K2 forward + K3 backward" + where
+        else:
+            step = "autograd of the loss (plain PyTorch)"
+        predict = "K2" if self.kernel_plan.predict else "plain mlp_apply"
         print(f"Training step: {step}; snapshot/predict: {predict}; device {self.device}")
 
         if initial_params is not None:
@@ -369,7 +424,7 @@ class Trainer:
     @torch.no_grad()
     def predict(self, inputs: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(inputs, np.float32)).to(self.device)
-        if self._predict_kernel:
+        if self.kernel_plan.predict:
             y, _ = kernels.mlp_fwd_tangents(self.state.params, x, self.spec, 0,
                                             precision=self.config.resolved_kernel_precision())
         else:

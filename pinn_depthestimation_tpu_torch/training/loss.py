@@ -10,13 +10,16 @@ Port of the JAX package's ``training/loss.py`` (reference
   derivatives from one forward-with-tangents pass;
 * total = ``weight_fid_loss * fidelity + weight_res_loss * residual``.
 
-Ported: the plain path and the shared-forward path (newmethod: fidelity and
+Ported: the plain path, the shared-forward path (newmethod: fidelity and
 residual on one point set, certified by the loader's
-``fidelity_is_residual``), the quirk-2 anchor toggle, the one-kernel gate
-and :func:`build_value_and_grad_fn` (K1). The chunked path under
-``jax.checkpoint`` is not ported yet: a set ``residual_chunk_size`` raises
-(``ROADMAP.md`` Queue 1, M3 chunked path); neither are the fused custom-VJP
-kernels of the CMB and legacy pipelines (K3, K4).
+``fidelity_is_residual``), the separate fidelity forward with per-output
+weights (CMB), the quirk-2 anchor toggle, the one-kernel gate and
+:func:`build_value_and_grad_fn` (K1), and the generic fused path
+(``fused_kernel``): the residual forward with its K coordinate tangents and
+the fidelity forward (K=0) through ``ops.kernels_vjp.
+fused_apply_with_tangents`` — K2 forward and K3 backward on the card. The
+chunked path under ``jax.checkpoint`` is not ported yet: a set
+``residual_chunk_size`` raises (``ROADMAP.md`` Queue 1, M3 chunked path).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from pinn_depthestimation_tpu_torch import physics
 from pinn_depthestimation_tpu_torch.config import Config
 from pinn_depthestimation_tpu_torch.models import MLPSpec, mlp_apply, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
-from pinn_depthestimation_tpu_torch.ops import kernels_step
+from pinn_depthestimation_tpu_torch.ops import kernels_step, kernels_vjp
 
 
 def resolve_names(config: Config) -> dict:
@@ -90,6 +93,8 @@ def build_loss_fn(
     *,
     residual_chunk_size: int | None = None,
     input_min_max: dict | None = None,
+    fused_kernel: bool = False,
+    fused_precision: str = "f32",
     fidelity_is_residual: bool = False,
 ) -> Callable:
     """Returns ``loss_fn(params, batch, dropout_generator=None) -> (total,
@@ -98,7 +103,16 @@ def build_loss_fn(
     ``fidelity_mask``/``residual_mask`` (masked means). A configuration
     inside the one-kernel gate (:func:`one_kernel_step_applicable`) gets
     ``ops.kernels_step.shared_forward_loss_plain``, the plain form K1 is
-    held to; one point set there carries one mask, ``residual_mask``."""
+    held to; one point set there carries one mask, ``residual_mask``.
+
+    ``fused_kernel``: the residual forward (K coordinate tangents) and the
+    separate fidelity forward (K=0) go through
+    ``ops.kernels_vjp.fused_apply_with_tangents`` — K2 forward and K3
+    backward for a batch on the card, their plain versions on the CPU. It
+    needs the differentiated coordinates to lead the residual inputs, in
+    order, and no dropout, and raises otherwise, as the JAX package does.
+    Unlike the JAX package, the fidelity forward takes the kernels at every
+    size: its ``FUSED_FIDELITY_MIN_POINTS`` was a TPU measurement."""
     if residual_chunk_size is not None:
         raise NotImplementedError(
             "the chunked residual loss (residual_chunk_size) is not ported yet "
@@ -124,6 +138,18 @@ def build_loss_fn(
             f"but the config marks {no_grad} as requires_grad=false"
         )
     grad_coords = list(needed)
+    if fused_kernel:
+        # the kernels produce tangents for the FIRST K input columns in order
+        cols = [residual_inputs.index(c) for c in grad_coords]
+        if cols != list(range(len(cols))):
+            raise ValueError(
+                "fused_kernel requires the differentiated coordinates to be "
+                f"the leading residual inputs in order; got {grad_coords} "
+                f"within {residual_inputs}"
+            )
+        if spec.dropout_rate:
+            raise ValueError("fused_kernel does not support dropout")
+        kernels_vjp.check_precision(fused_precision, "K3")
     fid_weight_list = [config.output_weight(k) for k in fid_outputs]
     parity = config.parity
     equation_kwargs = _anchor_kwargs(config, input_min_max)
@@ -143,6 +169,21 @@ def build_loss_fn(
 
         return shared_loss_fn
 
+    def apply_with_tangents(params):
+        if fused_kernel:
+            return lambda x, t: kernels_vjp.fused_apply_with_tangents(
+                params, x, spec, t.shape[0], fused_precision)
+        return lambda x, t: mlp_apply_with_tangents(params, x, t, spec)
+
+    def fidelity_forward(params, x, dropout_generator):
+        """The separate fidelity forward (reference train.py:131-141): the
+        CMB pipeline's observation points differ from its collocation
+        grid."""
+        if fused_kernel:
+            y, _ = kernels_vjp.fused_apply_with_tangents(params, x, spec, 0, fused_precision)
+            return y
+        return mlp_apply(params, x, spec, dropout_generator=dropout_generator)
+
     def loss_fn(params, batch, dropout_generator=None):
         res_input = batch["residual_input"]
         fid_weights = torch.as_tensor(fid_weight_list, dtype=res_input.dtype,
@@ -159,8 +200,7 @@ def build_loss_fn(
             return torch.sum(fid_weights * per_output)
 
         coords, fields, grads = physics.model_fields_and_grads(
-            lambda x, t: mlp_apply_with_tangents(params, x, t, spec),
-            res_input, residual_inputs, grad_coords, net_outputs,
+            apply_with_tangents(params), res_input, residual_inputs, grad_coords, net_outputs,
         )
         residual = equation(coords, fields, grads, mask=batch.get("residual_mask"),
                             parity=parity, **equation_kwargs)
@@ -168,9 +208,8 @@ def build_loss_fn(
             # fidelity output i == network output i for the true heads
             fidelity = fidelity_from(torch.stack([fields[k] for k in net_outputs], dim=-1))
         else:
-            # separate fidelity forward (reference train.py:131-141)
-            fidelity = fidelity_from(mlp_apply(params, batch["fidelity_input"], spec,
-                                               dropout_generator=dropout_generator))
+            fidelity = fidelity_from(
+                fidelity_forward(params, batch["fidelity_input"], dropout_generator))
         total = config.weight_fidelity * fidelity + config.weight_residual * residual
         return total, (fidelity, residual)
 

@@ -1,20 +1,26 @@
 """Synthetic nearshore datasets in the reference's file schema.
 
-Port of the newmethod part of the JAX package's ``utils/synthetic.py``
-(numpy and ``scipy.io.savemat`` only). The reference consumes private
-FUNWAVE-TVD products that are not shipped; these generators write
-physically plausible stand-ins with the same layout, so the serving path
-runs end to end:
+Port of the newmethod and CMB parts of the JAX package's
+``utils/synthetic.py`` (numpy, the ``csv`` module and ``scipy.io.savemat``
+only). The reference consumes private FUNWAVE-TVD products that are not
+shipped; these generators write physically plausible stand-ins with the
+same layout, so the pipelines run end to end:
 
 * newmethod ``.mat``: columns ``x, y, U, V, h`` of shape ``(N, 1)`` on an
   ``ny x nx`` grid with optional NaN rows in the observed fields (reference
-  ``train_newmethod.py:226-250``).
+  ``train_newmethod.py:226-250``);
+* CMB fidelity CSV with columns ``x, y, h, U, V, eta_mean, Hrms, k``
+  (reference ``train.py:217``) and residual ``.mat`` with 2-D grid
+  variables (reference ``train.py:258-260``).
 
-The CMB CSV/``.mat`` pair and the FUNWAVE snapshot directory come with the
-CMB and legacy slices (``ROADMAP.md``).
+Each generator makes the same draws as the JAX package's for the same
+arguments. The FUNWAVE snapshot directory comes with the legacy slice
+(``ROADMAP.md`` M9).
 """
 
 from __future__ import annotations
+
+import csv
 
 import numpy as np
 from scipy.io import savemat
@@ -95,3 +101,46 @@ def make_newmethod_mat(
             cols[key][nan_rows] = np.nan
     savemat(path, cols)
     return cols
+
+
+def make_cmb_dataset(
+    csv_path: str,
+    mat_path: str,
+    *,
+    nx=81,
+    ny=261,
+    n_csv=400,
+    seed=0,
+    x_min=25.0,
+    x_max=33.0,
+    y_min=-13.0,
+    y_max=13.0,
+    nan_fraction=0.02,
+    fields="plane",
+):
+    """Write an ``input_fid.csv`` + ``input_res.mat`` pair; returns the CSV
+    columns and the ``.mat`` variables. The CSV holds ``n_csv`` uniformly
+    drawn gauges, each value in its shortest round-trip decimal form (as
+    pandas writes a float64 column); the ``.mat`` holds the ``ny x nx``
+    grids, with ``nan_fraction`` of the x cells set to NaN."""
+    rng = np.random.RandomState(seed)
+
+    xs = rng.uniform(x_min, x_max, n_csv)
+    ys = rng.uniform(y_min, y_max, n_csv)
+    columns = {"x": xs, "y": ys, **FIELD_PROFILES[fields](xs, ys)}
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(list(columns))
+        for row in zip(*columns.values()):
+            writer.writerow([repr(float(v)) for v in row])
+
+    X, Y = grid(nx, ny, x_min, x_max, y_min, y_max)
+    mat = {"x": X, "y": Y, **FIELD_PROFILES[fields](X, Y)}
+    n_nan = int(nan_fraction * X.size)
+    if n_nan:
+        flat_rows = rng.choice(X.size, n_nan, replace=False)
+        xg = mat["x"].copy().reshape(-1)
+        xg[flat_rows] = np.nan
+        mat["x"] = xg.reshape(X.shape)
+    savemat(mat_path, mat)
+    return columns, mat

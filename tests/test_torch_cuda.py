@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K2 and K1 on a card, against their plain PyTorch
-versions.
+"""The port's CUDA kernels K2, K1 and K3 on a card, against their plain
+PyTorch versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a CUDA kernel has no CPU mode). The file imports no JAX, so it runs on the
@@ -12,7 +12,8 @@ f32 FMA chains in the kernel against f32 cuBLAS products in the plain
 version, over up to 120 layers, agree to ~1e-5 of the output's scale
 (``PERF.md``); the 1e-7 only covers outputs that are all near zero. K1's
 loss terms and gradients are held to the same tolerance: on the card they
-agree with the plain version to ~1e-6 of their scale (``PERF.md``).
+agree with the plain version to ~1e-6 of their scale (``PERF.md``), and so
+are K3's gradients.
 """
 
 import numpy as np
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
-from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
 
 
 def numpy_params(sizes, init_type="xavier", seed=0):
@@ -160,3 +161,68 @@ def test_cuda_training_launches_k1_once_per_evaluation(cuda_device, tmp_path):
     epochs, _, _, totals = read_log(run)
     assert kernels_step.fused_loss_and_grad.launches - before == len(epochs) > 30
     assert np.isfinite(totals).all() and totals[29] < totals[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,init_type,kt,n", [
+    ((2,) + (10,) * 10 + (6,), "xavier", 2, 20_513),   # the CMB residual term
+    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity term
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
+    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
+    ((2, 8, 1), "kaiming", 1, 129),                    # one hidden layer, no stack
+    ((3,) + (32,) * 60 + (5,), "xavier", 3, 300),      # deeper than one smem chunk
+])
+def test_cuda_k3_matches_plain_on_card(cuda_device, sizes, init_type, kt, n):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=8), cuda_device)
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, sizes[0])).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(kt, n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    before = kernels_vjp.packed_mlp_bwd.launches
+    g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
+    assert kernels_vjp.packed_mlp_bwd.launches == before + 1
+    g_p = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt)
+    for k in g:
+        assert_close_to_plain(g[k], g_p[k])
+    g2 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
+    assert all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+def test_cuda_cmb_training_runs_on_k2_and_k3(cuda_device, tmp_path):
+    """A CMB Trainer on the card: every loss evaluation launches K2 and K3
+    twice (residual at K=2, fidelity at K=0), and iteration 1 equals the
+    plain path's from the same weights."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=120, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, 20, 4, tol_grad=1e-12, tol_change=1e-14, nx=41, ny=61,
+                          interval=1, training_points=100)
+    init = numpy_params((2,) + (10,) * 10 + (6,), "xavier", seed=1)
+    init["b_out"][3] += 1.0  # eta + h away from 0
+    logs = {}
+    for mode in ("auto", "off"):
+        run = str(tmp_path / mode)
+        os.makedirs(run)
+        trainer = Trainer(parse_config(dict(raw, fused_kernel=mode)), run_dir=run,
+                          echo_every=0, initial_params=init, device=cuda_device)
+        assert trainer.kernel_plan.fused == (mode == "auto")
+        k2, k3 = kernels.mlp_fwd_tangents.launches, kernels_vjp.packed_mlp_bwd.launches
+        trainer.train_adam()
+        trainer.train_lbfgs()
+        epochs, fid, res, totals = read_log(run)
+        n = len(epochs)
+        if mode == "auto":
+            assert kernels_vjp.packed_mlp_bwd.launches - k3 == 2 * n
+            assert kernels.mlp_fwd_tangents.launches - k2 == 2 * n
+        assert n > 20 and np.isfinite(totals).all()
+        logs[mode] = np.array([fid, res, totals])
+    np.testing.assert_allclose(logs["auto"][:, 0], logs["off"][:, 0], rtol=1e-5)

@@ -96,15 +96,23 @@ def test_newmethod_loader_matches_jax(mat):
 
 
 def test_cmb_loader_is_queued(tmp_path):
+    """The CMB loader (M8) is ported: a CMB config loads its CSV and grid;
+    the legacy loader (snapshot directory, M9) is still queued."""
     from pinn_depthestimation_tpu_torch.utils import synthetic as psynth
 
-    mat = str(tmp_path / "d.mat")
-    psynth.make_newmethod_mat(mat, nx=4, ny=4)
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    psynth.make_cmb_dataset(csv, mat, nx=4, ny=5, n_csv=12, seed=2)
     raw = raw_config(mat)
     del raw["data"]
-    raw["data_fidelity"] = {"file": "f.csv", "inputs": ["x", "y"], "outputs": ["U", "V"]}
+    raw["data_fidelity"] = {"file": csv, "inputs": ["x", "y"], "outputs": ["U", "V"]}
     raw["data_residual"] = {"file": mat, "inputs": ["x", "y"], "outputs": ["U", "V", "h"]}
-    with pytest.raises(NotImplementedError, match="M8"):
+    td = data.load_training_data(parse_config(raw))
+    assert td.fidelity_true.shape == (12, 2) and td.residual_input.shape[1] == 2
+    assert not td.fidelity_is_residual
+    raw["data_residual"] = {"inputs": ["x", "y"], "outputs": ["U", "V", "h"], "snapshots": [1]}
+    raw["numerical_model"] = {"dir": str(tmp_path), "nx": 4, "ny": 5, "dx": 1.0,
+                              "dy": 1.0, "x_min": 0.0, "y_min": 0.0, "number_of_files": 1}
+    with pytest.raises(NotImplementedError, match="M9"):
         data.load_training_data(parse_config(raw))
 
 

@@ -120,6 +120,7 @@ def test_model_fields_and_grads_matches_jax():
 def test_registry():
     with pytest.raises(KeyError, match="available"):
         physics.residual_loss("nope")
-    for queued in ("navier_stokes", "wave_averaged"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            physics.residual_loss(queued)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        physics.residual_loss("navier_stokes")
+    assert physics.residual_loss("wave_averaged") is physics.wave_averaged
+    assert physics.required_grad_coords("wave_averaged") == ("x", "y")

@@ -219,7 +219,9 @@ def test_cli_test_save_keys_and_synth(served, tmp_path, capsys):
     assert "Prediction done!" in capsys.readouterr().out
     assert cli.main(["test", "--config", str(tmp_path / "missing.json"), "--device", "cpu"]) == 1
     assert cli.main(["synth", "--out", str(tmp_path / "s"), "--nx", "5", "--ny", "4"]) == 0
-    assert os.listdir(tmp_path / "s") == ["data_synth.mat"]
+    # the newmethod grid and the CMB pair, as the JAX synth verb writes them
+    assert sorted(os.listdir(tmp_path / "s")) == ["data_synth.mat", "input_fid.csv",
+                                                  "input_res.mat"]
     assert loadmat(str(tmp_path / "s" / "data_synth.mat"))["x"].shape == (20, 1)
 
 

@@ -251,10 +251,12 @@ def test_trainer_refuses_what_is_not_ported(mat, tmp_path):
                         (dict(parallel={"data": 2}), "M11")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(parse_config(newmethod_raw(mat, **extra)), run_dir=d, device="cpu")
+    # K3 is ported: 'on' outside the one-kernel gate (an anchored 3-head
+    # fidelity) takes the generic fused path, K2 forward + K3 backward
     anchored_three_heads = dict(base_data(mat), trues=["U", "V", "h"], unknowns=[])
-    with pytest.raises(ValueError, match="K3"):
-        Trainer(parse_config(newmethod_raw(mat, fused_kernel="on", data=anchored_three_heads)),
-                run_dir=d, device="cpu")
+    tr = Trainer(parse_config(newmethod_raw(mat, fused_kernel="on", data=anchored_three_heads)),
+                 run_dir=d, device="cpu")
+    assert tr.kernel_plan == (False, True, False) and tr.fused_step_fn is None
 
 
 def test_predictor_use_kernel_decision():
@@ -274,17 +276,17 @@ def test_predictor_use_kernel_decision():
 
 
 @pytest.mark.parametrize("width,dropout,mode,device_type,want", [
-    (20, 0.0, "auto", "cuda", (True, True)),
-    (20, 0.0, "on", "cuda", (True, True)),
-    (20, 0.0, "off", "cuda", (False, False)),
-    (20, 0.0, "auto", "cpu", (False, False)),
-    (20, 0.0, "on", "cpu", (True, False)),
-    (20, 0.2, "auto", "cuda", (False, True)),   # outside the gate: autograd, K2
+    (20, 0.0, "auto", "cuda", (True, False, True)),
+    (20, 0.0, "on", "cuda", (True, False, True)),
+    (20, 0.0, "off", "cuda", (False, False, False)),
+    (20, 0.0, "auto", "cpu", (False, False, False)),
+    (20, 0.0, "on", "cpu", (True, False, False)),
+    (20, 0.2, "auto", "cuda", (False, False, True)),   # outside the gate: autograd, K2
     (24, 0.0, "auto", "cuda", "K1_WIDTHS"),
     (24, 0.0, "on", "cuda", "K1_WIDTHS"),
-    (24, 0.0, "off", "cuda", (False, False)),
-    (24, 0.0, "auto", "cpu", (False, False)),
-    (24, 0.0, "on", "cpu", (True, False)),
+    (24, 0.0, "off", "cuda", (False, False, False)),
+    (24, 0.0, "auto", "cpu", (False, False, False)),
+    (24, 0.0, "on", "cpu", (True, False, False)),
     (24, 0.2, "auto", "cuda", "K2_WIDTHS"),     # autograd training, but no K2
     (24, 0.2, "on", "cpu", "K3"),
 ])
