@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: K2 (``csrc/mlp_fwd_tangents.cu``), K1
-   (``csrc/continuity_train_step.cu``) and K3 (``csrc/mlp_bwd.cu``) from the
-   checkout's sources, every ``nvcc`` started together; registers and
-   spills per width;
+   (``csrc/continuity_train_step.cu``), K3 (``csrc/mlp_bwd.cu``) and K4
+   (``csrc/mlp_bwd_rebuild.cu``) from the checkout's sources, each library
+   holding the f32 and bf16 tiers, every ``nvcc`` started together;
+   registers and spills per width;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -52,19 +53,47 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the same numpy weights, under parity and parity=false;
 13. times: K3 beside its plain version and bound at the CMB and flagship
    shapes, and the CMB Adam step (``run_cmb_step_bench``) with K2 + K3's
-   share of it.
+   share of it;
+14. the bf16 tier and K4 against their plain versions on the card, each
+   bf16 output held to the tier's own error (``compare_tier``: an L2 gap
+   within a quarter of gap(plain-bf16, plain-f32), or four times the
+   spread of two valid summation orders where deep chains make that
+   larger, plus f32's tolerance; and at least half the tier's error away
+   from plain f32), K4-f32 to ``REL_TOL``: K2-bf16
+   on phase 3's cases and the CMB net at K=2 (~20,500 points), K=0 (200
+   rows) and a ragged N; K1-bf16 on phase 7's cases; K3-bf16, K4-f32 and
+   K4-bf16 on phase 11's cases and a depth that leaves a short last K4
+   segment; two launches bit-identical each;
+15. the CMB path at bf16 through its entry points: CLI ``train`` on
+   ``examples/cmb.json`` with ``kernel_precision: "bf16"`` at phase 12's
+   cuts (K4-bf16 launches == 2 x loss evaluations, no K3, K2-bf16 == 2 x
+   loss evaluations), CLI ``test`` through K2-bf16; then iteration 1 through
+   K2 + K4 against the plain bf16 functions on the card;
+16. the flagship under ``--precision-schedule 150:bf16`` through CLI
+   ``train`` at phase 8's cuts (exactly 150 K1-bf16 launches, K1-f32 for
+   every later evaluation), CLI ``test``; a 100-step scheduled run's final
+   checkpoint (inside the prefix) resumed with ``--resume`` runs exactly 50
+   K1-bf16 launches, then f32;
+17. times: K2-bf16 (CMB grid, 10M points, serve grid), K1-bf16 and K4
+   (both tiers, beside K3) beside the f32 tier, their plain versions and
+   their bounds (f32 on the CUDA cores' FMA rate, bf16 on the tensor
+   cores' bf16 rate), K4's segment length C swept, and the bf16 Adam
+   steps of the flagship and the CMB net beside f32.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
-flagship training path), and again before phase 12's CLI ``train`` and
-read after its CLI ``test`` (the CMB path): each kernel must have launched
-on each path that runs it.
+flagship training path), again before phase 12's CLI ``train`` and read
+after its CLI ``test`` (the CMB path), before phase 15's CLI ``train`` and
+after its ``test`` (the bf16 CMB path), and before phase 16's CLI
+``train`` and after its ``test`` (the schedule): each kernel must have
+launched on each path that runs it, at the tier that path asks for.
 The last two lines are the ``kernels`` JSON object and ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -80,7 +109,10 @@ K1_REPLACES = "pinn_depthestimation_tpu/ops/kernels_step.py:205"  # _stats_and_g
 K1_SOURCE = "pinn_depthestimation_tpu_torch/csrc/continuity_train_step.cu"
 K3_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:701"  # packed_mlp_bwd(impl='stream')
 K3_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd.cu"
+K4_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:268"  # _make_bwd_kernel (impl='rebuild')
+K4_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd_rebuild.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 # kernel vs plain: max|kernel - plain| <= REL_TOL * max|plain| + ABS_TOL. f32 FMA
 # chains against f32 cuBLAS products over ~100 layers agree to ~1e-5 of the
 # output's scale; ABS_TOL only covers outputs that are all near zero.
@@ -138,6 +170,56 @@ def compare(name: str, got, want) -> float:
     if not err <= tol:
         fail(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def compare_tier(name: str, got, want_tier, want_f32, want_tier64) -> tuple[float, bool]:
+    """A bf16 kernel output against its plain version at the tier (f32
+    sums), at f32, and at the tier with float64 sums (``want_tier64``),
+    held to the tier's own error. A gap is the L2 norm of a difference over
+    the whole output. The kernel passes when gap(kernel, plain-bf16) <=
+    max(gap(plain-bf16, plain-f32) / 4, 4 x spread) + f32's tolerance, where
+    spread = gap(plain-bf16, plain-bf16 with f64 sums): the distance between
+    two valid summation orders of the same bf16 function. On shallow nets
+    the spread is f32 roundoff and the quarter of the tier's error binds; in
+    a deep chain one f32 roundoff can flip one bf16 rounding and move that
+    point's output about as far as the tier's own roundings do, so the
+    spread reaches 0.1-0.28 of the tier's error (PERF.md) and no
+    implementation with its own summation order can beat it. The kernel
+    and the plain version carry independent f32 noise, the kernel's from
+    its own sums (sequential FMAs, 128-point tiles), so their gap is a few
+    times the spread: up to 2.97 x on the width-32 stack (PERF.md); 4 x
+    leaves room for the few points that flip. Where the
+    tier's error exceeds the floor, gap(kernel, plain-f32) must reach half
+    of it (a kernel that forgot to round fails). Prints every gap and the
+    maxima; returns the kernel's max abs error against plain bf16 (for the
+    ``kernels`` line) and whether the tier's error exceeded the floor."""
+    if got.shape != want_tier.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != plain {tuple(want_tier.shape)}")
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: non-finite kernel output")
+    l2 = lambda d: float(d.double().norm())  # noqa: E731
+    err, tier, off = l2(got - want_tier), l2(want_tier - want_f32), l2(got - want_f32)
+    spread = l2(want_tier.double() - want_tier64)
+    floor = REL_TOL * l2(want_tier) + ABS_TOL
+    limit = max(0.25 * tier, 4 * spread) + floor
+    err_max = float((got - want_tier).abs().max())
+    tier_max = float((want_tier - want_f32).abs().max())
+    print(f"  {name}: L2 gap(kernel, plain-bf16) {err:.3e}, gap(plain-bf16, plain-f32) "
+          f"{tier:.3e}, spread {spread:.3e}, gap(kernel, plain-f32) {off:.3e}; limit "
+          f"{limit:.3e} ({'4 x spread' if 4 * spread > 0.25 * tier else 'gap/4'} + "
+          f"{REL_TOL:g} x |plain| + {ABS_TOL:g}); max |diff| {err_max:.3e} against the "
+          f"tier's {tier_max:.3e}")
+    if not err <= limit:
+        fail(f"{name}: the bf16 kernel disagrees with its plain bf16 version")
+    if tier > floor and not off >= 0.5 * tier:
+        fail(f"{name}: the bf16 kernel sits nearer plain f32 than the tier allows: it does "
+             "not round as the tier does")
+    return err_max, tier > floor
+
+
+def f64(params) -> dict:
+    """The parameters in float64, for the plain bf16 versions with exact sums."""
+    return {k: v.double() for k, v in params.items()}
 
 
 def cuda_ms(fn, reps: int, inner: int) -> float:
@@ -198,6 +280,34 @@ def k1_bytes(params, n_points: int, d_in: int, n_true: int) -> float:
     output written once (the gradients, the statistics)."""
     weights = sum(int(t.numel()) for t in params.values()) * 4
     return float(2 * weights + 8 * 4 + n_points * (d_in + n_true + 2) * 4)
+
+
+def k2_cases(dev):
+    """Phase 3's cases ``[(spec, params, x, tangent counts)]``: the
+    2->[20]x100->3 flagship (xavier, seeded numpy weights) at a ragged N for
+    K=0, K=2 and the continuity epilogue; a small leaky-relu net (K=1, K=3);
+    a width-32 stack deeper than one shared-memory chunk holds."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    rng = np.random.RandomState(7)
+    cases = [
+        (flagship, numpy_params(flagship.sizes, "xavier", 1), 100_003, (0, 2)),
+        (MLPSpec(sizes=(3,) + (10,) * 6 + (4,), init_type="kaiming"),
+         None, 4_099, (1, 3)),
+        (MLPSpec(sizes=(2,) + (32,) * 120 + (3,), init_type="xavier"),  # 3 smem chunks
+         None, 5_003, (2,)),
+    ]
+    out = []
+    for spec, arrays, n, tangent_counts in cases:
+        arrays = arrays or numpy_params(spec.sizes, spec.init_type, 2)
+        x = torch.as_tensor(rng.uniform(-1, 1, (n, spec.d_in)).astype(np.float32)).to(dev)
+        out.append((spec, params_from_numpy(arrays, dev), x, tangent_counts))
+    return out
 
 
 def newmethod_config(tmp: str, repo: str, **overrides) -> str:
@@ -327,9 +437,9 @@ def training_phases(dev, repo: str, bound) -> dict:
             lbfgs_optimizer={"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
                              "tolerance_change": 1e-12})
         run_name = "train_smoke"
-        kernels_step.fused_loss_and_grad.launches = 0
-        kernels.mlp_fwd_tangents.launches = 0
-        kernels.fused_residual_continuity.launches = 0
+        kernels.reset_launches(kernels_step.fused_loss_and_grad)
+        kernels.reset_launches(kernels.mlp_fwd_tangents)
+        kernels.reset_launches(kernels.fused_residual_continuity)
         t0 = time.perf_counter()
         rc = cli.main(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run_name,
                        "--device", "cuda", "--debug"])
@@ -472,6 +582,71 @@ def k3_bytes(params, spec, n_points: int, n_tangents: int) -> float:
     return float(2 * weights + n_points * (spec.d_in + (1 + n_tangents) * spec.d_out) * 4)
 
 
+def cmb_bench_points(dev, tmp: str):
+    """The points of ``run_cmb_step_bench``'s workload on the card: the
+    ~20,500 collocation points and the 200 fidelity rows, with the files
+    under ``tmp``."""
+    import torch
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = os.path.join(tmp, "fid.csv"), os.path.join(tmp, "res.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6, nan_fraction=0.03)
+    td = load_training_data(parse_config(
+        make_cmb_config(csv, mat, 0, 0, interval=1, training_points=200)))
+    return (csv, mat, torch.as_tensor(td.residual_input).to(dev),
+            torch.as_tensor(td.fidelity_input).to(dev))
+
+
+def k3_cases(dev, repo: str, tmp: str, res_pts, fid_pts):
+    """Phase 11's cases ``[(name, spec, params, x, ybar, dybar, K)]``: the
+    2->[10]x10->6 CMB net at K=2 on the ~20,500 points of the CMB bench grid
+    and at K=0 on its 200 fidelity rows, the flagship at K=2 on the 12,516
+    grid points, a leaky-relu net at K=1 and K=3, a width-32 stack deeper
+    than one shared-memory chunk, a ragged N; seeded numpy weights and
+    cotangents."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    rng = np.random.RandomState(13)
+    flag_pts = torch.as_tensor(  # phase 7's 12,516 grid points
+        load_training_data(load_config(newmethod_config(tmp, repo))).residual_input).to(dev)
+
+    def rand_pts(n, d_in):
+        return torch.as_tensor(rng.uniform(-1, 1, (n, d_in)).astype(np.float32)).to(dev)
+
+    cases = [
+        ("CMB net, residual grid", cmb_net, res_pts, 2),
+        ("CMB net, fidelity rows", cmb_net, fid_pts, 0),
+        ("flagship, train grid", flagship, flag_pts, 2),
+        ("leaky-relu, K=1", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
+         rand_pts(4_099, 3), 1),
+        ("leaky-relu, K=3", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
+         rand_pts(4_099, 3), 3),
+        ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (5,)),
+         rand_pts(1_500, 2), 2),
+        ("CMB net, ragged N", cmb_net, rand_pts(1_001, 2), 2),
+    ]
+    out = []
+    for name, spec, x, kt in cases:
+        params = params_from_numpy(numpy_params(spec.sizes, spec.init_type, 8), dev)
+        n = x.shape[0]
+        ybar = torch.as_tensor(rng.randn(n, spec.d_out).astype(np.float32)).to(dev)
+        dybar = torch.as_tensor(rng.randn(kt, n, spec.d_out).astype(np.float32)).to(dev)
+        out.append((name, spec, params, x, ybar, dybar, kt))
+    return out
+
+
 def cmb_config(tmp: str, repo: str, csv: str, mat: str, **overrides) -> str:
     """``examples/cmb.json`` with its files replaced by ``csv``/``mat`` and
     ``overrides`` merged in; returns the config path."""
@@ -500,54 +675,24 @@ def cmb_phases(dev, repo: str, bound) -> dict:
     from pinn_depthestimation_tpu_torch import benchmarks, cli
     from pinn_depthestimation_tpu_torch.config import load_config, parse_config
     from pinn_depthestimation_tpu_torch.data import load_training_data
-    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.models import MLPSpec
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
-    from pinn_depthestimation_tpu_torch.utils import synthetic
 
     cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
-    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
     with tempfile.TemporaryDirectory() as tmp:
         # the workload of run_cmb_step_bench: ~20,500 grid points, 200 rows
-        csv, mat = os.path.join(tmp, "fid.csv"), os.path.join(tmp, "res.mat")
-        synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6,
-                                   nan_fraction=0.03)
-        bench_raw = make_cmb_config(csv, mat, 0, 0, interval=1, training_points=200)
-        td = load_training_data(parse_config(bench_raw))
-        res_pts = torch.as_tensor(td.residual_input).to(dev)
-        fid_pts = torch.as_tensor(td.fidelity_input).to(dev)
+        csv, mat, res_pts, fid_pts = cmb_bench_points(dev, tmp)
         n_res, n_fid = res_pts.shape[0], fid_pts.shape[0]
 
         # 11. K3 vs plain ------------------------------------------------------
         print("== phase 11: K3 against its plain version on the card")
-        rng = np.random.RandomState(13)
-        flag_pts = torch.as_tensor(  # phase 7's 12,516 grid points
-            load_training_data(load_config(newmethod_config(tmp, repo))).residual_input).to(dev)
-
-        def rand_pts(n, d_in):
-            return torch.as_tensor(rng.uniform(-1, 1, (n, d_in)).astype(np.float32)).to(dev)
-
-        cases = [
-            ("CMB net, residual grid", cmb_net, res_pts, 2),
-            ("CMB net, fidelity rows", cmb_net, fid_pts, 0),
-            ("flagship, train grid", flagship, flag_pts, 2),
-            ("leaky-relu, K=1", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
-             rand_pts(4_099, 3), 1),
-            ("leaky-relu, K=3", MLPSpec(sizes=(3,) + (16,) * 6 + (4,), init_type="kaiming"),
-             rand_pts(4_099, 3), 3),
-            ("width 32 x 120 (several smem chunks)", MLPSpec(sizes=(2,) + (32,) * 120 + (5,)),
-             rand_pts(1_500, 2), 2),
-            ("CMB net, ragged N", cmb_net, rand_pts(1_001, 2), 2),
-        ]
         main_path = ("CMB net, residual grid", "CMB net, fidelity rows")
         inputs, err_k3 = {}, 0.0
-        for name, spec, x, kt in cases:
-            params = params_from_numpy(numpy_params(spec.sizes, spec.init_type, 8), dev)
+        for name, spec, params, x, ybar, dybar, kt in k3_cases(dev, repo, tmp, res_pts, fid_pts):
             n = x.shape[0]
-            ybar = torch.as_tensor(rng.randn(n, spec.d_out).astype(np.float32)).to(dev)
-            dybar = torch.as_tensor(rng.randn(kt, n, spec.d_out).astype(np.float32)).to(dev)
             chunk = kernels_vjp.k3_library().libs[spec.width].k3_chunk_layers(spec.n_hidden - 1, kt)
             print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
                   f"{spec.init_type}, K={kt}, N={n}, {chunk} hidden layers per smem chunk")
@@ -576,8 +721,8 @@ def cmb_phases(dev, repo: str, bound) -> dict:
             lbfgs_optimizer={"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
                              "tolerance_change": 1e-12})
         run_name = "cmb_smoke"
-        kernels.mlp_fwd_tangents.launches = 0
-        kernels_vjp.packed_mlp_bwd.launches = 0
+        kernels.reset_launches(kernels.mlp_fwd_tangents)
+        kernels.reset_launches(kernels_vjp.packed_mlp_bwd)
         t0 = time.perf_counter()
         rc = cli.main(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run_name,
                        "--device", "cuda", "--debug"])
@@ -698,6 +843,487 @@ def cmb_phases(dev, repo: str, bound) -> dict:
             "cmb_prefix_gap": max(prefix.values())}
 
 
+def k4_flops(spec, n_points: int, n_tangents: int) -> float:
+    """K4's operations: K3's (:func:`k3_flops`) and the second replay of the
+    hidden stack from the checkpoints, 2*(L-1)*W^2*(1+K) per point."""
+    W, n_stack = spec.width, spec.n_hidden - 1
+    return k3_flops(spec, n_points, n_tangents) + float(n_points) * 2 * n_stack * W * W * (1 + n_tangents)
+
+
+class PlainFused:
+    """``ops.kernels_vjp.fused_apply_with_tangents`` through the plain
+    versions of K2 and K3/K4 at the tier, for a loss on the card: the
+    reference phase 15 holds the kernels' loss and gradients to."""
+
+    def __init__(self):
+        import torch
+
+        from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+        from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, spec, kt, precision, coords, *flat):
+                y, dy = kernels.mlp_fwd_tangents_plain(dict(zip(PARAM_KEYS, flat)), coords,
+                                                       spec, kt, precision)
+                ctx.save_for_backward(coords, *flat)
+                ctx.meta = (spec, kt, precision)
+                return y.detach(), dy.detach()
+
+            @staticmethod
+            def backward(ctx, ybar, dybar):
+                coords, *flat = ctx.saved_tensors
+                spec, kt, precision = ctx.meta
+                g = kernels_vjp.packed_mlp_bwd_plain(dict(zip(PARAM_KEYS, flat)), coords,
+                                                     ybar.contiguous(), dybar.contiguous(),
+                                                     spec, kt, precision)
+                return (None, None, None, None, *(g[k] for k in PARAM_KEYS))
+
+        self.module, self.keys, self.fn = kernels_vjp, PARAM_KEYS, Fn
+
+    def __enter__(self):
+        self.real = self.module.fused_apply_with_tangents
+        self.module.fused_apply_with_tangents = (
+            lambda params, coords, spec, kt, precision="f32", bwd_impl="auto": self.fn.apply(
+                spec, kt, precision, coords.detach(), *(params[k] for k in self.keys)))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_apply_with_tangents = self.real
+
+
+def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
+    """Phases 14-17; returns the ``kernels`` line's entries of K4-bf16,
+    K2-bf16 and K1-bf16, and K3-bf16's times for K3's entry. ``f32_steps``:
+    the f32 Adam steps of phases 10 and 13 (ms per iteration), printed
+    beside the bf16 ones."""
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
+    wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
+                kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
+                kernels_vjp.packed_mlp_bwd_rebuild)
+
+    def reset_counts():
+        for w in wrappers:
+            kernels.reset_launches(w)
+
+    def counts() -> dict:
+        return {w.__name__: dict(w.launches_by_tier) for w in wrappers}
+
+    main_path = ("CMB net, residual grid", "CMB net, fidelity rows")
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, mat, res_pts, fid_pts = cmb_bench_points(dev, tmp)
+        n_res = res_pts.shape[0]
+
+        # 14. the bf16 tier and K4 against their plain versions -----------------
+        print("== phase 14: K2-bf16, K1-bf16, K3-bf16, K4-f32 and K4-bf16 against their "
+              "plain versions on the card")
+        err = {"k2": 0.0, "k1": 0.0, "k4": 0.0}
+
+        def tier_case(name, outs, main=None):
+            """outs: [(label, kernel, plain-bf16, plain-f32, plain-bf16 with f64
+            sums)]; one real tier gap needed."""
+            real = []
+            for label, got, want, want32, want64 in outs:
+                e, r = compare_tier(f"{name}: {label}", got, want, want32, want64)
+                real.append(r)
+                if main:
+                    err[main] = max(err[main], e)
+            if not any(real):
+                fail(f"{name}: no output shows the bf16 tier's error above the floor")
+
+        with torch.no_grad():
+            rng = np.random.RandomState(17)
+            k2_more = [
+                ("CMB net, residual grid", cmb_net, res_pts, (2,)),
+                ("CMB net, fidelity rows", cmb_net, fid_pts, (0,)),
+                ("CMB net, ragged N", cmb_net,
+                 torch.as_tensor(rng.uniform(-1, 1, (1_001, 2)).astype(np.float32)).to(dev), (2,)),
+            ]
+            for spec, params, x, tangent_counts in k2_cases(dev):
+                k2_more.append((f"{spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
+                                f"{spec.init_type}", spec, x, tangent_counts, params))
+            for case in k2_more:
+                name, spec, x, tangent_counts = case[:4]
+                params = case[4] if len(case) > 4 else params_from_numpy(
+                    numpy_params(spec.sizes, spec.init_type, 8), dev)
+                chunk = kernels.k2_library().libs[spec.width].k2_chunk_layers_bf16(spec.n_hidden - 1)
+                print(f" K2-bf16 {name}, N={x.shape[0]}, {chunk} hidden layers per bf16 smem chunk")
+                for k in tangent_counts:
+                    y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision="bf16")
+                    torch.cuda.synchronize()
+                    yb, dyb = kernels.mlp_fwd_tangents_plain(params, x, spec, k, "bf16")
+                    yf, dyf = kernels.mlp_fwd_tangents_plain(params, x, spec, k, "f32")
+                    y64, dy64 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, k, "bf16")
+                    main = "k2" if name in main_path else None
+                    tier_case(name, [(f"K={k} y", y, yb, yf, y64)]
+                              + ([(f"K={k} dy", dy, dyb, dyf, dy64)] if k else []), main)
+                    y2, dy2 = kernels.mlp_fwd_tangents(params, x, spec, k, precision="bf16")
+                    if not (torch.equal(y, y2) and torch.equal(dy, dy2)):
+                        fail(f"K2-bf16 {name}: two launches differ")
+                if spec.d_out == 3 and spec.init_type == "xavier":
+                    fc = kernels.fused_residual_continuity(params, x, spec, precision="bf16")
+                    torch.cuda.synchronize()
+                    tier_case(name, [("continuity epilogue fc", fc,
+                                      kernels.residual_continuity_plain(params, x, spec, "bf16"),
+                                      kernels.residual_continuity_plain(params, x, spec, "f32"),
+                                      kernels.residual_continuity_plain(f64(params), x.double(),
+                                                                        spec, "bf16"))])
+
+        cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
+        for name, spec, params, b in cases:
+            print(f" K1-bf16 {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->"
+                  f"{spec.d_out}, N={b.coords.shape[0]}")
+            (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec, precision="bf16")
+            torch.cuda.synchronize()
+            (tb, (fb, rb)), gb = kernels_step.fused_loss_and_grad_plain(params, b, spec, "bf16")
+            (tf, (ff, rf)), gf = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32")
+            b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+                "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+            (t6, (f6, r6)), g6 = kernels_step.fused_loss_and_grad_plain(f64(params), b64, spec, "bf16")
+            main = "k1" if spec.sizes == flagship.sizes else None
+            tier_case(name, [("total", t1, tb, tf, t6), ("fidelity", f1, fb, ff, f6),
+                             ("residual", r1, rb, rf, r6)]
+                      + [(f"d{k}", g1[k], gb[k], gf[k], g6[k]) for k in kernels_step.FLAT_KEYS],
+                      main)
+            (t2, _), g2 = kernels_step.fused_loss_and_grad(params, b, spec, precision="bf16")
+            if not (torch.equal(t1, t2) and all(torch.equal(g1[k], g2[k]) for k in g1)):
+                fail(f"K1-bf16 {name}: two launches differ")
+        flag_batch = cases[0][3]
+
+        k34 = k3_cases(dev, repo, tmp, res_pts, fid_pts)
+        short = MLPSpec(sizes=(2,) + (20,) * 11 + (3,))  # 10 stacked: segments 4, 4, 2
+        xs = torch.as_tensor(rng.uniform(-1, 1, (2_050, 2)).astype(np.float32)).to(dev)
+        k34.append(("short last K4 segment (C=4)", short,
+                    params_from_numpy(numpy_params(short.sizes, "xavier", 8), dev), xs,
+                    torch.as_tensor(rng.randn(2_050, 3).astype(np.float32)).to(dev),
+                    torch.as_tensor(rng.randn(2, 2_050, 3).astype(np.float32)).to(dev), 2))
+        bwd_inputs = {}
+        for name, spec, params, x, ybar, dybar, kt in k34:
+            ckpt = 4 if name.startswith("short") else 0
+            cs = {t: kernels_vjp.rebuild_ckpt_every(spec, kt, t, ckpt) for t in ("f32", "bf16")}
+            print(f" K3-bf16 / K4 {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->"
+                  f"{spec.d_out} {spec.init_type}, K={kt}, N={x.shape[0]}, K4 segments of "
+                  f"{cs['f32']} (f32) and {cs['bf16']} (bf16) layers")
+            gb = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16")
+            gf = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32")
+            g6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                                  dybar.double(), spec, kt, "bf16")
+            g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="bf16",
+                                            impl="stream")
+            g4b = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt,
+                                                     precision="bf16", ckpt_every=ckpt)
+            g4f = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt,
+                                                     precision="f32", ckpt_every=ckpt)
+            torch.cuda.synchronize()
+            main = "k4" if name in main_path else None
+            tier_case(f"K3-bf16 {name}", [(f"d{k}", g3[k], gb[k], gf[k], g6[k]) for k in g3])
+            tier_case(f"K4-bf16 {name}", [(f"d{k}", g4b[k], gb[k], gf[k], g6[k]) for k in g4b],
+                      main)
+            for k in g4f:
+                compare(f"K4-f32 {name}: d{k}", g4f[k], gf[k])
+            g3f = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="f32")
+            for tier, g4, g3t in (("f32", g4f, g3f), ("bf16", g4b, g3)):
+                same = all(torch.equal(g4[k], g3t[k]) for k in g4)
+                diff = max(float((g4[k] - g3t[k]).abs().max()) for k in g4)
+                print(f"  K4 against K3 at {tier}: bit-identical {same} (max abs diff {diff:.3e})")
+                again = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt,
+                                                           precision=tier, ckpt_every=ckpt)
+                if not all(torch.equal(g4[k], again[k]) for k in g4):
+                    fail(f"K4-{tier} {name}: two launches differ")
+            g3b = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="bf16",
+                                             impl="stream")
+            if not all(torch.equal(g3[k], g3b[k]) for k in g3):
+                fail(f"K3-bf16 {name}: two launches differ")
+            print("  two launches bit-identical (K3-bf16, K4-f32, K4-bf16)")
+            bwd_inputs[name] = (params, x, ybar, dybar, spec, kt)
+
+        # 15. the CMB path at bf16 -------------------------------------------------
+        print("== phase 15: CMB path at bf16 (CLI synth, train, then test on the trained model)")
+        synth = os.path.join(tmp, "synth")
+        if cli.main(["synth", "--out", synth]) != 0:
+            fail("synth failed")
+        synth_csv, synth_mat = (os.path.join(synth, f) for f in ("input_fid.csv", "input_res.mat"))
+        cfg_path = cmb_config(
+            tmp, repo, synth_csv, synth_mat, adam_optimizer={"max_it": 300},
+            data_residual={"interval_x": 1, "interval_y": 1}, kernel_precision="bf16",
+            lbfgs_optimizer={"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
+                             "tolerance_change": 1e-12})
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", "cmb_bf16",
+                       "--device", "cuda", "--debug"])
+        train_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI train on the bf16 CMB config exited {rc}")
+        train_counts = counts()
+        run_dir = os.path.join(tmp, "cmb_bf16")
+        pred_out = os.path.join(tmp, "pred_cmb_bf16.mat")
+        rc = cli.main(["test", "--config", cfg_path, "--model", os.path.join(run_dir, "model.npz"),
+                       "--save", pred_out, "--device", "cuda", "--debug"])
+        if rc != 0:
+            fail(f"CLI test on the bf16 CMB model exited {rc}")
+        cmb_counts = counts()
+        print(f"  bf16 CMB-path launches by tier: {cmb_counts}")
+        epochs, _, _, totals = read_log(run_dir)
+        n_evals = len(epochs)
+        if epochs != list(range(1, n_evals + 1)) or n_evals < 302:
+            fail(f"log.txt rows are not epochs 1..n with n >= 302: {epochs[:3]}..{epochs[-3:]}")
+        if not all(math.isfinite(v) for v in totals):
+            fail("the bf16 CMB log holds a non-finite total")
+        if not totals[299] < totals[0]:
+            fail(f"Adam at bf16 did not lower the CMB loss: {totals[0]} -> {totals[299]}")
+        if not min(totals[300:]) <= totals[299]:
+            fail(f"L-BFGS minimum {min(totals[300:])} above the last Adam total {totals[299]}")
+        k4_train = train_counts["packed_mlp_bwd_rebuild"]
+        if k4_train["bf16"] != 2 * n_evals or k4_train["f32"]:
+            fail(f"K4 launched {k4_train} times for {n_evals} bf16 loss evaluations "
+                 "(2 bf16 launches per evaluation): some evaluation bypassed the kernel")
+        if any(cmb_counts["packed_mlp_bwd"].values()) or any(cmb_counts["fused_loss_and_grad"].values()):
+            fail(f"the bf16 CMB path launched K3 or K1: {cmb_counts}")
+        k2_train = train_counts["mlp_fwd_tangents"]
+        k2_test = cmb_counts["mlp_fwd_tangents"]["bf16"] - k2_train["bf16"]
+        if k2_train["bf16"] != 2 * n_evals or k2_train["f32"] or k2_test < 1 \
+                or cmb_counts["mlp_fwd_tangents"]["f32"]:
+            fail(f"K2 launched {k2_train} in training for {n_evals} bf16 evaluations (2 bf16 "
+                 f"per evaluation) and {k2_test} bf16 in CLI test")
+        served, grid_x = loadmat(pred_out), loadmat(synth_mat)["x"]
+        for key in ("h", "U", "V", "eta_mean", "Hrms", "k"):
+            arr = served[f"pred_{key}"]
+            if arr.shape != (261, 81) or not np.array_equal(np.isnan(arr), np.isnan(grid_x)):
+                fail(f"the bf16 CMB model served pred_{key} of shape {arr.shape}, with NaN "
+                     "elsewhere than at the grid's masked cells")
+        print(f"  {n_evals} loss evaluations (300 Adam + {n_evals - 300} L-BFGS) at bf16, total "
+              f"{totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} (L-BFGS); "
+              f"CLI train wall time {train_s:.2f} s")
+
+        print("== phase 15b: iteration 1 at bf16 through K2 + K4 against the plain bf16 functions")
+        init = numpy_params(cmb_net.sizes, "xavier", 6)
+        init["b_out"][3] += 1.0
+        raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
+                   kernel_precision="bf16")
+        os.makedirs(os.path.join(tmp, "it1_bf16"))
+        tr = Trainer(parse_config(raw), run_dir=os.path.join(tmp, "it1_bf16"), echo_every=0,
+                     initial_params=init, device=dev)
+        if not tr.kernel_plan.fused:
+            fail(f"the bf16 CMB Trainer chose {tr.kernel_plan} on the card")
+        (tk, (fk, rk)), gk = tr.value_and_grad_fn(tr.state.params, tr.batch)
+        torch.cuda.synchronize()
+        ref = {}
+        batch64 = {k: v.double() for k, v in tr.batch.items()}
+        with PlainFused():
+            for tier, params, batch in (("bf16", tr.state.params, tr.batch),
+                                        ("f32", tr.state.params, tr.batch),
+                                        ("bf16 f64", f64(tr.state.params), batch64)):
+                fn = build_loss_fn(tr.config, tr.spec, input_min_max=tr.data.input_min_max,
+                                   fused_kernel=True, fused_precision=tier.split()[0])
+                ref[tier] = value_and_grad(fn)(params, batch)
+        (tb, (fb, rb)), gb = ref["bf16"]
+        (tf, (ff, rf)), gf = ref["f32"]
+        (t6, (f6, r6)), g6 = ref["bf16 f64"]
+        tier_case("CMB iteration 1", [("total", tk, tb, tf, t6), ("fidelity", fk, fb, ff, f6),
+                                      ("residual", rk, rb, rf, r6)]
+                  + [(f"d{k}", gk[k], gb[k], gf[k], g6[k]) for k in gk])
+
+        # 16. the flagship under the precision schedule ---------------------------
+        print("== phase 16: flagship under --precision-schedule 150:bf16 (CLI train, resume, test)")
+        lbfgs = {"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
+                 "tolerance_change": 1e-12}
+        cfg_full = newmethod_config(tmp, repo, adam_optimizer={"max_it": 300},
+                                    snapshot_iteration=300, lbfgs_optimizer=lbfgs)
+        reset_counts()
+        rc = cli.main(["train", "--config", cfg_full, "--log-root", tmp, "--run-name", "sched",
+                       "--precision-schedule", "150:bf16", "--device", "cuda", "--debug"])
+        if rc != 0:
+            fail(f"CLI train --precision-schedule exited {rc}")
+        sched_dir = os.path.join(tmp, "sched")
+        rc = cli.main(["test", "--config", cfg_full, "--model", os.path.join(sched_dir, "model.npz"),
+                       "--save", os.path.join(tmp, "pred_sched.mat"), "--device", "cuda", "--debug"])
+        if rc != 0:
+            fail(f"CLI test on the scheduled model exited {rc}")
+        sched_counts = counts()
+        print(f"  schedule-path launches by tier: {sched_counts}")
+        epochs, _, _, sched_totals = read_log(sched_dir)
+        n_evals_s = len(epochs)
+        k1c = sched_counts["fused_loss_and_grad"]
+        if epochs != list(range(1, n_evals_s + 1)) or n_evals_s < 302:
+            fail(f"log.txt rows are not epochs 1..n with n >= 302: {epochs[:3]}..{epochs[-3:]}")
+        if k1c["bf16"] != 150 or k1c["f32"] != n_evals_s - 150:
+            fail(f"K1 launched {k1c} for {n_evals_s} evaluations under a 150-step bf16 prefix "
+                 "(150 bf16, the rest f32)")
+        if not all(math.isfinite(v) for v in sched_totals) or not sched_totals[299] < sched_totals[0]:
+            fail(f"the scheduled run did not lower the loss: {sched_totals[0]} -> {sched_totals[299]}")
+        if not min(sched_totals[300:]) <= sched_totals[299]:
+            fail("L-BFGS after the schedule ended above the last Adam total")
+        if sched_counts["mlp_fwd_tangents"]["f32"] < 2:
+            fail("the snapshot and CLI test did not both go through K2-f32")
+        print(f"  {n_evals_s} evaluations: 150 K1-bf16, {k1c['f32']} K1-f32; total "
+              f"{sched_totals[0]:.5e} -> {sched_totals[149]:.5e} (bf16 prefix) -> "
+              f"{sched_totals[299]:.5e} (Adam) -> {min(sched_totals[300:]):.5e} (L-BFGS)")
+        # a checkpoint inside the prefix: a 100-step run's final save
+        cfg_short = newmethod_config(tmp, repo, adam_optimizer={"max_it": 100},
+                                     lbfgs_optimizer={"max_it": 0})
+        if cli.main(["train", "--config", cfg_short, "--log-root", tmp, "--run-name", "sched_100",
+                     "--precision-schedule", "150:bf16", "--device", "cuda", "--debug"]) != 0:
+            fail("the 100-step scheduled run failed")
+        reset_counts()
+        if cli.main(["train", "--config", cfg_full, "--log-root", tmp, "--run-name", "resumed",
+                     "--resume", os.path.join(tmp, "sched_100", "model.npz"),
+                     "--precision-schedule", "150:bf16", "--device", "cuda", "--debug"]) != 0:
+            fail("the resumed scheduled run failed")
+        resumed = counts()["fused_loss_and_grad"]
+        epochs_r, _, _, totals_r = read_log(os.path.join(tmp, "resumed"))
+        if epochs_r[0] != 101 or resumed["bf16"] != 50 or resumed["f32"] != len(epochs_r) - 50:
+            fail(f"the resume from iteration 100 ran {resumed} K1 launches for epochs "
+                 f"{epochs_r[0]}..{epochs_r[-1]} (50 bf16, then f32)")
+        gap_r = max(abs(a - b) / abs(b) for a, b in zip(totals_r[:200], sched_totals[100:300]))
+        print(f"  resumed at iteration 100: {resumed['bf16']} K1-bf16 then {resumed['f32']} K1-f32 "
+              f"launches; Adam rows 101-300 against the uninterrupted run: max relative gap "
+              f"{gap_r:.3e} (row 101: {abs(totals_r[0] - sched_totals[100]) / abs(sched_totals[100]):.3e})")
+        if not abs(totals_r[0] - sched_totals[100]) <= 1e-6 * abs(sched_totals[100]):
+            fail("the resumed run's first row differs from the uninterrupted run's")
+
+        # 17. times -------------------------------------------------------------------
+        print("== phase 17: times of the bf16 tier and K4 (CUDA events; median of reps)")
+        times = {}
+
+        def timed(key, fn, reps, inner, flops, nbytes, bf16):
+            ms = cuda_ms(fn, reps, inner)
+            b, by = (bound_bf16 if bf16 else bound)(flops, nbytes)
+            times[key] = (ms, b, by)
+            return ms, b, by
+
+        spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
+        with torch.no_grad():
+            for tier in ("f32", "bf16"):
+                timed(f"k2 10M continuity {tier}",
+                      lambda t=tier: kernels.fused_residual_continuity(p10, c10, spec10, precision=t),
+                      5, 1, k2_flops(spec10, 10_000_000, 2, True),
+                      k2_bytes(p10, 10_000_000, spec10, 1), tier == "bf16")
+            plain_10m = cuda_ms(lambda: kernels.residual_continuity_plain(p10, c10, spec10, "bf16"), 3, 1)
+        del p10, c10
+        bench_bf16 = benchmarks.run_residual_bench(n_points=10_000_000, precision="bf16", device=dev)
+        print(f"  run_residual_bench(precision='bf16'): {json.dumps(bench_bf16)}")
+        serve_params = params_from_numpy(numpy_params(flagship.sizes, "xavier", 3), dev)
+        from pinn_depthestimation_tpu_torch.config import load_config
+        from pinn_depthestimation_tpu_torch.data import load_test_data
+        x_serve = torch.as_tensor(load_test_data(load_config(cfg_full)).inputs).to(dev)
+        n_serve = x_serve.shape[0]
+        with torch.no_grad():
+            p_cmb = bwd_inputs["CMB net, residual grid"][0]
+            for tier in ("f32", "bf16"):
+                timed(f"k2 cmb grid {tier}",
+                      lambda t=tier: kernels.mlp_fwd_tangents(p_cmb, res_pts, cmb_net, 2, precision=t),
+                      7, 20, k2_flops(cmb_net, n_res, 2, False),
+                      k2_bytes(p_cmb, n_res, cmb_net, 3 * cmb_net.d_out), tier == "bf16")
+            plain_cmb = cuda_ms(lambda: kernels.mlp_fwd_tangents_plain(p_cmb, res_pts, cmb_net, 2, "bf16"), 5, 3)
+            for tier in ("f32", "bf16"):
+                timed(f"k2 serve {tier}",
+                      lambda t=tier: kernels.mlp_fwd_tangents(serve_params, x_serve, flagship, 0, precision=t),
+                      7, 20, k2_flops(flagship, n_serve, 0, False),
+                      k2_bytes(serve_params, n_serve, flagship, 3), tier == "bf16")
+            plain_serve = cuda_ms(lambda: kernels.mlp_fwd_tangents_plain(serve_params, x_serve, flagship, 0, "bf16"), 5, 3)
+            for tier in ("f32", "bf16"):
+                timed(f"k1 {tier}",
+                      lambda t=tier: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship, precision=t),
+                      7, 20, k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2), tier == "bf16")
+            plain_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad_plain(flag_params, flag_batch, flagship, "bf16"), 5, 3)
+            plain_bwd = {}
+            for name in ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid"):
+                params, x, ybar, dybar, spec, kt = bwd_inputs[name]
+                nb = k3_bytes(params, spec, x.shape[0], kt)
+                for tier in ("f32", "bf16"):
+                    timed(f"k3 {name} {tier}",
+                          lambda t=tier: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=t, impl="stream"),
+                          7, 20, k3_flops(spec, x.shape[0], kt), nb, tier == "bf16")
+                    timed(f"k4 {name} {tier}",
+                          lambda t=tier: kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt, precision=t),
+                          7, 20, k4_flops(spec, x.shape[0], kt), nb, tier == "bf16")
+                plain_bwd[name] = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16"), 5, 3)
+                # the segment length C, on the card
+                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16")
+                sweep = {}
+                for c in (1, 2, 3, 4, 6, 8, 10):
+                    try:
+                        kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16", c)
+                    except ValueError:
+                        continue
+                    if c > spec.n_hidden - 1:
+                        continue
+                    sweep[c] = cuda_ms(lambda c=c: kernels_vjp.packed_mlp_bwd_rebuild(
+                        params, x, ybar, dybar, spec, kt, precision="bf16", ckpt_every=c), 5, 10)
+                times[f"k4 C sweep {name}"] = (c_auto, sweep)
+                print(f"  K4-bf16 {name}: segment length C -> ms {dict((c, round(v, 4)) for c, v in sweep.items())}; planned C = {c_auto}")
+        step = benchmarks.run_train_step_bench(kernel_precision="bf16", device=dev)
+        cmb_step = benchmarks.run_cmb_step_bench(kernel_precision="bf16", device=dev)
+
+    for key, value in times.items():
+        if key.startswith("k4 C sweep"):
+            continue
+        ms, b, by = value
+        print(f"  {key}: {ms:.4f} ms, bound {b:.5f} ms by {by} ({b / ms:.2%} of bound)")
+    print(f"  plain bf16: continuity at 10M points {plain_10m:.3f} ms, CMB grid (K=2) "
+          f"{plain_cmb:.3f} ms, serve grid {plain_serve:.3f} ms, "
+          f"K1 flagship {plain_k1:.3f} ms, backward {dict((k, round(v, 4)) for k, v in plain_bwd.items())}")
+    print(f"  Adam step at bf16: flagship {json.dumps(step)}; CMB {json.dumps(cmb_step)}; at "
+          f"f32 (phases 10, 13): flagship {f32_steps['flagship']:.4f} ms, CMB "
+          f"{f32_steps['cmb']:.4f} ms")
+
+    res, fidr, flag = ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid")
+    k4_ms, k4_b, k4_by = times[f"k4 {res} bf16"]
+    k2_ms, k2_b, k2_by = times["k2 cmb grid bf16"]
+    k1_ms, k1_b, k1_by = times["k1 bf16"]
+    common = {"route": "cuda", "library_ms": None}
+    k4_entry = {
+        "name": "k4_mlp_bwd_rebuild[bf16]", **common, "source": K4_SOURCE, "replaces": K4_REPLACES,
+        "launches": cmb_counts["packed_mlp_bwd_rebuild"]["bf16"], "max_abs_err": err["k4"],
+        "ms": k4_ms, "plain_ms": plain_bwd[res], "bound_ms": k4_b, "bound_by": k4_by,
+        "points": n_res, "ckpt_every": times[f"k4 C sweep {res}"][0],
+        "ms_f32": times[f"k4 {res} f32"][0], "bound_ms_f32": times[f"k4 {res} f32"][1],
+        "ms_fidelity_k0": times[f"k4 {fidr} bf16"][0], "ms_flagship_k2": times[f"k4 {flag} bf16"][0],
+        "ms_flagship_k2_f32": times[f"k4 {flag} f32"][0],
+        "bound_ms_flagship_k2": times[f"k4 {flag} bf16"][1],
+        "ckpt_sweep_ms": {name: times[f"k4 C sweep {name}"][1] for name in (res, fidr, flag)},
+        "cmb_adam_ms_per_iter_bf16": cmb_step["ms_per_iter"],
+    }
+    k2_entry = {
+        "name": "k2_mlp_fwd_tangents[bf16]", **common, "source": K2_SOURCE, "replaces": REPLACES,
+        "launches": cmb_counts["mlp_fwd_tangents"]["bf16"], "max_abs_err": err["k2"],
+        "ms": k2_ms, "plain_ms": plain_cmb, "bound_ms": k2_b, "bound_by": k2_by,
+        "points": n_res, "ms_f32": times["k2 cmb grid f32"][0],
+        "ms_10m_continuity": times["k2 10M continuity bf16"][0],
+        "ms_10m_continuity_f32": times["k2 10M continuity f32"][0],
+        "bound_ms_10m_continuity": times["k2 10M continuity bf16"][1],
+        "plain_ms_10m_continuity": plain_10m,
+        "ms_serve_grid": times["k2 serve bf16"][0], "ms_serve_grid_f32": times["k2 serve f32"][0],
+        "bound_ms_serve_grid": times["k2 serve bf16"][1], "plain_ms_serve_grid": plain_serve,
+        "residual_evals_per_s": bench_bf16["value"],
+    }
+    k1_entry = {
+        "name": "k1_continuity_train_step[bf16]", **common, "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": sched_counts["fused_loss_and_grad"]["bf16"],
+        "max_abs_err": err["k1"], "ms": k1_ms, "plain_ms": plain_k1, "bound_ms": k1_b,
+        "bound_by": k1_by, "points": n_grid, "ms_f32": times["k1 f32"][0],
+        "adam_ms_per_iter_bf16": step["ms_per_iter"],
+    }
+    k3_extra = {"ms_bf16": times[f"k3 {res} bf16"][0], "bound_ms_bf16": times[f"k3 {res} bf16"][1],
+                "ms_flagship_k2_bf16": times[f"k3 {flag} bf16"][0]}
+    return {"k4": k4_entry, "k2_bf16": k2_entry, "k1_bf16": k1_entry, "k3_extra": k3_extra}
+
+
 def main() -> None:
     import torch
 
@@ -707,7 +1333,6 @@ def main() -> None:
         import pinn_depthestimation_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port package is not importable ({e}): run from the repository root")
-    import numpy as np
     from scipy.io import loadmat
 
     from pinn_depthestimation_tpu_torch import benchmarks, cli
@@ -735,11 +1360,11 @@ def main() -> None:
     # 2. build --------------------------------------------------------------
     print("== phase 2: build")
     t_build = time.perf_counter()
-    lib = cuda_build.k2_library()  # builds K1, K2 and K3 together
-    lib_k1, lib_k3 = cuda_build.k1_library(), cuda_build.k3_library()
-    print(f"  K2, K1 and K3 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
-          f"(kernel, width), all at once")
-    for name, built in (("k2", lib), ("k1", lib_k1), ("k3", lib_k3)):
+    lib = cuda_build.k2_library()  # builds K1, K2, K3 and K4 together
+    lib_k1, lib_k3, lib_k4 = cuda_build.k1_library(), cuda_build.k3_library(), cuda_build.k4_library()
+    print(f"  K2, K1, K3 and K4 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
+          f"(kernel, width), all at once, each library holding the f32 and bf16 tiers")
+    for name, built in (("k2", lib), ("k1", lib_k1), ("k3", lib_k3), ("k4", lib_k4)):
         print(f"  {name.upper()}: {len(built.libs)} widths {sorted(built.libs)}; "
               f"log {os.path.relpath(built.log_path, repo)}")
         log = built.log_path.read_text() if built.log_path.exists() else ""
@@ -754,22 +1379,11 @@ def main() -> None:
     # 3. kernel vs plain ----------------------------------------------------
     print("== phase 3: K2 against its plain version on the card")
     flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
-    rng = np.random.RandomState(7)
-    cases = [
-        (flagship, numpy_params(flagship.sizes, "xavier", 1), 100_003, (0, 2)),
-        (MLPSpec(sizes=(3,) + (10,) * 6 + (4,), init_type="kaiming"),
-         None, 4_099, (1, 3)),
-        (MLPSpec(sizes=(2,) + (32,) * 120 + (3,), init_type="xavier"),  # 3 smem chunks
-         None, 5_003, (2,)),
-    ]
     with torch.no_grad():
-        for spec, arrays, n, tangent_counts in cases:
-            arrays = arrays or numpy_params(spec.sizes, spec.init_type, 2)
-            params = params_from_numpy(arrays, dev)
-            x = torch.as_tensor(rng.uniform(-1, 1, (n, spec.d_in)).astype(np.float32)).to(dev)
+        for spec, params, x, tangent_counts in k2_cases(dev):
             chunk = lib.libs[spec.width].k2_chunk_layers(spec.n_hidden - 1)
             print(f" sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
-                  f"{spec.init_type}, N={n}, {chunk} hidden layers per smem chunk")
+                  f"{spec.init_type}, N={x.shape[0]}, {chunk} hidden layers per smem chunk")
             for k in tangent_counts:
                 y, dy = kernels.mlp_fwd_tangents(params, x, spec, k)
                 torch.cuda.synchronize()
@@ -786,8 +1400,8 @@ def main() -> None:
           f"fused_residual_continuity {kernels.fused_residual_continuity.launches}")
 
     # 4.+5. the main path ---------------------------------------------------
-    kernels.mlp_fwd_tangents.launches = 0
-    kernels.fused_residual_continuity.launches = 0
+    kernels.reset_launches(kernels.mlp_fwd_tangents)
+    kernels.reset_launches(kernels.fused_residual_continuity)
     with tempfile.TemporaryDirectory() as tmp:
         print("== phase 4: serving path (CLI synth + test --save) on the flagship")
         if cli.main(["synth", "--out", tmp]) != 0:
@@ -886,6 +1500,16 @@ def main() -> None:
     k1_report = training_phases(dev, repo, bound)
     # 11.-13. the CMB slice ------------------------------------------------
     k3_report = cmb_phases(dev, repo, bound)
+
+    def bound_bf16(flops, nbytes):
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    # 14.-17. the bf16 tier, K4 and the precision schedule -------------------
+    bf16_report = bf16_phases(dev, repo, bound, bound_bf16,
+                              {"flagship": k1_report["adam_ms_per_iter"],
+                               "cmb": k3_report["cmb_adam_ms_per_iter"]})
+    k3_report.update(bf16_report["k3_extra"])
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     common = {"route": "cuda", "source": K2_SOURCE, "replaces": REPLACES, "library_ms": None}
@@ -900,6 +1524,9 @@ def main() -> None:
          "points": n_res, "ms_1m": ms_res_1m, "plain_ms_1m": plain_res_1m},
         k1_report,
         k3_report,
+        bf16_report["k2_bf16"],
+        bf16_report["k1_bf16"],
+        bf16_report["k4"],
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

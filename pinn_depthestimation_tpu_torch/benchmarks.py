@@ -5,14 +5,17 @@ Port of the JAX package's ``benchmarks.py``:
 * ``residual_eval_fn`` / ``run_residual_bench``: collocation-point residual
   evaluations per second on one device, on the flagship newmethod network
   (2 -> [20]x100 -> 3, tanh, ``continuity_only`` residual: forward + x/y
-  tangents + residual algebra per point), in true f32;
+  tangents + residual algebra per point), at the tier ``precision``
+  (``f32`` or ``bf16``);
 * ``run_train_step_bench``: the flagship Adam step in ms per iteration on
   the 81x261 grid with 40.8 % NaN rows (12,516 points), through the
-  ``Trainer``'s own step loop — K1, the reduction and the Adam update;
+  ``Trainer``'s own step loop — K1, the reduction and the Adam update, at
+  the tier ``kernel_precision``;
 * ``run_cmb_step_bench``: the CMB Adam step in ms per iteration (the
   reference CMB net 2->[10]x10->6, ``wave_averaged``, 200 fidelity rows and
   ~20,500 collocation points), through the ``Trainer``'s step loop — K2 and
-  K3 for the residual and the fidelity term, the physics in PyTorch, Adam.
+  K3 (``f32``) or K4 (``bf16``) for the residual and the fidelity term, the
+  physics in PyTorch, Adam.
 
 Unlike the JAX bench, a kernel failure is an error: nothing falls back to
 the plain path and reports that instead. ``vs_baseline`` is null: the JAX
@@ -46,8 +49,8 @@ def residual_eval_fn(spec, backend: str = "kernel", precision: str = "f32"):
         return fn, f"k2-{precision}"
     if backend == "plain":
         def fn(params, coords):
-            return kernels.residual_continuity_plain(params, coords, spec)
-        return fn, "plain"
+            return kernels.residual_continuity_plain(params, coords, spec, precision)
+        return fn, "plain" if precision == "f32" else f"plain-{precision}"
     raise ValueError(f"backend must be 'kernel' or 'plain', got {backend!r}")
 
 
@@ -146,14 +149,16 @@ def run_train_step_bench(
     ny: int = 261,
     hidden_layers: int = 100,
     width: int = 20,
+    kernel_precision: str | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Flagship Adam-step time, ms per iteration (median of ``reps`` runs of
     ``n_iters`` steps after one warm-up run), on the workload the reference's
     primary product trains: 2->[20]x100->3 on an 81x261 grid with 40.8 % NaN
     rows (12,516 points shared by the fidelity and residual terms). Each run
-    ends in ``torch.cuda.synchronize()``. Returns ``{"ms_per_iter", "points",
-    "path", "device"}``."""
+    ends in ``torch.cuda.synchronize()``. ``kernel_precision`` overrides the
+    config's tier (default ``'auto'``, f32). Returns ``{"ms_per_iter",
+    "points", "path", "precision", "device"}``."""
     import os
     import tempfile
 
@@ -171,6 +176,8 @@ def run_train_step_bench(
         mat = os.path.join(tmp, "data.mat")
         synthetic.make_newmethod_mat(mat, nx=nx, ny=ny, nan_fraction=0.408, seed=21)
         raw = make_train_config(mat, n_iters, 0, hidden_layers=hidden_layers, hidden_width=width)
+        if kernel_precision is not None:
+            raw["kernel_precision"] = kernel_precision
         run_dir = os.path.join(tmp, "run")
         os.makedirs(run_dir)
         trainer = Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=dev)
@@ -186,18 +193,20 @@ def run_train_step_bench(
         "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
         "points": int(trainer.data.residual_input.shape[0]),
         "path": "k1" if trainer.fused_step_fn is not None else "autograd",
+        "precision": trainer.config.resolved_kernel_precision(),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
 
 
-def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device):
+def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device,
+                      kernel_precision: str | None = None):
     """A ``Trainer`` on the workload of the JAX package's
     ``run_cmb_step_bench``, its files under ``tmp``: the reference
     ``config_CMB.json`` net (2->[10]x10->6, ``make_cmb_config``'s per-output
     weights), a synthetic CMB pair (``make_cmb_dataset(nx=81, ny=261,
     n_csv=400, seed=6, nan_fraction=0.03)``), 200 fidelity rows and the
     residual grid at interval 1 (~20,500 points after the NaN rows are
-    dropped), ``n_iters`` Adam steps."""
+    dropped), ``n_iters`` Adam steps, at ``kernel_precision`` if given."""
     import os
 
     from pinn_depthestimation_tpu_torch.config import parse_config
@@ -208,6 +217,8 @@ def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device):
     csv, mat = os.path.join(tmp, "fid.csv"), os.path.join(tmp, "res.mat")
     synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6, nan_fraction=0.03)
     raw = make_cmb_config(csv, mat, n_iters, 0, interval=1, training_points=200)
+    if kernel_precision is not None:
+        raw["kernel_precision"] = kernel_precision
     run_dir = os.path.join(tmp, "run")
     os.makedirs(run_dir)
     return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
@@ -217,12 +228,14 @@ def run_cmb_step_bench(
     *,
     n_iters: int = 500,
     reps: int = 3,
+    kernel_precision: str | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """CMB Adam-step time, ms per iteration (median of ``reps`` runs of
     ``n_iters`` steps after one warm-up run), on :func:`cmb_bench_trainer`'s
-    workload. Each run ends in ``torch.cuda.synchronize()``. Returns
-    ``{"ms_per_iter", "points", "fidelity_points", "path", "device"}``."""
+    workload, at ``kernel_precision`` if given. Each run ends in
+    ``torch.cuda.synchronize()``. Returns ``{"ms_per_iter", "points",
+    "fidelity_points", "path", "precision", "device"}``."""
     import tempfile
 
     dev = resolve_device(device)
@@ -232,7 +245,7 @@ def run_cmb_step_bench(
             torch.cuda.synchronize(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = cmb_bench_trainer(tmp, n_iters, dev)
+        trainer = cmb_bench_trainer(tmp, n_iters, dev, kernel_precision)
         trainer._adam_steps(n_iters)  # warm-up (the first call in a process builds the kernels)
         sync()
         times = []
@@ -242,10 +255,13 @@ def run_cmb_step_bench(
             sync()
             times.append(time.perf_counter() - t0)
     plan = trainer.kernel_plan
+    tier = trainer.config.resolved_kernel_precision()
+    bwd = "k4" if tier == "bf16" else "k3"
     return {
         "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
         "points": int(trainer.data.residual_input.shape[0]),
         "fidelity_points": int(trainer.data.fidelity_input.shape[0]),
-        "path": "k1" if plan.k1 else ("k2+k3" if plan.fused else "autograd"),
+        "path": "k1" if plan.k1 else (f"k2+{bwd}" if plan.fused else "autograd"),
+        "precision": tier,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }

@@ -6,6 +6,7 @@ slices:
     python -m pinn_depthestimation_tpu_torch.cli train --config CFG [--log-root DIR]
                                                        [--run-name NAME] [--resume CKPT.npz]
                                                        [--init-from PTH|NPZ] [--device cuda|cpu]
+                                                       [--precision-schedule PREFIX_ITERS[:TIER]]
     python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
                                                        [--save OUT.mat] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
@@ -14,10 +15,13 @@ slices:
 ``train`` and ``test`` take newmethod and CMB configs. ``synth`` writes the
 newmethod grid ``data_synth.mat`` and the CMB pair ``input_fid.csv`` +
 ``input_res.mat``. ``--device`` defaults to ``cuda``; without a CUDA device
-the verb fails unless ``--device cpu`` is given. ``train --mesh``,
-``--f64-polish`` and ``--precision-schedule`` exit 1 (``ROADMAP.md`` M10,
-M11); ``plot-log``, ``video``, ``parity``, ``test --plot`` and the legacy
-``synth`` outputs come with later slices.
+the verb fails unless ``--device cpu`` is given. ``train
+--precision-schedule PREFIX_ITERS[:TIER]`` runs the first PREFIX_ITERS Adam
+steps at TIER (default ``bf16``), merged onto the config's
+``precision_schedule`` block; ``0`` disables it. ``train --mesh`` and
+``--f64-polish`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
+``video``, ``parity``, ``test --plot`` and the legacy ``synth`` outputs
+come with later slices.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def cmd_train(args) -> int:
     from pinn_depthestimation_tpu_torch.training.logging_utils import make_run_dir
 
     device = resolve_device(args.device)  # no CUDA device: raise, never the CPU
-    for flag, item in (("mesh", "M11"), ("f64_polish", "M10"), ("precision_schedule", "M10")):
+    for flag, item in (("mesh", "M11"), ("f64_polish", "M10")):
         if getattr(args, flag) is not None:
             print(f"Error: --{flag.replace('_', '-')} is not ported yet "
                   f"(ROADMAP.md Queue 1, {item})")
@@ -51,6 +55,37 @@ def cmd_train(args) -> int:
             raise
         print(f"Error reading config file: {e}")
         return 1
+    if args.precision_schedule is not None:
+        # "PREFIX_ITERS[:TIER]" merges onto a JSON-configured block (an
+        # explicit :TIER overrides its tier); "0" disables the schedule
+        from pinn_depthestimation_tpu_torch.config import _parse_precision_schedule
+
+        spec_str = str(args.precision_schedule)
+        iters_str, _, tier = spec_str.partition(":")
+        try:
+            prefix_iters = int(iters_str)
+        except ValueError:
+            print(f"Error: --precision-schedule expects PREFIX_ITERS[:TIER], got {spec_str!r}")
+            return 1
+        if prefix_iters < 0:
+            print(f"Error: --precision-schedule PREFIX_ITERS must be >= 0, got "
+                  f"{prefix_iters} (0 disables the schedule)")
+            return 1
+        if prefix_iters > 0:
+            block = config.raw.get("precision_schedule")
+            block = dict(block) if isinstance(block, dict) else {}
+            block["prefix_iters"] = prefix_iters
+            if tier:
+                block["prefix_precision"] = tier
+            try:
+                config.precision_schedule = _parse_precision_schedule(block)
+            except Exception as e:
+                if args.debug:
+                    raise
+                print(f"Error: {e}")
+                return 1
+        else:
+            config.precision_schedule = None
     if args.init_from and args.resume:
         # --resume restores the checkpoint's own weights, which would
         # silently discard the --init-from weights
@@ -173,7 +208,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     tr.add_argument("--debug", action="store_true",
                     help="re-raise errors with a full traceback")
-    for flag in ("--mesh", "--f64-polish", "--precision-schedule"):
+    tr.add_argument("--precision-schedule", default=None, metavar="PREFIX_ITERS[:TIER]",
+                    help="run the first PREFIX_ITERS Adam steps at TIER (default bf16); "
+                         "0 disables the config's schedule")
+    for flag in ("--mesh", "--f64-polish"):
         tr.add_argument(flag, default=None, help="not ported yet (exits 1)")
     tr.set_defaults(fn=cmd_train)
 

@@ -3,9 +3,10 @@
 A whole copy of the JAX package's ``config.py`` (stdlib only): the port
 imports nothing of that package, so both parse one file into equal values.
 The kernel fields parse here too: the port reads ``kernel_precision``
-(:meth:`Config.resolved_kernel_precision`) and ``fused_kernel`` (whether
-training takes K1; ``'off'`` also sends the Trainer's predictions through
-the plain ``mlp_apply``), and refuses a set ``precision_schedule`` or
+(:meth:`Config.resolved_kernel_precision`: the kernels' tier, ``f32`` or
+``bf16``; ``f32x3`` is not ported), ``fused_kernel`` (whether training
+takes the kernels; ``'off'`` also sends the Trainer's predictions through
+the plain ``mlp_apply``) and ``precision_schedule``, and refuses a set
 ``f64_polish``, which it has not ported yet.
 
 The reference drives everything from plain JSON with no schema or defaults
@@ -159,12 +160,12 @@ class F64PolishConfig:
 class PrecisionScheduleConfig:
     """Framework extension (no reference counterpart): a staged-precision
     Adam schedule — the FIRST ``prefix_iters`` Adam steps evaluate
-    loss+gradients at the cheap ``prefix_precision`` Pallas tier, then the
+    loss+gradients at the cheap ``prefix_precision`` kernel tier, then the
     run continues at the configured ``kernel_precision`` (f32 by default)
     for the Adam tail and the L-BFGS phase.
 
-    The JAX package's ``config.py`` records the TPU measurements behind
-    the defaults; the port has no tiers below f32 yet (``ROADMAP.md`` M10).
+    The defaults are the JAX package's, set from its own TPU measurements
+    (its ``config.py``); the port's times on the card are in ``PERF.md``.
 
     Resume-aware by construction: the tier switch is keyed on the ABSOLUTE
     iteration counter, which checkpoints carry.

@@ -1,4 +1,5 @@
-// K1 for Hopper: the one-kernel training step of the continuity losses, f32.
+// K1 for Hopper: the one-kernel training step of the continuity losses, tiers
+// f32 and bf16.
 //
 // Replaces the TPU kernel of the JAX package's ops/kernels_step.py:205
 // _stats_and_grads (pallas_call at :272), whose body is ops/kernels_vjp.py:433
@@ -22,10 +23,14 @@
 //
 // Design. The forward replay, the layer-state scratch and the backward walk
 // (per-layer block product over 128 points, per-block partial rows, the
-// ordered second-pass sum, no atomics) are mlp_bwd_common.cuh's, which K3
-// (mlp_bwd.cu) shares; this file holds the continuity epilogue that turns
-// the last state into the loss statistics and the output cotangents, and
-// instantiates the walk at K=2 with three heads.
+// ordered second-pass sum, no atomics) are mlp_bwd_common.cuh's under its
+// StoreAll policy (K1 is always the JAX 'stream' body), which K3 and K4
+// share; this file holds the continuity epilogue that turns the last state
+// into the loss statistics and the output cotangents, and instantiates the
+// walk at K=2 with three heads. At the bf16 tier (k1_train_step_bf16) the
+// walk rounds as tier.cuh says, and the epilogue rounds the last state
+// before w_out (JAX ops/kernels_vjp.py:569); the statistics and the
+// cotangents stay f32.
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // forward (238,200 for the 2->[20]x100->3 flagship at K=2) and about twice
@@ -34,8 +39,8 @@
 // it. What the design spends beyond that: the layer states go to device
 // memory and back (24,000 B per point at the flagship, ~0.6 GB of traffic
 // at 12,516 points, mostly served by L2 only in part), and the per-layer
-// block product reads shared memory once per two FMAs. Tensor cores and
-// segment recomputation are left for later work (ROADMAP.md).
+// block product reads shared memory once per two FMAs. Tensor cores are
+// left for later work (ROADMAP.md).
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
 // widths; 1 <= d_in <= 8 with the tangents on inputs 0 and 1; d_out = 3;
@@ -85,10 +90,10 @@ struct ContinuityEpilogue {
         fid_scale{args.scal[3], args.scal[4], args.scal[5]},
         n_true(args.n_true), has_anchor(args.has_anchor) {}
 
-  template <int W, int K>
+  template <class Tier, int W, int K>
   __device__ __forceinline__ void output(long long p, bool active, const float (&a)[W],
                                          const float (&t)[mlp_bwd::tdim(K)][W],
-                                         const float* __restrict__ s_wout,
+                                         const typename Tier::WT* __restrict__ s_wout,
                                          const float* __restrict__ s_bout, int d_out,
                                          float (&yb)[kOut],
                                          float (&ybt)[mlp_bwd::tdim(K)][kOut]) {
@@ -103,12 +108,13 @@ struct ContinuityEpilogue {
     }
 #pragma unroll
     for (int j = 0; j < W; ++j) {
+      const float aj = Tier::rnd(a[j]), t0 = Tier::rnd(t[0][j]), t1 = Tier::rnd(t[1][j]);
 #pragma unroll
       for (int o = 0; o < kOut; ++o) {
-        const float wv = s_wout[j * kOut + o];
-        y[o] = fmaf(a[j], wv, y[o]);
-        dy[0][o] = fmaf(t[0][j], wv, dy[0][o]);
-        dy[1][o] = fmaf(t[1][j], wv, dy[1][o]);
+        const float wv = tier::w_f(s_wout[j * kOut + o]);
+        y[o] = fmaf(aj, wv, y[o]);
+        dy[0][o] = fmaf(t0, wv, dy[0][o]);
+        dy[1][o] = fmaf(t1, wv, dy[1][o]);
       }
     }
     const float U = y[0], V = y[1], h = y[2];
@@ -154,15 +160,50 @@ struct ContinuityEpilogue {
   }
 };
 
-template <int W, int ACT>
+template <class Tier, int W, int ACT>
 __global__ void __launch_bounds__(kThreads)
 k1_train_step_kernel(const Args args) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   ContinuityEpilogue epi(args);
-  mlp_bwd::walk<W, ACT, 2>(args.walk, epi, smem);
+  mlp_bwd::walk<Tier, mlp_bwd::StoreAll, W, ACT, 2>(args.walk, epi, smem);
 }
 
 constexpr int kStreams = 3;  // the primal and two tangent streams
+
+template <class Tier>
+int chunk_layers(int n_stack) {
+  return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack, sizeof(typename Tier::WT), 0);
+}
+
+template <class Tier>
+int run(const float* coords, const float* trues, const float* sel, const float* mask,
+        const float* scal, const float* w_in, const float* b_in, const float* w_h,
+        const float* b_h, const float* w_out, const float* b_out, float* partial,
+        float* states, float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
+        int act, int grid, void* stream) {
+  if (n <= 0 || d_in < 2 || d_in > kMaxIn || n_stack < 0 || n_true < 1 || n_true > 3 ||
+      (has_anchor && n_true > 2) || (act != 0 && act != 1) || grid < 1 ||
+      grid > (n + kThreads - 1) / kThreads)
+    return cudaErrorInvalidValue;
+  int chunk = 0;
+  if (n_stack > 0) {
+    chunk = chunk_layers<Tier>(n_stack);
+    if (chunk < 1) return cudaErrorInvalidValue;
+  }
+  constexpr int W = K1_WIDTH;
+  const long long n_ent = mlp_bwd::n_params(W, d_in, kOut, n_stack) + kStats;
+  const Args a{{coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, kOut,
+                n_stack, chunk, 0},
+               trues, sel, mask, scal, n_true, has_anchor};
+  const size_t smem =
+      mlp_bwd::smem_bytes(W, kStreams, kOut, chunk, sizeof(typename Tier::WT), 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return act == 0
+             ? mlp_bwd::launch(k1_train_step_kernel<Tier, W, 0>, a, smem, grid, partial, out,
+                               static_cast<int>(n_ent), s)
+             : mlp_bwd::launch(k1_train_step_kernel<Tier, W, 1>, a, smem, grid, partial, out,
+                               static_cast<int>(n_ent), s);
+}
 
 }  // namespace
 
@@ -177,43 +218,37 @@ const char* k1_error_string(int err) {
 }
 
 // Hidden layers one shared-memory chunk holds on the current device (0 when
-// not even one fits beside the staging rows).
-int k1_chunk_layers(int n_stack) {
-  return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack);
-}
+// not even one fits beside the staging rows), per tier.
+int k1_chunk_layers(int n_stack) { return chunk_layers<tier::TierF32>(n_stack); }
+
+int k1_chunk_layers_bf16(int n_stack) { return chunk_layers<tier::TierBf16>(n_stack); }
 
 // One training-step evaluation: K1 on a grid of `grid` blocks into
 // `partial` (grid rows of n_params + 8 floats), then the fixed-order
 // reduction into `out` (n_params + 8: the gradients in sorted-key order,
 // then the statistics). `states` holds grid * (n_stack + 1) * 3W * 128
-// floats. Returns a cudaError_t; nothing synchronises.
+// floats. Returns a cudaError_t; nothing synchronises. k1_train_step_bf16
+// takes the same arguments at the bf16 tier.
 int k1_train_step(const float* coords, const float* trues, const float* sel,
                   const float* mask, const float* scal, const float* w_in,
                   const float* b_in, const float* w_h, const float* b_h,
                   const float* w_out, const float* b_out, float* partial, float* states,
                   float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
                   int act, int grid, void* stream) {
-  if (n <= 0 || d_in < 2 || d_in > kMaxIn || n_stack < 0 || n_true < 1 || n_true > 3 ||
-      (has_anchor && n_true > 2) || (act != 0 && act != 1) || grid < 1 ||
-      grid > (n + kThreads - 1) / kThreads)
-    return cudaErrorInvalidValue;
-  int chunk = 1;
-  if (n_stack > 0) {
-    chunk = k1_chunk_layers(n_stack);
-    if (chunk < 1) return cudaErrorInvalidValue;
-  }
-  constexpr int W = K1_WIDTH;
-  const long long n_ent = mlp_bwd::n_params(W, d_in, kOut, n_stack) + kStats;
-  const Args a{{coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, kOut,
-                n_stack, n_stack > 0 ? chunk : 0},
-               trues, sel, mask, scal, n_true, has_anchor};
-  const size_t smem = mlp_bwd::smem_bytes(W, kStreams, kOut, a.walk.chunk);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return act == 0
-             ? mlp_bwd::launch(k1_train_step_kernel<W, 0>, a, smem, grid, partial, out,
-                               static_cast<int>(n_ent), s)
-             : mlp_bwd::launch(k1_train_step_kernel<W, 1>, a, smem, grid, partial, out,
-                               static_cast<int>(n_ent), s);
+  return run<tier::TierF32>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out, b_out,
+                            partial, states, out, n, d_in, n_stack, n_true, has_anchor, act,
+                            grid, stream);
+}
+
+int k1_train_step_bf16(const float* coords, const float* trues, const float* sel,
+                       const float* mask, const float* scal, const float* w_in,
+                       const float* b_in, const float* w_h, const float* b_h,
+                       const float* w_out, const float* b_out, float* partial, float* states,
+                       float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
+                       int act, int grid, void* stream) {
+  return run<tier::TierBf16>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out,
+                             b_out, partial, states, out, n, d_in, n_stack, n_true, has_anchor,
+                             act, grid, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
-// The hand-written MLP backward shared by K1 and K3, f32.
+// The hand-written MLP backward shared by K1, K3 and K4, tiers f32 and bf16.
 //
 // For every point p, with the coordinate tangent seeds e_0 .. e_{K-1}, the
 // walk
-//   1. replays the forward with K tangent streams (as K2 does) and keeps
-//      every layer state (a, u^0 .. u^{K-1}; u^k the tangent before the
-//      act' scale) in a per-block scratch in device memory;
+//   1. replays the forward with K tangent streams (as K2 does), keeping the
+//      layer states (a, u^0 .. u^{K-1}; u^k the tangent before the act'
+//      scale) as its state policy says (below);
 //   2. asks its epilogue for the output cotangents ybar (d_out) and
 //      ybar^k (K x d_out): K1 computes them from the continuity losses
-//      (continuity_train_step.cu), K3 loads them (mlp_bwd.cu);
+//      (continuity_train_step.cu), K3 and K4 load them (mlp_bwd.cu,
+//      mlp_bwd_rebuild.cu);
 //   3. walks back through the output layer, the hidden stack and the input
 //      layer, whose tangent streams start as rows k of w_in, so dw_in[k, :]
 //      also collects sum_p ubar_0^k (the tangent-seed term).
@@ -15,35 +16,68 @@
 // of the parameters' sorted keys (b_hidden, b_in, b_out, w_hidden, w_in,
 // w_out), then the epilogue's own sums (kExtra floats).
 //
+// State policies:
+//   StoreAll  every layer state goes to a per-block scratch in device memory
+//             and is read back in the walk (K1, K3: the JAX 'stream' body);
+//   Rebuild   only every C-th state goes to the device scratch (the
+//             checkpoints); the walk takes the segments of C layers in
+//             reverse, re-runs each from its checkpoint into a segment
+//             buffer of C states in shared memory, and walks it back (K4:
+//             the JAX 'rebuild' body). One more forward replay, in exchange
+//             for n_stack/C states of device memory instead of n_stack + 1.
+//
+// Tiers (tier.cuh, ops/tiers.py): at bf16 the weights sit in shared memory
+// as bf16, each forward operand and each stacked cotangent is rounded to
+// bf16 before it meets a weight, and the weight-gradient products, the sums
+// and the staging rows stay f32. At f32 every rounding is the identity.
+//
 // Design. One thread per point, 128 points per tile. The primal and the K
 // tangent streams stay in registers (W is a compile-time constant: one
 // library per width); the hidden weights sit in shared memory (one chunk of
 // whole layers when the stack does not fit). States are laid out
 // [state][component][thread], so neighbouring threads touch neighbouring
-// addresses. Per layer, each thread stages s_prev = [a; t^0..t^{K-1}] and
-// [zbar; ubar^0..ubar^{K-1}] ((1+K)W floats each) in shared memory, and the
-// block forms that layer's W x W weight gradient as a product over its 128
-// points (2 x 2 register tiles; rows padded to 129 floats so no two lanes
-// of a warp hit one bank). Gradients are sums over every point, and Hopper
-// runs blocks in no order: each block of a fixed-size grid walks tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... and keeps its own partial sums in
-// a scratch row (written by one fixed thread per entry, in tile order); a
-// second kernel sums the rows in block order. No atomics: the result is the
-// same bit for bit from run to run.
+// addresses; each thread reads back only its own states, so the state
+// buffers need no barrier. Per layer, each thread stages s_prev = [a;
+// t^0..t^{K-1}] and [zbar; ubar^0..ubar^{K-1}] ((1+K)W floats each) in
+// shared memory, and the block forms that layer's W x W weight gradient as a
+// product over its 128 points (2 x 2 register tiles; rows padded to 129
+// floats so no two lanes of a warp hit one bank). Gradients are sums over
+// every point, and Hopper runs blocks in no order: each block of a
+// fixed-size grid walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... and
+// keeps its own partial sums in a scratch row (written by one fixed thread
+// per entry, in tile order); a second kernel sums the rows in block order.
+// No atomics: the result is the same bit for bit from run to run.
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
-// of forward replay and 2*2*(1+K)*((L-1)*W^2 + W*d_out) + 2*d_in*W of
-// backward, plus L*W tanhf, against a few bytes of inputs and the weights:
-// the CUDA cores' f32 FMA rate bounds it. What the design spends beyond
-// that: the layer states go to device memory and back, and the per-layer
-// block product reads shared memory once per two FMAs. Tensor cores and
-// segment recomputation are left for later work (ROADMAP.md).
+// of forward replay (twice for Rebuild, less the output layer) and
+// 2*2*(1+K)*((L-1)*W^2 + W*d_out) + 2*d_in*W of backward, plus L*W tanhf,
+// against a few bytes of inputs and the weights: the CUDA cores' f32 FMA
+// rate bounds it (the bf16 tier runs the same FMAs). What the design spends
+// beyond that: StoreAll's layer states go to device memory and back, and
+// the per-layer block product reads shared memory once per two FMAs.
+// Tensor cores are left for later work (ROADMAP.md).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
+#include "tier.cuh"
+
 namespace mlp_bwd {
+
+using tier::load_vec;
+using tier::row_vec;
+using tier::w_f;
+
+// The state policies (header).
+struct StoreAll {
+  static constexpr bool kRebuild = false;
+};
+struct Rebuild {
+  static constexpr bool kRebuild = true;
+};
 
 constexpr int kThreads = 128;          // points per tile = threads per block
 constexpr int kLd = kThreads + 1;      // staging row stride: one bank per row
@@ -81,32 +115,15 @@ __device__ __forceinline__ float ddact(float a, float dbar) {
   }
 }
 
-template <int W>
-__host__ __device__ constexpr int row_vec() {
-  return (W % 4 == 0) ? 4 : ((W % 2 == 0) ? 2 : 1);
-}
-
-template <int V>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-  } else if constexpr (V == 2) {
-    const float2 r = *reinterpret_cast<const float2*>(p);
-    v[0] = r.x; v[1] = r.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
 __device__ __forceinline__ float accumulate(float* dst, float v, bool first) {
   return first ? v : *dst + v;
 }
 
-// One hidden layer forward: z = a @ w + b, z^k = t^k @ w; a <- act(z),
-// t^k <- z^k * act'; the state (a, z^0..z^{K-1}) goes to st[c * kThreads].
-template <int W, int ACT, int K>
-__device__ __forceinline__ void hidden_fwd(const float* __restrict__ w,
+// One hidden layer forward: z = a @ w + b, z^k = t^k @ w (a and t^k rounded
+// to the tier); a <- act(z), t^k <- z^k * act'; the state (a, z^0..z^{K-1})
+// goes to st[c * kThreads] unless st is null.
+template <class Tier, int W, int ACT, int K>
+__device__ __forceinline__ void hidden_fwd(const typename Tier::WT* __restrict__ w,
                                            const float* __restrict__ b,
                                            float (&a)[W], float (&t)[tdim(K)][W],
                                            float* __restrict__ st) {
@@ -120,15 +137,19 @@ __device__ __forceinline__ void hidden_fwd(const float* __restrict__ w,
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
+    const float ai = Tier::rnd(a[i]);
+    float ti[tdim(K)];
+#pragma unroll
+    for (int k = 0; k < K; ++k) ti[k] = Tier::rnd(t[k][i]);
 #pragma unroll
     for (int j = 0; j < W; j += V) {
       float wv[V];
       load_vec<V>(w + i * W + j, wv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        z[j + v] = fmaf(a[i], wv[v], z[j + v]);
+        z[j + v] = fmaf(ai, wv[v], z[j + v]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(t[k][i], wv[v], zt[k][j + v]);
+        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(ti[k], wv[v], zt[k][j + v]);
       }
     }
   }
@@ -136,12 +157,27 @@ __device__ __forceinline__ void hidden_fwd(const float* __restrict__ w,
   for (int j = 0; j < W; ++j) {
     const float na = act_fn<ACT>(z[j]);
     const float d = dact<ACT>(na);
-    st[j * kThreads] = na;
+    if (st != nullptr) {
+      st[j * kThreads] = na;
 #pragma unroll
-    for (int k = 0; k < K; ++k) st[((1 + k) * W + j) * kThreads] = zt[k][j];
+      for (int k = 0; k < K; ++k) st[((1 + k) * W + j) * kThreads] = zt[k][j];
+    }
     a[j] = na;
 #pragma unroll
     for (int k = 0; k < K; ++k) t[k][j] = zt[k][j] * d;
+  }
+}
+
+// (a, t^k) back from a state st: t^k = u^k * act', as hidden_fwd made it.
+template <int W, int ACT, int K>
+__device__ __forceinline__ void load_state(const float* __restrict__ st, float (&a)[W],
+                                           float (&t)[tdim(K)][W]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    a[i] = st[i * kThreads];
+    const float d = dact<ACT>(a[i]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) t[k][i] = st[((1 + k) * W + i) * kThreads] * d;
   }
 }
 
@@ -255,11 +291,12 @@ __device__ __forceinline__ void accum_rect(const float* __restrict__ sA, int row
   }
 }
 
-// The pointers and sizes every walk takes.
+// The pointers and sizes every walk takes. `ckpt` is Rebuild's segment
+// length C (0 for StoreAll).
 struct WalkArgs {
   const float *coords, *w_in, *b_in, *w_h, *b_h, *w_out, *b_out;
   float *partial, *states;
-  int n, d_in, d_out, n_stack, chunk;
+  int n, d_in, d_out, n_stack, chunk, ckpt;
 };
 
 // Floats of one block's partial-sum row: every gradient, then kExtra.
@@ -267,52 +304,106 @@ __host__ __device__ inline long long n_params(int W, int d_in, int d_out, int n_
   return static_cast<long long>(n_stack) * W * (W + 1) + W + d_out + d_in * W + W * d_out;
 }
 
-// Dynamic shared memory of a walk: a chunk of hidden layers, the input and
-// output layers, and the two staging blocks of S*W rows.
-__host__ __device__ inline size_t smem_bytes(int W, int S, int max_out, int chunk) {
-  return (static_cast<size_t>(chunk) * (W * W + W) + kMaxIn * W + W + W * max_out + max_out +
-          2 * S * W * kLd) *
-         sizeof(float);
+// States one block keeps in the device scratch: every state (StoreAll,
+// ckpt 0) or the checkpoints 0, C, 2C, ... below n_stack (Rebuild).
+__host__ __device__ inline int scratch_states(int n_stack, int ckpt) {
+  if (ckpt <= 0) return n_stack + 1;
+  const int n_seg = (n_stack + ckpt - 1) / ckpt;
+  return n_seg > 0 ? n_seg : 1;
 }
 
-// Hidden layers one shared-memory chunk holds on the current device (0 when
-// not even one fits beside the staging rows).
-inline int chunk_layers(int W, int S, int max_out, int n_stack) {
+// Dynamic shared memory of a walk, in bytes: the f32 biases, the two
+// staging blocks of S*W rows and Rebuild's segment buffer of `seg` states,
+// then the weights at wt bytes each (a chunk of hidden layers, the input
+// and output layers); every region 16-byte aligned.
+__host__ __device__ inline size_t smem_bytes(int W, int S, int max_out, int chunk, size_t wt,
+                                             int seg) {
+  using tier::align16;
+  return align16(static_cast<size_t>(chunk) * W * 4) + align16(W * 4) + align16(max_out * 4) +
+         2 * align16(static_cast<size_t>(S) * W * kLd * 4) +
+         align16(static_cast<size_t>(seg) * S * W * kThreads * 4) +
+         align16(static_cast<size_t>(chunk) * W * W * wt) + align16(kMaxIn * W * wt) +
+         align16(W * max_out * wt);
+}
+
+// Hidden layers one shared-memory chunk holds on the current device beside
+// the rest (0 when not even one fits).
+inline int chunk_layers(int W, int S, int max_out, int n_stack, size_t wt, int seg) {
   int dev = 0, max_smem = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
       cudaSuccess)
     return 0;
-  const long long per_layer = (W * W + W) * 4LL;
-  const long long fit =
-      (max_smem - static_cast<long long>(smem_bytes(W, S, max_out, 0))) / per_layer;
-  return static_cast<int>(fit < n_stack ? fit : n_stack);
+  int fit = 0;
+  while (fit < n_stack && smem_bytes(W, S, max_out, fit + 1, wt, seg) <=
+                              static_cast<size_t>(max_smem))
+    ++fit;
+  return fit;
+}
+
+// Rebuild's segment length and chunk. `ckpt` > 0 asks for that C (cut to
+// n_stack); 0 takes the largest C <= kMaxAutoCkpt that leaves the whole
+// stack in one chunk, else the largest that leaves at least half of it,
+// else 1. Returns false when nothing fits.
+constexpr int kMaxAutoCkpt = 8;
+inline bool rebuild_plan(int W, int S, int max_out, int n_stack, size_t wt, int ckpt,
+                         int* c_out, int* chunk_out) {
+  if (n_stack <= 0) {
+    *c_out = 1;
+    *chunk_out = 0;
+    return smem_bytes(W, S, max_out, 0, wt, 1) > 0;
+  }
+  int c = 0;
+  if (ckpt > 0) {
+    c = ckpt < n_stack ? ckpt : n_stack;
+  } else {
+    const int top = kMaxAutoCkpt < n_stack ? kMaxAutoCkpt : n_stack;
+    for (int need : {n_stack, (n_stack + 1) / 2, 1}) {
+      for (int cand = top; cand >= 1 && c == 0; --cand) {
+        if (chunk_layers(W, S, max_out, n_stack, wt, cand) >= need) c = cand;
+      }
+      if (c) break;
+    }
+    if (c == 0) return false;
+  }
+  const int chunk = chunk_layers(W, S, max_out, n_stack, wt, c);
+  if (chunk < 1) return false;
+  *c_out = c;
+  *chunk_out = chunk;
+  return true;
 }
 
 // The walk over this block's tiles. Epi supplies the output cotangents:
 //   kMaxOut, kExtra (constants): most heads, floats of its own sums;
-//   output(p, active, a, t, s_wout, s_bout, d_out, yb, ybt): ybar and
+//   output<Tier>(p, active, a, t, s_wout, s_bout, d_out, yb, ybt): ybar and
 //     ybar^k of point p from the last state (a, t^k);
 //   stage(sB): its per-point values into staging rows >= (1+K)*d_out;
 //   reduce(s_B, g_extra, first): its sums over the block's points.
-template <int W, int ACT, int K, class Epi>
-__device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem) {
+template <class Tier, class Policy, int W, int ACT, int K, class Epi>
+__device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned char* smem) {
+  using WT = typename Tier::WT;
+  using tier::align16;
   constexpr int S = 1 + K;
   constexpr int kOut = Epi::kMaxOut;
   const int n_stack = args.n_stack, d_in = args.d_in, d_out = args.d_out, chunk = args.chunk;
-  float* s_wh = smem;                           // chunk * W * W
-  float* s_bh = s_wh + chunk * W * W;           // chunk * W
-  float* s_win = s_bh + chunk * W;              // kMaxIn * W
-  float* s_bin = s_win + kMaxIn * W;            // W
-  float* s_wout = s_bin + W;                    // W * kOut
-  float* s_bout = s_wout + W * kOut;            // kOut
-  float* s_A = s_bout + kOut;                   // S*W rows of kLd
-  float* s_B = s_A + S * W * kLd;               // S*W rows of kLd
+  const int ckpt = Policy::kRebuild ? args.ckpt : 0;
+  unsigned char* cur = smem;
+  auto carve = [&](size_t bytes) { unsigned char* q = cur; cur += align16(bytes); return q; };
+  float* s_bh = reinterpret_cast<float*>(carve(static_cast<size_t>(chunk) * W * 4));
+  float* s_bin = reinterpret_cast<float*>(carve(W * 4));
+  float* s_bout = reinterpret_cast<float*>(carve(kOut * 4));
+  float* s_A = reinterpret_cast<float*>(carve(S * W * kLd * 4));  // S*W rows of kLd
+  float* s_B = reinterpret_cast<float*>(carve(S * W * kLd * 4));  // S*W rows of kLd
+  float* s_seg = reinterpret_cast<float*>(
+      carve(static_cast<size_t>(Policy::kRebuild ? ckpt : 0) * S * W * kThreads * 4));
+  WT* s_wh = reinterpret_cast<WT*>(carve(static_cast<size_t>(chunk) * W * W * sizeof(WT)));
+  WT* s_win = reinterpret_cast<WT*>(carve(kMaxIn * W * sizeof(WT)));
+  WT* s_wout = reinterpret_cast<WT*>(carve(W * kOut * sizeof(WT)));
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < d_in * W; i += kThreads) s_win[i] = args.w_in[i];
+  tier::stage_weights<Tier>(s_win, args.w_in, d_in * W);
   for (int i = tid; i < W; i += kThreads) s_bin[i] = args.b_in[i];
-  for (int i = tid; i < W * d_out; i += kThreads) s_wout[i] = args.w_out[i];
+  tier::stage_weights<Tier>(s_wout, args.w_out, W * d_out);
   for (int i = tid; i < d_out; i += kThreads) s_bout[i] = args.b_out[i];
 
   // Per-block partial sums, in the flat order of the parameters' sorted
@@ -326,9 +417,24 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
   float* g_wout = g_win + d_in * W;
   float* g_extra = g_wout + W * d_out;
 
-  // This thread's layer states: state s, component c at st0[(s*S*W + c) * kThreads].
-  float* st0 = args.states + static_cast<size_t>(blockIdx.x) * (n_stack + 1) * S * W * kThreads + tid;
-  auto state = [&](int s) { return st0 + static_cast<size_t>(s) * S * W * kThreads; };
+  // This thread's states in the device scratch (StoreAll: state s at slot s;
+  // Rebuild: checkpoint s, state s*C, at slot s) and, for Rebuild, in the
+  // segment buffer (slot i: state j0 + 1 + i). Component c of a state at
+  // [c * kThreads].
+  const size_t state_floats = static_cast<size_t>(S) * W * kThreads;
+  float* st0 = args.states +
+               static_cast<size_t>(blockIdx.x) * scratch_states(n_stack, ckpt) * state_floats + tid;
+  auto state = [&](int s) { return st0 + static_cast<size_t>(s) * state_floats; };
+  float* seg0 = s_seg + tid;
+  auto seg = [&](int i) { return seg0 + static_cast<size_t>(i) * state_floats; };
+  // where the forward puts state s (1 <= s <= n_stack), or null
+  auto fwd_slot = [&](int s) -> float* {
+    if constexpr (Policy::kRebuild) {
+      return (s % ckpt == 0 && s < n_stack) ? state(s / ckpt) : nullptr;
+    } else {
+      return state(s);
+    }
+  };
 
   const int n_chunks = chunk > 0 ? (n_stack + chunk - 1) / chunk : 0;
   int loaded = -1;  // the chunk of hidden layers now in shared memory
@@ -336,13 +442,18 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
     if (c == loaded) return;
     __syncthreads();  // nobody reads the previous chunk any more
     const int l0 = c * chunk, nl = min(chunk, n_stack - l0);
-    const float* src_w = args.w_h + static_cast<size_t>(l0) * W * W;
+    tier::stage_weights<Tier>(s_wh, args.w_h + static_cast<size_t>(l0) * W * W, nl * W * W);
     const float* src_b = args.b_h + static_cast<size_t>(l0) * W;
-    for (int i = tid; i < nl * W * W; i += kThreads) s_wh[i] = src_w[i];
     for (int i = tid; i < nl * W; i += kThreads) s_bh[i] = src_b[i];
     __syncthreads();
     loaded = c;
   };
+  // hidden layer l's weights and bias, its chunk loaded
+  auto layer_w = [&](int l) {
+    load_chunk(l / chunk);
+    return s_wh + static_cast<size_t>(l - (l / chunk) * chunk) * W * W;
+  };
+  auto layer_b = [&](int l) { return s_bh + (l - (l / chunk) * chunk) * W; };
 
   const int n_tiles = (args.n + kThreads - 1) / kThreads;
   bool first = true;
@@ -363,14 +474,14 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
         float z = s_bin[j];
 #pragma unroll
         for (int c = 0; c < kMaxIn; ++c) {
-          if (c < d_in) z = fmaf(x[c], s_win[c * W + j], z);
+          if (c < d_in) z = fmaf(Tier::rnd(x[c]), w_f(s_win[c * W + j]), z);
         }
         a[j] = act_fn<ACT>(z);
         const float d = dact<ACT>(a[j]);
         st[j * kThreads] = a[j];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          const float u = s_win[k * W + j];
+          const float u = w_f(s_win[k * W + j]);
           st[((1 + k) * W + j) * kThreads] = u;
           t[k][j] = u * d;
         }
@@ -382,13 +493,13 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
       const int l0 = c * chunk, nl = min(chunk, n_stack - l0);
 #pragma unroll 1
       for (int l = 0; l < nl; ++l) {
-        hidden_fwd<W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t, state(l0 + l + 1));
+        hidden_fwd<Tier, W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t, fwd_slot(l0 + l + 1));
       }
     }
 
     // ---- the output cotangents
     float yb[kOut], ybt[tdim(K)][kOut];
-    epi.template output<W, K>(p, active, a, t, s_wout, s_bout, d_out, yb, ybt);
+    epi.template output<Tier, W, K>(p, active, a, t, s_wout, s_bout, d_out, yb, ybt);
 
     // ---- output layer backward: stage s_L = [a; t^0; ...] and
     // [ybar; ybar^0; ...] (and the epilogue's rows)
@@ -414,8 +525,14 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
     accum_rect<S>(s_A, W, s_B, d_out, g_wout, g_bout, first);
     epi.reduce(s_B, g_extra, first);
 
-    // cotangent into the last state: ybar stack @ w_out^T
+    // cotangent into the last state: ybar stack (rounded) @ w_out^T
     float ca[W], ct[tdim(K)][W];
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      yb[o] = Tier::rnd(yb[o]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) ybt[k][o] = Tier::rnd(ybt[k][o]);
+    }
 #pragma unroll
     for (int i = 0; i < W; ++i) {
       ca[i] = 0.f;
@@ -424,7 +541,7 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
 #pragma unroll
       for (int o = 0; o < kOut; ++o) {
         if (o < d_out) {
-          const float wv = s_wout[i * d_out + o];
+          const float wv = w_f(s_wout[i * d_out + o]);
           ca[i] = fmaf(yb[o], wv, ca[i]);
 #pragma unroll
           for (int k = 0; k < K; ++k) ct[k][i] = fmaf(ybt[k][o], wv, ct[k][i]);
@@ -434,17 +551,20 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
 
     // ---- hidden stack backward, layer j maps state j -> state j + 1
     constexpr int kVec = row_vec<W>();
-#pragma unroll 1
-    for (int j = n_stack - 1; j >= 0; --j) {
-      const int c = j / chunk;
-      load_chunk(c);
-      const float* w = s_wh + (j - c * chunk) * W * W;
+    auto back_layer = [&](int j, const float* st_cur, const float* st_prev) {
+      const WT* w = layer_w(j);
       __syncthreads();  // the previous layer's block product is done
-      state_bwd<W, ACT, K>(state(j + 1), ca, ct, sB);
-      stage_state<W, ACT, K>(state(j), sA);
+      state_bwd<W, ACT, K>(st_cur, ca, ct, sB);
+      stage_state<W, ACT, K>(st_prev, sA);
       __syncthreads();
       accum_square<W, S>(s_A, s_B, g_wh + static_cast<size_t>(j) * W * W, g_bh + j * W, first);
-      // cotangent into state j: [zbar; ubar^0; ...] @ w^T
+      // cotangent into state j: [zbar; ubar^0; ...] (rounded) @ w^T
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        ca[q] = Tier::rnd(ca[q]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) ct[k][q] = Tier::rnd(ct[k][q]);
+      }
       float na[W], nt[tdim(K)][W];
 #pragma unroll
       for (int i = 0; i < W; ++i) {
@@ -469,6 +589,29 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
 #pragma unroll
         for (int k = 0; k < K; ++k) ct[k][i] = nt[k][i];
       }
+    };
+    if constexpr (Policy::kRebuild) {
+      // segments of C layers in reverse: re-run each from its checkpoint
+      // into the segment buffer, then walk it back
+      const int n_seg = (n_stack + ckpt - 1) / ckpt;
+#pragma unroll 1
+      for (int sg = n_seg - 1; sg >= 0; --sg) {
+        const int j0 = sg * ckpt, len = min(ckpt, n_stack - j0);
+        const float* ck = state(sg);
+        load_state<W, ACT, K>(ck, a, t);
+#pragma unroll 1
+        for (int i = 0; i < len; ++i) {
+          const WT* w = layer_w(j0 + i);
+          hidden_fwd<Tier, W, ACT, K>(w, layer_b(j0 + i), a, t, seg(i));
+        }
+#pragma unroll 1
+        for (int j = j0 + len - 1; j >= j0; --j) {
+          back_layer(j, seg(j - j0), j == j0 ? ck : seg(j - j0 - 1));
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int j = n_stack - 1; j >= 0; --j) back_layer(j, state(j + 1), state(j));
     }
 
     // ---- input layer backward: s_in = [x; e_0; ...], so dw_in[k, :] also
@@ -483,6 +626,53 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, float* smem
     __syncthreads();
     accum_rect<S>(s_A, d_in, s_B, W, g_win, g_bin, first);
   }
+}
+
+// The epilogue of K3 and K4: the output cotangents of one point, loaded:
+// ybar[p, :] and dybar[k, p, :]; zero past N, so padding points add
+// nothing. The output layer's forward is not needed.
+struct LoadedCotangents {
+  static constexpr int kMaxOut = 8;
+  static constexpr int kExtra = 0;
+
+  const float *ybar, *dybar;
+  int n;
+
+  template <class Tier, int W, int K>
+  __device__ __forceinline__ void output(long long p, bool active, const float (&)[W],
+                                         const float (&)[tdim(K)][W],
+                                         const typename Tier::WT* __restrict__,
+                                         const float* __restrict__, int d_out,
+                                         float (&yb)[kMaxOut],
+                                         float (&ybt)[tdim(K)][kMaxOut]) const {
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) {
+      const bool live = active && o < d_out;
+      yb[o] = live ? ybar[p * d_out + o] : 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        ybt[k][o] = live ? dybar[(static_cast<long long>(k) * n + p) * d_out + o] : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void stage(float*) const {}
+
+  __device__ __forceinline__ void reduce(const float*, float*, bool) const {}
+};
+
+// The arguments of K3 and K4.
+struct CotangentArgs {
+  WalkArgs walk;
+  const float *ybar, *dybar;
+};
+
+// K3 (StoreAll) and K4 (Rebuild): the walk with loaded cotangents.
+template <class Tier, class Policy, int W, int ACT, int K>
+__global__ void __launch_bounds__(kThreads) cotangent_walk_kernel(const CotangentArgs args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  LoadedCotangents epi{args.ybar, args.dybar, args.walk.n};
+  walk<Tier, Policy, W, ACT, K>(args.walk, epi, smem);
 }
 
 namespace {
@@ -513,6 +703,40 @@ cudaError_t launch(Kernel kernel, const KernelArgs& kargs, size_t smem, int grid
   if (err != cudaSuccess) return err;
   reduce_kernel<<<(n_ent + 255) / 256, 256, 0, stream>>>(partial, grid, n_ent, out);
   return cudaGetLastError();
+}
+
+// One K3/K4 launch at tier Tier and policy Policy: K and the activation
+// picked at run time; smem bytes for the plan in a.walk.
+template <class Tier, class Policy, int W, int ACT>
+cudaError_t launch_cotangents_k(const CotangentArgs& a, int n_tangents, size_t smem, int grid,
+                                float* out, int n_ent, cudaStream_t stream) {
+  switch (n_tangents) {
+    case 0: return launch(cotangent_walk_kernel<Tier, Policy, W, ACT, 0>, a, smem, grid,
+                          a.walk.partial, out, n_ent, stream);
+    case 1: return launch(cotangent_walk_kernel<Tier, Policy, W, ACT, 1>, a, smem, grid,
+                          a.walk.partial, out, n_ent, stream);
+    case 2: return launch(cotangent_walk_kernel<Tier, Policy, W, ACT, 2>, a, smem, grid,
+                          a.walk.partial, out, n_ent, stream);
+    default: return launch(cotangent_walk_kernel<Tier, Policy, W, ACT, 3>, a, smem, grid,
+                           a.walk.partial, out, n_ent, stream);
+  }
+}
+
+template <class Tier, class Policy, int W>
+cudaError_t launch_cotangents(const CotangentArgs& a, int n_tangents, int act, size_t smem,
+                              int grid, float* out, int n_ent, cudaStream_t stream) {
+  return act == 0
+             ? launch_cotangents_k<Tier, Policy, W, 0>(a, n_tangents, smem, grid, out, n_ent, stream)
+             : launch_cotangents_k<Tier, Policy, W, 1>(a, n_tangents, smem, grid, out, n_ent, stream);
+}
+
+// The argument checks K3 and K4 share; true when the call is valid.
+inline bool cotangent_args_ok(int W, const float* dybar, int n, int d_in, int d_out,
+                              int n_stack, int n_tangents, int act, int grid) {
+  return !(n <= 0 || d_in < 1 || d_in > kMaxIn || d_in > W || d_out < 1 ||
+           d_out > LoadedCotangents::kMaxOut || d_out > W || n_stack < 0 || n_tangents < 0 ||
+           n_tangents > 3 || n_tangents > d_in || (n_tangents > 0 && dybar == nullptr) ||
+           (act != 0 && act != 1) || grid < 1 || grid > (n + kThreads - 1) / kThreads);
 }
 
 }  // namespace mlp_bwd

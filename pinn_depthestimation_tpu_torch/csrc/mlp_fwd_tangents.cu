@@ -1,4 +1,5 @@
-// K2 for Hopper: fused MLP forward + K coordinate tangents, f32.
+// K2 for Hopper: fused MLP forward + K coordinate tangents, tiers f32 and
+// bf16.
 //
 // Replaces the TPU kernel ops/kernels.py::_mlp_kernel of the JAX package
 // (launched by packed_mlp_fwd_tangents_raw). Computes exactly what
@@ -9,18 +10,22 @@
 //   K = 2 + EPI    only fc (N,) = (h_x*U + h*U_x) + (h_y*V + h*V_y), the
 //                  continuity residual at heads (U, V, h) = (0, 1, 2) and
 //                  tangents (x, y) = (0, 1).
+// At the bf16 tier (tier.cuh, ops/tiers.py) the weights are rounded to bf16
+// as they are staged, the tangent seeds are rows of the rounded w_in, and
+// every runtime operand (the coordinates, the activation, each scaled
+// tangent stream, the last state) is rounded to bf16 before its product.
 //
 // Design: one thread per point. The primal (W floats) and the K tangent
 // streams (K*W floats) stay in registers through every layer, so the width
 // W is a compile-time constant: this file is compiled once per supported
-// width with -DK2_WIDTH=W. The hidden weights sit in dynamic shared memory;
-// every thread of a warp reads the same weight at the same time (a
-// broadcast), as a float4/float2 along a row where W allows. When the whole
-// stack does not fit, it is staged in chunks of whole layers with
+// width with -DK2_WIDTH=W. The hidden weights sit in dynamic shared memory
+// (f32 or bf16 by tier); every thread of a warp reads the same weight at the
+// same time (a broadcast), as a vector along a row where W allows. When the
+// whole stack does not fit, it is staged in chunks of whole layers with
 // __syncthreads around each chunk (one chunk for the 2->[20]x100->3
-// flagship: 99*(20*20+20)*4 = 166,320 B of the 232,448 B a block may opt
-// into). Threads past N compute on zeros and store nothing, so every thread
-// reaches every barrier.
+// flagship: 99*(20*20*4+20*4) = 166,320 B at f32, 87,120 B at bf16, of the
+// 232,448 B a block may opt into). Threads past N compute on zeros and store
+// nothing, so every thread reaches every barrier.
 //
 // Bound on the H100: per point the kernel does 2*(d_in*W + (L-1)*W^2 +
 // W*d_out)*(1+K) FLOPs (about 238,000 for the flagship at K=2) plus L*W
@@ -28,13 +33,16 @@
 // epilogue). It is bound by the CUDA cores' f32 FMA rate, never by memory:
 // the design keeps every intermediate in registers and feeds the FMAs from
 // broadcast shared-memory reads, one load per weight shared by the 1+K
-// streams. Tensor cores (3xTF32, bf16) are left for the other tiers.
+// streams. The bf16 tier runs the same FMAs plus the conversions; tensor
+// cores are later work.
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
 // widths; 1 <= d_in <= 8; 1 <= d_out <= 8; 0 <= K <= min(3, d_in); N < 2^31.
 // tanh (act 0) and LeakyReLU(0.01) (act 1).
 
 #include <cuda_runtime.h>
+
+#include "tier.cuh"
 
 #ifndef K2_WIDTH
 #error "compile with -DK2_WIDTH=<hidden width>"
@@ -66,30 +74,15 @@ __device__ __forceinline__ float act_deriv(float z, float a) {
   }
 }
 
-// Floats per shared-memory load along a row of W weights.
-template <int W>
-__host__ __device__ constexpr int row_vec() {
-  return (W % 4 == 0) ? 4 : ((W % 2 == 0) ? 2 : 1);
-}
-
-template <int V>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-  } else if constexpr (V == 2) {
-    const float2 r = *reinterpret_cast<const float2*>(p);
-    v[0] = r.x; v[1] = r.y;
-  } else {
-    v[0] = p[0];
-  }
-}
+using tier::load_vec;
+using tier::row_vec;
+using tier::w_f;
 
 // a <- act(a @ w + b); t[k] <- (t[k] @ w) * act'(.), for one hidden layer
 // whose (W, W) weights (row-major, (in, out)) and (W,) bias are in shared
-// memory.
-template <int W, int ACT, int K>
-__device__ __forceinline__ void hidden_layer(const float* __restrict__ w,
+// memory; a and t[k] rounded to the tier before the products.
+template <class Tier, int W, int ACT, int K>
+__device__ __forceinline__ void hidden_layer(const typename Tier::WT* __restrict__ w,
                                              const float* __restrict__ b,
                                              float (&a)[W],
                                              float (&t)[K > 0 ? K : 1][W]) {
@@ -104,15 +97,19 @@ __device__ __forceinline__ void hidden_layer(const float* __restrict__ w,
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
+    const float ai = Tier::rnd(a[i]);
+    float ti[K > 0 ? K : 1];
+#pragma unroll
+    for (int k = 0; k < K; ++k) ti[k] = Tier::rnd(t[k][i]);
 #pragma unroll
     for (int j = 0; j < W; j += V) {
       float wv[V];
       load_vec<V>(w + i * W + j, wv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        z[j + v] = fmaf(a[i], wv[v], z[j + v]);
+        z[j + v] = fmaf(ai, wv[v], z[j + v]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(t[k][i], wv[v], zt[k][j + v]);
+        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(ti[k], wv[v], zt[k][j + v]);
       }
     }
   }
@@ -126,7 +123,15 @@ __device__ __forceinline__ void hidden_layer(const float* __restrict__ w,
   }
 }
 
-template <int W, int ACT, int K, bool EPI>
+// The dynamic shared memory of one block: the f32 biases first, then the
+// weights at the tier's type, each region 16-byte aligned.
+__host__ __device__ inline size_t smem_bytes(int W, int chunk, size_t wt) {
+  using tier::align16;
+  return align16(chunk * W * 4) + align16(W * 4) + align16(kMaxOut * 4) +
+         align16(chunk * W * W * wt) + align16(kMaxIn * W * wt) + align16(W * kMaxOut * wt);
+}
+
+template <class Tier, int W, int ACT, int K, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
                            const float* __restrict__ w_in,   // (d_in, W)
@@ -139,18 +144,22 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
                            float* __restrict__ dy,           // (K, n, d_out)
                            float* __restrict__ fc,           // (n,)
                            int n, int d_in, int d_out, int n_stack, int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_wh = smem;                             // chunk * W * W
-  float* s_bh = s_wh + chunk * W * W;             // chunk * W
-  float* s_win = s_bh + chunk * W;                // kMaxIn * W
-  float* s_bin = s_win + kMaxIn * W;              // W
-  float* s_wout = s_bin + W;                      // W * kMaxOut
-  float* s_bout = s_wout + W * kMaxOut;           // kMaxOut
+  using WT = typename Tier::WT;
+  using tier::align16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* cur = smem;
+  auto carve = [&](size_t bytes) { unsigned char* p = cur; cur += align16(bytes); return p; };
+  float* s_bh = reinterpret_cast<float*>(carve(chunk * W * 4));          // chunk * W
+  float* s_bin = reinterpret_cast<float*>(carve(W * 4));                 // W
+  float* s_bout = reinterpret_cast<float*>(carve(kMaxOut * 4));          // kMaxOut
+  WT* s_wh = reinterpret_cast<WT*>(carve(chunk * W * W * sizeof(WT)));   // chunk * W * W
+  WT* s_win = reinterpret_cast<WT*>(carve(kMaxIn * W * sizeof(WT)));     // kMaxIn * W
+  WT* s_wout = reinterpret_cast<WT*>(carve(W * kMaxOut * sizeof(WT)));   // W * kMaxOut
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < d_in * W; i += kThreads) s_win[i] = w_in[i];
+  tier::stage_weights<Tier>(s_win, w_in, d_in * W);
   for (int i = tid; i < W; i += kThreads) s_bin[i] = b_in[i];
-  for (int i = tid; i < W * d_out; i += kThreads) s_wout[i] = w_out[i];
+  tier::stage_weights<Tier>(s_wout, w_out, W * d_out);
   for (int i = tid; i < d_out; i += kThreads) s_bout[i] = b_out[i];
 
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -160,8 +169,8 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
   for (int c = 0; c < kMaxIn; ++c) xin[c] = (active && c < d_in) ? x[p * d_in + c] : 0.f;
   __syncthreads();
 
-  // Input layer. The tangent seed of coordinate k is row k of w_in times
-  // act' (models/mlp.py: (e_k @ w_in) * act'(z)).
+  // Input layer. The tangent seed of coordinate k is row k of (the tier's)
+  // w_in times act' (models/mlp.py: (e_k @ w_in) * act'(z)).
   float a[W];
   float t[K > 0 ? K : 1][W];
 #pragma unroll
@@ -169,12 +178,12 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
     float z = s_bin[j];
 #pragma unroll
     for (int c = 0; c < kMaxIn; ++c) {
-      if (c < d_in) z = fmaf(xin[c], s_win[c * W + j], z);
+      if (c < d_in) z = fmaf(Tier::rnd(xin[c]), w_f(s_win[c * W + j]), z);
     }
     a[j] = act_fn<ACT>(z);
     const float d = act_deriv<ACT>(z, a[j]);
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k][j] = s_win[k * W + j] * d;
+    for (int k = 0; k < K; ++k) t[k][j] = w_f(s_win[k * W + j]) * d;
   }
 
   // Hidden stack, staged chunk by chunk of whole layers.
@@ -183,12 +192,12 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
     __syncthreads();  // the previous chunk is no longer read
     const float* src_w = w_h + static_cast<size_t>(l0) * W * W;
     const float* src_b = b_h + static_cast<size_t>(l0) * W;
-    for (int i = tid; i < nl * W * W; i += kThreads) s_wh[i] = src_w[i];
+    tier::stage_weights<Tier>(s_wh, src_w, nl * W * W);
     for (int i = tid; i < nl * W; i += kThreads) s_bh[i] = src_b[i];
     __syncthreads();
 #pragma unroll 1
     for (int l = 0; l < nl; ++l) {
-      hidden_layer<W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t);
+      hidden_layer<Tier, W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t);
     }
   }
 
@@ -206,10 +215,10 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) {
       if (o < d_out) {
-        const float wv = s_wout[j * d_out + o];
-        yo[o] = fmaf(a[j], wv, yo[o]);
+        const float wv = w_f(s_wout[j * d_out + o]);
+        yo[o] = fmaf(Tier::rnd(a[j]), wv, yo[o]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) dyo[k][o] = fmaf(t[k][j], wv, dyo[k][o]);
+        for (int k = 0; k < K; ++k) dyo[k][o] = fmaf(Tier::rnd(t[k][j]), wv, dyo[k][o]);
       }
     }
   }
@@ -239,9 +248,9 @@ struct Args {
   int n, d_in, d_out, n_stack;
 };
 
-template <int ACT, int K, bool EPI>
+template <class Tier, int ACT, int K, bool EPI>
 cudaError_t launch(const Args& a, int chunk, size_t smem, cudaStream_t stream) {
-  auto kernel = k2_mlp_fwd_tangents_kernel<K2_WIDTH, ACT, K, EPI>;
+  auto kernel = k2_mlp_fwd_tangents_kernel<Tier, K2_WIDTH, ACT, K, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -252,17 +261,54 @@ cudaError_t launch(const Args& a, int chunk, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int ACT>
+template <class Tier, int ACT>
 cudaError_t dispatch_mode(const Args& a, int n_tangents, int epilogue, int chunk,
                           size_t smem, cudaStream_t stream) {
-  if (epilogue) return launch<ACT, 2, true>(a, chunk, smem, stream);
+  if (epilogue) return launch<Tier, ACT, 2, true>(a, chunk, smem, stream);
   switch (n_tangents) {
-    case 0: return launch<ACT, 0, false>(a, chunk, smem, stream);
-    case 1: return launch<ACT, 1, false>(a, chunk, smem, stream);
-    case 2: return launch<ACT, 2, false>(a, chunk, smem, stream);
-    case 3: return launch<ACT, 3, false>(a, chunk, smem, stream);
+    case 0: return launch<Tier, ACT, 0, false>(a, chunk, smem, stream);
+    case 1: return launch<Tier, ACT, 1, false>(a, chunk, smem, stream);
+    case 2: return launch<Tier, ACT, 2, false>(a, chunk, smem, stream);
+    case 3: return launch<Tier, ACT, 3, false>(a, chunk, smem, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Hidden layers one shared-memory chunk holds on the current device at
+// weight size wt (0 when not even one fits).
+int chunk_layers(int n_stack, size_t wt) {
+  int dev = 0, max_smem = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+      cudaSuccess)
+    return 0;
+  constexpr int W = K2_WIDTH;
+  int fit = 0;
+  while (fit < n_stack && smem_bytes(W, fit + 1, wt) <= static_cast<size_t>(max_smem)) ++fit;
+  return fit;
+}
+
+template <class Tier>
+int run(const float* x, const float* w_in, const float* b_in, const float* w_h,
+        const float* b_h, const float* w_out, const float* b_out, float* y, float* dy,
+        float* fc, int n, int d_in, int d_out, int n_stack, int n_tangents, int act,
+        int epilogue, void* stream) {
+  if (n <= 0 || d_in < 1 || d_in > kMaxIn || d_out < 1 || d_out > kMaxOut ||
+      n_tangents < 0 || n_tangents > kMaxTangents || n_tangents > d_in || n_stack < 0 ||
+      (act != 0 && act != 1) || (epilogue && (n_tangents != 2 || d_out != 3)))
+    return cudaErrorInvalidValue;
+  constexpr int W = K2_WIDTH;
+  const size_t wt = sizeof(typename Tier::WT);
+  int chunk = 0;
+  if (n_stack > 0) {
+    chunk = chunk_layers(n_stack, wt);
+    if (chunk < 1) return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(W, chunk, wt);
+  const Args a{x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out, n_stack};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return act == 0 ? dispatch_mode<Tier, 0>(a, n_tangents, epilogue, chunk, smem, s)
+                  : dispatch_mode<Tier, 1>(a, n_tangents, epilogue, chunk, smem, s);
 }
 
 }  // namespace
@@ -276,43 +322,29 @@ const char* k2_error_string(int err) {
 }
 
 // Number of hidden layers one shared-memory chunk holds on the current
-// device (0 when not even one fits).
-int k2_chunk_layers(int n_stack) {
-  int dev = 0, max_smem = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-      cudaSuccess)
-    return 0;
-  constexpr int W = K2_WIDTH;
-  const long long fixed = (kMaxIn * W + W + W * kMaxOut + kMaxOut) * 4LL;
-  const long long per_layer = (W * W + W) * 4LL;
-  const long long fit = (max_smem - fixed) / per_layer;
-  return static_cast<int>(fit < n_stack ? fit : n_stack);
-}
+// device (0 when not even one fits), per tier.
+int k2_chunk_layers(int n_stack) { return chunk_layers(n_stack, sizeof(float)); }
 
-// Returns a cudaError_t: 0 on success; the launch does not synchronise.
+int k2_chunk_layers_bf16(int n_stack) { return chunk_layers(n_stack, sizeof(__nv_bfloat16)); }
+
+// One launch at the f32 tier, or (k2_mlp_fwd_tangents_bf16) at the bf16
+// tier. Returns a cudaError_t: 0 on success; the launch does not synchronise.
 int k2_mlp_fwd_tangents(const float* x, const float* w_in, const float* b_in,
                         const float* w_h, const float* b_h, const float* w_out,
                         const float* b_out, float* y, float* dy, float* fc, int n, int d_in,
                         int d_out, int n_stack, int n_tangents, int act, int epilogue,
                         void* stream) {
-  if (n <= 0 || d_in < 1 || d_in > kMaxIn || d_out < 1 || d_out > kMaxOut ||
-      n_tangents < 0 || n_tangents > kMaxTangents || n_tangents > d_in || n_stack < 0 ||
-      (act != 0 && act != 1) || (epilogue && (n_tangents != 2 || d_out != 3)))
-    return cudaErrorInvalidValue;
-  constexpr int W = K2_WIDTH;
-  int chunk = 0;
-  if (n_stack > 0) {
-    chunk = k2_chunk_layers(n_stack);
-    if (chunk < 1) return cudaErrorInvalidValue;
-  }
-  const size_t smem =
-      (static_cast<size_t>(chunk) * (W * W + W) + kMaxIn * W + W + W * kMaxOut + kMaxOut) *
-      sizeof(float);
-  const Args a{x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out, n_stack};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return act == 0 ? dispatch_mode<0>(a, n_tangents, epilogue, chunk, smem, s)
-                  : dispatch_mode<1>(a, n_tangents, epilogue, chunk, smem, s);
+  return run<tier::TierF32>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
+                            n_stack, n_tangents, act, epilogue, stream);
+}
+
+int k2_mlp_fwd_tangents_bf16(const float* x, const float* w_in, const float* b_in,
+                             const float* w_h, const float* b_h, const float* w_out,
+                             const float* b_out, float* y, float* dy, float* fc, int n,
+                             int d_in, int d_out, int n_stack, int n_tangents, int act,
+                             int epilogue, void* stream) {
+  return run<tier::TierBf16>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
+                             n_stack, n_tangents, act, epilogue, stream);
 }
 
 }  // extern "C"

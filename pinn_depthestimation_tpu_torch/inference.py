@@ -9,9 +9,11 @@ Port of the JAX package's ``inference.py::Predictor`` for the serving path:
   denormalized for plotting (reference ``test.py:60-89``).
 
 On a CUDA device prediction runs through the K2 kernel
-(``ops.kernels.mlp_fwd_tangents`` with no tangents) unless the caller asks
-for the plain ``models.mlp.mlp_apply`` with ``use_kernel=False``, the
-counterpart of the JAX package's ``use_fused_kernel``. An architecture K2
+(``ops.kernels.mlp_fwd_tangents`` with no tangents) at the config's
+``kernel_precision`` tier (``f32`` or ``bf16``; ``f32x3`` raises) unless
+the caller asks for the plain ``models.mlp.mlp_apply`` with
+``use_kernel=False``, the counterpart of the JAX package's
+``use_fused_kernel``. An architecture K2
 was not compiled for raises instead of serving quietly through the plain
 path (:func:`resolve_use_kernel`).
 

@@ -7,8 +7,10 @@ runs at first use, from the sources in the package only, into
 hash covers the source, the headers of ``csrc/``, the flags and the
 variants, so a second process reuses the libraries and an edited source
 builds anew. Each source is compiled in several variants (one per hidden
-width), and every ``nvcc`` of every kernel (K1, K2 and K3: fifteen) is
-started together, at the first use of any kernel.
+width), and every ``nvcc`` of every kernel (K1, K2, K3 and K4: twenty) is
+started together, at the first use of any kernel. Each library holds both
+tiers: the f32 entry ``<name>`` and the bf16 entry ``<name>_bf16``, with
+the same arguments.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -38,13 +40,15 @@ NVCC_FLAGS = (
 
 K2_SOURCE = "mlp_fwd_tangents.cu"
 K1_SOURCE = "continuity_train_step.cu"
-K3_SOURCE = "mlp_bwd.cu"  # with K1, the walk of mlp_bwd_common.cuh
+K3_SOURCE = "mlp_bwd.cu"  # with K1 and K4, the walk of mlp_bwd_common.cuh
+K4_SOURCE = "mlp_bwd_rebuild.cu"
 # Hidden widths the kernels are compiled for: the repo's configs use 10
 # (CMB) and 20 (flagship); the rest cover the narrow test nets and a wider
 # option.
 K2_WIDTHS = (8, 10, 16, 20, 32)
 K1_WIDTHS = K2_WIDTHS
 K3_WIDTHS = K2_WIDTHS
+K4_WIDTHS = K2_WIDTHS
 
 
 @dataclass
@@ -121,45 +125,43 @@ def _finish(job: dict, bind) -> KernelLibrary:
     return KernelLibrary(name=name, libs=libs, build_seconds=seconds, log_path=log_path)
 
 
-def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k2_mlp_fwd_tangents.argtypes = [p] * 10 + [i] * 7 + [p]
-    lib.k2_mlp_fwd_tangents.restype = i
-    lib.k2_error_string.argtypes = [i]
-    lib.k2_error_string.restype = ctypes.c_char_p
-    lib.k2_width.argtypes = []
-    lib.k2_width.restype = i
-    lib.k2_chunk_layers.argtypes = [i]
-    lib.k2_chunk_layers.restype = i
+def _bind(lib: ctypes.CDLL, name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """Set ``argtypes`` and an ``int`` ``restype`` on ``<name>_<fn>`` for each
+    ``fn`` in ``signatures``, and on its bf16 entry ``<name>_<fn>_bf16``
+    where the library has one; plus ``<name>_error_string``."""
+    for fn, argtypes in signatures.items():
+        for entry in (f"{name}_{fn}", f"{name}_{fn}_bf16"):
+            if entry.endswith("_bf16") and not hasattr(lib, entry):
+                continue
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     return lib
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
+    return _bind(lib, "k2", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 7 + [_P],
+                             "width": [], "chunk_layers": [_I]})
 
 
 def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_train_step.argtypes = [p] * 14 + [i] * 7 + [p]
-    lib.k1_train_step.restype = i
-    lib.k1_error_string.argtypes = [i]
-    lib.k1_error_string.restype = ctypes.c_char_p
-    for fn in (lib.k1_width, lib.k1_threads):
-        fn.argtypes = []
-        fn.restype = i
-    lib.k1_chunk_layers.argtypes = [i]
-    lib.k1_chunk_layers.restype = i
-    return lib
+    return _bind(lib, "k1", {"train_step": [_P] * 14 + [_I] * 7 + [_P],
+                             "width": [], "threads": [], "chunk_layers": [_I]})
 
 
 def _bind_k3(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k3_mlp_bwd.argtypes = [p] * 12 + [i] * 7 + [p]
-    lib.k3_mlp_bwd.restype = i
-    lib.k3_error_string.argtypes = [i]
-    lib.k3_error_string.restype = ctypes.c_char_p
-    for fn in (lib.k3_width, lib.k3_threads):
-        fn.argtypes = []
-        fn.restype = i
-    lib.k3_chunk_layers.argtypes = [i, i]
-    lib.k3_chunk_layers.restype = i
-    return lib
+    return _bind(lib, "k3", {"mlp_bwd": [_P] * 12 + [_I] * 7 + [_P],
+                             "width": [], "threads": [], "chunk_layers": [_I, _I]})
+
+
+def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
+    return _bind(lib, "k4", {"mlp_bwd": [_P] * 12 + [_I] * 8 + [_P],
+                             "width": [], "threads": [], "ckpt_every": [_I] * 3,
+                             "chunk_layers": [_I] * 3})
 
 
 @functools.cache
@@ -170,6 +172,7 @@ def _libraries() -> dict[str, KernelLibrary]:
         (_start("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}), _bind_k2),
         (_start("k1", K1_SOURCE, {w: (f"-DK1_WIDTH={w}",) for w in K1_WIDTHS}), _bind_k1),
         (_start("k3", K3_SOURCE, {w: (f"-DK3_WIDTH={w}",) for w in K3_WIDTHS}), _bind_k3),
+        (_start("k4", K4_SOURCE, {w: (f"-DK4_WIDTH={w}",) for w in K4_WIDTHS}), _bind_k4),
     ]
     try:
         return {job["name"]: _finish(job, bind) for job, bind in jobs}
@@ -197,3 +200,9 @@ def k3_library() -> KernelLibrary:
     """K3 (``csrc/mlp_bwd.cu``), one library per width in
     :data:`K3_WIDTHS`, each holding K = 0..3."""
     return _libraries()["k3"]
+
+
+def k4_library() -> KernelLibrary:
+    """K4 (``csrc/mlp_bwd_rebuild.cu``), one library per width in
+    :data:`K4_WIDTHS`, each holding K = 0..3."""
+    return _libraries()["k4"]

@@ -14,8 +14,13 @@ What bounds it on the H100: FLOPs, not bytes. Per point it does
 2->[20]x100->3 flagship at K=2, plus 100*W tanh) against about 12 B of
 device memory, so the f32 tier is bound by the CUDA cores' FMA rate
 (``SMs x 128 lanes x 2 x SM clock``). The design keeps every intermediate
-on chip and shares each shared-memory weight load among the 1+K streams;
-tensor-core tiers (3xTF32, bf16) are later work (``ROADMAP.md``).
+on chip and shares each shared-memory weight load among the 1+K streams.
+
+Tiers: ``f32`` and ``bf16`` (defined in ``ops.tiers``: bf16 weights in
+shared memory, every runtime operand rounded to bf16 before it meets a
+weight, f32 FMAs on the CUDA cores, so bf16 saves shared memory and no
+operation); ``f32x3`` raises ``NotImplementedError`` (``ROADMAP.md``
+Queue 2). Tensor-core products are later work.
 
 Beside the kernel, per the port's rules:
 
@@ -26,10 +31,8 @@ Beside the kernel, per the port's rules:
   :func:`fused_residual_continuity`: for a CPU tensor they take the plain
   version, for a CUDA tensor they launch the kernel or raise — no fallback;
 * a launch count on each wrapper (``mlp_fwd_tangents.launches``,
-  ``fused_residual_continuity.launches``), raised by one per launch.
-
-Only the ``f32`` tier exists so far; ``f32x3``/``bf16`` raise
-``NotImplementedError``.
+  ``fused_residual_continuity.launches``), raised by one per launch, and
+  the same count per tier (``.launches_by_tier``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import MLPSpec, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS, k2_library
+from pinn_depthestimation_tpu_torch.ops import tiers
+from pinn_depthestimation_tpu_torch.ops.tiers import check_precision
 from pinn_depthestimation_tpu_torch.physics import continuity_only_residuals
 
 MAX_D_IN = 8
@@ -60,16 +65,15 @@ def kernel_supports(spec: MLPSpec) -> bool:
     )
 
 
-def check_precision(precision: str, kernel: str = "K2") -> None:
-    if precision == "f32":
-        return
-    if precision in ("f32x3", "bf16"):
-        raise NotImplementedError(
-            f"{kernel} precision tier {precision!r} is not ported yet (ROADMAP.md "
-            f"Queue 2, '{kernel} tiers f32x3 and bf16'); use kernel_precision "
-            "'f32' or 'auto'"
-        )
-    raise ValueError(f"precision must be 'f32', 'f32x3' or 'bf16', got {precision!r}")
+def count_launch(wrapper, precision: str) -> None:
+    """One more launch of ``wrapper``'s kernel at ``precision``."""
+    wrapper.launches += 1
+    wrapper.launches_by_tier[precision] += 1
+
+
+def reset_launches(wrapper) -> None:
+    wrapper.launches = 0
+    wrapper.launches_by_tier = {t: 0 for t in tiers.TIERS}
 
 
 def _coordinate_tangents(coords: torch.Tensor, n_tangents: int) -> torch.Tensor:
@@ -81,18 +85,25 @@ def _coordinate_tangents(coords: torch.Tensor, n_tangents: int) -> torch.Tensor:
 
 # ----------------------------------------------------------- plain versions
 
-def mlp_fwd_tangents_plain(params, coords, spec: MLPSpec, n_tangents: int):
+def mlp_fwd_tangents_plain(params, coords, spec: MLPSpec, n_tangents: int,
+                           precision: str = "f32"):
     """Plain PyTorch K2: ``(y (N, d_out), dy (K, N, d_out))`` for the first
-    ``n_tangents`` coordinate directions."""
-    return mlp_apply_with_tangents(
-        params, coords, _coordinate_tangents(coords, n_tangents), spec
-    )
+    ``n_tangents`` coordinate directions. ``f32``: ``mlp_apply_with_tangents``
+    (differentiable); ``bf16``: ``ops.tiers.tier_forward``."""
+    check_precision(precision)
+    if precision == "f32":
+        return mlp_apply_with_tangents(
+            params, coords, _coordinate_tangents(coords, n_tangents), spec
+        )
+    fwd = tiers.tier_forward(params, coords, spec, n_tangents, precision, keep_states=False)
+    return fwd.y, fwd.dy
 
 
-def residual_continuity_plain(params, coords, spec: MLPSpec) -> torch.Tensor:
+def residual_continuity_plain(params, coords, spec: MLPSpec,
+                              precision: str = "f32") -> torch.Tensor:
     """Plain PyTorch K2 with the continuity epilogue: per-point
     ``d(hU)/dx + d(hV)/dy`` with heads ``(U, V, h)`` and inputs ``(x, y)``."""
-    y, dy = mlp_fwd_tangents_plain(params, coords, spec, 2)
+    y, dy = mlp_fwd_tangents_plain(params, coords, spec, 2, precision)
     fields = {"U": y[:, 0], "V": y[:, 1], "h": y[:, 2]}
     grads = {c: {"U": dy[k][:, 0], "V": dy[k][:, 1], "h": dy[k][:, 2]}
              for k, c in enumerate(("x", "y"))}
@@ -127,13 +138,21 @@ def _check_launch(params: Mapping[str, torch.Tensor], coords: torch.Tensor,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
 
 
-def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, *, epilogue: bool,
-               y=None, dy=None, fc=None) -> None:
-    lib = k2_library().libs[spec.width]
+def entry(lib, name: str, precision: str):
+    """The C entry ``name`` of a kernel library at ``precision``: the f32
+    entry is ``name``, the bf16 one ``name + '_bf16'``."""
+    return getattr(lib, name if precision == "f32" else f"{name}_{precision}")
+
+
+def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
+               epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
+    """One K2 launch into ``y``/``dy`` or ``fc``. ``lib``: another build of
+    K2 for this width (a check of a rebuilt source)."""
+    lib = lib or k2_library().libs[spec.width]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream(coords.device).cuda_stream
-        err = lib.k2_mlp_fwd_tangents(
+        err = entry(lib, "k2_mlp_fwd_tangents", precision)(
             ptr(coords), ptr(params["w_in"]), ptr(params["b_in"]),
             ptr(params["w_hidden"]), ptr(params["b_hidden"]),
             ptr(params["w_out"]), ptr(params["b_out"]),
@@ -145,7 +164,7 @@ def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, *, epilogue: bool
         raise RuntimeError(
             f"K2 launch failed: CUDA error {err} "
             f"({lib.k2_error_string(err).decode()}) at sizes {spec.sizes}, "
-            f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}"
+            f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}, precision={precision}"
         )
 
 
@@ -165,23 +184,24 @@ def mlp_fwd_tangents(params, coords: torch.Tensor, spec: MLPSpec, n_tangents: in
     Returns ``(y (N, d_out), dy (n_tangents, N, d_out))``.
 
     Counterpart of the JAX ``ops.kernels.packed_mlp_fwd_tangents``. A CPU
-    ``coords`` runs :func:`mlp_fwd_tangents_plain`; a CUDA one launches K2.
+    ``coords`` runs :func:`mlp_fwd_tangents_plain`; a CUDA one launches K2
+    at ``precision`` (``'f32'`` or ``'bf16'``).
     """
     check_precision(precision)
     if not _on_cuda(coords):
-        return mlp_fwd_tangents_plain(params, coords, spec, n_tangents)
+        return mlp_fwd_tangents_plain(params, coords, spec, n_tangents, precision)
     _check_launch(params, coords, spec, n_tangents)
     n = coords.shape[0]
     y = torch.empty((n, spec.d_out), dtype=torch.float32, device=coords.device)
     dy = torch.empty((n_tangents, n, spec.d_out), dtype=torch.float32, device=coords.device)
     if n:
-        _launch_k2(params, coords, spec, n_tangents, epilogue=False,
+        _launch_k2(params, coords, spec, n_tangents, precision, epilogue=False,
                    y=y, dy=dy if n_tangents else None)
-        mlp_fwd_tangents.launches += 1
+        count_launch(mlp_fwd_tangents, precision)
     return y, dy
 
 
-mlp_fwd_tangents.launches = 0
+reset_launches(mlp_fwd_tangents)
 
 
 def fused_residual_continuity(params, coords: torch.Tensor, spec: MLPSpec,
@@ -199,13 +219,13 @@ def fused_residual_continuity(params, coords: torch.Tensor, spec: MLPSpec,
             f"inputs (x, y, ...); got sizes {spec.sizes}"
         )
     if not _on_cuda(coords):
-        return residual_continuity_plain(params, coords, spec)
+        return residual_continuity_plain(params, coords, spec, precision)
     _check_launch(params, coords, spec, 2)
     fc = torch.empty((coords.shape[0],), dtype=torch.float32, device=coords.device)
     if coords.shape[0]:
-        _launch_k2(params, coords, spec, 2, epilogue=True, fc=fc)
-        fused_residual_continuity.launches += 1
+        _launch_k2(params, coords, spec, 2, precision, epilogue=True, fc=fc)
+        count_launch(fused_residual_continuity, precision)
     return fc
 
 
-fused_residual_continuity.launches = 0
+reset_launches(fused_residual_continuity)

@@ -19,19 +19,23 @@ gradients to ``.grad`` themselves.
 
 Beside the kernel, per the port's rules:
 
-* the plain PyTorch version :func:`fused_loss_and_grad_plain` —
+* the plain PyTorch version :func:`fused_loss_and_grad_plain` — at ``f32``
   ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`, the same
-  loss built on ``models.mlp.mlp_apply_with_tangents``, for any width;
+  loss built on ``models.mlp.mlp_apply_with_tangents``, for any width; at
+  ``bf16`` the tier's forward (``ops.tiers.tier_forward``), the loss
+  epilogue differentiated on its outputs, and the tier's backward written
+  out (``ops.tiers.tier_backward``);
 * the wrapper :func:`fused_loss_and_grad`: a CPU batch takes the plain
   version, a CUDA batch launches K1 or raises — no fallback;
 * the launch count ``fused_loss_and_grad.launches``, one per evaluation (K1
-  and its fixed-order reduction).
+  and its fixed-order reduction), and per tier
+  (``fused_loss_and_grad.launches_by_tier``).
 
 The per-batch constants (``sel``, ``mask``, the trues, the denominators
 and the cotangent scales) are built once by :func:`make_step_batch`; an
 evaluation is then the kernel, the reduction and the combination of three
-statistics, with no host synchronisation. Only the ``f32`` tier exists;
-``f32x3``/``bf16`` raise ``NotImplementedError``.
+statistics, with no host synchronisation. Tiers ``f32`` and ``bf16``
+(``ops.tiers``); ``f32x3`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from dataclasses import dataclass
 import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec, mlp_apply_with_tangents
+from pinn_depthestimation_tpu_torch.ops import tiers
 from pinn_depthestimation_tpu_torch.ops.cuda_build import K1_WIDTHS, k1_library
 from pinn_depthestimation_tpu_torch.ops.kernels import (
     _ACT,
@@ -49,6 +54,9 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
     _coordinate_tangents,
     _on_cuda,
     check_precision,
+    count_launch,
+    entry,
+    reset_launches,
 )
 
 KT = 2  # the continuity losses differentiate w.r.t. (x, y) only
@@ -154,6 +162,12 @@ def make_step_batch(coords, trues, sel, mask, fid_weights, n_true: int, w_fid: f
 def _step_stats_plain(params, b: StepBatch, spec: MLPSpec) -> torch.Tensor:
     """The (8,) statistics of K1, in plain PyTorch (differentiable)."""
     y, dy = mlp_apply_with_tangents(params, b.coords, _coordinate_tangents(b.coords, KT), spec)
+    return _stats_from_outputs(y, dy, b)
+
+
+def _stats_from_outputs(y, dy, b: StepBatch) -> torch.Tensor:
+    """The (8,) statistics from the network's ``y`` and ``dy`` (K=2): the
+    loss epilogue of K1, differentiable in ``y`` and ``dy``."""
     U, V, h = y[:, 0], y[:, 1], y[:, 2]
     fc = (dy[0][:, 2] * U + h * dy[0][:, 0] + (dy[1][:, 2] * V + h * dy[1][:, 1])) * b.mask
     stats = [torch.sum(fc * fc)]
@@ -178,9 +192,23 @@ def shared_forward_loss_plain(params, b: StepBatch, spec: MLPSpec):
                           b.n_sel, b.n_true, b.w_fid, b.w_res, b.has_anchor)
 
 
-def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec):
-    """Plain PyTorch K1: ``((total, (fidelity, residual)), grads)`` by
-    ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`. Any width."""
+def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec, precision: str = "f32"):
+    """Plain PyTorch K1: ``((total, (fidelity, residual)), grads)``. Any
+    width. ``f32``: ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`.
+    ``bf16``: the tier's forward, the epilogue's cotangents by autograd on
+    ``(y, dy)`` (f32, as in the kernel), then the tier's backward."""
+    check_precision(precision, "K1")
+    if precision != "f32":
+        _check_step_spec(spec, b.n_true, b.has_anchor)
+        fwd = tiers.tier_forward(params, b.coords, spec, KT, precision)
+        y, dy = fwd.y.requires_grad_(), fwd.dy.requires_grad_()
+        with torch.enable_grad():
+            total, fid, res = _combine_stats(_stats_from_outputs(y, dy, b), b.fid_weights,
+                                             b.n_res, b.n_sel, b.n_true, b.w_fid, b.w_res,
+                                             b.has_anchor)
+            ybar, dybar = torch.autograd.grad(total, [y, dy])
+        grads = tiers.tier_backward(params, b.coords, fwd, ybar, dybar, spec, precision)
+        return (total.detach(), (fid.detach(), res.detach())), grads
     leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
     with torch.enable_grad():
         total, fid, res = shared_forward_loss_plain(leaves, b, spec)
@@ -241,7 +269,8 @@ def unflatten(flat: torch.Tensor, spec: MLPSpec) -> dict[str, torch.Tensor]:
     return out
 
 
-def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None) -> torch.Tensor:
+def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
+               precision: str = "f32") -> torch.Tensor:
     """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result. ``lib``:
     another build of K1 for this width (a check of a rebuilt source)."""
     lib = lib or k1_library().libs[spec.width]
@@ -256,7 +285,7 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None) -> torch.Tensor:
     out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.k1_train_step(
+        err = entry(lib, "k1_train_step", precision)(
             b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
             b.scal.data_ptr(),
             *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
@@ -267,7 +296,8 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(
             f"K1 launch failed: CUDA error {err} ({lib.k1_error_string(err).decode()}) "
-            f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}"
+            f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}, "
+            f"precision={precision}"
         )
     return out
 
@@ -280,21 +310,22 @@ def fused_loss_and_grad(params, b: StepBatch, spec: MLPSpec, *, precision: str =
     of the JAX ``ops.kernels_step.fused_loss_and_grad``.
 
     A CPU batch runs :func:`fused_loss_and_grad_plain`; a CUDA batch
-    launches K1. An empty anchor selection gives NaN, as the reference's
-    ``torch.mean`` of an empty tensor does."""
+    launches K1 at ``precision`` (``'f32'`` or ``'bf16'``). An empty anchor
+    selection gives NaN, as the reference's ``torch.mean`` of an empty
+    tensor does."""
     check_precision(precision, "K1")
     _check_step_spec(spec, b.n_true, b.has_anchor)
     if not _on_cuda(b.coords, "K1"):
-        return fused_loss_and_grad_plain(params, b, spec)
+        return fused_loss_and_grad_plain(params, b, spec, precision)
     _check_launch(params, b, spec)
     if b.coords.shape[0] == 0:
         raise ValueError("K1 needs at least one point")
-    out = _launch_k1(params, b, spec)
-    fused_loss_and_grad.launches += 1
+    out = _launch_k1(params, b, spec, precision=precision)
+    count_launch(fused_loss_and_grad, precision)
     n = n_flat(spec)
     total, fid, res = _combine_stats(out[n:], b.fid_weights, b.n_res, b.n_sel, b.n_true,
                                      b.w_fid, b.w_res, b.has_anchor)
     return (total, (fid, res)), unflatten(out[:n], spec)
 
 
-fused_loss_and_grad.launches = 0
+reset_launches(fused_loss_and_grad)

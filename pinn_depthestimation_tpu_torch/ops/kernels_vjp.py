@@ -1,28 +1,39 @@
-"""K3: the fused MLP backward, and the differentiable fused forward+tangents.
+"""K3 and K4: the fused MLP backward, and the differentiable fused forward+tangents.
 
-Replaces the JAX package's TPU kernel ``ops/kernels_vjp.py::packed_mlp_bwd``
-with ``impl='stream'`` (``pallas_call`` at ``:805``, body
-``_make_bwd_kernel_stream(train_epilogue=0)``), the backward of the custom
-VJP ``fused_apply_with_tangents``. Given output cotangents ``ybar (N,
-d_out)`` and ``dybar (K, N, d_out)`` of ``(y, dy) =
-mlp_apply_with_tangents(params, coords, e_0..e_{K-1})``, K3 returns every
-parameter gradient. The kernel is CUDA C++ in ``csrc/mlp_bwd.cu`` on the
-walk of ``csrc/mlp_bwd_common.cuh``, which K1 shares (design and bound in
-their headers), built by ``ops.cuda_build``.
+K3 replaces the JAX package's TPU kernel ``ops/kernels_vjp.py::
+packed_mlp_bwd`` with ``impl='stream'`` (``pallas_call`` at ``:805``, body
+``_make_bwd_kernel_stream(train_epilogue=0)``); K4 replaces the same call
+with ``impl='rebuild'`` (body ``_make_bwd_kernel``, ``:268``, segmented
+recomputation). Both compute the backward of the custom VJP
+``fused_apply_with_tangents``: given output cotangents ``ybar (N, d_out)``
+and ``dybar (K, N, d_out)`` of ``(y, dy) = mlp_apply_with_tangents(params,
+coords, e_0..e_{K-1})``, every parameter gradient. The kernels are CUDA
+C++ in ``csrc/mlp_bwd.cu`` (K3, every layer state stored) and
+``csrc/mlp_bwd_rebuild.cu`` (K4, checkpoints and a segment buffer), both on
+the walk of ``csrc/mlp_bwd_common.cuh``, which K1 shares (design and bound
+in their headers), built by ``ops.cuda_build``. Tiers ``f32`` and ``bf16``
+(``ops.tiers``); ``f32x3`` raises ``NotImplementedError``.
 
-Beside the kernel, per the port's rules:
+``impl='auto'`` resolves per tier through ``ops.tiers.BWD_IMPL_DEFAULT``,
+the JAX package's default: ``f32`` -> ``'stream'`` (K3), ``bf16`` ->
+``'rebuild'`` (K4).
 
-* the plain PyTorch version :func:`packed_mlp_bwd_plain` — autograd of
-  ``models.mlp.mlp_apply_with_tangents`` with the given cotangents;
-* the wrapper :func:`packed_mlp_bwd`: CPU tensors take the plain version,
-  CUDA tensors launch K3 or raise — no fallback;
-* the launch count ``packed_mlp_bwd.launches``, one per launch (K3 and its
-  fixed-order reduction).
+Beside the kernels, per the port's rules:
+
+* the plain PyTorch version :func:`packed_mlp_bwd_plain`, K3's and K4's
+  function: at ``f32`` autograd of ``models.mlp.mlp_apply_with_tangents``
+  with the given cotangents, at ``bf16`` the backward written out
+  (``ops.tiers.tier_backward``);
+* the wrappers :func:`packed_mlp_bwd` (K3) and
+  :func:`packed_mlp_bwd_rebuild` (K4): CPU tensors take the plain version,
+  CUDA tensors launch the kernel or raise — no fallback;
+* the launch counts ``packed_mlp_bwd.launches`` (K3) and
+  ``packed_mlp_bwd_rebuild.launches`` (K4), one per launch (the kernel and
+  its fixed-order reduction), and per tier (``.launches_by_tier``).
 
 :class:`FusedApplyWithTangents` is the ``torch.autograd.Function`` of the
 JAX custom VJP: its forward is K2 (``ops.kernels.mlp_fwd_tangents``), its
-backward K3. Only the ``f32`` tier exists; ``f32x3``/``bf16`` raise
-``NotImplementedError``.
+backward :func:`packed_mlp_bwd` with the Function's ``bwd_impl``.
 """
 
 from __future__ import annotations
@@ -30,8 +41,8 @@ from __future__ import annotations
 import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec
-from pinn_depthestimation_tpu_torch.ops import kernels
-from pinn_depthestimation_tpu_torch.ops.cuda_build import K3_WIDTHS, k3_library
+from pinn_depthestimation_tpu_torch.ops import kernels, tiers
+from pinn_depthestimation_tpu_torch.ops.cuda_build import K3_WIDTHS, K4_WIDTHS, k3_library, k4_library
 from pinn_depthestimation_tpu_torch.ops.kernels import (
     _ACT,
     _MAX_POINTS,
@@ -40,27 +51,50 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
     MAX_TANGENTS,
     _on_cuda,
     check_precision,
+    count_launch,
+    entry,
+    reset_launches,
 )
 from pinn_depthestimation_tpu_torch.ops.kernels_step import n_flat, unflatten
+from pinn_depthestimation_tpu_torch.ops.tiers import BWD_IMPL_DEFAULT
 
 
 def kernel_supports(spec: MLPSpec) -> bool:
-    """Whether K3 takes this architecture: at least one hidden layer, a
-    compiled width, ``d_in <= 8`` and ``d_out <= 8``."""
+    """Whether K3 and K4 take this architecture: at least one hidden layer,
+    a compiled width, ``d_in <= 8`` and ``d_out <= 8``."""
     return (
         spec.n_hidden >= 1
         and spec.width in K3_WIDTHS
+        and spec.width in K4_WIDTHS
         and spec.d_in <= MAX_D_IN
         and spec.d_out <= MAX_D_OUT
     )
 
 
+def resolve_impl(impl: str, precision: str) -> str:
+    """``'auto'`` -> the tier's default (``BWD_IMPL_DEFAULT``); ``'stream'``
+    (K3) and ``'rebuild'`` (K4) as they are."""
+    check_precision(precision, "K3/K4")
+    if impl == "auto":
+        return BWD_IMPL_DEFAULT[precision]
+    if impl not in ("stream", "rebuild"):
+        raise ValueError(f"impl must be 'auto', 'stream' or 'rebuild', got {impl!r}")
+    return impl
+
+
 # ------------------------------------------------------------ plain version
 
-def packed_mlp_bwd_plain(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int):
-    """Plain PyTorch K3: the parameter gradients of
-    ``(y, dy) = mlp_fwd_tangents_plain(params, coords, spec, n_tangents)``
-    for the cotangents ``(ybar, dybar)``, by ``torch.autograd.grad``."""
+def packed_mlp_bwd_plain(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                         precision: str = "f32"):
+    """Plain PyTorch K3/K4: the parameter gradients of ``(y, dy) =
+    mlp_fwd_tangents_plain(params, coords, spec, n_tangents, precision)``
+    for the cotangents ``(ybar, dybar)``. ``f32``: ``torch.autograd.grad``;
+    ``bf16``: the tier's backward written out (``ops.tiers``)."""
+    check_precision(precision, "K3/K4")
+    if precision != "f32":
+        fwd = tiers.tier_forward(params, coords.detach(), spec, n_tangents, precision)
+        return tiers.tier_backward(params, coords.detach(), fwd, ybar, dybar[:n_tangents],
+                                   spec, precision)
     leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
     with torch.enable_grad():
         y, dy = kernels.mlp_fwd_tangents_plain(leaves, coords.detach(), spec, n_tangents)
@@ -76,16 +110,17 @@ def packed_mlp_bwd_plain(params, coords, ybar, dybar, spec: MLPSpec, n_tangents:
 
 # -------------------------------------------------------------- CUDA launch
 
-def _check_launch(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int) -> None:
+def _check_launch(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                  kernel: str = "K3") -> None:
     if spec.dropout_rate:
-        raise ValueError("K3 does not support dropout")
+        raise ValueError(f"{kernel} does not support dropout")
     if not kernel_supports(spec):
         raise ValueError(
-            f"K3 takes >= 1 hidden layer, width in {K3_WIDTHS}, d_in <= {MAX_D_IN} "
+            f"{kernel} takes >= 1 hidden layer, width in {K3_WIDTHS}, d_in <= {MAX_D_IN} "
             f"and d_out <= {MAX_D_OUT}; got sizes {spec.sizes}"
         )
     if not 0 <= n_tangents <= min(MAX_TANGENTS, spec.d_in):
-        raise ValueError(f"K3 takes 0 <= n_tangents <= min(3, d_in), got {n_tangents}")
+        raise ValueError(f"{kernel} takes 0 <= n_tangents <= min(3, d_in), got {n_tangents}")
     n = coords.shape[0]
     if coords.dim() != 2 or coords.shape[1] != spec.d_in or n > _MAX_POINTS:
         raise ValueError(f"coords must be (N, {spec.d_in}) with N < 2^31, got {tuple(coords.shape)}")
@@ -100,17 +135,22 @@ def _check_launch(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int) -
     for name, t in tensors.items():
         if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
-                f"K3 takes contiguous float32 tensors on {coords.device}; {name} is "
+                f"{kernel} takes contiguous float32 tensors on {coords.device}; {name} is "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
         if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
 
 
-def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int) -> torch.Tensor:
+_WEIGHT_ORDER = ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")
+
+
+def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+               precision: str = "f32", lib=None) -> torch.Tensor:
     """K3 + its reduction; returns the flat ``(n_flat,)`` gradients in
-    ``kernels_step.FLAT_KEYS`` order."""
-    lib = k3_library().libs[spec.width]
+    ``kernels_step.FLAT_KEYS`` order. ``lib``: another build of K3 for this
+    width (a check of a rebuilt source)."""
+    lib = lib or k3_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
     threads = lib.k3_threads()
@@ -122,55 +162,131 @@ def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int) -> t
     out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.k3_mlp_bwd(
+        err = entry(lib, "k3_mlp_bwd", precision)(
             coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
-            *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
+            *(params[k].data_ptr() for k in _WEIGHT_ORDER),
             partial.data_ptr(), states.data_ptr(), out.data_ptr(),
             n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], grid, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"K3 launch failed: CUDA error {err} ({lib.k3_error_string(err).decode()}) "
-            f"at sizes {spec.sizes}, N={n}, K={n_tangents}"
+            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, precision={precision}"
         )
     return out
 
 
-# ------------------------------------------------------------------ wrapper
+def rebuild_ckpt_every(spec: MLPSpec, n_tangents: int, precision: str,
+                       ckpt_every: int = 0) -> int:
+    """K4's segment length C on the current card: ``ckpt_every`` cut to the
+    stack depth, or with 0 the largest C <= 8 that leaves the whole stack in
+    one shared-memory chunk (``mlp_bwd::rebuild_plan``). Raises when the
+    segment buffer does not fit."""
+    lib = k4_library().libs[spec.width]
+    c = entry(lib, "k4_ckpt_every", precision)(spec.n_hidden - 1, n_tangents, ckpt_every)
+    if c < 1:
+        raise ValueError(
+            f"K4: a segment buffer of {ckpt_every} states does not fit in shared memory "
+            f"at sizes {spec.sizes}, K={n_tangents}, precision={precision}"
+        )
+    return c
+
+
+def _launch_k4(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+               precision: str, ckpt_every: int = 0) -> torch.Tensor:
+    """K4 + its reduction; returns the flat ``(n_flat,)`` gradients in
+    ``kernels_step.FLAT_KEYS`` order."""
+    lib = k4_library().libs[spec.width]
+    dev = coords.device
+    n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
+    c = rebuild_ckpt_every(spec, n_tangents, precision, ckpt_every)
+    threads = lib.k4_threads()
+    grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_ent = n_flat(spec)
+    n_ckpt = max(1, -(-n_stack // c))
+    partial = torch.empty((grid, n_ent), dtype=torch.float32, device=dev)
+    states = torch.empty((grid * n_ckpt * (1 + n_tangents) * W * threads,),
+                         dtype=torch.float32, device=dev)
+    out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(lib, "k4_mlp_bwd", precision)(
+            coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
+            *(params[k].data_ptr() for k in _WEIGHT_ORDER),
+            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], c, grid,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"K4 launch failed: CUDA error {err} ({lib.k4_error_string(err).decode()}) "
+            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, C={c}, precision={precision}"
+        )
+    return out
+
+
+# ----------------------------------------------------------------- wrappers
 
 def packed_mlp_bwd(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
-                   *, precision: str = "f32") -> dict[str, torch.Tensor]:
+                   *, precision: str = "f32", impl: str = "auto") -> dict[str, torch.Tensor]:
     """Parameter gradients of ``(y, dy) = mlp_apply_with_tangents(params,
-    coords, e_0..e_{K-1})`` given output cotangents ``ybar (N, d_out)`` and
-    ``dybar (K, N, d_out)``. Counterpart of the JAX
-    ``ops.kernels_vjp.packed_mlp_bwd``. A CPU ``coords`` runs
-    :func:`packed_mlp_bwd_plain`; a CUDA one launches K3."""
-    check_precision(precision, "K3")
+    coords, e_0..e_{K-1})`` at the tier ``precision``, given output
+    cotangents ``ybar (N, d_out)`` and ``dybar (K, N, d_out)``. Counterpart
+    of the JAX ``ops.kernels_vjp.packed_mlp_bwd``. ``impl``: ``'stream'``
+    is K3, ``'rebuild'`` is K4 (:func:`packed_mlp_bwd_rebuild`), ``'auto'``
+    the tier's default. A CPU ``coords`` runs :func:`packed_mlp_bwd_plain`;
+    a CUDA one launches the kernel."""
+    if resolve_impl(impl, precision) == "rebuild":
+        return packed_mlp_bwd_rebuild(params, coords, ybar, dybar, spec, n_tangents,
+                                      precision=precision)
     if not _on_cuda(coords, "K3"):
-        return packed_mlp_bwd_plain(params, coords, ybar, dybar, spec, n_tangents)
-    _check_launch(params, coords, ybar, dybar, spec, n_tangents)
+        return packed_mlp_bwd_plain(params, coords, ybar, dybar, spec, n_tangents, precision)
+    _check_launch(params, coords, ybar, dybar, spec, n_tangents, "K3")
     if coords.shape[0] == 0:
         return {k: torch.zeros_like(params[k]) for k in PARAM_KEYS}
-    out = _launch_k3(params, coords, ybar, dybar, spec, n_tangents)
-    packed_mlp_bwd.launches += 1
+    out = _launch_k3(params, coords, ybar, dybar, spec, n_tangents, precision)
+    count_launch(packed_mlp_bwd, precision)
     return unflatten(out, spec)
 
 
-packed_mlp_bwd.launches = 0
+reset_launches(packed_mlp_bwd)
+
+
+def packed_mlp_bwd_rebuild(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                           *, precision: str = "f32",
+                           ckpt_every: int = 0) -> dict[str, torch.Tensor]:
+    """K4: :func:`packed_mlp_bwd`'s gradients by segmented recomputation
+    (the JAX ``impl='rebuild'``), segments of ``ckpt_every`` layers (0: the
+    planned C, :func:`rebuild_ckpt_every`). A CPU ``coords`` runs
+    :func:`packed_mlp_bwd_plain`; a CUDA one launches K4."""
+    check_precision(precision, "K4")
+    if not _on_cuda(coords, "K4"):
+        return packed_mlp_bwd_plain(params, coords, ybar, dybar, spec, n_tangents, precision)
+    _check_launch(params, coords, ybar, dybar, spec, n_tangents, "K4")
+    if coords.shape[0] == 0:
+        return {k: torch.zeros_like(params[k]) for k in PARAM_KEYS}
+    out = _launch_k4(params, coords, ybar, dybar, spec, n_tangents, precision, ckpt_every)
+    count_launch(packed_mlp_bwd_rebuild, precision)
+    return unflatten(out, spec)
+
+
+reset_launches(packed_mlp_bwd_rebuild)
 
 
 class FusedApplyWithTangents(torch.autograd.Function):
     """``(y, dy)`` of the MLP with the first ``n_tangents`` coordinate
-    tangents: forward ``ops.kernels.mlp_fwd_tangents`` (K2 on the card),
-    backward :func:`packed_mlp_bwd` (K3 on the card). ``coords`` gets no
-    gradient (``None``)."""
+    tangents at the tier ``precision``: forward ``ops.kernels.
+    mlp_fwd_tangents`` (K2 on the card), backward :func:`packed_mlp_bwd`
+    with ``bwd_impl`` (K3 or K4 on the card). ``coords`` gets no gradient
+    (``None``)."""
 
     @staticmethod
-    def forward(ctx, spec, n_tangents, precision, coords, *flat_params):
+    def forward(ctx, spec, n_tangents, precision, bwd_impl, coords, *flat_params):
         params = dict(zip(PARAM_KEYS, flat_params))
         y, dy = kernels.mlp_fwd_tangents(params, coords, spec, n_tangents, precision=precision)
         ctx.save_for_backward(coords, *flat_params)
-        ctx.spec, ctx.n_tangents, ctx.precision = spec, n_tangents, precision
+        ctx.spec, ctx.n_tangents = spec, n_tangents
+        ctx.precision, ctx.bwd_impl = precision, bwd_impl
         return y, dy
 
     @staticmethod
@@ -178,22 +294,25 @@ class FusedApplyWithTangents(torch.autograd.Function):
         coords, *flat_params = ctx.saved_tensors
         params = dict(zip(PARAM_KEYS, flat_params))
         grads = packed_mlp_bwd(params, coords, ybar.contiguous(), dybar.contiguous(),
-                               ctx.spec, ctx.n_tangents, precision=ctx.precision)
-        return (None, None, None, None, *(grads[k] for k in PARAM_KEYS))
+                               ctx.spec, ctx.n_tangents, precision=ctx.precision,
+                               impl=ctx.bwd_impl)
+        return (None, None, None, None, None, *(grads[k] for k in PARAM_KEYS))
 
 
 def fused_apply_with_tangents(params, coords: torch.Tensor, spec: MLPSpec, n_tangents: int,
-                              precision: str = "f32"):
+                              precision: str = "f32", bwd_impl: str = "auto"):
     """Differentiable fused forward + the first ``n_tangents`` coordinate
-    tangents, ``(y (N, d_out), dy (K, N, d_out))``. Counterpart of the JAX
-    ``ops.kernels_vjp.fused_apply_with_tangents``.
+    tangents, ``(y (N, d_out), dy (K, N, d_out))``, at the tier
+    ``precision``; the backward is ``bwd_impl`` (:func:`packed_mlp_bwd`).
+    Counterpart of the JAX ``ops.kernels_vjp.fused_apply_with_tangents``.
 
     ``coords`` is detached first, as the JAX function passes it through
-    ``lax.stop_gradient``: K3 computes no coordinate gradient, so a loss
-    that differentiates w.r.t. the coordinates must not be built on this
-    path (use ``models.mlp.mlp_apply_with_tangents``, which differentiates
-    fully)."""
+    ``lax.stop_gradient``: the backward computes no coordinate gradient, so
+    a loss that differentiates w.r.t. the coordinates must not be built on
+    this path (use ``models.mlp.mlp_apply_with_tangents``, which
+    differentiates fully)."""
     if spec.dropout_rate:
         raise ValueError("the fused forward+tangents does not support dropout")
-    return FusedApplyWithTangents.apply(spec, n_tangents, precision, coords.detach(),
+    resolve_impl(bwd_impl, precision)
+    return FusedApplyWithTangents.apply(spec, n_tangents, precision, bwd_impl, coords.detach(),
                                         *(params[k] for k in PARAM_KEYS))

@@ -12,8 +12,17 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
   (:func:`decide_kernels`): K1 (``ops.kernels_step``, the one-kernel
   training step) when the configuration qualifies, else autograd of
   ``training.loss.build_loss_fn`` — on the card through the generic fused
-  path (K2 forward, K3 backward, ``ops.kernels_vjp``) wherever its
-  structural conditions hold, so the CMB pipeline runs kernels only;
+  path (K2 forward, K3 or K4 backward, ``ops.kernels_vjp``) wherever its
+  structural conditions hold, so the CMB pipeline runs kernels only; the
+  kernels run at ``kernel_precision``'s tier (``f32`` or ``bf16``);
+* the staged-precision schedule (``precision_schedule``, JAX
+  ``training/driver.py:151-208``, ``:322-345``): the first
+  ``prefix_iters`` Adam steps evaluate through a second value-and-gradient
+  function at ``prefix_precision``, the rest of Adam and L-BFGS at the main
+  tier. No Adam chunk straddles the boundary, and the switch is keyed on
+  the absolute iteration counter, so ``--resume`` lands in the right tier.
+  Where no kernel runs, the schedule is inert (a warning; the main
+  function serves both);
 * ``log.txt`` gets one reference-format row per evaluation, flushed once
   per 1000-step chunk from a device buffer (no host sync per Adam step);
 * ``model_<iter>.npz`` checkpoints at the reference cadence carry the
@@ -26,8 +35,8 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
 The iteration counter counts loss evaluations, as the reference's
 ``self.iter`` does (reference ``train.py:160``).
 
-Not ported yet, and refused with ``NotImplementedError``: the precision
-schedule and the f64 polish (``ROADMAP.md`` M10), data parallelism (M11).
+Not ported yet, and refused with ``NotImplementedError``: the f64 polish
+(``ROADMAP.md`` M10), data parallelism (M11).
 """
 
 from __future__ import annotations
@@ -187,9 +196,6 @@ class Trainer:
         card by default; ``"cpu"`` runs the plain versions."""
         if config.parallel.data:
             raise _queued("data-parallel training (parallel.data)", "M11")
-        sched = config.precision_schedule
-        if sched is not None and sched.prefix_iters > 0:
-            raise _queued("the precision schedule", "M10")
         if config.f64_polish is not None and config.f64_polish.max_it > 0:
             raise _queued("the f64 L-BFGS polish", "M10")
         self.config = config
@@ -228,15 +234,18 @@ class Trainer:
             fidelity_is_residual=fidelity_is_residual,
         )
         self.value_and_grad_fn = self.fused_step_fn or value_and_grad(self.loss_fn)
+        tier = config.resolved_kernel_precision()
         where = " (CUDA)" if self.device.type == "cuda" else " (plain versions on the CPU)"
         if self.fused_step_fn:
-            step = "K1, the one-kernel training step" + where
+            step = f"K1, the one-kernel training step, at {tier}" + where
         elif self.kernel_plan.fused:
-            step = "autograd of the loss through K2 forward + K3 backward" + where
+            bwd = "K4" if kernels_vjp.resolve_impl("auto", tier) == "rebuild" else "K3"
+            step = f"autograd of the loss through K2 forward + {bwd} backward, at {tier}" + where
         else:
             step = "autograd of the loss (plain PyTorch)"
-        predict = "K2" if self.kernel_plan.predict else "plain mlp_apply"
+        predict = f"K2 at {tier}" if self.kernel_plan.predict else "plain mlp_apply"
         print(f"Training step: {step}; snapshot/predict: {predict}; device {self.device}")
+        self._prefix_iters, self._prefix_value_and_grad = self._build_schedule(fidelity_is_residual)
 
         if initial_params is not None:
             arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
@@ -256,6 +265,35 @@ class Trainer:
         self._pending_lbfgs_resume = None   # raw dict from a restored checkpoint
         self._snapshot_done = False
 
+    def _build_schedule(self, fidelity_is_residual: bool):
+        """``(prefix_iters, prefix value-and-grad)`` of the precision
+        schedule, ``(0, None)`` without one. The prefix function is the main
+        one where the tiers agree or where no kernel runs (then the schedule
+        is inert, as on the JAX package's XLA path, and says so)."""
+        sched = self.config.precision_schedule
+        if sched is None or sched.prefix_iters <= 0:
+            return 0, None
+        main_tier = self.config.resolved_kernel_precision()
+        kernel_path = self.kernel_plan.k1 or self.kernel_plan.fused
+        if not kernel_path or sched.prefix_precision == main_tier:
+            if not kernel_path and sched.prefix_precision != main_tier:
+                print("Warning: precision_schedule is inert on the plain (non-kernel) "
+                      "path — precision tiers are properties of the kernels; the whole "
+                      "run evaluates at f32.")
+            return sched.prefix_iters, self.value_and_grad_fn
+        kw = dict(input_min_max=self.data.input_min_max,
+                  fused_precision=sched.prefix_precision,
+                  fidelity_is_residual=fidelity_is_residual)
+        prefix_vg = build_value_and_grad_fn(self.config, self.spec,
+                                            fused_kernel=self.kernel_plan.k1, **kw)
+        if prefix_vg is None:
+            prefix_vg = value_and_grad(build_loss_fn(
+                self.config, self.spec, residual_chunk_size=self.config.residual_chunk_size,
+                fused_kernel=self.kernel_plan.fused, **kw))
+        print(f"Precision schedule: the first {sched.prefix_iters} Adam steps at "
+              f"{sched.prefix_precision}, then {main_tier}")
+        return sched.prefix_iters, prefix_vg
+
     # ------------------------------------------------------------------ Adam
 
     def _dropout_generator(self, iteration: int):
@@ -266,14 +304,16 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         return gen.manual_seed(self.config.seed + 1 + iteration)
 
-    def _adam_steps(self, n: int) -> torch.Tensor:
-        """``n`` Adam steps from the current state; returns the ``(n, 3)``
+    def _adam_steps(self, n: int, value_and_grad_fn=None) -> torch.Tensor:
+        """``n`` Adam steps from the current state through
+        ``value_and_grad_fn`` (default: the main one); returns the ``(n, 3)``
         ``(fid, res, total)`` rows on the device (no host sync)."""
+        value_and_grad_fn = value_and_grad_fn or self.value_and_grad_fn
         losses = torch.empty((n, 3), dtype=torch.float32, device=self.device)
         params = self.state.params
         for i in range(n):
             gen = self._dropout_generator(self.state.iteration + i)
-            (total, (fid, res)), grads = self.value_and_grad_fn(params, self.batch, gen)
+            (total, (fid, res)), grads = value_and_grad_fn(params, self.batch, gen)
             losses[i] = torch.stack((fid, res, total))
             for k in PARAM_KEYS:
                 params[k].grad = grads[k]
@@ -289,7 +329,14 @@ class Trainer:
         remaining = max(0, self.config.adam.max_it - self.state.iteration)
         while remaining > 0:
             n = min(_CHUNK, remaining)
-            self._record(self._adam_steps(n).cpu().numpy())
+            # the schedule's prefix: no chunk straddles the tier boundary,
+            # keyed on the absolute counter so a resume lands correctly
+            in_prefix = (self._prefix_value_and_grad is not None
+                         and self.state.iteration < self._prefix_iters)
+            if in_prefix:
+                n = min(n, self._prefix_iters - self.state.iteration)
+            fn = self._prefix_value_and_grad if in_prefix else self.value_and_grad_fn
+            self._record(self._adam_steps(n, fn).cpu().numpy())
             remaining -= n
 
     # ---------------------------------------------------------------- L-BFGS

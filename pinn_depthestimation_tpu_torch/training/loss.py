@@ -17,8 +17,10 @@ weights (CMB), the quirk-2 anchor toggle, the one-kernel gate and
 :func:`build_value_and_grad_fn` (K1), and the generic fused path
 (``fused_kernel``): the residual forward with its K coordinate tangents and
 the fidelity forward (K=0) through ``ops.kernels_vjp.
-fused_apply_with_tangents`` — K2 forward and K3 backward on the card. The
-chunked path under ``jax.checkpoint`` is not ported yet: a set
+fused_apply_with_tangents`` — K2 forward and, by the tier's default
+backward, K3 (``f32``) or K4 (``bf16``) on the card. ``fused_precision``
+is the kernels' tier for the forward and the backward of both terms, and
+for K1. The chunked path under ``jax.checkpoint`` is not ported yet: a set
 ``residual_chunk_size`` raises (``ROADMAP.md`` Queue 1, M3 chunked path).
 """
 
@@ -107,7 +109,8 @@ def build_loss_fn(
 
     ``fused_kernel``: the residual forward (K coordinate tangents) and the
     separate fidelity forward (K=0) go through
-    ``ops.kernels_vjp.fused_apply_with_tangents`` — K2 forward and K3
+    ``ops.kernels_vjp.fused_apply_with_tangents`` at the tier
+    ``fused_precision`` — K2 forward and K3 (``f32``) or K4 (``bf16``)
     backward for a batch on the card, their plain versions on the CPU. It
     needs the differentiated coordinates to lead the residual inputs, in
     order, and no dropout, and raises otherwise, as the JAX package does.
@@ -149,7 +152,7 @@ def build_loss_fn(
             )
         if spec.dropout_rate:
             raise ValueError("fused_kernel does not support dropout")
-        kernels_vjp.check_precision(fused_precision, "K3")
+        kernels_vjp.check_precision(fused_precision, "K2/K3/K4")
     fid_weight_list = [config.output_weight(k) for k in fid_outputs]
     parity = config.parity
     equation_kwargs = _anchor_kwargs(config, input_min_max)
@@ -305,8 +308,9 @@ def build_value_and_grad_fn(
     :func:`value_and_grad` of :func:`build_loss_fn`).
 
     Returns ``fn(params, batch, dropout_generator=None) -> ((total, (fid,
-    res)), grads)`` with exactly ``build_loss_fn``'s semantics: K1 for a
-    batch on a CUDA device, its plain version for one on the CPU. The
+    res)), grads)`` with ``build_loss_fn``'s semantics at the tier
+    ``fused_precision``: K1 for a batch on a CUDA device, its plain version
+    for one on the CPU. The
     selector ``sel``, the mask and the scales are built once per batch
     (``make_step_batch``), not per evaluation."""
     if not fused_kernel:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K2, K1 and K3 on a card, against their plain
-PyTorch versions.
+"""The port's CUDA kernels K2, K1, K3 and K4 on a card, at the f32 and bf16
+tiers, against their plain PyTorch versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a CUDA kernel has no CPU mode). The file imports no JAX, so it runs on the
@@ -13,8 +13,13 @@ version, over up to 120 layers, agree to ~1e-5 of the output's scale
 (``PERF.md``); the 1e-7 only covers outputs that are all near zero. K1's
 loss terms and gradients are held to the same tolerance: on the card they
 agree with the plain version to ~1e-6 of their scale (``PERF.md``), and so
-are K3's gradients.
+are K3's gradients. The bf16 tier is held to its own error instead
+(``assert_tier_close``): one f32 roundoff can flip a bf16 rounding, so f32's
+1e-4 does not apply there, and in deep chains one flip moves a point as
+far as the tier's roundings do (``PERF.md``).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -226,3 +231,183 @@ def test_cuda_cmb_training_runs_on_k2_and_k3(cuda_device, tmp_path):
         assert n > 20 and np.isfinite(totals).all()
         logs[mode] = np.array([fid, res, totals])
     np.testing.assert_allclose(logs["auto"][:, 0], logs["off"][:, 0], rtol=1e-5)
+
+
+# ----------------------------------------------------------- the bf16 tier
+
+def assert_tier_close(got, want_tier, want_f32, want_tier64):
+    """A bf16 kernel output against its plain versions at the tier (f32
+    sums), at f32 and at the tier with float64 sums, as
+    ``chip_smoke.py::compare_tier`` holds it: the L2 gap to plain bf16
+    within max(a quarter of the tier's own error, 4 x the spread between
+    the two summation orders) plus the f32 tolerance, and at least half the
+    tier's error away from plain f32 where that error exceeds the floor (a
+    kernel that forgot to round fails). Returns whether it did."""
+    l2 = lambda d: float(d.double().norm())  # noqa: E731
+    tier = l2(want_tier - want_f32)
+    spread = l2(want_tier.double() - want_tier64)
+    floor = 1e-4 * l2(want_tier) + 1e-7
+    err = l2(got - want_tier)
+    assert err <= max(0.25 * tier, 4 * spread) + floor, (err, tier, spread, floor)
+    if tier > floor:
+        assert l2(got - want_f32) >= 0.5 * tier
+    return tier > floor
+
+
+def f64(params):
+    return {k: v.double() for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,init_type,kt,n", [
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
+    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
+    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
+    ((2,) + (32,) * 120 + (3,), "xavier", 2, 300),     # deeper than one smem chunk
+])
+def test_cuda_k2_bf16_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=3), cuda_device)
+    x = torch.from_numpy(np.random.RandomState(4).uniform(-1, 1, (n, sizes[0]))
+                         .astype(np.float32)).to(cuda_device)
+    before = kernels.mlp_fwd_tangents.launches_by_tier["bf16"]
+    y, dy = kernels.mlp_fwd_tangents(params, x, spec, kt, precision="bf16")
+    assert kernels.mlp_fwd_tangents.launches_by_tier["bf16"] == before + 1
+    yb, dyb = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, "bf16")
+    yf, dyf = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, "f32")
+    y6, dy6 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, kt, "bf16")
+    real = assert_tier_close(y, yb, yf, y6)
+    if kt:
+        real |= assert_tier_close(dy, dyb, dyf, dy6)
+    assert real
+    y2, dy2 = kernels.mlp_fwd_tangents(params, x, spec, kt, precision="bf16")
+    assert torch.equal(y, y2) and torch.equal(dy, dy2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,precision", [("stream", "bf16"), ("rebuild", "f32"),
+                                            ("rebuild", "bf16")])
+@pytest.mark.parametrize("sizes,init_type,kt,n", [
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
+    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
+    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
+    ((2,) + (20,) * 11 + (3,), "xavier", 1, 129),      # a short last K4 segment
+    ((2,) + (32,) * 60 + (5,), "xavier", 2, 300),      # deeper than one smem chunk
+])
+def test_cuda_k3_bf16_and_k4_match_plain_tier(cuda_device, impl, precision, sizes, init_type,
+                                              kt, n):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=8), cuda_device)
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, sizes[0])).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(kt, n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    wrapper = kernels_vjp.packed_mlp_bwd_rebuild if impl == "rebuild" else kernels_vjp.packed_mlp_bwd
+    other = kernels_vjp.packed_mlp_bwd if impl == "rebuild" else kernels_vjp.packed_mlp_bwd_rebuild
+    before, before_other = wrapper.launches_by_tier[precision], other.launches
+    g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=precision,
+                                   impl=impl)
+    assert wrapper.launches_by_tier[precision] == before + 1 and other.launches == before_other
+    g_t = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, precision)
+    if precision == "f32":
+        for k in g:
+            assert_close_to_plain(g[k], g_t[k])
+    else:
+        g_f = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32")
+        g_6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                               dybar.double(), spec, kt, "bf16")
+        assert any([assert_tier_close(g[k], g_t[k], g_f[k], g_6[k]) for k in g])
+    g2 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=precision,
+                                    impl=impl)
+    assert all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+def test_cuda_k4_segment_lengths_agree(cuda_device):
+    """K4 at every segment length that fits, against K3 at the same tier:
+    one function, replayed from other checkpoints."""
+    sizes = (2,) + (20,) * 23 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=5), cuda_device)
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.uniform(-1, 1, (517, 2)).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(517, 3).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(2, 517, 3).astype(np.float32)).to(cuda_device)
+    for precision in ("f32", "bf16"):
+        g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision=precision,
+                                        impl="stream")
+        for c in (1, 2, 3, 5):
+            g4 = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, 2,
+                                                    precision=precision, ckpt_every=c)
+            for k in g3:
+                assert_close_to_plain(g4[k], g3[k])
+        # a segment buffer of 8 states (245,760 B) does not fit beside the
+        # staging rows; the planned C does
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels_vjp.rebuild_ckpt_every(spec, 2, precision, 8)
+        assert 1 <= kernels_vjp.rebuild_ckpt_every(spec, 2, precision) <= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,n_true,has_anchor", [
+    ((2,) + (20,) * 100 + (3,), 2, True),   # the flagship
+    ((2,) + (16,) * 6 + (3,), 3, False),
+])
+def test_cuda_k1_bf16_matches_plain_tier(cuda_device, sizes, n_true, has_anchor):
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=6), cuda_device)
+    rs = np.random.RandomState(5)
+    n = 2_001
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    trues = torch.from_numpy((rs.randn(n, n_true) * 0.1).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy((rs.rand(n) > 0.1).astype(np.float32)).to(cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float() * mask, mask,
+                                     [1.0, 0.7, 1.3][:n_true], n_true, 0.7, 1.3,
+                                     has_anchor=has_anchor)
+    before = kernels_step.fused_loss_and_grad.launches_by_tier["bf16"]
+    (t, (f, r)), g = kernels_step.fused_loss_and_grad(params, b, spec, precision="bf16")
+    assert kernels_step.fused_loss_and_grad.launches_by_tier["bf16"] == before + 1
+    (tb, (fb, rb)), gb = kernels_step.fused_loss_and_grad_plain(params, b, spec, "bf16")
+    (tf, (ff, rf)), gf = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32")
+    b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+        "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+    (t6, (f6, r6)), g6 = kernels_step.fused_loss_and_grad_plain(f64(params), b64, spec, "bf16")
+    real = [assert_tier_close(got, wb, wf, w6) for got, wb, wf, w6 in
+            ((t, tb, tf, t6), (f, fb, ff, f6), (r, rb, rf, r6))]
+    real += [assert_tier_close(g[k], gb[k], gf[k], g6[k]) for k in g]
+    assert any(real)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_cmb_training_runs_on_k2_and_k4(cuda_device, tmp_path):
+    """A CMB Trainer at kernel_precision bf16 on the card: every loss
+    evaluation launches K2-bf16 and K4-bf16 twice, and K3 never."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=120, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, 20, 4, tol_grad=1e-12, tol_change=1e-14, nx=41, ny=61,
+                          interval=1, training_points=100)
+    init = numpy_params((2,) + (10,) * 10 + (6,), "xavier", seed=1)
+    init["b_out"][3] += 1.0
+    run = str(tmp_path / "bf16")
+    os.makedirs(run)
+    trainer = Trainer(parse_config(dict(raw, kernel_precision="bf16")), run_dir=run,
+                      echo_every=0, initial_params=init, device=cuda_device)
+    k2 = dict(kernels.mlp_fwd_tangents.launches_by_tier)
+    k4 = dict(kernels_vjp.packed_mlp_bwd_rebuild.launches_by_tier)
+    k3 = kernels_vjp.packed_mlp_bwd.launches
+    trainer.train_adam()
+    trainer.train_lbfgs()
+    epochs, _, _, totals = read_log(run)
+    n = len(epochs)
+    assert n > 20 and np.isfinite(totals).all()
+    assert kernels_vjp.packed_mlp_bwd_rebuild.launches_by_tier["bf16"] - k4["bf16"] == 2 * n
+    assert kernels.mlp_fwd_tangents.launches_by_tier["bf16"] - k2["bf16"] == 2 * n
+    assert kernels_vjp.packed_mlp_bwd.launches == k3

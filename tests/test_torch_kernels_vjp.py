@@ -118,8 +118,12 @@ def test_wrappers_refuse_what_k3_does_not_take():
     spec = MLPSpec(sizes=(2, 8, 8, 3))
     params = params_from_numpy(numpy_params(spec.sizes), "cpu")
     x, ybar, dybar = torch.zeros((4, 2)), torch.zeros((4, 3)), torch.zeros((2, 4, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision="bf16")
+    for impl in ("auto", "stream", "rebuild"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+            kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision="f32x3",
+                                       impl=impl)
+    with pytest.raises(ValueError, match="impl"):
+        kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, impl="ring")
     with pytest.raises(ValueError, match="CUDA"):
         kernels_vjp.packed_mlp_bwd(params, x.to("meta"), ybar, dybar, spec, 2)
     with pytest.raises(ValueError, match="dropout"):

@@ -236,7 +236,7 @@ def test_cli_train_on_cpu(mat, tmp_path, capsys):
                      "--device", "cpu", "--init-from", str(tmp_path / "w.npz")]) == 0
     assert cli.main(["train", "--config", cfg, "--log-root", str(tmp_path), "--run-name", "r3",
                      "--device", "cpu", "--resume", str(run / "model.npz")]) == 0
-    for flag in ("--mesh", "--f64-polish", "--precision-schedule"):
+    for flag in ("--mesh", "--f64-polish"):
         assert cli.main(["train", "--config", cfg, "--device", "cpu", flag, "2"]) == 1
     assert "ROADMAP.md" in capsys.readouterr().out
     if not torch.cuda.is_available():
@@ -246,11 +246,18 @@ def test_cli_train_on_cpu(mat, tmp_path, capsys):
 
 def test_trainer_refuses_what_is_not_ported(mat, tmp_path):
     d = run_dir(tmp_path, "x")
-    for extra, item in ((dict(precision_schedule=True), "M10"),
-                        (dict(f64_polish={"max_it": 5}), "M10"),
+    for extra, item in ((dict(f64_polish={"max_it": 5}), "M10"),
                         (dict(parallel={"data": 2}), "M11")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(parse_config(newmethod_raw(mat, **extra)), run_dir=d, device="cpu")
+    # the precision schedule is ported: it trains (tests/test_torch_schedule.py)
+    tr = Trainer(parse_config(newmethod_raw(mat, precision_schedule=True, fused_kernel="on")),
+                 run_dir=d, device="cpu")
+    assert tr._prefix_iters == 35_000 and tr._prefix_value_and_grad is not tr.value_and_grad_fn
+    # an f32x3 prefix is not ported, and says where it is queued
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        Trainer(parse_config(newmethod_raw(mat, fused_kernel="on", precision_schedule={
+            "prefix_precision": "f32x3", "prefix_iters": 5})), run_dir=d, device="cpu")
     # K3 is ported: 'on' outside the one-kernel gate (an anchored 3-head
     # fidelity) takes the generic fused path, K2 forward + K3 backward
     anchored_three_heads = dict(base_data(mat), trues=["U", "V", "h"], unknowns=[])
