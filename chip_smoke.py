@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 2. build: K2 (``csrc/mlp_fwd_tangents.cu``), K1
    (``csrc/continuity_train_step.cu``), K3 (``csrc/mlp_bwd.cu``) and K4
    (``csrc/mlp_bwd_rebuild.cu``) from the checkout's sources, each library
-   holding the f32 and bf16 tiers, every ``nvcc`` started together;
+   holding the f32, bf16 and f32x3 tiers, every ``nvcc`` started together;
    registers and spills per width;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
@@ -78,17 +78,40 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (both tiers, beside K3) beside the f32 tier, their plain versions and
    their bounds (f32 on the CUDA cores' FMA rate, bf16 on the tensor
    cores' bf16 rate), K4's segment length C swept, and the bf16 Adam
-   steps of the flagship and the CMB net beside f32.
+   steps of the flagship and the CMB net beside f32;
+18. the f32x3 tier of K2, K1, K3 and K4 against the plain f32x3 versions on
+   the cases of phases 3, 7, 11 and 14 (``compare_tier`` with the f32x3
+   floor ``X3_REL_FLOOR``), two launches bit-identical each;
+19. the paths at f32x3: CLI ``train`` of the flagship with
+   ``kernel_precision: "f32x3"`` and ``residual_chunk_size: 4096`` (K1-f32x3
+   launches == loss evaluations, no other tier; the chunk size is dropped
+   on the kernel path), CLI ``test`` through K2-f32x3 held to the plain
+   f32x3 prediction; the CMB config at f32x3 (K3-f32x3 == 2 x evaluations,
+   no K4, no other tier), CLI ``test``; iteration 1 through K2 + K3 at
+   f32x3 against the plain f32x3 functions; ``--precision-schedule
+   150:f32x3`` (exactly 150 K1-f32x3, then f32; a resume from iteration 100
+   runs 50); 20 Adam steps of the CMB Trainer with the custom VJP's
+   backward picked (``bwd_impl``, ``PickedBackward``): K3-bf16, K4-f32 and
+   K4-f32x3, 40 launches each and nothing else;
+20. ``bench --suite`` through the CLI: one JSON line, every extra present,
+   no ``_error`` key;
+21. times of the f32x3 tier (K2 on the CMB grid, at 10M points and on the
+   serve grid; K1; K3 and K4 with K4's C swept) beside the plain f32x3
+   versions and the bound of the tier's three bf16 products on the tensor
+   cores (with the CUDA cores' figure beside it), and the CMB Adam step at
+   f32x3.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
 flagship training path), again before phase 12's CLI ``train`` and read
 after its CLI ``test`` (the CMB path), before phase 15's CLI ``train`` and
 after its ``test`` (the bf16 CMB path), and before phase 16's CLI
-``train`` and after its ``test`` (the schedule): each kernel must have
-launched on each path that runs it, at the tier that path asks for.
-The last two lines are the ``kernels`` JSON object and ``{"ok": true,
-"device": {...}}``.
+``train`` and after its ``test`` (the schedule), and likewise around each
+of phase 19's paths: each kernel must have launched on each path that
+runs it, at the tier that path asks for. The ``kernels`` line holds one
+entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3). The last
+two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -172,8 +195,10 @@ def compare(name: str, got, want) -> float:
     return err
 
 
-def compare_tier(name: str, got, want_tier, want_f32, want_tier64) -> tuple[float, bool]:
-    """A bf16 kernel output against its plain version at the tier (f32
+def compare_tier(name: str, got, want_tier, want_f32, want_tier64, tier: str = "bf16",
+                 rel_floor: float = REL_TOL, distinct: float = 0.0) -> tuple[float, bool]:
+    """A kernel output at a reduced tier (bf16, or f32x3 with ``rel_floor``
+    ``X3_REL_FLOOR``) against its plain version at the tier (f32
     sums), at f32, and at the tier with float64 sums (``want_tier64``),
     held to the tier's own error. A gap is the L2 norm of a difference over
     the whole output. The kernel passes when gap(kernel, plain-bf16) <=
@@ -190,31 +215,42 @@ def compare_tier(name: str, got, want_tier, want_f32, want_tier64) -> tuple[floa
     times the spread: up to 2.97 x on the width-32 stack (PERF.md); 4 x
     leaves room for the few points that flip. Where the
     tier's error exceeds the floor, gap(kernel, plain-f32) must reach half
-    of it (a kernel that forgot to round fails). Prints every gap and the
-    maxima; returns the kernel's max abs error against plain bf16 (for the
-    ``kernels`` line) and whether the tier's error exceeded the floor."""
+    of it (a kernel that forgot to round fails). The floor is ``rel_floor``
+    x |plain| + ABS_TOL: f32's tolerance at bf16; at f32x3, whose own error
+    is ~1e-5 of the output, a floor above f32's own L2 noise (PERF.md). At
+    f32x3 the spread is most of the tier's error on deep stacks (a flipped
+    hi rounding moves lo by the tier's own 2^-16), so 4 x spread binds; and
+    where the spread reaches the tier's error (up to 1.8 x it on the
+    flagship's backward, PERF.md) no output can show the tier apart from
+    f32, so with ``distinct`` the half-the-error check and the returned
+    flag need the tier's error above ``distinct`` x spread too. Prints every
+    gap and the maxima; returns the kernel's max abs error against the
+    plain tier (for the ``kernels`` line) and whether the tier's error
+    exceeded the floor (and ``distinct`` x spread)."""
     if got.shape != want_tier.shape:
         fail(f"{name}: shape {tuple(got.shape)} != plain {tuple(want_tier.shape)}")
     if not bool(got.isfinite().all()):
         fail(f"{name}: non-finite kernel output")
     l2 = lambda d: float(d.double().norm())  # noqa: E731
+    label = tier
     err, tier, off = l2(got - want_tier), l2(want_tier - want_f32), l2(got - want_f32)
     spread = l2(want_tier.double() - want_tier64)
-    floor = REL_TOL * l2(want_tier) + ABS_TOL
+    floor = rel_floor * l2(want_tier) + ABS_TOL
     limit = max(0.25 * tier, 4 * spread) + floor
     err_max = float((got - want_tier).abs().max())
     tier_max = float((want_tier - want_f32).abs().max())
-    print(f"  {name}: L2 gap(kernel, plain-bf16) {err:.3e}, gap(plain-bf16, plain-f32) "
+    print(f"  {name}: L2 gap(kernel, plain-{label}) {err:.3e}, gap(plain-{label}, plain-f32) "
           f"{tier:.3e}, spread {spread:.3e}, gap(kernel, plain-f32) {off:.3e}; limit "
           f"{limit:.3e} ({'4 x spread' if 4 * spread > 0.25 * tier else 'gap/4'} + "
-          f"{REL_TOL:g} x |plain| + {ABS_TOL:g}); max |diff| {err_max:.3e} against the "
+          f"{rel_floor:g} x |plain| + {ABS_TOL:g}); max |diff| {err_max:.3e} against the "
           f"tier's {tier_max:.3e}")
     if not err <= limit:
-        fail(f"{name}: the bf16 kernel disagrees with its plain bf16 version")
-    if tier > floor and not off >= 0.5 * tier:
-        fail(f"{name}: the bf16 kernel sits nearer plain f32 than the tier allows: it does "
+        fail(f"{name}: the {label} kernel disagrees with its plain {label} version")
+    real = tier > floor and tier > distinct * spread
+    if real and not off >= 0.5 * tier:
+        fail(f"{name}: the {label} kernel sits nearer plain f32 than the tier allows: it does "
              "not round as the tier does")
-    return err_max, tier > floor
+    return err_max, real
 
 
 def f64(params) -> dict:
@@ -892,6 +928,28 @@ class PlainFused:
         self.module.fused_apply_with_tangents = self.real
 
 
+class PickedBackward:
+    """``ops.kernels_vjp.fused_apply_with_tangents`` with its backward
+    picked (``bwd_impl``), for a loss on the card: how a user of the custom
+    VJP reaches K3 at bf16 and K4 at f32 and f32x3, which no tier's default
+    takes (the JAX package reaches them by ``impl=`` alone)."""
+
+    def __init__(self, impl: str):
+        from pinn_depthestimation_tpu_torch.ops import kernels_vjp
+
+        self.module, self.impl = kernels_vjp, impl
+
+    def __enter__(self):
+        self.real = real = self.module.fused_apply_with_tangents
+        self.module.fused_apply_with_tangents = (
+            lambda params, coords, spec, kt, precision="f32", bwd_impl="auto": real(
+                params, coords, spec, kt, precision, self.impl))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_apply_with_tangents = self.real
+
+
 def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     """Phases 14-17; returns the ``kernels`` line's entries of K4-bf16,
     K2-bf16 and K1-bf16, and K3-bf16's times for K3's entry. ``f32_steps``:
@@ -931,7 +989,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
         # 14. the bf16 tier and K4 against their plain versions -----------------
         print("== phase 14: K2-bf16, K1-bf16, K3-bf16, K4-f32 and K4-bf16 against their "
               "plain versions on the card")
-        err = {"k2": 0.0, "k1": 0.0, "k4": 0.0}
+        err = {"k2": 0.0, "k1": 0.0, "k3": 0.0, "k4": 0.0, "k4_f32": 0.0}
 
         def tier_case(name, outs, main=None):
             """outs: [(label, kernel, plain-bf16, plain-f32, plain-bf16 with f64
@@ -1030,11 +1088,14 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
                                                      precision="f32", ckpt_every=ckpt)
             torch.cuda.synchronize()
             main = "k4" if name in main_path else None
-            tier_case(f"K3-bf16 {name}", [(f"d{k}", g3[k], gb[k], gf[k], g6[k]) for k in g3])
+            tier_case(f"K3-bf16 {name}", [(f"d{k}", g3[k], gb[k], gf[k], g6[k]) for k in g3],
+                      main and "k3")
             tier_case(f"K4-bf16 {name}", [(f"d{k}", g4b[k], gb[k], gf[k], g6[k]) for k in g4b],
                       main)
             for k in g4f:
-                compare(f"K4-f32 {name}: d{k}", g4f[k], gf[k])
+                e4 = compare(f"K4-f32 {name}: d{k}", g4f[k], gf[k])
+                if main:
+                    err["k4_f32"] = max(err["k4_f32"], e4)
             g3f = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="f32")
             for tier, g4, g3t in (("f32", g4f, g3f), ("bf16", g4b, g3)):
                 same = all(torch.equal(g4[k], g3t[k]) for k in g4)
@@ -1319,9 +1380,529 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
         "bound_by": k1_by, "points": n_grid, "ms_f32": times["k1 f32"][0],
         "adam_ms_per_iter_bf16": step["ms_per_iter"],
     }
-    k3_extra = {"ms_bf16": times[f"k3 {res} bf16"][0], "bound_ms_bf16": times[f"k3 {res} bf16"][1],
-                "ms_flagship_k2_bf16": times[f"k3 {flag} bf16"][0]}
-    return {"k4": k4_entry, "k2_bf16": k2_entry, "k1_bf16": k1_entry, "k3_extra": k3_extra}
+    # K3-bf16 and K4-f32: their launches come from phase 19's path, which
+    # picks the backward (main() completes the entries)
+    k3_bf16_entry = {
+        "name": "k3_mlp_bwd[bf16]", **common, "source": K3_SOURCE, "replaces": K3_REPLACES,
+        "max_abs_err": err["k3"], "ms": times[f"k3 {res} bf16"][0], "plain_ms": plain_bwd[res],
+        "bound_ms": times[f"k3 {res} bf16"][1], "bound_by": times[f"k3 {res} bf16"][2],
+        "points": n_res, "ms_fidelity_k0": times[f"k3 {fidr} bf16"][0],
+        "ms_flagship_k2": times[f"k3 {flag} bf16"][0],
+    }
+    k4_f32_entry = {
+        "name": "k4_mlp_bwd_rebuild[f32]", **common, "source": K4_SOURCE, "replaces": K4_REPLACES,
+        "max_abs_err": err["k4_f32"], "ms": times[f"k4 {res} f32"][0],
+        "bound_ms": times[f"k4 {res} f32"][1], "bound_by": times[f"k4 {res} f32"][2],
+        "points": n_res, "ckpt_every": kernels_vjp.rebuild_ckpt_every(
+            cmb_net, 2, "f32"),
+        "ms_fidelity_k0": times[f"k4 {fidr} f32"][0], "ms_flagship_k2": times[f"k4 {flag} f32"][0],
+    }
+    return {"k4": k4_entry, "k2_bf16": k2_entry, "k1_bf16": k1_entry,
+            "k3_bf16": k3_bf16_entry, "k4_f32": k4_f32_entry}
+
+
+X3_REL_FLOOR = 2e-6  # compare_tier's floor at f32x3 (see compare_tier; PERF.md)
+X3_DISTINCT = 2.0     # an f32x3 output shows its tier where its error > 2 x spread
+
+
+def x3_bounds(bound, bound_bf16, flops: float, nbytes: float):
+    """The f32x3 bound: the tier's three bf16 products on the tensor cores
+    (989 TFLOP/s dense) or the bytes, whichever is larger; and beside it the
+    same three products on the CUDA cores' f32 FMA rate."""
+    b_tc, by_tc = bound_bf16(3 * flops, nbytes)
+    b_cc, _ = bound(3 * flops, nbytes)
+    return b_tc, by_tc, b_cc
+
+
+def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
+    """Phases 18-21: the f32x3 tier of K2, K1, K3 and K4 against its plain
+    version, the paths that ask for it, the bench suite, and the times.
+    Returns the ``kernels`` line's four f32x3 entries, the launches of K3-bf16
+    and K4-f32 on phase 19's path, and the suite's record."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import load_config, parse_config
+    from pinn_depthestimation_tpu_torch.data import load_test_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    X3 = "f32x3"
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
+    wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
+                kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
+                kernels_vjp.packed_mlp_bwd_rebuild)
+
+    def reset_counts():
+        for w in wrappers:
+            kernels.reset_launches(w)
+
+    def counts() -> dict:
+        return {w.__name__: dict(w.launches_by_tier) for w in wrappers}
+
+    def only(tiers_count: dict, tier: str) -> bool:
+        return all(v == 0 for t, v in tiers_count.items() if t != tier)
+
+    err = {"k2": 0.0, "k1": 0.0, "k3": 0.0, "k4": 0.0}
+    shown = {"k2": 0, "k1": 0, "k3": 0, "k4": 0}  # outputs that show the tier apart from f32
+
+    def tier_case(name, outs, main=None, kernel=None):
+        """outs: [(label, kernel, plain-f32x3, plain-f32, plain-f32x3 with f64
+        sums)]; counts the outputs whose tier error stands clear of the
+        spread for ``kernel`` (each kernel needs some, checked after the
+        phase: on the deep stacks the spread hides the tier)."""
+        for label, got, want, want32, want64 in outs:
+            e, r = compare_tier(f"{name}: {label}", got, want, want32, want64, tier=X3,
+                                rel_floor=X3_REL_FLOOR, distinct=X3_DISTINCT)
+            shown[kernel or main] += r
+            if main:
+                err[main] = max(err[main], e)
+
+    def check_log(run_dir: str, what: str):
+        epochs, _, _, totals = read_log(run_dir)
+        n = len(epochs)
+        if epochs != list(range(1, n + 1)) or n < 302:
+            fail(f"{what}: log.txt rows are not epochs 1..n with n >= 302: "
+                 f"{epochs[:3]}..{epochs[-3:]}")
+        if not all(math.isfinite(v) for v in totals) or not totals[299] < totals[0]:
+            fail(f"{what}: Adam did not lower the loss: {totals[0]} -> {totals[299]}")
+        if not min(totals[300:]) <= totals[299]:
+            fail(f"{what}: L-BFGS minimum {min(totals[300:])} above the last Adam total")
+        return n, totals
+
+    main_path = ("CMB net, residual grid", "CMB net, fidelity rows")
+    lbfgs = {"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
+             "tolerance_change": 1e-12}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, mat, res_pts, fid_pts = cmb_bench_points(dev, tmp)
+        n_res = res_pts.shape[0]
+
+        # 18. the f32x3 tier against its plain version ------------------------
+        print("== phase 18: K2-f32x3, K1-f32x3, K3-f32x3 and K4-f32x3 against the plain "
+              "f32x3 versions on the card")
+        with torch.no_grad():
+            rng = np.random.RandomState(19)
+            k2_more = [
+                ("CMB net, residual grid", cmb_net, res_pts, (2,), None),
+                ("CMB net, fidelity rows", cmb_net, fid_pts, (0,), None),
+                ("CMB net, ragged N", cmb_net,
+                 torch.as_tensor(rng.uniform(-1, 1, (1_001, 2)).astype(np.float32)).to(dev),
+                 (2,), None),
+            ]
+            for spec, params, x, tangent_counts in k2_cases(dev):
+                k2_more.append((f"{spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
+                                f"{spec.init_type}", spec, x, tangent_counts, params))
+            for name, spec, x, tangent_counts, params in k2_more:
+                params = params or params_from_numpy(numpy_params(spec.sizes, spec.init_type, 8), dev)
+                chunk = kernels.k2_library().libs[spec.width].k2_chunk_layers_f32x3(spec.n_hidden - 1)
+                print(f" K2-f32x3 {name}, N={x.shape[0]}, {chunk} hidden layers per smem chunk")
+                main = "k2" if name in main_path or spec.sizes == flagship.sizes else None
+                for k in tangent_counts:
+                    y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision=X3)
+                    torch.cuda.synchronize()
+                    yx, dyx = kernels.mlp_fwd_tangents_plain(params, x, spec, k, X3)
+                    yf, dyf = kernels.mlp_fwd_tangents_plain(params, x, spec, k, "f32")
+                    y64, dy64 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, k, X3)
+                    tier_case(name, [(f"K={k} y", y, yx, yf, y64)]
+                              + ([(f"K={k} dy", dy, dyx, dyf, dy64)] if k else []), main, "k2")
+                    y2, dy2 = kernels.mlp_fwd_tangents(params, x, spec, k, precision=X3)
+                    if not (torch.equal(y, y2) and torch.equal(dy, dy2)):
+                        fail(f"K2-f32x3 {name}: two launches differ")
+                    del yx, dyx, yf, dyf, y64, dy64
+                if spec.d_out == 3 and spec.init_type == "xavier":
+                    fc = kernels.fused_residual_continuity(params, x, spec, precision=X3)
+                    torch.cuda.synchronize()
+                    tier_case(name, [("continuity epilogue fc", fc,
+                                      kernels.residual_continuity_plain(params, x, spec, X3),
+                                      kernels.residual_continuity_plain(params, x, spec, "f32"),
+                                      kernels.residual_continuity_plain(f64(params), x.double(),
+                                                                        spec, X3))], main, "k2")
+
+        cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
+        for name, spec, params, b in cases:
+            chunk = kernels_step.k1_library().libs[spec.width].k1_chunk_layers_f32x3(spec.n_hidden - 1)
+            print(f" K1-f32x3 {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->"
+                  f"{spec.d_out}, N={b.coords.shape[0]}, {chunk} hidden layers per smem chunk")
+            (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec, precision=X3)
+            torch.cuda.synchronize()
+            (tx, (fx, rx)), gx = kernels_step.fused_loss_and_grad_plain(params, b, spec, X3)
+            (tf, (ff, rf)), gf = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32")
+            b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+                "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+            (t6, (f6, r6)), g6 = kernels_step.fused_loss_and_grad_plain(f64(params), b64, spec, X3)
+            main = "k1" if spec.sizes == flagship.sizes else None
+            tier_case(name, [("total", t1, tx, tf, t6), ("fidelity", f1, fx, ff, f6),
+                             ("residual", r1, rx, rf, r6)]
+                      + [(f"d{k}", g1[k], gx[k], gf[k], g6[k]) for k in kernels_step.FLAT_KEYS],
+                      main, "k1")
+            (t2, _), g2 = kernels_step.fused_loss_and_grad(params, b, spec, precision=X3)
+            if not (torch.equal(t1, t2) and all(torch.equal(g1[k], g2[k]) for k in g1)):
+                fail(f"K1-f32x3 {name}: two launches differ")
+        flag_batch = cases[0][3]
+
+        k34 = k3_cases(dev, repo, tmp, res_pts, fid_pts)
+        short = MLPSpec(sizes=(2,) + (20,) * 11 + (3,))  # 10 stacked: segments 4, 4, 2
+        xs = torch.as_tensor(rng.uniform(-1, 1, (2_050, 2)).astype(np.float32)).to(dev)
+        k34.append(("short last K4 segment (C=4)", short,
+                    params_from_numpy(numpy_params(short.sizes, "xavier", 8), dev), xs,
+                    torch.as_tensor(rng.randn(2_050, 3).astype(np.float32)).to(dev),
+                    torch.as_tensor(rng.randn(2, 2_050, 3).astype(np.float32)).to(dev), 2))
+        bwd_inputs = {}
+        for name, spec, params, x, ybar, dybar, kt in k34:
+            ckpt = 4 if name.startswith("short") else 0
+            c = kernels_vjp.rebuild_ckpt_every(spec, kt, X3, ckpt)
+            print(f" K3-f32x3 / K4-f32x3 {name}: sizes {spec.d_in}->[{spec.width}]x"
+                  f"{spec.n_hidden}->{spec.d_out} {spec.init_type}, K={kt}, N={x.shape[0]}, "
+                  f"K4 segments of {c} layers")
+            gx = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, X3)
+            gf = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32")
+            g6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                                  dybar.double(), spec, kt, X3)
+            g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=X3)
+            g4 = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt,
+                                                    precision=X3, ckpt_every=ckpt)
+            torch.cuda.synchronize()
+            main = name in main_path
+            tier_case(f"K3-f32x3 {name}", [(f"d{k}", g3[k], gx[k], gf[k], g6[k]) for k in g3],
+                      "k3" if main else None, "k3")
+            tier_case(f"K4-f32x3 {name}", [(f"d{k}", g4[k], gx[k], gf[k], g6[k]) for k in g4],
+                      "k4" if main else None, "k4")
+            same = all(torch.equal(g4[k], g3[k]) for k in g4)
+            diff = max(float((g4[k] - g3[k]).abs().max()) for k in g4)
+            print(f"  K4 against K3 at f32x3: bit-identical {same} (max abs diff {diff:.3e})")
+            for label, fn, first in (
+                    ("K3", lambda: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt,
+                                                              precision=X3), g3),
+                    ("K4", lambda: kernels_vjp.packed_mlp_bwd_rebuild(
+                        params, x, ybar, dybar, spec, kt, precision=X3, ckpt_every=ckpt), g4)):
+                again = fn()
+                if not all(torch.equal(first[k], again[k]) for k in first):
+                    fail(f"{label}-f32x3 {name}: two launches differ")
+            print("  two launches bit-identical (K3-f32x3, K4-f32x3)")
+            bwd_inputs[name] = (params, x, ybar, dybar, spec, kt)
+        print(f"  outputs that show the f32x3 tier apart from f32 (error > {X3_DISTINCT:g} x "
+              f"spread): {shown}")
+        if not all(shown.values()):
+            fail(f"a kernel shows the f32x3 tier on no output: {shown}")
+
+        # 19. the paths at f32x3 ------------------------------------------------
+        print("== phase 19: the paths at f32x3 (CLI train and test, the schedule, the "
+              "backward picked by the loss)")
+        # a. the flagship at f32x3, residual_chunk_size set (dropped on K1)
+        cfg_x3 = newmethod_config(tmp, repo, adam_optimizer={"max_it": 300},
+                                  snapshot_iteration=300, lbfgs_optimizer=lbfgs,
+                                  kernel_precision=X3, residual_chunk_size=4096)
+        reset_counts()
+        if cli.main(["train", "--config", cfg_x3, "--log-root", tmp, "--run-name", "flag_x3",
+                     "--device", "cuda", "--debug"]) != 0:
+            fail("CLI train of the flagship at f32x3 (residual_chunk_size 4096) failed")
+        flag_dir = os.path.join(tmp, "flag_x3")
+        pred_out = os.path.join(tmp, "pred_flag_x3.mat")
+        if cli.main(["test", "--config", cfg_x3, "--model", os.path.join(flag_dir, "model.npz"),
+                     "--save", pred_out, "--device", "cuda", "--debug"]) != 0:
+            fail("CLI test of the f32x3 flagship model failed")
+        flag_counts = counts()
+        print(f"  flagship f32x3 path launches by tier: {flag_counts}")
+        n_flag, flag_totals = check_log(flag_dir, "the f32x3 flagship run")
+        k1c, k2c = flag_counts["fused_loss_and_grad"], flag_counts["mlp_fwd_tangents"]
+        if k1c[X3] != n_flag or not only(k1c, X3):
+            fail(f"K1 launched {k1c} for {n_flag} f32x3 loss evaluations (all f32x3)")
+        if k2c[X3] < 2 or not only(k2c, X3):
+            fail(f"K2 launched {k2c}: the snapshot and CLI test go through K2-f32x3 only")
+        served = loadmat(pred_out)
+        x_serve = torch.as_tensor(load_test_data(load_config(cfg_x3)).inputs).to(dev)
+        from pinn_depthestimation_tpu_torch.training.checkpoint import restore_params_any
+        trained = restore_params_any(os.path.join(flag_dir, "model.npz"), spec=flagship, device=dev)
+        got = torch.stack([torch.as_tensor(served[f"pred_{k}"]).reshape(-1)
+                           for k in ("U", "V", "h")], -1).to(dev)
+        with torch.no_grad():
+            tier_case("CLI test at f32x3 (the trained flagship)", kernel="k2", outs=[(
+                "served grid", got,
+                kernels.mlp_fwd_tangents_plain(trained, x_serve, flagship, 0, X3)[0],
+                kernels.mlp_fwd_tangents_plain(trained, x_serve, flagship, 0, "f32")[0].detach(),
+                kernels.mlp_fwd_tangents_plain(f64(trained), x_serve.double(), flagship, 0, X3)[0])])
+        print(f"  {n_flag} evaluations, all K1-f32x3 (residual_chunk_size 4096 dropped on the "
+              f"kernel path); total {flag_totals[0]:.5e} -> {flag_totals[299]:.5e} (Adam) -> "
+              f"{min(flag_totals[300:]):.5e} (L-BFGS); {k2c[X3]} K2-f32x3 (snapshot, CLI test)")
+
+        # b. the CMB pipeline at f32x3 (K3 is the tier's default backward)
+        synth = os.path.join(tmp, "synth")
+        if cli.main(["synth", "--out", synth]) != 0:
+            fail("synth failed")
+        synth_csv, synth_mat = (os.path.join(synth, f) for f in ("input_fid.csv", "input_res.mat"))
+        cfg_cmb = cmb_config(tmp, repo, synth_csv, synth_mat, adam_optimizer={"max_it": 300},
+                             data_residual={"interval_x": 1, "interval_y": 1},
+                             kernel_precision=X3, residual_chunk_size=4096,
+                             lbfgs_optimizer=lbfgs)
+        reset_counts()
+        if cli.main(["train", "--config", cfg_cmb, "--log-root", tmp, "--run-name", "cmb_x3",
+                     "--device", "cuda", "--debug"]) != 0:
+            fail("CLI train of the CMB config at f32x3 failed")
+        cmb_train = counts()
+        cmb_dir = os.path.join(tmp, "cmb_x3")
+        pred_cmb = os.path.join(tmp, "pred_cmb_x3.mat")
+        if cli.main(["test", "--config", cfg_cmb, "--model", os.path.join(cmb_dir, "model.npz"),
+                     "--save", pred_cmb, "--device", "cuda", "--debug"]) != 0:
+            fail("CLI test of the f32x3 CMB model failed")
+        cmb_counts = counts()
+        print(f"  CMB f32x3 path launches by tier: {cmb_counts}")
+        n_cmb, cmb_totals = check_log(cmb_dir, "the f32x3 CMB run")
+        k3c = cmb_train["packed_mlp_bwd"]
+        if k3c[X3] != 2 * n_cmb or not only(k3c, X3):
+            fail(f"K3 launched {k3c} for {n_cmb} f32x3 CMB evaluations (2 f32x3 per evaluation)")
+        if any(cmb_counts["packed_mlp_bwd_rebuild"].values()) or \
+                any(cmb_counts["fused_loss_and_grad"].values()):
+            fail(f"the f32x3 CMB path launched K4 or K1: {cmb_counts}")
+        k2t = cmb_train["mlp_fwd_tangents"]
+        k2_test = cmb_counts["mlp_fwd_tangents"][X3] - k2t[X3]
+        if k2t[X3] != 2 * n_cmb or k2_test < 1 or not only(cmb_counts["mlp_fwd_tangents"], X3):
+            fail(f"K2 launched {k2t} in training for {n_cmb} f32x3 evaluations (2 per "
+                 f"evaluation) and {k2_test} in CLI test")
+        served, grid_x = loadmat(pred_cmb), loadmat(synth_mat)["x"]
+        for key in ("h", "U", "V", "eta_mean", "Hrms", "k"):
+            arr = served[f"pred_{key}"]
+            if arr.shape != (261, 81) or not np.array_equal(np.isnan(arr), np.isnan(grid_x)):
+                fail(f"the f32x3 CMB model served pred_{key} of shape {arr.shape}, with NaN "
+                     "elsewhere than at the grid's masked cells")
+        print(f"  {n_cmb} CMB evaluations at f32x3: {k3c[X3]} K3-f32x3, {k2t[X3]} K2-f32x3 "
+              f"(+{k2_test} in CLI test); total {cmb_totals[0]:.5e} -> {cmb_totals[299]:.5e} "
+              f"(Adam) -> {min(cmb_totals[300:]):.5e} (L-BFGS)")
+
+        print("  iteration 1 at f32x3 through K2 + K3 against the plain f32x3 functions")
+        init = numpy_params(cmb_net.sizes, "xavier", 6)
+        init["b_out"][3] += 1.0
+        raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
+                   kernel_precision=X3)
+        os.makedirs(os.path.join(tmp, "it1_x3"))
+        tr = Trainer(parse_config(raw), run_dir=os.path.join(tmp, "it1_x3"), echo_every=0,
+                     initial_params=init, device=dev)
+        if not tr.kernel_plan.fused:
+            fail(f"the f32x3 CMB Trainer chose {tr.kernel_plan} on the card")
+        (tk, (fk, rk)), gk = tr.value_and_grad_fn(tr.state.params, tr.batch)
+        torch.cuda.synchronize()
+        ref = {}
+        batch64 = {k: v.double() for k, v in tr.batch.items()}
+        with PlainFused():
+            for tier, params, batch in ((X3, tr.state.params, tr.batch),
+                                        ("f32", tr.state.params, tr.batch),
+                                        ("f32x3 f64", f64(tr.state.params), batch64)):
+                fn = build_loss_fn(tr.config, tr.spec, input_min_max=tr.data.input_min_max,
+                                   fused_kernel=True, fused_precision=tier.split()[0])
+                ref[tier] = value_and_grad(fn)(params, batch)
+        (tb, (fb, rb)), gb = ref[X3]
+        (tf, (ff, rf)), gf = ref["f32"]
+        (t6, (f6, r6)), g6 = ref["f32x3 f64"]
+        tier_case("CMB iteration 1", [("total", tk, tb, tf, t6), ("fidelity", fk, fb, ff, f6),
+                                      ("residual", rk, rb, rf, r6)]
+                  + [(f"d{k}", gk[k], gb[k], gf[k], g6[k]) for k in gk], kernel="k3")
+
+        # c. the flagship under --precision-schedule 150:f32x3
+        cfg_full = newmethod_config(tmp, repo, adam_optimizer={"max_it": 300},
+                                    snapshot_iteration=300, lbfgs_optimizer=lbfgs,
+                                    residual_chunk_size=4096)
+        reset_counts()
+        if cli.main(["train", "--config", cfg_full, "--log-root", tmp, "--run-name", "sched_x3",
+                     "--precision-schedule", "150:f32x3", "--device", "cuda", "--debug"]) != 0:
+            fail("CLI train --precision-schedule 150:f32x3 failed")
+        sched_dir = os.path.join(tmp, "sched_x3")
+        if cli.main(["test", "--config", cfg_full, "--model", os.path.join(sched_dir, "model.npz"),
+                     "--save", os.path.join(tmp, "pred_sched_x3.mat"), "--device", "cuda",
+                     "--debug"]) != 0:
+            fail("CLI test of the scheduled model failed")
+        sched_counts = counts()
+        print(f"  schedule-path launches by tier: {sched_counts}")
+        n_sched, sched_totals = check_log(sched_dir, "the 150:f32x3 scheduled run")
+        k1s = sched_counts["fused_loss_and_grad"]
+        if k1s[X3] != 150 or k1s["f32"] != n_sched - 150 or k1s["bf16"]:
+            fail(f"K1 launched {k1s} for {n_sched} evaluations under a 150-step f32x3 prefix "
+                 "(150 f32x3, the rest f32)")
+        cfg_short = newmethod_config(tmp, repo, adam_optimizer={"max_it": 100},
+                                     lbfgs_optimizer={"max_it": 0})
+        if cli.main(["train", "--config", cfg_short, "--log-root", tmp, "--run-name", "sched_x3_100",
+                     "--precision-schedule", "150:f32x3", "--device", "cuda", "--debug"]) != 0:
+            fail("the 100-step f32x3-scheduled run failed")
+        reset_counts()
+        if cli.main(["train", "--config", cfg_full, "--log-root", tmp, "--run-name", "resumed_x3",
+                     "--resume", os.path.join(tmp, "sched_x3_100", "model.npz"),
+                     "--precision-schedule", "150:f32x3", "--device", "cuda", "--debug"]) != 0:
+            fail("the resumed f32x3-scheduled run failed")
+        resumed = counts()["fused_loss_and_grad"]
+        epochs_r, _, _, totals_r = read_log(os.path.join(tmp, "resumed_x3"))
+        if epochs_r[0] != 101 or resumed[X3] != 50 or resumed["f32"] != len(epochs_r) - 50:
+            fail(f"the resume from iteration 100 ran {resumed} K1 launches for epochs "
+                 f"{epochs_r[0]}..{epochs_r[-1]} (50 f32x3, then f32)")
+        if not abs(totals_r[0] - sched_totals[100]) <= 1e-6 * abs(sched_totals[100]):
+            fail("the resumed run's first row differs from the uninterrupted run's")
+        print(f"  {n_sched} evaluations: 150 K1-f32x3 then {k1s['f32']} K1-f32; resumed at "
+              f"iteration 100: {resumed[X3]} K1-f32x3 then {resumed['f32']} K1-f32")
+
+        # d. the CMB Trainer with the fused path's backward picked
+        # (PickedBackward): K3-bf16, K4-f32 and K4-f32x3
+        picked = {}
+        for tier, impl, wrapper in (("bf16", "stream", "packed_mlp_bwd"),
+                                    ("f32", "rebuild", "packed_mlp_bwd_rebuild"),
+                                    (X3, "rebuild", "packed_mlp_bwd_rebuild")):
+            raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
+                       kernel_precision=tier)
+            run = os.path.join(tmp, f"picked_{tier}_{impl}")
+            os.makedirs(run)
+            tr = Trainer(parse_config(raw), run_dir=run, echo_every=0, initial_params=init,
+                         device=dev)
+            reset_counts()
+            with PickedBackward(impl):
+                losses = tr._adam_steps(20).cpu().numpy()
+            c = counts()
+            bwd = {w: c[w] for w in ("packed_mlp_bwd", "packed_mlp_bwd_rebuild")}
+            other = {w: v for w, v in bwd.items() if w != wrapper}
+            if bwd[wrapper][tier] != 40 or not only(bwd[wrapper], tier) or \
+                    any(any(v.values()) for v in other.values()):
+                fail(f"20 Adam steps on the CMB loss at {tier} with impl={impl!r} launched "
+                     f"{bwd} (40 {wrapper} at {tier}, nothing else)")
+            if not np.isfinite(losses).all():
+                fail(f"impl={impl!r} at {tier}: a non-finite loss in {losses}")
+            picked[(tier, impl)] = bwd[wrapper][tier]
+            print(f"  CMB loss, backward impl={impl!r} at {tier}: 20 Adam steps, "
+                  f"{bwd[wrapper][tier]} {wrapper} launches, total {losses[0, 2]:.5e} -> "
+                  f"{losses[-1, 2]:.5e}")
+
+        # 20. the bench suite ---------------------------------------------------------
+        print("== phase 20: bench --suite (CLI)")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--suite"])
+        suite_s = time.perf_counter() - t0
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        if rc != 0 or len(lines) != 1:
+            fail(f"bench --suite exited {rc} with {len(lines)} JSON lines")
+        suite = json.loads(lines[0])
+        print(lines[0])
+        extras = suite.get("extras", {})
+        want_keys = {"f32x3", "bf16", "plain", "adam_step_ms", "adam_step_ms_f32x3",
+                     "adam_step_ms_bf16", "cmb_step_ms"}
+        errors = [k for k in extras if k.endswith("_error")]
+        if errors or set(extras) != want_keys:
+            fail(f"bench --suite extras {sorted(extras)} (errors {errors}); want {sorted(want_keys)}")
+        if not all(isinstance(v, (int, float)) and v > 0 and math.isfinite(v)
+                   for v in extras.values()):
+            fail(f"bench --suite extras are not positive finite numbers: {extras}")
+        print(f"  bench --suite took {suite_s:.1f} s")
+
+        # 21. times -----------------------------------------------------------------
+        print("== phase 21: times of the f32x3 tier (CUDA events; median of reps)")
+        times = {}
+
+        def timed(key, fn, reps, inner, flops, nbytes):
+            ms = cuda_ms(fn, reps, inner)
+            times[key] = (ms, *x3_bounds(bound, bound_bf16, flops, nbytes))
+
+        spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
+        with torch.no_grad():
+            for tier in ("f32", X3):
+                timed(f"k2 10M continuity {tier}",
+                      lambda t=tier: kernels.fused_residual_continuity(p10, c10, spec10, precision=t),
+                      5, 1, k2_flops(spec10, 10_000_000, 2, True), k2_bytes(p10, 10_000_000, spec10, 1))
+            plain_10m = cuda_ms(lambda: kernels.residual_continuity_plain(p10, c10, spec10, X3), 3, 1)
+        del p10, c10
+        serve_params = params_from_numpy(numpy_params(flagship.sizes, "xavier", 3), dev)
+        n_serve = x_serve.shape[0]
+        plain = {}
+        with torch.no_grad():
+            p_cmb = bwd_inputs["CMB net, residual grid"][0]
+            timed("k2 cmb grid", lambda: kernels.mlp_fwd_tangents(p_cmb, res_pts, cmb_net, 2, precision=X3),
+                  7, 20, k2_flops(cmb_net, n_res, 2, False), k2_bytes(p_cmb, n_res, cmb_net, 3 * cmb_net.d_out))
+            plain["k2 cmb grid"] = cuda_ms(lambda: kernels.mlp_fwd_tangents_plain(p_cmb, res_pts, cmb_net, 2, X3), 5, 3)
+            timed("k2 serve", lambda: kernels.mlp_fwd_tangents(serve_params, x_serve, flagship, 0, precision=X3),
+                  7, 20, k2_flops(flagship, n_serve, 0, False), k2_bytes(serve_params, n_serve, flagship, 3))
+            plain["k2 serve"] = cuda_ms(lambda: kernels.mlp_fwd_tangents_plain(serve_params, x_serve, flagship, 0, X3), 5, 3)
+            timed("k1", lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship, precision=X3),
+                  7, 20, k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2))
+            plain["k1"] = cuda_ms(lambda: kernels_step.fused_loss_and_grad_plain(flag_params, flag_batch, flagship, X3), 5, 3)
+            sweeps = {}
+            for name in ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid"):
+                params, x, ybar, dybar, spec, kt = bwd_inputs[name]
+                nb = k3_bytes(params, spec, x.shape[0], kt)
+                timed(f"k3 {name}", lambda: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=X3),
+                      7, 20, k3_flops(spec, x.shape[0], kt), nb)
+                timed(f"k4 {name}", lambda: kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt, precision=X3),
+                      7, 20, k4_flops(spec, x.shape[0], kt), nb)
+                plain[f"bwd {name}"] = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, X3), 5, 3)
+                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, X3)
+                sweep = {}
+                for c in (1, 2, 3, 4, 6, 8, 10):
+                    if c > spec.n_hidden - 1:
+                        continue
+                    try:
+                        kernels_vjp.rebuild_ckpt_every(spec, kt, X3, c)
+                    except ValueError:
+                        continue
+                    sweep[c] = cuda_ms(lambda c=c: kernels_vjp.packed_mlp_bwd_rebuild(
+                        params, x, ybar, dybar, spec, kt, precision=X3, ckpt_every=c), 5, 10)
+                sweeps[name] = (c_auto, sweep)
+                print(f"  K4-f32x3 {name}: segment length C -> ms "
+                      f"{dict((c, round(v, 4)) for c, v in sweep.items())}; planned C = {c_auto}")
+        # 100 steps, median of 3 (the suite's f32 CMB step takes 500): the
+        # host-bound step moves with the host, not with the count
+        cmb_step = benchmarks.run_cmb_step_bench(n_iters=100, kernel_precision=X3, device=dev)
+
+    for key, (ms, b_tc, by, b_cc) in times.items():
+        print(f"  {key}{'' if key.endswith(('f32', X3)) else ' f32x3'}: {ms:.4f} ms, bound "
+              f"{b_tc:.5f} ms by {by} (three bf16 products on the tensor cores; "
+              f"{b_tc / ms:.2%} of it), {b_cc:.4f} ms on the CUDA cores' f32 FMA rate "
+              f"({b_cc / ms:.1%} of it)")
+    print(f"  plain f32x3: continuity at 10M points {plain_10m:.3f} ms, "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in plain.items()))
+    print(f"  Adam step at f32x3: flagship {extras['adam_step_ms_f32x3']} ms (bench --suite; "
+          f"f32 {extras['adam_step_ms']} ms), CMB {json.dumps(cmb_step)}")
+
+    res, fidr, flag = ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid")
+    common = {"route": "cuda", "library_ms": None}
+
+    def entry(name, source, replaces, key, launches, plain_ms, e, **more):
+        ms, b_tc, by, b_cc = times[key]
+        return {"name": name, **common, "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_tc, "bound_by": by, "bound_ms_cuda_cores": b_cc, **more}
+
+    k2_entry = entry("k2_mlp_fwd_tangents[f32x3]", K2_SOURCE, REPLACES, "k2 cmb grid",
+                     cmb_counts["mlp_fwd_tangents"][X3], plain["k2 cmb grid"], err["k2"],
+                     points=n_res, launches_flagship_path=flag_counts["mlp_fwd_tangents"][X3],
+                     ms_10m_continuity=times[f"k2 10M continuity {X3}"][0],
+                     ms_10m_continuity_f32=times["k2 10M continuity f32"][0],
+                     bound_ms_10m_continuity=times[f"k2 10M continuity {X3}"][1],
+                     bound_ms_10m_continuity_cuda_cores=times[f"k2 10M continuity {X3}"][3],
+                     plain_ms_10m_continuity=plain_10m,
+                     ms_serve_grid=times["k2 serve"][0], plain_ms_serve_grid=plain["k2 serve"],
+                     bound_ms_serve_grid=times["k2 serve"][1],
+                     residual_evals_per_s=extras["f32x3"])
+    k1_entry = entry("k1_continuity_train_step[f32x3]", K1_SOURCE, K1_REPLACES, "k1",
+                     flag_counts["fused_loss_and_grad"][X3], plain["k1"], err["k1"],
+                     points=n_grid, launches_schedule_prefix=k1s[X3],
+                     adam_ms_per_iter_f32x3=extras["adam_step_ms_f32x3"])
+    k3_entry = entry("k3_mlp_bwd[f32x3]", K3_SOURCE, K3_REPLACES, f"k3 {res}",
+                     cmb_counts["packed_mlp_bwd"][X3], plain[f"bwd {res}"], err["k3"],
+                     points=n_res, ms_fidelity_k0=times[f"k3 {fidr}"][0],
+                     ms_flagship_k2=times[f"k3 {flag}"][0],
+                     bound_ms_flagship_k2=times[f"k3 {flag}"][1],
+                     cmb_adam_ms_per_iter_f32x3=cmb_step["ms_per_iter"])
+    k4_entry = entry("k4_mlp_bwd_rebuild[f32x3]", K4_SOURCE, K4_REPLACES, f"k4 {res}",
+                     picked[(X3, "rebuild")], plain[f"bwd {res}"], err["k4"], points=n_res,
+                     ckpt_every=sweeps[res][0], ms_fidelity_k0=times[f"k4 {fidr}"][0],
+                     ms_flagship_k2=times[f"k4 {flag}"][0],
+                     bound_ms_flagship_k2=times[f"k4 {flag}"][1],
+                     ckpt_sweep_ms={name: sweeps[name][1] for name in (res, fidr, flag)})
+    return {"k2": k2_entry, "k1": k1_entry, "k3": k3_entry, "k4": k4_entry,
+            "picked": picked, "suite": suite, "suite_s": suite_s}
 
 
 def main() -> None:
@@ -1362,19 +1943,25 @@ def main() -> None:
     t_build = time.perf_counter()
     lib = cuda_build.k2_library()  # builds K1, K2, K3 and K4 together
     lib_k1, lib_k3, lib_k4 = cuda_build.k1_library(), cuda_build.k3_library(), cuda_build.k4_library()
-    print(f"  K2, K1, K3 and K4 built in {time.perf_counter() - t_build:.1f} s, one nvcc per "
-          f"(kernel, width), all at once, each library holding the f32 and bf16 tiers")
+    build_s = time.perf_counter() - t_build
+    print(f"  K2, K1, K3 and K4 built in {build_s:.1f} s, one nvcc per (kernel, width, tier), "
+          "all at once")
+    cpu_s = 0.0
     for name, built in (("k2", lib), ("k1", lib_k1), ("k3", lib_k3), ("k4", lib_k4)):
         print(f"  {name.upper()}: {len(built.libs)} widths {sorted(built.libs)}; "
               f"log {os.path.relpath(built.log_path, repo)}")
         log = built.log_path.read_text() if built.log_path.exists() else ""
         for block in log.split(f"== {name} variant ")[1:]:
-            width = block.split(" ", 1)[0]
+            head = re.match(r"(\d+) tier (\w+) \(exit -?\d+, ended at ([\d.]+) s, "
+                            r"([\d.]+) s of CPU\)", block)
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
             spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", block)]
-            print(f"  ptxas {name.upper()} width {width}: registers "
+            cpu_s += float(head.group(4))
+            print(f"  ptxas {name.upper()} width {head.group(1)} {head.group(2)}: registers "
                   f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
-                  f"{max(spills, default=0)} B over {len(regs)} kernels")
+                  f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
+                  f"{head.group(3)} s after {head.group(4)} s of CPU")
+    print(f"  the sixty nvcc took {cpu_s:.1f} s of CPU on {os.cpu_count()} cores")
 
     # 3. kernel vs plain ----------------------------------------------------
     print("== phase 3: K2 against its plain version on the card")
@@ -1509,24 +2096,32 @@ def main() -> None:
     bf16_report = bf16_phases(dev, repo, bound, bound_bf16,
                               {"flagship": k1_report["adam_ms_per_iter"],
                                "cmb": k3_report["cmb_adam_ms_per_iter"]})
-    k3_report.update(bf16_report["k3_extra"])
-    print(f"  total {time.perf_counter() - t_start:.1f} s")
+    # 18.-21. the f32x3 tier, its paths and the bench suite -----------------
+    x3_report = f32x3_phases(dev, repo, bound, bound_bf16)
+    print(f"  total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
 
-    common = {"route": "cuda", "source": K2_SOURCE, "replaces": REPLACES, "library_ms": None}
+    # one entry per kernel and tier; K3-bf16 and K4-f32 launched on phase
+    # 19's path, which picks the backward
+    picked = x3_report["picked"]
+    k2_f32 = {"name": "k2_mlp_fwd_tangents[f32]", "route": "cuda", "source": K2_SOURCE,
+              "replaces": REPLACES, "library_ms": None,
+              "launches": launches["mlp_fwd_tangents"] + launches["fused_residual_continuity"],
+              "max_abs_err": max(err_pred, err_res), "ms": ms_res, "plain_ms": plain_res,
+              "bound_ms": b_res, "bound_by": by_res, "points": n_res, "ms_1m": ms_res_1m,
+              "plain_ms_1m": plain_res_1m, "launches_predict": launches["mlp_fwd_tangents"],
+              "launches_continuity": launches["fused_residual_continuity"],
+              "ms_predict": ms_pred, "plain_ms_predict": plain_pred, "bound_ms_predict": b_pred,
+              "points_predict": n_grid, "build_s": build_s}
+    k1_report["name"] = "k1_continuity_train_step[f32]"
+    k3_report["name"] = "k3_mlp_bwd[f32]"
+    k3_bf16 = {**bf16_report["k3_bf16"], "launches": picked[("bf16", "stream")]}
+    k4_f32 = {**bf16_report["k4_f32"], "launches": picked[("f32", "rebuild")],
+              "plain_ms": k3_report["plain_ms"]}
     report = {"kernels": [
-        {"name": "k2_mlp_fwd_tangents[K=0,predict]", **common,
-         "launches": launches["mlp_fwd_tangents"], "max_abs_err": err_pred,
-         "ms": ms_pred, "plain_ms": plain_pred, "bound_ms": b_pred, "bound_by": by_pred,
-         "points": n_grid},
-        {"name": "k2_mlp_fwd_tangents[K=2,continuity]", **common,
-         "launches": launches["fused_residual_continuity"], "max_abs_err": err_res,
-         "ms": ms_res, "plain_ms": plain_res, "bound_ms": b_res, "bound_by": by_res,
-         "points": n_res, "ms_1m": ms_res_1m, "plain_ms_1m": plain_res_1m},
-        k1_report,
-        k3_report,
-        bf16_report["k2_bf16"],
-        bf16_report["k1_bf16"],
-        bf16_report["k4"],
+        k2_f32, bf16_report["k2_bf16"], x3_report["k2"],
+        k1_report, bf16_report["k1_bf16"], x3_report["k1"],
+        k3_report, k3_bf16, x3_report["k3"],
+        k4_f32, bf16_report["k4"], x3_report["k4"],
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

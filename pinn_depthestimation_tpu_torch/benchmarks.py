@@ -6,7 +6,7 @@ Port of the JAX package's ``benchmarks.py``:
   evaluations per second on one device, on the flagship newmethod network
   (2 -> [20]x100 -> 3, tanh, ``continuity_only`` residual: forward + x/y
   tangents + residual algebra per point), at the tier ``precision``
-  (``f32`` or ``bf16``);
+  (``f32``, ``f32x3`` or ``bf16``);
 * ``run_train_step_bench``: the flagship Adam step in ms per iteration on
   the 81x261 grid with 40.8 % NaN rows (12,516 points), through the
   ``Trainer``'s own step loop — K1, the reduction and the Adam update, at
@@ -14,16 +14,27 @@ Port of the JAX package's ``benchmarks.py``:
 * ``run_cmb_step_bench``: the CMB Adam step in ms per iteration (the
   reference CMB net 2->[10]x10->6, ``wave_averaged``, 200 fidelity rows and
   ~20,500 collocation points), through the ``Trainer``'s step loop — K2 and
-  K3 (``f32``) or K4 (``bf16``) for the residual and the fidelity term, the
-  physics in PyTorch, Adam.
+  K3 (``f32``, ``f32x3``) or K4 (``bf16``) for the residual and the
+  fidelity term, the physics in PyTorch, Adam;
+* ``run_bench_suite``: the JAX suite's one-line record — the f32 residual
+  headline, then ``extras``: the ``f32x3`` and ``bf16`` residual rates, the
+  plain version's rate at a quarter of the points under ``plain`` (the port
+  has no XLA path: the JAX record's ``xla`` key has no counterpart), the
+  flagship Adam step at each tier (``adam_step_ms``, ``adam_step_ms_f32x3``,
+  ``adam_step_ms_bf16``) and the CMB Adam step (``cmb_step_ms``). A step
+  bench that fails is recorded as ``<name>_error``, as in the JAX suite.
 
 Unlike the JAX bench, a kernel failure is an error: nothing falls back to
 the plain path and reports that instead. ``vs_baseline`` is null: the JAX
-bench's target was set for a TPU slice and is no aim for this port.
+bench's target was set for a TPU slice and is no aim for this port. The
+Trainers the step benches build print to standard error, so a bench's
+standard output is its JSON record alone.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
 import time
 
 import numpy as np
@@ -180,7 +191,8 @@ def run_train_step_bench(
             raw["kernel_precision"] = kernel_precision
         run_dir = os.path.join(tmp, "run")
         os.makedirs(run_dir)
-        trainer = Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=dev)
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=dev)
         trainer._adam_steps(n_iters)  # warm-up (the first call in a process builds K1)
         sync()
         times = []
@@ -221,7 +233,8 @@ def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device,
         raw["kernel_precision"] = kernel_precision
     run_dir = os.path.join(tmp, "run")
     os.makedirs(run_dir)
-    return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
+    with contextlib.redirect_stdout(sys.stderr):
+        return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
 
 
 def run_cmb_step_bench(
@@ -256,7 +269,7 @@ def run_cmb_step_bench(
             times.append(time.perf_counter() - t0)
     plan = trainer.kernel_plan
     tier = trainer.config.resolved_kernel_precision()
-    bwd = "k4" if tier == "bf16" else "k3"
+    bwd = "k4" if tier == "bf16" else "k3"  # the tier's default backward
     return {
         "ms_per_iter": sorted(times)[len(times) // 2] / n_iters * 1e3,
         "points": int(trainer.data.residual_input.shape[0]),
@@ -265,3 +278,35 @@ def run_cmb_step_bench(
         "precision": tier,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+
+
+def run_bench_suite(*, n_points: int = 10_000_000, reps: int = 7,
+                    device: str | torch.device = "cuda") -> dict:
+    """The one-line record of the JAX ``run_bench_suite``: the f32 residual
+    headline (:func:`run_residual_bench`) with ``extras``: the ``f32x3`` and
+    ``bf16`` residual rates at ``n_points``, the plain version's rate at a
+    quarter of them (``plain``, in place of the JAX record's ``xla``), the
+    flagship Adam step in ms at the config's default tier, at f32x3 and at
+    bf16 (``adam_step_ms``, ``adam_step_ms_f32x3``, ``adam_step_ms_bf16``)
+    and the CMB Adam step (``cmb_step_ms``), each at its defaults (500
+    steps, median of 3). A step bench that raises
+    is recorded as ``<name>_error`` with its message, as the JAX suite does;
+    the residual rates raise."""
+    headline = run_residual_bench(n_points=n_points, reps=reps, device=device)
+    extras: dict = {}
+    for tier in ("f32x3", "bf16"):
+        extras[tier] = run_residual_bench(n_points=n_points, precision=tier, reps=reps,
+                                          device=device)["value"]
+    extras["plain"] = run_residual_bench(n_points=max(n_points // 4, 1), backend="plain",
+                                         reps=max(reps - 2, 3), device=device)["value"]
+    steps = [(f"adam_step_ms{suffix}",
+              lambda t=tier: run_train_step_bench(kernel_precision=t, device=device))
+             for suffix, tier in (("", None), ("_f32x3", "f32x3"), ("_bf16", "bf16"))]
+    steps.append(("cmb_step_ms", lambda: run_cmb_step_bench(device=device)))
+    for name, bench in steps:
+        try:
+            extras[name] = bench()["ms_per_iter"]
+        except Exception as e:  # the record keeps the failure, as the JAX suite's
+            extras[name + "_error"] = f"{type(e).__name__}: {e}"[:200]
+    headline["extras"] = extras
+    return headline

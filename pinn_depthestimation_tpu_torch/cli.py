@@ -11,8 +11,14 @@ slices:
                                                        [--save OUT.mat] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
+                                                       [--precision f32|f32x3|bf16]
+                                                       [--suite | --step]
 
-``train`` and ``test`` take newmethod and CMB configs. ``synth`` writes the
+``train`` and ``test`` take newmethod and CMB configs. ``bench`` prints one
+JSON line: the residual rate at ``--precision``, with ``--suite`` the JAX
+suite's record (every tier's residual rate, the plain version's under
+``plain``, the Adam steps; ``benchmarks.run_bench_suite``), with ``--step``
+the flagship Adam step in ms. ``synth`` writes the
 newmethod grid ``data_synth.mat`` and the CMB pair ``input_fid.csv`` +
 ``input_res.mat``. ``--device`` defaults to ``cuda``; without a CUDA device
 the verb fails unless ``--device cpu`` is given. ``train
@@ -170,10 +176,17 @@ def cmd_test(args) -> int:
 def cmd_bench(args) -> int:
     from pinn_depthestimation_tpu_torch import benchmarks
 
-    print(json.dumps(benchmarks.run_residual_bench(
-        n_points=args.points, backend=args.backend, precision=args.precision,
-        device=args.device,
-    )))
+    if args.step:
+        step = benchmarks.run_train_step_bench(device=args.device)
+        print(json.dumps({"metric": "flagship_adam_step_ms", "value": step["ms_per_iter"],
+                          "unit": f"ms/iteration (shipped defaults) on {step['device']}"}))
+    elif args.suite:
+        print(json.dumps(benchmarks.run_bench_suite(n_points=args.points, device=args.device)))
+    else:
+        print(json.dumps(benchmarks.run_residual_bench(
+            n_points=args.points, backend=args.backend, precision=args.precision,
+            device=args.device,
+        )))
     return 0
 
 
@@ -232,6 +245,12 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--backend", choices=["kernel", "plain"], default="kernel")
     b.add_argument("--precision", choices=["f32", "f32x3", "bf16"], default="f32")
     b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    mode = b.add_mutually_exclusive_group()
+    mode.add_argument("--suite", action="store_true",
+                      help="the full record: every tier's residual rate, the plain "
+                           "version's, and the Adam steps, in one line")
+    mode.add_argument("--step", action="store_true",
+                      help="only the flagship Adam-step time (ms/iteration)")
     b.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("synth", help="write synthetic newmethod and CMB data (reference schema)")

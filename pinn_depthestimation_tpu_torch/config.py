@@ -3,8 +3,8 @@
 A whole copy of the JAX package's ``config.py`` (stdlib only): the port
 imports nothing of that package, so both parse one file into equal values.
 The kernel fields parse here too: the port reads ``kernel_precision``
-(:meth:`Config.resolved_kernel_precision`: the kernels' tier, ``f32`` or
-``bf16``; ``f32x3`` is not ported), ``fused_kernel`` (whether training
+(:meth:`Config.resolved_kernel_precision`: the kernels' tier, ``f32``,
+``bf16`` or ``f32x3``), ``fused_kernel`` (whether training
 takes the kernels; ``'off'`` also sends the Trainer's predictions through
 the plain ``mlp_apply``) and ``precision_schedule``, and refuses a set
 ``f64_polish``, which it has not ported yet.

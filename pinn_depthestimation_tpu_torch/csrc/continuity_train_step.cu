@@ -1,5 +1,5 @@
 // K1 for Hopper: the one-kernel training step of the continuity losses, tiers
-// f32 and bf16.
+// f32, bf16 and f32x3.
 //
 // Replaces the TPU kernel of the JAX package's ops/kernels_step.py:205
 // _stats_and_grads (pallas_call at :272), whose body is ops/kernels_vjp.py:433
@@ -29,8 +29,9 @@
 // into the loss statistics and the output cotangents, and instantiates the
 // walk at K=2 with three heads. At the bf16 tier (k1_train_step_bf16) the
 // walk rounds as tier.cuh says, and the epilogue rounds the last state
-// before w_out (JAX ops/kernels_vjp.py:569); the statistics and the
-// cotangents stay f32.
+// before w_out (JAX ops/kernels_vjp.py:569); at the f32x3 tier
+// (k1_train_step_f32x3) the walk and the epilogue split those operands
+// instead; the statistics and the cotangents stay f32.
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // forward (238,200 for the 2->[20]x100->3 flagship at K=2) and about twice
@@ -99,23 +100,30 @@ struct ContinuityEpilogue {
                                          float (&ybt)[mlp_bwd::tdim(K)][kOut]) {
     static_assert(K == 2, "the continuity losses differentiate w.r.t. (x, y)");
     // ---- output layer and the loss epilogue
-    float y[kOut], dy[2][kOut];
+    typename Tier::Acc ya[kOut], dya[2][kOut];
 #pragma unroll
     for (int o = 0; o < kOut; ++o) {
-      y[o] = s_bout[o];
-      dy[0][o] = 0.f;
-      dy[1][o] = 0.f;
+      ya[o] = Tier::acc(s_bout[o]);
+      dya[0][o] = Tier::acc(0.f);
+      dya[1][o] = Tier::acc(0.f);
     }
 #pragma unroll
     for (int j = 0; j < W; ++j) {
-      const float aj = Tier::rnd(a[j]), t0 = Tier::rnd(t[0][j]), t1 = Tier::rnd(t[1][j]);
+      const typename Tier::Op aj = Tier::op(a[j]), t0 = Tier::op(t[0][j]), t1 = Tier::op(t[1][j]);
 #pragma unroll
       for (int o = 0; o < kOut; ++o) {
-        const float wv = tier::w_f(s_wout[j * kOut + o]);
-        y[o] = fmaf(aj, wv, y[o]);
-        dy[0][o] = fmaf(t0, wv, dy[0][o]);
-        dy[1][o] = fmaf(t1, wv, dy[1][o]);
+        const typename Tier::WV wv = tier::w_ld(s_wout[j * kOut + o]);
+        Tier::mac(ya[o], aj, wv);
+        Tier::mac(dya[0][o], t0, wv);
+        Tier::mac(dya[1][o], t1, wv);
       }
+    }
+    float y[kOut], dy[2][kOut];
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      y[o] = Tier::fin(ya[o]);
+      dy[0][o] = Tier::fin(dya[0][o]);
+      dy[1][o] = Tier::fin(dya[1][o]);
     }
     const float U = y[0], V = y[1], h = y[2];
     const float Ux = dy[0][0], hx = dy[0][2], Vy = dy[1][1], hy = dy[1][2];
@@ -219,16 +227,26 @@ const char* k1_error_string(int err) {
 
 // Hidden layers one shared-memory chunk holds on the current device (0 when
 // not even one fits beside the staging rows), per tier.
+#if WITH_TIER(0)
 int k1_chunk_layers(int n_stack) { return chunk_layers<tier::TierF32>(n_stack); }
+#endif
 
+#if WITH_TIER(1)
 int k1_chunk_layers_bf16(int n_stack) { return chunk_layers<tier::TierBf16>(n_stack); }
+#endif
+
+#if WITH_TIER(2)
+int k1_chunk_layers_f32x3(int n_stack) { return chunk_layers<tier::TierF32x3>(n_stack); }
+#endif
 
 // One training-step evaluation: K1 on a grid of `grid` blocks into
 // `partial` (grid rows of n_params + 8 floats), then the fixed-order
 // reduction into `out` (n_params + 8: the gradients in sorted-key order,
 // then the statistics). `states` holds grid * (n_stack + 1) * 3W * 128
 // floats. Returns a cudaError_t; nothing synchronises. k1_train_step_bf16
-// takes the same arguments at the bf16 tier.
+// and k1_train_step_f32x3 take the same arguments at the bf16 and f32x3
+// tiers.
+#if WITH_TIER(0)
 int k1_train_step(const float* coords, const float* trues, const float* sel,
                   const float* mask, const float* scal, const float* w_in,
                   const float* b_in, const float* w_h, const float* b_h,
@@ -239,7 +257,9 @@ int k1_train_step(const float* coords, const float* trues, const float* sel,
                             partial, states, out, n, d_in, n_stack, n_true, has_anchor, act,
                             grid, stream);
 }
+#endif
 
+#if WITH_TIER(1)
 int k1_train_step_bf16(const float* coords, const float* trues, const float* sel,
                        const float* mask, const float* scal, const float* w_in,
                        const float* b_in, const float* w_h, const float* b_h,
@@ -250,5 +270,19 @@ int k1_train_step_bf16(const float* coords, const float* trues, const float* sel
                              b_out, partial, states, out, n, d_in, n_stack, n_true, has_anchor,
                              act, grid, stream);
 }
+#endif
+
+#if WITH_TIER(2)
+int k1_train_step_f32x3(const float* coords, const float* trues, const float* sel,
+                        const float* mask, const float* scal, const float* w_in,
+                        const float* b_in, const float* w_h, const float* b_h,
+                        const float* w_out, const float* b_out, float* partial, float* states,
+                        float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
+                        int act, int grid, void* stream) {
+  return run<tier::TierF32x3>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out,
+                              b_out, partial, states, out, n, d_in, n_stack, n_true, has_anchor,
+                              act, grid, stream);
+}
+#endif
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // K3 for Hopper: the parameter gradients of the MLP with K coordinate
-// tangents from given output cotangents, every layer state stored; tiers f32
-// and bf16.
+// tangents from given output cotangents, every layer state stored; tiers
+// f32, bf16 and f32x3.
 //
 // Replaces the TPU kernel of the JAX package's ops/kernels_vjp.py:701
 // packed_mlp_bwd(impl='stream') (pallas_call at :805), whose body is
@@ -17,9 +17,10 @@
 // per-block partial rows and an ordered second-pass sum (no atomics:
 // bit-identical from run to run). The epilogue (LoadedCotangents) only
 // loads ybar and dybar of the tile's points. One library per hidden width
-// (-DK3_WIDTH=W), holding the K = 0..3, tanh/LeakyReLU and f32/bf16
-// instantiations; the bf16 entry is k3_mlp_bwd_bf16. At the bf16 tier the
-// JAX package runs K4 by default; K3-bf16 is its impl='stream'.
+// (-DK3_WIDTH=W), holding the K = 0..3, tanh/LeakyReLU and f32/bf16/f32x3
+// instantiations; the bf16 and f32x3 entries are k3_mlp_bwd_bf16 and
+// k3_mlp_bwd_f32x3. At the bf16 tier the JAX package runs K4 by default;
+// K3-bf16 is its impl='stream'. At f32x3 K3 is the default, as at f32.
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // of replay and 2*2*(1+K)*((L-1)*W^2 + W*d_out) + 2*d_in*W of backward
@@ -90,20 +91,32 @@ const char* k3_error_string(int err) {
 // Hidden layers one shared-memory chunk holds on the current device for
 // n_tangents streams (0 when not even one fits beside the staging rows),
 // per tier.
+#if WITH_TIER(0)
 int k3_chunk_layers(int n_stack, int n_tangents) {
   return chunk_layers<tier::TierF32>(n_stack, n_tangents);
 }
+#endif
 
+#if WITH_TIER(1)
 int k3_chunk_layers_bf16(int n_stack, int n_tangents) {
   return chunk_layers<tier::TierBf16>(n_stack, n_tangents);
 }
+#endif
+
+#if WITH_TIER(2)
+int k3_chunk_layers_f32x3(int n_stack, int n_tangents) {
+  return chunk_layers<tier::TierF32x3>(n_stack, n_tangents);
+}
+#endif
 
 // One backward: K3 on a grid of `grid` blocks into `partial` (grid rows of
 // n_params floats), then the fixed-order reduction into `out` (n_params:
 // the gradients in sorted-key order). `states` holds
 // grid * (n_stack + 1) * (1 + n_tangents) * W * 128 floats. `dybar` may be
 // null when n_tangents is 0. Returns a cudaError_t; nothing synchronises.
-// k3_mlp_bwd_bf16 takes the same arguments at the bf16 tier.
+// k3_mlp_bwd_bf16 and k3_mlp_bwd_f32x3 take the same arguments at the bf16
+// and f32x3 tiers.
+#if WITH_TIER(0)
 int k3_mlp_bwd(const float* coords, const float* ybar, const float* dybar,
                const float* w_in, const float* b_in, const float* w_h, const float* b_h,
                const float* w_out, const float* b_out, float* partial, float* states,
@@ -112,7 +125,9 @@ int k3_mlp_bwd(const float* coords, const float* ybar, const float* dybar,
   return run<tier::TierF32>(coords, ybar, dybar, w_in, b_in, w_h, b_h, w_out, b_out, partial,
                             states, out, n, d_in, d_out, n_stack, n_tangents, act, grid, stream);
 }
+#endif
 
+#if WITH_TIER(1)
 int k3_mlp_bwd_bf16(const float* coords, const float* ybar, const float* dybar,
                     const float* w_in, const float* b_in, const float* w_h, const float* b_h,
                     const float* w_out, const float* b_out, float* partial, float* states,
@@ -122,5 +137,18 @@ int k3_mlp_bwd_bf16(const float* coords, const float* ybar, const float* dybar,
                              states, out, n, d_in, d_out, n_stack, n_tangents, act, grid,
                              stream);
 }
+#endif
+
+#if WITH_TIER(2)
+int k3_mlp_bwd_f32x3(const float* coords, const float* ybar, const float* dybar,
+                     const float* w_in, const float* b_in, const float* w_h, const float* b_h,
+                     const float* w_out, const float* b_out, float* partial, float* states,
+                     float* out, int n, int d_in, int d_out, int n_stack, int n_tangents,
+                     int act, int grid, void* stream) {
+  return run<tier::TierF32x3>(coords, ybar, dybar, w_in, b_in, w_h, b_h, w_out, b_out, partial,
+                              states, out, n, d_in, d_out, n_stack, n_tangents, act, grid,
+                              stream);
+}
+#endif
 
 }  // extern "C"

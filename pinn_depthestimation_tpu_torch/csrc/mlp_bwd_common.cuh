@@ -1,4 +1,5 @@
-// The hand-written MLP backward shared by K1, K3 and K4, tiers f32 and bf16.
+// The hand-written MLP backward shared by K1, K3 and K4, tiers f32, bf16 and
+// f32x3.
 //
 // For every point p, with the coordinate tangent seeds e_0 .. e_{K-1}, the
 // walk
@@ -29,7 +30,13 @@
 // Tiers (tier.cuh, ops/tiers.py): at bf16 the weights sit in shared memory
 // as bf16, each forward operand and each stacked cotangent is rounded to
 // bf16 before it meets a weight, and the weight-gradient products, the sums
-// and the staging rows stay f32. At f32 every rounding is the identity.
+// and the staging rows stay f32. At f32x3 the weights sit in shared memory
+// as bf16 (hi, lo) pairs (the bytes of f32, so every plan below comes out as
+// at f32), the same operands are split before they meet a weight, and the
+// weight-gradient products split both staged operands as they read them
+// (the staging rows stay f32, so the bias sums see the unsplit values),
+// except the input layer's tangent-seed rows, whose sums stay f32. At f32
+// every rounding is the identity.
 //
 // Design. One thread per point, 128 points per tile. The primal and the K
 // tangent streams stay in registers (W is a compile-time constant: one
@@ -70,6 +77,7 @@ namespace mlp_bwd {
 using tier::load_vec;
 using tier::row_vec;
 using tier::w_f;
+using tier::w_ld;
 
 // The state policies (header).
 struct StoreAll {
@@ -119,52 +127,58 @@ __device__ __forceinline__ float accumulate(float* dst, float v, bool first) {
   return first ? v : *dst + v;
 }
 
-// One hidden layer forward: z = a @ w + b, z^k = t^k @ w (a and t^k rounded
-// to the tier); a <- act(z), t^k <- z^k * act'; the state (a, z^0..z^{K-1})
-// goes to st[c * kThreads] unless st is null.
+// One hidden layer forward: z = a @ w + b, z^k = t^k @ w (a and t^k
+// prepared at the tier); a <- act(z), t^k <- z^k * act'; the state (a,
+// z^0..z^{K-1}) goes to st[c * kThreads] unless st is null.
 template <class Tier, int W, int ACT, int K>
 __device__ __forceinline__ void hidden_fwd(const typename Tier::WT* __restrict__ w,
                                            const float* __restrict__ b,
                                            float (&a)[W], float (&t)[tdim(K)][W],
                                            float* __restrict__ st) {
+  using Acc = typename Tier::Acc;
+  using Op = typename Tier::Op;
+  using WV = typename Tier::WV;
   constexpr int V = row_vec<W>();
-  float z[W], zt[tdim(K)][W];
+  Acc z[W], zt[tdim(K)][W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    z[j] = b[j];
+    z[j] = Tier::acc(b[j]);
 #pragma unroll
-    for (int k = 0; k < K; ++k) zt[k][j] = 0.f;
+    for (int k = 0; k < K; ++k) zt[k][j] = Tier::acc(0.f);
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const float ai = Tier::rnd(a[i]);
-    float ti[tdim(K)];
+    const Op ai = Tier::op(a[i]);
+    Op ti[tdim(K)];
 #pragma unroll
-    for (int k = 0; k < K; ++k) ti[k] = Tier::rnd(t[k][i]);
+    for (int k = 0; k < K; ++k) ti[k] = Tier::op(t[k][i]);
 #pragma unroll
     for (int j = 0; j < W; j += V) {
-      float wv[V];
+      WV wv[V];
       load_vec<V>(w + i * W + j, wv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        z[j + v] = fmaf(ai, wv[v], z[j + v]);
+        Tier::mac(z[j + v], ai, wv[v]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(ti[k], wv[v], zt[k][j + v]);
+        for (int k = 0; k < K; ++k) Tier::mac(zt[k][j + v], ti[k], wv[v]);
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    const float na = act_fn<ACT>(z[j]);
+    const float na = act_fn<ACT>(Tier::fin(z[j]));
     const float d = dact<ACT>(na);
+    float u[tdim(K)];
+#pragma unroll
+    for (int k = 0; k < K; ++k) u[k] = Tier::fin(zt[k][j]);
     if (st != nullptr) {
       st[j * kThreads] = na;
 #pragma unroll
-      for (int k = 0; k < K; ++k) st[((1 + k) * W + j) * kThreads] = zt[k][j];
+      for (int k = 0; k < K; ++k) st[((1 + k) * W + j) * kThreads] = u[k];
     }
     a[j] = na;
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k][j] = zt[k][j] * d;
+    for (int k = 0; k < K; ++k) t[k][j] = u[k] * d;
   }
 }
 
@@ -230,8 +244,10 @@ __device__ __forceinline__ void stage_state(const float* __restrict__ st,
 
 // dw[i][j] (+)= sum_{c<S} sum_p sA[c*W+i][p] * sB[c*W+j][p] and
 // db[j] (+)= sum_p sB[j][p], over the block's points, in 2 x 2 tiles
-// (W even). One fixed thread owns each entry.
-template <int W, int S>
+// (W even). One fixed thread owns each entry. f32 products at f32 and
+// bf16; at f32x3 both operands split as they are read, and the products
+// summed as (cross) + main over every c and p (JAX mm_tn over the stack).
+template <class Tier, int W, int S>
 __device__ __forceinline__ void accum_square(const float* __restrict__ sA,
                                              const float* __restrict__ sB,
                                              float* __restrict__ dw,
@@ -240,20 +256,43 @@ __device__ __forceinline__ void accum_square(const float* __restrict__ sA,
   constexpr int H = W / 2;
   for (int tile = threadIdx.x; tile < H * H; tile += kThreads) {
     const int i0 = 2 * (tile / H), j0 = 2 * (tile % H);
-    float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
+    float c00, c01, c10, c11;
+    if constexpr (!Tier::kSplit) {
+      c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
 #pragma unroll
-    for (int c = 0; c < S; ++c) {
-      const float* a0 = sA + (c * W + i0) * kLd;
-      const float* b0 = sB + (c * W + j0) * kLd;
+      for (int c = 0; c < S; ++c) {
+        const float* a0 = sA + (c * W + i0) * kLd;
+        const float* b0 = sB + (c * W + j0) * kLd;
 #pragma unroll 4
-      for (int p = 0; p < kThreads; ++p) {
-        const float x0 = a0[p], x1 = a0[kLd + p];
-        const float y0 = b0[p], y1 = b0[kLd + p];
-        c00 = fmaf(x0, y0, c00);
-        c01 = fmaf(x0, y1, c01);
-        c10 = fmaf(x1, y0, c10);
-        c11 = fmaf(x1, y1, c11);
+        for (int p = 0; p < kThreads; ++p) {
+          const float x0 = a0[p], x1 = a0[kLd + p];
+          const float y0 = b0[p], y1 = b0[kLd + p];
+          c00 = fmaf(x0, y0, c00);
+          c01 = fmaf(x0, y1, c01);
+          c10 = fmaf(x1, y0, c10);
+          c11 = fmaf(x1, y1, c11);
+        }
       }
+    } else {
+      tier::Acc3 e00{0.f, 0.f}, e01{0.f, 0.f}, e10{0.f, 0.f}, e11{0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        const float* a0 = sA + (c * W + i0) * kLd;
+        const float* b0 = sB + (c * W + j0) * kLd;
+#pragma unroll 2
+        for (int p = 0; p < kThreads; ++p) {
+          const tier::Pair x0 = tier::split(a0[p]), x1 = tier::split(a0[kLd + p]);
+          const tier::Pair y0 = tier::split(b0[p]), y1 = tier::split(b0[kLd + p]);
+          tier::TierF32x3::mac(e00, x0, y0);
+          tier::TierF32x3::mac(e01, x0, y1);
+          tier::TierF32x3::mac(e10, x1, y0);
+          tier::TierF32x3::mac(e11, x1, y1);
+        }
+      }
+      c00 = tier::TierF32x3::fin(e00);
+      c01 = tier::TierF32x3::fin(e01);
+      c10 = tier::TierF32x3::fin(e10);
+      c11 = tier::TierF32x3::fin(e11);
     }
     float* d0 = dw + i0 * W + j0;
     d0[0] = accumulate(d0, c00, first);
@@ -268,19 +307,39 @@ __device__ __forceinline__ void accum_square(const float* __restrict__ sA,
   }
 }
 
-// The same product for the input and output layers (rows_a x rows_b).
-template <int S>
+// The same product for the input and output layers (rows_a x rows_b). At
+// f32x3 with seed_rows (the input layer, whose rows c >= 1 are the
+// tangent seeds' indicators) those rows add their f32 sums after the split
+// product of row block 0, as JAX adds the folded sums of ubar to dw_in.
+template <class Tier, int S>
 __device__ __forceinline__ void accum_rect(const float* __restrict__ sA, int rows_a,
                                            const float* __restrict__ sB, int rows_b,
                                            float* __restrict__ dw, float* __restrict__ db,
-                                           bool first) {
+                                           bool first, bool seed_rows = false) {
   for (int e = threadIdx.x; e < rows_a * rows_b; e += kThreads) {
     const int i = e / rows_b, j = e % rows_b;
     float acc = 0.f;
-    for (int c = 0; c < S; ++c) {
-      const float* a0 = sA + (c * rows_a + i) * kLd;
-      const float* b0 = sB + (c * rows_b + j) * kLd;
-      for (int p = 0; p < kThreads; ++p) acc = fmaf(a0[p], b0[p], acc);
+    if constexpr (!Tier::kSplit) {
+      for (int c = 0; c < S; ++c) {
+        const float* a0 = sA + (c * rows_a + i) * kLd;
+        const float* b0 = sB + (c * rows_b + j) * kLd;
+        for (int p = 0; p < kThreads; ++p) acc = fmaf(a0[p], b0[p], acc);
+      }
+    } else {
+      tier::Acc3 sp{0.f, 0.f};
+      float seeds = 0.f;
+      for (int c = 0; c < S; ++c) {
+        const float* a0 = sA + (c * rows_a + i) * kLd;
+        const float* b0 = sB + (c * rows_b + j) * kLd;
+        if (seed_rows && c > 0) {
+          for (int p = 0; p < kThreads; ++p) seeds = fmaf(a0[p], b0[p], seeds);
+        } else {
+          for (int p = 0; p < kThreads; ++p) {
+            tier::TierF32x3::mac(sp, tier::split(a0[p]), tier::split(b0[p]));
+          }
+        }
+      }
+      acc = tier::TierF32x3::fin(sp) + seeds;
     }
     dw[e] = accumulate(dw + e, acc, first);
   }
@@ -382,6 +441,9 @@ inline bool rebuild_plan(int W, int S, int max_out, int n_stack, size_t wt, int 
 template <class Tier, class Policy, int W, int ACT, int K, class Epi>
 __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned char* smem) {
   using WT = typename Tier::WT;
+  using WV = typename Tier::WV;
+  using Op = typename Tier::Op;
+  using Acc = typename Tier::Acc;
   using tier::align16;
   constexpr int S = 1 + K;
   constexpr int kOut = Epi::kMaxOut;
@@ -469,14 +531,17 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned ch
     float a[W], t[tdim(K)][W];
     {
       float* st = state(0);
+      Op xo[kMaxIn];
+#pragma unroll
+      for (int c = 0; c < kMaxIn; ++c) xo[c] = Tier::op(x[c]);
 #pragma unroll
       for (int j = 0; j < W; ++j) {
-        float z = s_bin[j];
+        Acc z = Tier::acc(s_bin[j]);
 #pragma unroll
         for (int c = 0; c < kMaxIn; ++c) {
-          if (c < d_in) z = fmaf(Tier::rnd(x[c]), w_f(s_win[c * W + j]), z);
+          if (c < d_in) Tier::mac(z, xo[c], w_ld(s_win[c * W + j]));
         }
-        a[j] = act_fn<ACT>(z);
+        a[j] = act_fn<ACT>(Tier::fin(z));
         const float d = dact<ACT>(a[j]);
         st[j * kThreads] = a[j];
 #pragma unroll
@@ -522,30 +587,36 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned ch
     }
     epi.stage(sB);
     __syncthreads();
-    accum_rect<S>(s_A, W, s_B, d_out, g_wout, g_bout, first);
+    accum_rect<Tier, S>(s_A, W, s_B, d_out, g_wout, g_bout, first);
     epi.reduce(s_B, g_extra, first);
 
-    // cotangent into the last state: ybar stack (rounded) @ w_out^T
+    // cotangent into the last state: ybar stack (at the tier) @ w_out^T
     float ca[W], ct[tdim(K)][W];
-#pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      yb[o] = Tier::rnd(yb[o]);
-#pragma unroll
-      for (int k = 0; k < K; ++k) ybt[k][o] = Tier::rnd(ybt[k][o]);
-    }
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-      ca[i] = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) ct[k][i] = 0.f;
+    {
+      Op ybo[kOut], ybto[tdim(K)][kOut];
 #pragma unroll
       for (int o = 0; o < kOut; ++o) {
-        if (o < d_out) {
-          const float wv = w_f(s_wout[i * d_out + o]);
-          ca[i] = fmaf(yb[o], wv, ca[i]);
+        ybo[o] = Tier::op(yb[o]);
 #pragma unroll
-          for (int k = 0; k < K; ++k) ct[k][i] = fmaf(ybt[k][o], wv, ct[k][i]);
+        for (int k = 0; k < K; ++k) ybto[k][o] = Tier::op(ybt[k][o]);
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        Acc cai = Tier::acc(0.f), cti[tdim(K)];
+#pragma unroll
+        for (int k = 0; k < K; ++k) cti[k] = Tier::acc(0.f);
+#pragma unroll
+        for (int o = 0; o < kOut; ++o) {
+          if (o < d_out) {
+            const WV wv = w_ld(s_wout[i * d_out + o]);
+            Tier::mac(cai, ybo[o], wv);
+#pragma unroll
+            for (int k = 0; k < K; ++k) Tier::mac(cti[k], ybto[k][o], wv);
+          }
         }
+        ca[i] = Tier::fin(cai);
+#pragma unroll
+        for (int k = 0; k < K; ++k) ct[k][i] = Tier::fin(cti[k]);
       }
     }
 
@@ -557,37 +628,35 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned ch
       state_bwd<W, ACT, K>(st_cur, ca, ct, sB);
       stage_state<W, ACT, K>(st_prev, sA);
       __syncthreads();
-      accum_square<W, S>(s_A, s_B, g_wh + static_cast<size_t>(j) * W * W, g_bh + j * W, first);
-      // cotangent into state j: [zbar; ubar^0; ...] (rounded) @ w^T
+      accum_square<Tier, W, S>(s_A, s_B, g_wh + static_cast<size_t>(j) * W * W, g_bh + j * W,
+                               first);
+      // cotangent into state j: [zbar; ubar^0; ...] (at the tier) @ w^T
+      Op cao[W], cto[tdim(K)][W];
 #pragma unroll
       for (int q = 0; q < W; ++q) {
-        ca[q] = Tier::rnd(ca[q]);
+        cao[q] = Tier::op(ca[q]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) ct[k][q] = Tier::rnd(ct[k][q]);
+        for (int k = 0; k < K; ++k) cto[k][q] = Tier::op(ct[k][q]);
       }
-      float na[W], nt[tdim(K)][W];
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        na[i] = 0.f;
+        Acc nai = Tier::acc(0.f), nti[tdim(K)];
 #pragma unroll
-        for (int k = 0; k < K; ++k) nt[k][i] = 0.f;
+        for (int k = 0; k < K; ++k) nti[k] = Tier::acc(0.f);
 #pragma unroll
         for (int q = 0; q < W; q += kVec) {
-          float wv[kVec];
+          WV wv[kVec];
           load_vec<kVec>(w + i * W + q, wv);
 #pragma unroll
           for (int v = 0; v < kVec; ++v) {
-            na[i] = fmaf(ca[q + v], wv[v], na[i]);
+            Tier::mac(nai, cao[q + v], wv[v]);
 #pragma unroll
-            for (int k = 0; k < K; ++k) nt[k][i] = fmaf(ct[k][q + v], wv[v], nt[k][i]);
+            for (int k = 0; k < K; ++k) Tier::mac(nti[k], cto[k][q + v], wv[v]);
           }
         }
-      }
+        ca[i] = Tier::fin(nai);
 #pragma unroll
-      for (int i = 0; i < W; ++i) {
-        ca[i] = na[i];
-#pragma unroll
-        for (int k = 0; k < K; ++k) ct[k][i] = nt[k][i];
+        for (int k = 0; k < K; ++k) ct[k][i] = Tier::fin(nti[k]);
       }
     };
     if constexpr (Policy::kRebuild) {
@@ -624,7 +693,7 @@ __device__ __forceinline__ void walk(const WalkArgs& args, Epi& epi, unsigned ch
       for (int k = 0; k < K; ++k) sA[((1 + k) * d_in + c) * kLd] = c == k ? 1.f : 0.f;
     }
     __syncthreads();
-    accum_rect<S>(s_A, d_in, s_B, W, g_win, g_bin, first);
+    accum_rect<Tier, S>(s_A, d_in, s_B, W, g_win, g_bin, first, /*seed_rows=*/true);
   }
 }
 

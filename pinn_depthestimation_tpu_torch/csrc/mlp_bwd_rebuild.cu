@@ -1,6 +1,6 @@
 // K4 for Hopper: the parameter gradients of the MLP with K coordinate
 // tangents from given output cotangents, by segmented recomputation; tiers
-// f32 and bf16.
+// f32, bf16 and f32x3.
 //
 // Replaces the TPU kernel of the JAX package's ops/kernels_vjp.py:268
 // _make_bwd_kernel, launched by packed_mlp_bwd(impl='rebuild') (pallas_call
@@ -22,9 +22,11 @@
 // rows, so C is what fits: the wrapper asks for a C (ckpt_every) or takes
 // mlp_bwd::rebuild_plan's (the largest C <= 8 that leaves the whole stack
 // in one chunk; 2 at the 2->[20]x100->3 flagship at bf16, where the
-// weights take 79,200 B). One library per hidden width (-DK4_WIDTH=W),
-// holding the K = 0..3, tanh/LeakyReLU and f32/bf16 instantiations; the bf16
-// entry is k4_mlp_bwd_bf16.
+// weights take 79,200 B; at f32x3 the weights take the bytes of f32, so the
+// plan is f32's). One library per hidden width (-DK4_WIDTH=W), holding the
+// K = 0..3, tanh/LeakyReLU and f32/bf16/f32x3 instantiations; the bf16 and
+// f32x3 entries are k4_mlp_bwd_bf16 and k4_mlp_bwd_f32x3. At f32x3 the
+// JAX package reaches K4 only through impl='rebuild'.
 //
 // Bound on the H100: K3's operations plus one more forward replay of the
 // hidden stack, 2*(L-1)*W^2*(1+K) per point; the CUDA cores' f32 FMA rate
@@ -97,25 +99,46 @@ const char* k4_error_string(int err) {
 
 // The segment length C a launch takes on the current device: `ckpt` cut to
 // n_stack when it fits, the planned C when `ckpt` is 0; 0 when nothing fits.
+#if WITH_TIER(0)
 int k4_ckpt_every(int n_stack, int n_tangents, int ckpt) {
   return ckpt_every<tier::TierF32>(n_stack, n_tangents, ckpt);
 }
+#endif
 
+#if WITH_TIER(1)
 int k4_ckpt_every_bf16(int n_stack, int n_tangents, int ckpt) {
   return ckpt_every<tier::TierBf16>(n_stack, n_tangents, ckpt);
 }
+#endif
+
+#if WITH_TIER(2)
+int k4_ckpt_every_f32x3(int n_stack, int n_tangents, int ckpt) {
+  return ckpt_every<tier::TierF32x3>(n_stack, n_tangents, ckpt);
+}
+#endif
 
 // Hidden layers one shared-memory chunk holds beside a segment buffer of
 // `ckpt` states (0 when not even one fits), per tier.
+#if WITH_TIER(0)
 int k4_chunk_layers(int n_stack, int n_tangents, int ckpt) {
   return mlp_bwd::chunk_layers(K4_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
                                n_stack, sizeof(float), ckpt);
 }
+#endif
 
+#if WITH_TIER(1)
 int k4_chunk_layers_bf16(int n_stack, int n_tangents, int ckpt) {
   return mlp_bwd::chunk_layers(K4_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
                                n_stack, sizeof(__nv_bfloat16), ckpt);
 }
+#endif
+
+#if WITH_TIER(2)
+int k4_chunk_layers_f32x3(int n_stack, int n_tangents, int ckpt) {
+  return mlp_bwd::chunk_layers(K4_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
+                               n_stack, sizeof(tier::TierF32x3::WT), ckpt);
+}
+#endif
 
 // One backward: K4 with segments of `ckpt` layers (k4_ckpt_every's value)
 // on a grid of `grid` blocks into `partial` (grid rows of n_params floats),
@@ -123,7 +146,9 @@ int k4_chunk_layers_bf16(int n_stack, int n_tangents, int ckpt) {
 // sorted-key order). `states` holds grid * max(1, ceil(n_stack / ckpt)) *
 // (1 + n_tangents) * W * 128 floats (the checkpoints). `dybar` may be null
 // when n_tangents is 0. Returns a cudaError_t; nothing synchronises.
-// k4_mlp_bwd_bf16 takes the same arguments at the bf16 tier.
+// k4_mlp_bwd_bf16 and k4_mlp_bwd_f32x3 take the same arguments at the bf16
+// and f32x3 tiers.
+#if WITH_TIER(0)
 int k4_mlp_bwd(const float* coords, const float* ybar, const float* dybar,
                const float* w_in, const float* b_in, const float* w_h, const float* b_h,
                const float* w_out, const float* b_out, float* partial, float* states,
@@ -133,7 +158,9 @@ int k4_mlp_bwd(const float* coords, const float* ybar, const float* dybar,
                             states, out, n, d_in, d_out, n_stack, n_tangents, act, ckpt, grid,
                             stream);
 }
+#endif
 
+#if WITH_TIER(1)
 int k4_mlp_bwd_bf16(const float* coords, const float* ybar, const float* dybar,
                     const float* w_in, const float* b_in, const float* w_h, const float* b_h,
                     const float* w_out, const float* b_out, float* partial, float* states,
@@ -143,5 +170,18 @@ int k4_mlp_bwd_bf16(const float* coords, const float* ybar, const float* dybar,
                              states, out, n, d_in, d_out, n_stack, n_tangents, act, ckpt, grid,
                              stream);
 }
+#endif
+
+#if WITH_TIER(2)
+int k4_mlp_bwd_f32x3(const float* coords, const float* ybar, const float* dybar,
+                     const float* w_in, const float* b_in, const float* w_h, const float* b_h,
+                     const float* w_out, const float* b_out, float* partial, float* states,
+                     float* out, int n, int d_in, int d_out, int n_stack, int n_tangents,
+                     int act, int ckpt, int grid, void* stream) {
+  return run<tier::TierF32x3>(coords, ybar, dybar, w_in, b_in, w_h, b_h, w_out, b_out, partial,
+                              states, out, n, d_in, d_out, n_stack, n_tangents, act, ckpt, grid,
+                              stream);
+}
+#endif
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// K2 for Hopper: fused MLP forward + K coordinate tangents, tiers f32 and
-// bf16.
+// K2 for Hopper: fused MLP forward + K coordinate tangents, tiers f32, bf16
+// and f32x3.
 //
 // Replaces the TPU kernel ops/kernels.py::_mlp_kernel of the JAX package
 // (launched by packed_mlp_fwd_tangents_raw). Computes exactly what
@@ -13,7 +13,10 @@
 // At the bf16 tier (tier.cuh, ops/tiers.py) the weights are rounded to bf16
 // as they are staged, the tangent seeds are rows of the rounded w_in, and
 // every runtime operand (the coordinates, the activation, each scaled
-// tangent stream, the last state) is rounded to bf16 before its product.
+// tangent stream, the last state) is rounded to bf16 before its product. At
+// the f32x3 tier the weights are staged as bf16 (hi, lo) pairs, the seeds
+// are rows of hi + lo, and the same operands are split into (hi, lo) and
+// meet each weight in three FMAs summed as (cross) + main (tier.cuh).
 //
 // Design: one thread per point. The primal (W floats) and the K tangent
 // streams (K*W floats) stay in registers through every layer, so the width
@@ -33,8 +36,10 @@
 // epilogue). It is bound by the CUDA cores' f32 FMA rate, never by memory:
 // the design keeps every intermediate in registers and feeds the FMAs from
 // broadcast shared-memory reads, one load per weight shared by the 1+K
-// streams. The bf16 tier runs the same FMAs plus the conversions; tensor
-// cores are later work.
+// streams. The bf16 tier runs the same FMAs plus the conversions; the
+// f32x3 tier three FMAs per product plus the splits, with twice the
+// accumulator registers (z and zt hold (cross, main) pairs; ptxas reports
+// the spills into build.log); tensor cores are later work.
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
 // widths; 1 <= d_in <= 8; 1 <= d_out <= 8; 0 <= K <= min(3, d_in); N < 2^31.
@@ -77,49 +82,54 @@ __device__ __forceinline__ float act_deriv(float z, float a) {
 using tier::load_vec;
 using tier::row_vec;
 using tier::w_f;
+using tier::w_ld;
 
 // a <- act(a @ w + b); t[k] <- (t[k] @ w) * act'(.), for one hidden layer
 // whose (W, W) weights (row-major, (in, out)) and (W,) bias are in shared
-// memory; a and t[k] rounded to the tier before the products.
+// memory; a and t[k] prepared at the tier before the products.
 template <class Tier, int W, int ACT, int K>
 __device__ __forceinline__ void hidden_layer(const typename Tier::WT* __restrict__ w,
                                              const float* __restrict__ b,
                                              float (&a)[W],
                                              float (&t)[K > 0 ? K : 1][W]) {
+  using Acc = typename Tier::Acc;
+  using Op = typename Tier::Op;
+  using WV = typename Tier::WV;
   constexpr int V = row_vec<W>();
-  float z[W];
-  float zt[K > 0 ? K : 1][W];
+  Acc z[W];
+  Acc zt[K > 0 ? K : 1][W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    z[j] = b[j];
+    z[j] = Tier::acc(b[j]);
 #pragma unroll
-    for (int k = 0; k < K; ++k) zt[k][j] = 0.f;
+    for (int k = 0; k < K; ++k) zt[k][j] = Tier::acc(0.f);
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const float ai = Tier::rnd(a[i]);
-    float ti[K > 0 ? K : 1];
+    const Op ai = Tier::op(a[i]);
+    Op ti[K > 0 ? K : 1];
 #pragma unroll
-    for (int k = 0; k < K; ++k) ti[k] = Tier::rnd(t[k][i]);
+    for (int k = 0; k < K; ++k) ti[k] = Tier::op(t[k][i]);
 #pragma unroll
     for (int j = 0; j < W; j += V) {
-      float wv[V];
+      WV wv[V];
       load_vec<V>(w + i * W + j, wv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        z[j + v] = fmaf(ai, wv[v], z[j + v]);
+        Tier::mac(z[j + v], ai, wv[v]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(ti[k], wv[v], zt[k][j + v]);
+        for (int k = 0; k < K; ++k) Tier::mac(zt[k][j + v], ti[k], wv[v]);
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    const float na = act_fn<ACT>(z[j]);
-    const float d = act_deriv<ACT>(z[j], na);
+    const float zj = Tier::fin(z[j]);
+    const float na = act_fn<ACT>(zj);
+    const float d = act_deriv<ACT>(zj, na);
     a[j] = na;
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k][j] = zt[k][j] * d;
+    for (int k = 0; k < K; ++k) t[k][j] = Tier::fin(zt[k][j]) * d;
   }
 }
 
@@ -171,15 +181,21 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
 
   // Input layer. The tangent seed of coordinate k is row k of (the tier's)
   // w_in times act' (models/mlp.py: (e_k @ w_in) * act'(z)).
+  using Acc = typename Tier::Acc;
+  using Op = typename Tier::Op;
+  Op xo[kMaxIn];
+#pragma unroll
+  for (int c = 0; c < kMaxIn; ++c) xo[c] = Tier::op(xin[c]);
   float a[W];
   float t[K > 0 ? K : 1][W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    float z = s_bin[j];
+    Acc za = Tier::acc(s_bin[j]);
 #pragma unroll
     for (int c = 0; c < kMaxIn; ++c) {
-      if (c < d_in) z = fmaf(Tier::rnd(xin[c]), w_f(s_win[c * W + j]), z);
+      if (c < d_in) Tier::mac(za, xo[c], w_ld(s_win[c * W + j]));
     }
+    const float z = Tier::fin(za);
     a[j] = act_fn<ACT>(z);
     const float d = act_deriv<ACT>(z, a[j]);
 #pragma unroll
@@ -202,27 +218,39 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
   }
 
   // Output layer.
-  float yo[kMaxOut];
-  float dyo[K > 0 ? K : 1][kMaxOut];
+  Acc yacc[kMaxOut];
+  Acc dyacc[K > 0 ? K : 1][kMaxOut];
 #pragma unroll
   for (int o = 0; o < kMaxOut; ++o) {
-    yo[o] = o < d_out ? s_bout[o] : 0.f;
+    yacc[o] = Tier::acc(o < d_out ? s_bout[o] : 0.f);
 #pragma unroll
-    for (int k = 0; k < K; ++k) dyo[k][o] = 0.f;
+    for (int k = 0; k < K; ++k) dyacc[k][o] = Tier::acc(0.f);
   }
 #pragma unroll
   for (int j = 0; j < W; ++j) {
+    const Op aj = Tier::op(a[j]);
+    Op tj[K > 0 ? K : 1];
+#pragma unroll
+    for (int k = 0; k < K; ++k) tj[k] = Tier::op(t[k][j]);
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) {
       if (o < d_out) {
-        const float wv = w_f(s_wout[j * d_out + o]);
-        yo[o] = fmaf(Tier::rnd(a[j]), wv, yo[o]);
+        const typename Tier::WV wv = w_ld(s_wout[j * d_out + o]);
+        Tier::mac(yacc[o], aj, wv);
 #pragma unroll
-        for (int k = 0; k < K; ++k) dyo[k][o] = fmaf(Tier::rnd(t[k][j]), wv, dyo[k][o]);
+        for (int k = 0; k < K; ++k) Tier::mac(dyacc[k][o], tj[k], wv);
       }
     }
   }
   if (!active) return;
+  float yo[kMaxOut];
+  float dyo[K > 0 ? K : 1][kMaxOut];
+#pragma unroll
+  for (int o = 0; o < kMaxOut; ++o) {
+    yo[o] = Tier::fin(yacc[o]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) dyo[k][o] = Tier::fin(dyacc[k][o]);
+  }
 
   if constexpr (EPI) {
     const float U = yo[0], V = yo[1], h = yo[2];
@@ -323,12 +351,25 @@ const char* k2_error_string(int err) {
 
 // Number of hidden layers one shared-memory chunk holds on the current
 // device (0 when not even one fits), per tier.
+#if WITH_TIER(0)
 int k2_chunk_layers(int n_stack) { return chunk_layers(n_stack, sizeof(float)); }
+#endif
 
+#if WITH_TIER(1)
 int k2_chunk_layers_bf16(int n_stack) { return chunk_layers(n_stack, sizeof(__nv_bfloat16)); }
+#endif
 
-// One launch at the f32 tier, or (k2_mlp_fwd_tangents_bf16) at the bf16
-// tier. Returns a cudaError_t: 0 on success; the launch does not synchronise.
+#if WITH_TIER(2)
+int k2_chunk_layers_f32x3(int n_stack) {
+  return chunk_layers(n_stack, sizeof(tier::TierF32x3::WT));
+}
+#endif
+
+// One launch at the f32 tier, or (k2_mlp_fwd_tangents_bf16,
+// k2_mlp_fwd_tangents_f32x3) at the bf16 or f32x3 tier, with the same
+// arguments. Returns a cudaError_t: 0 on success; the launch does not
+// synchronise.
+#if WITH_TIER(0)
 int k2_mlp_fwd_tangents(const float* x, const float* w_in, const float* b_in,
                         const float* w_h, const float* b_h, const float* w_out,
                         const float* b_out, float* y, float* dy, float* fc, int n, int d_in,
@@ -337,7 +378,9 @@ int k2_mlp_fwd_tangents(const float* x, const float* w_in, const float* b_in,
   return run<tier::TierF32>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
                             n_stack, n_tangents, act, epilogue, stream);
 }
+#endif
 
+#if WITH_TIER(1)
 int k2_mlp_fwd_tangents_bf16(const float* x, const float* w_in, const float* b_in,
                              const float* w_h, const float* b_h, const float* w_out,
                              const float* b_out, float* y, float* dy, float* fc, int n,
@@ -346,5 +389,17 @@ int k2_mlp_fwd_tangents_bf16(const float* x, const float* w_in, const float* b_i
   return run<tier::TierBf16>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
                              n_stack, n_tangents, act, epilogue, stream);
 }
+#endif
+
+#if WITH_TIER(2)
+int k2_mlp_fwd_tangents_f32x3(const float* x, const float* w_in, const float* b_in,
+                              const float* w_h, const float* b_h, const float* w_out,
+                              const float* b_out, float* y, float* dy, float* fc, int n,
+                              int d_in, int d_out, int n_stack, int n_tangents, int act,
+                              int epilogue, void* stream) {
+  return run<tier::TierF32x3>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
+                              n_stack, n_tangents, act, epilogue, stream);
+}
+#endif
 
 }  // extern "C"

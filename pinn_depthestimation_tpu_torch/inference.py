@@ -10,7 +10,7 @@ Port of the JAX package's ``inference.py::Predictor`` for the serving path:
 
 On a CUDA device prediction runs through the K2 kernel
 (``ops.kernels.mlp_fwd_tangents`` with no tangents) at the config's
-``kernel_precision`` tier (``f32`` or ``bf16``; ``f32x3`` raises) unless
+``kernel_precision`` tier (``f32``, ``bf16`` or ``f32x3``) unless
 the caller asks for the plain ``models.mlp.mlp_apply`` with
 ``use_kernel=False``, the counterpart of the JAX package's
 ``use_fused_kernel``. An architecture K2

@@ -6,11 +6,16 @@ runs at first use, from the sources in the package only, into
 ``_build/<name>-<hash>/`` beside ``csrc/`` (listed in ``.gitignore``); the
 hash covers the source, the headers of ``csrc/``, the flags and the
 variants, so a second process reuses the libraries and an edited source
-builds anew. Each source is compiled in several variants (one per hidden
-width), and every ``nvcc`` of every kernel (K1, K2, K3 and K4: twenty) is
-started together, at the first use of any kernel. Each library holds both
-tiers: the f32 entry ``<name>`` and the bf16 entry ``<name>_bf16``, with
-the same arguments.
+builds anew. Each source is compiled in several variants, one per hidden
+width and tier (``-DTIER_ONLY``, ``csrc/tier.cuh``): K1, K2, K3 and K4 x 5
+widths x 3 tiers, sixty ``nvcc`` at the first use of any kernel, as many at
+once as the machine has cores, the costliest first (the f32x3 tier's
+width-32 walks take most of the build's CPU time), so that none is left
+running alone at the end. The libraries of one width answer together
+(:class:`WidthLibrary`): the f32 entry ``<name>``, the bf16 entry
+``<name>_bf16`` and the f32x3 entry ``<name>_f32x3``, with the same
+arguments. ``build.log`` records each variant's compiler output, when it
+ended and the CPU time it took.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -49,6 +54,21 @@ K2_WIDTHS = (8, 10, 16, 20, 32)
 K1_WIDTHS = K2_WIDTHS
 K3_WIDTHS = K2_WIDTHS
 K4_WIDTHS = K2_WIDTHS
+TIERS = ("f32", "bf16", "f32x3")  # -DTIER_ONLY=0, 1, 2
+
+
+class WidthLibrary:
+    """The libraries of one kernel at one width, one per tier: an entry is
+    looked up in each of them."""
+
+    def __init__(self, libs: list[ctypes.CDLL]):
+        self._libs = libs
+
+    def __getattr__(self, entry: str):
+        for lib in self._libs:
+            if hasattr(lib, entry):
+                return getattr(lib, entry)
+        raise AttributeError(f"no kernel library of this width has {entry!r}")
 
 
 @dataclass
@@ -56,7 +76,7 @@ class KernelLibrary:
     """The loaded variants of one kernel source."""
 
     name: str
-    libs: dict[int, ctypes.CDLL]
+    libs: dict[int, WidthLibrary]
     build_seconds: float   # wall time of this process's build; 0 if reused
     log_path: Path
 
@@ -77,61 +97,106 @@ def nvcc_path() -> str:
     )
 
 
-def _start(name: str, source: str, variants: dict[int, tuple[str, ...]]) -> dict:
-    """Start one ``nvcc`` per variant that is not built yet; returns what
-    :func:`_finish` needs."""
+def _variants(macro: str, widths) -> dict[tuple[int, str], tuple[str, ...]]:
+    """One variant per (width, tier)."""
+    return {(w, t): (f"-D{macro}={w}", f"-DTIER_ONLY={i}")
+            for w in widths for i, t in enumerate(TIERS)}
+
+
+def _plan(name: str, source: str, variants: dict[tuple, tuple[str, ...]]) -> dict:
+    """One ``nvcc`` command per variant that is not built yet, its output
+    into a log file of its own; returns what :func:`_run` and
+    :func:`_finish` need."""
     src = CSRC_DIR / source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(
         src.read_bytes() + headers + repr((NVCC_FLAGS, sorted(variants.items()))).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{name}-{key}"
-    targets = {v: out_dir / f"lib{name}_{v}.so" for v in variants}
+    tag = lambda v: "_".join(str(x) for x in v)  # noqa: E731
+    targets = {v: out_dir / f"lib{name}_{tag(v)}.so" for v in variants}
     job = {"name": name, "targets": targets, "log_path": out_dir / "build.log",
-           "procs": {}, "t0": time.perf_counter()}
+           "todo": {}, "procs": {}, "ended": {}, "cpu": {}}
     if not all(p.exists() for p in targets.values()):
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         for v, extra in variants.items():
             tmp = out_dir / f".{targets[v].name}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )
-            job["procs"][v] = (cmd, proc, tmp)
+            log = out_dir / f".{targets[v].name}.{os.getpid()}.log"
+            job["todo"][v] = ([nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)], tmp, log)
     return job
 
 
-def _finish(job: dict, bind) -> KernelLibrary:
+# Relative compile cost, for the order of the build: the walks (K4 holds the
+# forward replay twice) over K2 and K1, f32x3's three FMAs per product over
+# the others, and the unrolled W x W products (measured on the card's host,
+# PERF.md).
+_KERNEL_COST = {"k4": 1.0, "k3": 0.7, "k2": 0.45, "k1": 0.27}
+_TIER_COST = {"f32": 1.0, "bf16": 1.2, "f32x3": 3.0}
+
+
+def _run(jobs: list[dict], t0: float) -> None:
+    """Run every planned ``nvcc`` of ``jobs``, at most one per core at once,
+    the costliest first; note when each ended and the CPU time it took."""
+    queue = sorted(((job, v) for job in jobs for v in job["todo"]),
+                   key=lambda jv: _KERNEL_COST[jv[0]["name"]] * _TIER_COST[jv[1][1]]
+                   * jv[1][0] ** 2.5, reverse=True)
+    slots = os.cpu_count() or 8
+    running: list = []
+    while queue or running:
+        while queue and len(running) < slots:
+            job, v = queue.pop(0)
+            cmd, tmp, log = job["todo"][v]
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+            job["procs"][v] = (cmd, proc, tmp, log)
+            running.append((job, v, proc))
+        for job, v, proc in list(running):
+            pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+            if pid:
+                proc.returncode = os.waitstatus_to_exitcode(status)  # reaped here
+                job["ended"][v] = time.perf_counter() - t0
+                job["cpu"][v] = usage.ru_utime + usage.ru_stime
+                running.remove((job, v, proc))
+        time.sleep(0.05)
+
+
+def _finish(job: dict, bind, seconds: float) -> KernelLibrary:
+    """Move the built variants into place, write ``build.log`` and load the
+    libraries; ``seconds``: the build's wall time (0 when none ran)."""
     name, targets, log_path = job["name"], job["targets"], job["log_path"]
-    seconds = 0.0
     if job["procs"]:
         logs, failed = [], []
-        for v, (cmd, proc, tmp) in job["procs"].items():
-            out, _ = proc.communicate()
-            logs.append(f"== {name} variant {v} (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        for v, (cmd, proc, tmp, log) in job["procs"].items():
+            out = log.read_text()
+            log.unlink()
+            logs.append(f"== {name} variant {v[0]} tier {v[1]} (exit {proc.returncode}, "
+                        f"ended at {job['ended'][v]:.1f} s, {job['cpu'][v]:.1f} s of CPU): "
+                        f"{' '.join(cmd)}\n{out}")
             if proc.returncode == 0:
                 os.replace(tmp, targets[v])  # atomic: a concurrent build is safe
             else:
                 failed.append(v)
-        seconds = time.perf_counter() - job["t0"]
         log_path.write_text("\n".join(logs))
         if failed:
             raise RuntimeError(
                 f"nvcc failed for {name} variants {failed}; full log in {log_path}\n"
                 + "\n".join(logs)[-4000:]
             )
-    libs = {v: bind(ctypes.CDLL(str(p))) for v, p in targets.items()}
+    bound = {v: bind(ctypes.CDLL(str(p))) for v, p in targets.items()}
+    widths = sorted({w for w, _ in targets})
+    libs = {w: WidthLibrary([bound[(w, t)] for t in TIERS]) for w in widths}
     return KernelLibrary(name=name, libs=libs, build_seconds=seconds, log_path=log_path)
 
 
 def _bind(lib: ctypes.CDLL, name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Set ``argtypes`` and an ``int`` ``restype`` on ``<name>_<fn>`` for each
-    ``fn`` in ``signatures``, and on its bf16 entry ``<name>_<fn>_bf16``
-    where the library has one; plus ``<name>_error_string``."""
+    """Set ``argtypes`` and an ``int`` ``restype`` on the entries of each
+    ``fn`` in ``signatures`` that the library has: ``<name>_<fn>`` (f32, or
+    a function of no tier), ``<name>_<fn>_bf16`` and ``<name>_<fn>_f32x3``;
+    plus ``<name>_error_string``."""
     for fn, argtypes in signatures.items():
-        for entry in (f"{name}_{fn}", f"{name}_{fn}_bf16"):
-            if entry.endswith("_bf16") and not hasattr(lib, entry):
+        for entry in (f"{name}_{fn}", f"{name}_{fn}_bf16", f"{name}_{fn}_f32x3"):
+            if not hasattr(lib, entry):
                 continue
             getattr(lib, entry).argtypes = argtypes
             getattr(lib, entry).restype = ctypes.c_int
@@ -167,19 +232,22 @@ def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _libraries() -> dict[str, KernelLibrary]:
     """Every kernel's libraries, built together on the first call in a
-    process: one ``nvcc`` per (kernel, width), all running at once."""
+    process: one ``nvcc`` per (kernel, width, tier), one per core at once."""
     jobs = [
-        (_start("k2", K2_SOURCE, {w: (f"-DK2_WIDTH={w}",) for w in K2_WIDTHS}), _bind_k2),
-        (_start("k1", K1_SOURCE, {w: (f"-DK1_WIDTH={w}",) for w in K1_WIDTHS}), _bind_k1),
-        (_start("k3", K3_SOURCE, {w: (f"-DK3_WIDTH={w}",) for w in K3_WIDTHS}), _bind_k3),
-        (_start("k4", K4_SOURCE, {w: (f"-DK4_WIDTH={w}",) for w in K4_WIDTHS}), _bind_k4),
+        (_plan("k2", K2_SOURCE, _variants("K2_WIDTH", K2_WIDTHS)), _bind_k2),
+        (_plan("k1", K1_SOURCE, _variants("K1_WIDTH", K1_WIDTHS)), _bind_k1),
+        (_plan("k3", K3_SOURCE, _variants("K3_WIDTH", K3_WIDTHS)), _bind_k3),
+        (_plan("k4", K4_SOURCE, _variants("K4_WIDTH", K4_WIDTHS)), _bind_k4),
     ]
+    t0 = time.perf_counter()
     try:
-        return {job["name"]: _finish(job, bind) for job, bind in jobs}
+        _run([job for job, _ in jobs], t0)
+        seconds = time.perf_counter() - t0 if any(job["procs"] for job, _ in jobs) else 0.0
+        return {job["name"]: _finish(job, bind, seconds) for job, bind in jobs}
     finally:  # a failed build leaves no compiler running behind it
         for job, _ in jobs:
-            for _, proc, _ in job["procs"].values():
-                if proc.poll() is None:
+            for _, proc, _, _ in job["procs"].values():
+                if proc.returncode is None:
                     proc.kill()
                     proc.wait()
 

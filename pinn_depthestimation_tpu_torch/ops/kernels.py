@@ -16,11 +16,12 @@ device memory, so the f32 tier is bound by the CUDA cores' FMA rate
 (``SMs x 128 lanes x 2 x SM clock``). The design keeps every intermediate
 on chip and shares each shared-memory weight load among the 1+K streams.
 
-Tiers: ``f32`` and ``bf16`` (defined in ``ops.tiers``: bf16 weights in
-shared memory, every runtime operand rounded to bf16 before it meets a
-weight, f32 FMAs on the CUDA cores, so bf16 saves shared memory and no
-operation); ``f32x3`` raises ``NotImplementedError`` (``ROADMAP.md``
-Queue 2). Tensor-core products are later work.
+Tiers: ``f32``, ``bf16`` and ``f32x3`` (defined in ``ops.tiers``; bf16
+weights in shared memory and every runtime operand rounded to bf16 before
+it meets a weight, or at f32x3 bf16 (hi, lo) weight pairs and every
+runtime operand split, three FMAs per product; all on the CUDA cores, so
+bf16 saves shared memory and no operation, and f32x3 triples the FMAs).
+Tensor-core products are later work.
 
 Beside the kernel, per the port's rules:
 
@@ -89,7 +90,7 @@ def mlp_fwd_tangents_plain(params, coords, spec: MLPSpec, n_tangents: int,
                            precision: str = "f32"):
     """Plain PyTorch K2: ``(y (N, d_out), dy (K, N, d_out))`` for the first
     ``n_tangents`` coordinate directions. ``f32``: ``mlp_apply_with_tangents``
-    (differentiable); ``bf16``: ``ops.tiers.tier_forward``."""
+    (differentiable); ``bf16`` and ``f32x3``: ``ops.tiers.tier_forward``."""
     check_precision(precision)
     if precision == "f32":
         return mlp_apply_with_tangents(
@@ -140,7 +141,8 @@ def _check_launch(params: Mapping[str, torch.Tensor], coords: torch.Tensor,
 
 def entry(lib, name: str, precision: str):
     """The C entry ``name`` of a kernel library at ``precision``: the f32
-    entry is ``name``, the bf16 one ``name + '_bf16'``."""
+    entry is ``name``, the others ``name + '_bf16'`` and ``name +
+    '_f32x3'``."""
     return getattr(lib, name if precision == "f32" else f"{name}_{precision}")
 
 
@@ -185,7 +187,7 @@ def mlp_fwd_tangents(params, coords: torch.Tensor, spec: MLPSpec, n_tangents: in
 
     Counterpart of the JAX ``ops.kernels.packed_mlp_fwd_tangents``. A CPU
     ``coords`` runs :func:`mlp_fwd_tangents_plain`; a CUDA one launches K2
-    at ``precision`` (``'f32'`` or ``'bf16'``).
+    at ``precision`` (``'f32'``, ``'bf16'`` or ``'f32x3'``).
     """
     check_precision(precision)
     if not _on_cuda(coords):

@@ -22,7 +22,7 @@ Beside the kernel, per the port's rules:
 * the plain PyTorch version :func:`fused_loss_and_grad_plain` — at ``f32``
   ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`, the same
   loss built on ``models.mlp.mlp_apply_with_tangents``, for any width; at
-  ``bf16`` the tier's forward (``ops.tiers.tier_forward``), the loss
+  ``bf16`` and ``f32x3`` the tier's forward (``ops.tiers.tier_forward``), the loss
   epilogue differentiated on its outputs, and the tier's backward written
   out (``ops.tiers.tier_backward``);
 * the wrapper :func:`fused_loss_and_grad`: a CPU batch takes the plain
@@ -34,8 +34,8 @@ Beside the kernel, per the port's rules:
 The per-batch constants (``sel``, ``mask``, the trues, the denominators
 and the cotangent scales) are built once by :func:`make_step_batch`; an
 evaluation is then the kernel, the reduction and the combination of three
-statistics, with no host synchronisation. Tiers ``f32`` and ``bf16``
-(``ops.tiers``); ``f32x3`` raises ``NotImplementedError``.
+statistics, with no host synchronisation. Tiers ``f32``, ``bf16`` and
+``f32x3`` (``ops.tiers``).
 """
 
 from __future__ import annotations
@@ -182,20 +182,29 @@ def _stats_from_outputs(y, dy, b: StepBatch) -> torch.Tensor:
     return torch.stack(stats)
 
 
-def shared_forward_loss_plain(params, b: StepBatch, spec: MLPSpec):
+def shared_forward_loss_plain(params, b: StepBatch, spec: MLPSpec, precision: str = "f32"):
     """``(total, fidelity, residual)`` of the shared-forward continuity loss
-    in plain PyTorch, differentiable. The one plain form of this loss: K1's
-    plain version differentiates it, and so does ``training.loss.
-    build_loss_fn`` for a configuration inside the one-kernel gate."""
+    in plain PyTorch. The one plain form of this loss: K1's plain version
+    differentiates it, and so does ``training.loss.build_loss_fn`` for a
+    configuration inside the one-kernel gate. At ``f32`` it is
+    differentiable; at ``bf16`` and ``f32x3`` it is the value at the tier
+    (``ops.tiers.tier_forward``), which no autograd differentiates: the
+    tier's gradient is :func:`fused_loss_and_grad_plain`'s."""
     _check_step_spec(spec, b.n_true, b.has_anchor)
-    return _combine_stats(_step_stats_plain(params, b, spec), b.fid_weights, b.n_res,
-                          b.n_sel, b.n_true, b.w_fid, b.w_res, b.has_anchor)
+    check_precision(precision, "K1")
+    if precision == "f32":
+        stats = _step_stats_plain(params, b, spec)
+    else:
+        fwd = tiers.tier_forward(params, b.coords, spec, KT, precision, keep_states=False)
+        stats = _stats_from_outputs(fwd.y, fwd.dy, b)
+    return _combine_stats(stats, b.fid_weights, b.n_res, b.n_sel, b.n_true, b.w_fid,
+                          b.w_res, b.has_anchor)
 
 
 def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec, precision: str = "f32"):
     """Plain PyTorch K1: ``((total, (fidelity, residual)), grads)``. Any
     width. ``f32``: ``torch.autograd.grad`` of :func:`shared_forward_loss_plain`.
-    ``bf16``: the tier's forward, the epilogue's cotangents by autograd on
+    ``bf16``, ``f32x3``: the tier's forward, the epilogue's cotangents by autograd on
     ``(y, dy)`` (f32, as in the kernel), then the tier's backward."""
     check_precision(precision, "K1")
     if precision != "f32":
@@ -310,7 +319,7 @@ def fused_loss_and_grad(params, b: StepBatch, spec: MLPSpec, *, precision: str =
     of the JAX ``ops.kernels_step.fused_loss_and_grad``.
 
     A CPU batch runs :func:`fused_loss_and_grad_plain`; a CUDA batch
-    launches K1 at ``precision`` (``'f32'`` or ``'bf16'``). An empty anchor
+    launches K1 at ``precision`` (``'f32'``, ``'bf16'`` or ``'f32x3'``). An empty anchor
     selection gives NaN, as the reference's ``torch.mean`` of an empty
     tensor does."""
     check_precision(precision, "K1")

@@ -11,18 +11,18 @@ coords, e_0..e_{K-1})``, every parameter gradient. The kernels are CUDA
 C++ in ``csrc/mlp_bwd.cu`` (K3, every layer state stored) and
 ``csrc/mlp_bwd_rebuild.cu`` (K4, checkpoints and a segment buffer), both on
 the walk of ``csrc/mlp_bwd_common.cuh``, which K1 shares (design and bound
-in their headers), built by ``ops.cuda_build``. Tiers ``f32`` and ``bf16``
-(``ops.tiers``); ``f32x3`` raises ``NotImplementedError``.
+in their headers), built by ``ops.cuda_build``. Tiers ``f32``, ``bf16``
+and ``f32x3`` (``ops.tiers``).
 
 ``impl='auto'`` resolves per tier through ``ops.tiers.BWD_IMPL_DEFAULT``,
-the JAX package's default: ``f32`` -> ``'stream'`` (K3), ``bf16`` ->
-``'rebuild'`` (K4).
+the JAX package's default: ``f32`` and ``f32x3`` -> ``'stream'`` (K3),
+``bf16`` -> ``'rebuild'`` (K4).
 
 Beside the kernels, per the port's rules:
 
 * the plain PyTorch version :func:`packed_mlp_bwd_plain`, K3's and K4's
   function: at ``f32`` autograd of ``models.mlp.mlp_apply_with_tangents``
-  with the given cotangents, at ``bf16`` the backward written out
+  with the given cotangents, at ``bf16`` and ``f32x3`` the backward written out
   (``ops.tiers.tier_backward``);
 * the wrappers :func:`packed_mlp_bwd` (K3) and
   :func:`packed_mlp_bwd_rebuild` (K4): CPU tensors take the plain version,
@@ -89,7 +89,7 @@ def packed_mlp_bwd_plain(params, coords, ybar, dybar, spec: MLPSpec, n_tangents:
     """Plain PyTorch K3/K4: the parameter gradients of ``(y, dy) =
     mlp_fwd_tangents_plain(params, coords, spec, n_tangents, precision)``
     for the cotangents ``(ybar, dybar)``. ``f32``: ``torch.autograd.grad``;
-    ``bf16``: the tier's backward written out (``ops.tiers``)."""
+    ``bf16``, ``f32x3``: the tier's backward written out (``ops.tiers``)."""
     check_precision(precision, "K3/K4")
     if precision != "f32":
         fwd = tiers.tier_forward(params, coords.detach(), spec, n_tangents, precision)
@@ -177,12 +177,12 @@ def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
 
 
 def rebuild_ckpt_every(spec: MLPSpec, n_tangents: int, precision: str,
-                       ckpt_every: int = 0) -> int:
+                       ckpt_every: int = 0, lib=None) -> int:
     """K4's segment length C on the current card: ``ckpt_every`` cut to the
     stack depth, or with 0 the largest C <= 8 that leaves the whole stack in
     one shared-memory chunk (``mlp_bwd::rebuild_plan``). Raises when the
-    segment buffer does not fit."""
-    lib = k4_library().libs[spec.width]
+    segment buffer does not fit. ``lib``: another build of K4."""
+    lib = lib or k4_library().libs[spec.width]
     c = entry(lib, "k4_ckpt_every", precision)(spec.n_hidden - 1, n_tangents, ckpt_every)
     if c < 1:
         raise ValueError(
@@ -193,13 +193,14 @@ def rebuild_ckpt_every(spec: MLPSpec, n_tangents: int, precision: str,
 
 
 def _launch_k4(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
-               precision: str, ckpt_every: int = 0) -> torch.Tensor:
+               precision: str, ckpt_every: int = 0, lib=None) -> torch.Tensor:
     """K4 + its reduction; returns the flat ``(n_flat,)`` gradients in
-    ``kernels_step.FLAT_KEYS`` order."""
-    lib = k4_library().libs[spec.width]
+    ``kernels_step.FLAT_KEYS`` order. ``lib``: another build of K4 for this
+    width (a check of a rebuilt source)."""
+    lib = lib or k4_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
-    c = rebuild_ckpt_every(spec, n_tangents, precision, ckpt_every)
+    c = rebuild_ckpt_every(spec, n_tangents, precision, ckpt_every, lib)
     threads = lib.k4_threads()
     grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
     n_ent = n_flat(spec)

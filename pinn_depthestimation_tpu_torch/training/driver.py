@@ -14,7 +14,8 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
   ``training.loss.build_loss_fn`` — on the card through the generic fused
   path (K2 forward, K3 or K4 backward, ``ops.kernels_vjp``) wherever its
   structural conditions hold, so the CMB pipeline runs kernels only; the
-  kernels run at ``kernel_precision``'s tier (``f32`` or ``bf16``);
+  kernels run at ``kernel_precision``'s tier (``f32``, ``bf16`` or
+  ``f32x3``);
 * the staged-precision schedule (``precision_schedule``, JAX
   ``training/driver.py:151-208``, ``:322-345``): the first
   ``prefix_iters`` Adam steps evaluate through a second value-and-gradient
@@ -221,15 +222,19 @@ class Trainer:
         fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
         self.kernel_plan = decide_kernels(config, self.spec, fidelity_is_residual,
                                           self.device.type)
+        # one decision reaches both builders, as the JAX Trainer's
+        # use_fused_kernel does: the loss runs through the kernels (K1, or
+        # K2 with K3/K4), which also drops residual_chunk_size
+        self.uses_kernels = self.kernel_plan.k1 or self.kernel_plan.fused
         self.loss_fn = build_loss_fn(
             config, self.spec, residual_chunk_size=config.residual_chunk_size,
-            input_min_max=self.data.input_min_max, fused_kernel=self.kernel_plan.fused,
+            input_min_max=self.data.input_min_max, fused_kernel=self.uses_kernels,
             fused_precision=config.resolved_kernel_precision(),
             fidelity_is_residual=fidelity_is_residual,
         )
         self.fused_step_fn = build_value_and_grad_fn(
             config, self.spec, input_min_max=self.data.input_min_max,
-            fused_kernel=self.kernel_plan.k1,
+            fused_kernel=self.uses_kernels,
             fused_precision=config.resolved_kernel_precision(),
             fidelity_is_residual=fidelity_is_residual,
         )
@@ -274,22 +279,20 @@ class Trainer:
         if sched is None or sched.prefix_iters <= 0:
             return 0, None
         main_tier = self.config.resolved_kernel_precision()
-        kernel_path = self.kernel_plan.k1 or self.kernel_plan.fused
-        if not kernel_path or sched.prefix_precision == main_tier:
-            if not kernel_path and sched.prefix_precision != main_tier:
+        if not self.uses_kernels or sched.prefix_precision == main_tier:
+            if not self.uses_kernels and sched.prefix_precision != main_tier:
                 print("Warning: precision_schedule is inert on the plain (non-kernel) "
                       "path — precision tiers are properties of the kernels; the whole "
                       "run evaluates at f32.")
             return sched.prefix_iters, self.value_and_grad_fn
-        kw = dict(input_min_max=self.data.input_min_max,
+        kw = dict(input_min_max=self.data.input_min_max, fused_kernel=self.uses_kernels,
                   fused_precision=sched.prefix_precision,
                   fidelity_is_residual=fidelity_is_residual)
-        prefix_vg = build_value_and_grad_fn(self.config, self.spec,
-                                            fused_kernel=self.kernel_plan.k1, **kw)
+        prefix_vg = build_value_and_grad_fn(self.config, self.spec, **kw)
         if prefix_vg is None:
             prefix_vg = value_and_grad(build_loss_fn(
                 self.config, self.spec, residual_chunk_size=self.config.residual_chunk_size,
-                fused_kernel=self.kernel_plan.fused, **kw))
+                **kw))
         print(f"Precision schedule: the first {sched.prefix_iters} Adam steps at "
               f"{sched.prefix_precision}, then {main_tier}")
         return sched.prefix_iters, prefix_vg

@@ -18,10 +18,13 @@ weights (CMB), the quirk-2 anchor toggle, the one-kernel gate and
 (``fused_kernel``): the residual forward with its K coordinate tangents and
 the fidelity forward (K=0) through ``ops.kernels_vjp.
 fused_apply_with_tangents`` — K2 forward and, by the tier's default
-backward, K3 (``f32``) or K4 (``bf16``) on the card. ``fused_precision``
-is the kernels' tier for the forward and the backward of both terms, and
-for K1. The chunked path under ``jax.checkpoint`` is not ported yet: a set
-``residual_chunk_size`` raises (``ROADMAP.md`` Queue 1, M3 chunked path).
+backward, K3 (``f32``, ``f32x3``) or K4 (``bf16``) on the card.
+``fused_precision`` is the kernels' tier for the forward and the backward
+of both terms, and for K1. ``residual_chunk_size`` is dropped on the kernel
+paths, whose backward is O(1) in activations, as the JAX package drops it
+under ``fused_kernel``; the plain path's chunked loss under
+``jax.checkpoint`` is not ported yet, and there a set chunk size raises
+(``ROADMAP.md`` Queue 1, M3 chunked path).
 """
 
 from __future__ import annotations
@@ -107,19 +110,26 @@ def build_loss_fn(
     ``ops.kernels_step.shared_forward_loss_plain``, the plain form K1 is
     held to; one point set there carries one mask, ``residual_mask``.
 
-    ``fused_kernel``: the residual forward (K coordinate tangents) and the
-    separate fidelity forward (K=0) go through
+    ``fused_kernel``: the loss runs through the kernels (a Trainer passes
+    its plan's K1-or-fused decision). The residual forward (K coordinate
+    tangents) and the separate fidelity forward (K=0) go through
     ``ops.kernels_vjp.fused_apply_with_tangents`` at the tier
-    ``fused_precision`` — K2 forward and K3 (``f32``) or K4 (``bf16``)
-    backward for a batch on the card, their plain versions on the CPU. It
-    needs the differentiated coordinates to lead the residual inputs, in
-    order, and no dropout, and raises otherwise, as the JAX package does.
-    Unlike the JAX package, the fidelity forward takes the kernels at every
-    size: its ``FUSED_FIDELITY_MIN_POINTS`` was a TPU measurement."""
-    if residual_chunk_size is not None:
+    ``fused_precision`` — K2 forward and K3 (``f32``, ``f32x3``) or K4
+    (``bf16``) backward for a batch on the card, their plain versions on the
+    CPU; inside the one-kernel gate the loss is K1's plain form at that
+    tier. It needs the differentiated coordinates to lead the residual
+    inputs, in order, and no dropout, and raises otherwise, as the JAX
+    package does. Unlike the JAX package, the fidelity forward takes the
+    kernels at every size: its ``FUSED_FIDELITY_MIN_POINTS`` was a TPU
+    measurement.
+
+    ``residual_chunk_size``: dropped under ``fused_kernel`` (the kernels'
+    backward is O(1) in activations; JAX ``training/loss.py:126-127``); on
+    the plain path it raises ``NotImplementedError`` naming M3."""
+    if residual_chunk_size is not None and not fused_kernel:
         raise NotImplementedError(
-            "the chunked residual loss (residual_chunk_size) is not ported yet "
-            "(ROADMAP.md Queue 1, M3 chunked path)"
+            "the chunked residual loss of the plain path (residual_chunk_size without "
+            "fused_kernel) is not ported yet (ROADMAP.md Queue 1, M3 chunked path)"
         )
     names = resolve_names(config)
     fid_outputs = names["fidelity_outputs"]
@@ -165,9 +175,12 @@ def build_loss_fn(
         # form, the one K1's plain version differentiates
         step_batch = _step_batch_fn(config, input_min_max)
 
+        tier = fused_precision if fused_kernel else "f32"
+
         def shared_loss_fn(params, batch, dropout_generator=None):
             del dropout_generator  # dropout == 0 is part of the gate
-            total, fid, res = kernels_step.shared_forward_loss_plain(params, step_batch(batch), spec)
+            total, fid, res = kernels_step.shared_forward_loss_plain(params, step_batch(batch),
+                                                                     spec, tier)
             return total, (fid, res)
 
         return shared_loss_fn

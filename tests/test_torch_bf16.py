@@ -242,8 +242,8 @@ def test_cmb_loss_bf16_matches_jax(tmp_path, monkeypatch, parity):
 
 def test_auto_at_bf16_takes_the_rebuild_backward(monkeypatch):
     """``impl='auto'`` resolves per tier as the JAX ``BWD_IMPL_DEFAULT``:
-    bf16 reaches K4's wrapper (its plain version on the CPU), f32 K3's;
-    ``f32x3`` raises, naming ROADMAP.md Queue 2."""
+    bf16 reaches K4's wrapper (its plain version on the CPU), f32 and
+    f32x3 K3's."""
     _, _, p, _, ps, x, ybar, dybar = inputs(SHALLOW, "xavier", 2, n=17)
     x, ybar, dybar = map(torch.from_numpy, (x, ybar, dybar))
     calls = []
@@ -261,15 +261,16 @@ def test_auto_at_bf16_takes_the_rebuild_backward(monkeypatch):
     kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="f32")
     kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="bf16", impl="stream")
     assert calls == ["bf16"]
-    assert tiers.BWD_IMPL_DEFAULT == {"f32": "stream", "bf16": "rebuild"}
-    assert {k: jvjp.BWD_IMPL_DEFAULT[k] for k in tiers.BWD_IMPL_DEFAULT} == tiers.BWD_IMPL_DEFAULT
-    for fn in (lambda: kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="f32x3"),
-               lambda: kernels_vjp.packed_mlp_bwd_rebuild(p, x, ybar, dybar, ps, 2,
-                                                          precision="f32x3"),
-               lambda: kernels_vjp.fused_apply_with_tangents(p, x, ps, 2, "f32x3"),
-               lambda: kernels_step.fused_loss_and_grad_plain(p, None, ps, "f32x3")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-            fn()
+    assert tiers.BWD_IMPL_DEFAULT == {"f32": "stream", "f32x3": "stream", "bf16": "rebuild"}
+    assert jvjp.BWD_IMPL_DEFAULT == tiers.BWD_IMPL_DEFAULT
+    g3 = kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="f32x3")
+    assert calls == ["bf16"]  # f32x3 'auto' is the stream backward (K3)
+    g3_plain = kernels_vjp.packed_mlp_bwd_plain(p, x, ybar, dybar, ps, 2, "f32x3")
+    assert all(torch.equal(g3[k], g3_plain[k]) for k in PARAM_KEYS)
+    kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="f32x3", impl="rebuild")
+    assert calls == ["bf16", "f32x3"]
+    with pytest.raises(ValueError, match="precision"):
+        kernels_vjp.packed_mlp_bwd(p, x, ybar, dybar, ps, 2, precision="fp8")
 
 
 def test_fused_apply_carries_the_tier_and_the_backward():

@@ -254,9 +254,9 @@ def test_fused_loss_refuses_what_the_kernels_do_not_take(cmb_pair):
     with pytest.raises(ValueError, match="dropout"):
         loss.build_loss_fn(cfg, MLPSpec.from_layers(cfg.layers), fused_kernel=True)
     cfg = parse_config(cmb_raw(cmb_pair))
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="K3"):
         loss.build_loss_fn(cfg, MLPSpec.from_layers(cfg.layers), fused_kernel=True,
-                           fused_precision="f32x3")
+                           fused_precision="fp8")
 
 
 # ------------------------------------------------------------------ Trainer

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K2, K1, K3 and K4 on a card, at the f32 and bf16
-tiers, against their plain PyTorch versions.
+"""The port's CUDA kernels K2, K1, K3 and K4 on a card, at the f32, bf16 and
+f32x3 tiers, against their plain PyTorch versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (a CUDA kernel has no CPU mode). The file imports no JAX, so it runs on the
@@ -16,7 +16,9 @@ agree with the plain version to ~1e-6 of their scale (``PERF.md``), and so
 are K3's gradients. The bf16 tier is held to its own error instead
 (``assert_tier_close``): one f32 roundoff can flip a bf16 rounding, so f32's
 1e-4 does not apply there, and in deep chains one flip moves a point as
-far as the tier's roundings do (``PERF.md``).
+far as the tier's roundings do (``PERF.md``). The f32x3 tier is held the
+same way with a floor of 2e-6 of the output (``chip_smoke.X3_REL_FLOOR``):
+its own error is ~1e-5 of the output, below f32's 1e-4.
 """
 
 import dataclasses
@@ -235,23 +237,27 @@ def test_cuda_cmb_training_runs_on_k2_and_k3(cuda_device, tmp_path):
 
 # ----------------------------------------------------------- the bf16 tier
 
-def assert_tier_close(got, want_tier, want_f32, want_tier64):
+def assert_tier_close(got, want_tier, want_f32, want_tier64, rel_floor=1e-4, distinct=0.0):
     """A bf16 kernel output against its plain versions at the tier (f32
     sums), at f32 and at the tier with float64 sums, as
     ``chip_smoke.py::compare_tier`` holds it: the L2 gap to plain bf16
     within max(a quarter of the tier's own error, 4 x the spread between
     the two summation orders) plus the f32 tolerance, and at least half the
     tier's error away from plain f32 where that error exceeds the floor (a
-    kernel that forgot to round fails). Returns whether it did."""
+    kernel that forgot to round fails). With ``distinct`` that check, and
+    the return value, also need the tier's error above ``distinct`` x the
+    spread (at f32x3 the spread can reach the tier's error on deep stacks,
+    ``chip_smoke.compare_tier``). Returns whether the tier showed."""
     l2 = lambda d: float(d.double().norm())  # noqa: E731
     tier = l2(want_tier - want_f32)
     spread = l2(want_tier.double() - want_tier64)
-    floor = 1e-4 * l2(want_tier) + 1e-7
+    floor = rel_floor * l2(want_tier) + 1e-7
     err = l2(got - want_tier)
     assert err <= max(0.25 * tier, 4 * spread) + floor, (err, tier, spread, floor)
-    if tier > floor:
+    real = tier > floor and tier > distinct * spread
+    if real:
         assert l2(got - want_f32) >= 0.5 * tier
-    return tier > floor
+    return real
 
 
 def f64(params):
@@ -411,3 +417,144 @@ def test_cuda_bf16_cmb_training_runs_on_k2_and_k4(cuda_device, tmp_path):
     assert kernels_vjp.packed_mlp_bwd_rebuild.launches_by_tier["bf16"] - k4["bf16"] == 2 * n
     assert kernels.mlp_fwd_tangents.launches_by_tier["bf16"] - k2["bf16"] == 2 * n
     assert kernels_vjp.packed_mlp_bwd.launches == k3
+
+
+# ---------------------------------------------------------- the f32x3 tier
+
+X3 = dict(rel_floor=2e-6, distinct=2.0)  # chip_smoke.X3_REL_FLOOR, X3_DISTINCT
+
+
+def shows_tier(sizes) -> bool:
+    """Whether the f32x3 tier's error stands clear of the spread on this
+    net: on the 60- to 120-layer stacks it need not (PERF.md)."""
+    return len(sizes) < 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,init_type,kt,n", [
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
+    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
+    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
+    ((2,) + (32,) * 120 + (3,), "xavier", 2, 300),     # deeper than one smem chunk
+])
+def test_cuda_k2_f32x3_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=3), cuda_device)
+    x = torch.from_numpy(np.random.RandomState(4).uniform(-1, 1, (n, sizes[0]))
+                         .astype(np.float32)).to(cuda_device)
+    before = kernels.mlp_fwd_tangents.launches_by_tier["f32x3"]
+    y, dy = kernels.mlp_fwd_tangents(params, x, spec, kt, precision="f32x3")
+    assert kernels.mlp_fwd_tangents.launches_by_tier["f32x3"] == before + 1
+    yx, dyx = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, "f32x3")
+    yf, dyf = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, "f32")
+    y6, dy6 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, kt, "f32x3")
+    real = assert_tier_close(y, yx, yf, y6, **X3)
+    if kt:
+        real |= assert_tier_close(dy, dyx, dyf, dy6, **X3)
+    assert real or not shows_tier(sizes)
+    if spec.d_out == 3 and init_type == "xavier":
+        fc = kernels.fused_residual_continuity(params, x, spec, precision="f32x3")
+        assert_tier_close(fc, kernels.residual_continuity_plain(params, x, spec, "f32x3"),
+                          kernels.residual_continuity_plain(params, x, spec, "f32"),
+                          kernels.residual_continuity_plain(f64(params), x.double(), spec,
+                                                            "f32x3"), **X3)
+    y2, dy2 = kernels.mlp_fwd_tangents(params, x, spec, kt, precision="f32x3")
+    assert torch.equal(y, y2) and torch.equal(dy, dy2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["stream", "rebuild"])
+@pytest.mark.parametrize("sizes,init_type,kt,n", [
+    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
+    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
+    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
+    ((2,) + (20,) * 11 + (3,), "xavier", 1, 129),      # a short last K4 segment
+    ((2,) + (32,) * 60 + (5,), "xavier", 2, 300),      # deeper than one smem chunk
+])
+def test_cuda_k3_k4_f32x3_match_plain_tier(cuda_device, impl, sizes, init_type, kt, n):
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=8), cuda_device)
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, sizes[0])).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(kt, n, sizes[-1]).astype(np.float32)).to(cuda_device)
+    wrapper = kernels_vjp.packed_mlp_bwd_rebuild if impl == "rebuild" else kernels_vjp.packed_mlp_bwd
+    before = wrapper.launches_by_tier["f32x3"]
+    g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="f32x3",
+                                   impl=impl)
+    assert wrapper.launches_by_tier["f32x3"] == before + 1
+    g_t = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32x3")
+    g_f = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32")
+    g_6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                           dybar.double(), spec, kt, "f32x3")
+    assert any([assert_tier_close(g[k], g_t[k], g_f[k], g_6[k], **X3) for k in g]) \
+        or not shows_tier(sizes)
+    g2 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision="f32x3",
+                                    impl=impl)
+    assert all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,n_true,has_anchor", [
+    ((2,) + (20,) * 100 + (3,), 2, True),   # the flagship
+    ((2,) + (16,) * 6 + (3,), 3, False),
+])
+def test_cuda_k1_f32x3_matches_plain_tier(cuda_device, sizes, n_true, has_anchor):
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=6), cuda_device)
+    rs = np.random.RandomState(5)
+    n = 2_001
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    trues = torch.from_numpy((rs.randn(n, n_true) * 0.1).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy((rs.rand(n) > 0.1).astype(np.float32)).to(cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float() * mask, mask,
+                                     [1.0, 0.7, 1.3][:n_true], n_true, 0.7, 1.3,
+                                     has_anchor=has_anchor)
+    before = kernels_step.fused_loss_and_grad.launches_by_tier["f32x3"]
+    (t, (f, r)), g = kernels_step.fused_loss_and_grad(params, b, spec, precision="f32x3")
+    assert kernels_step.fused_loss_and_grad.launches_by_tier["f32x3"] == before + 1
+    (tx, (fx, rx)), gx = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32x3")
+    (tf, (ff, rf)), gf = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32")
+    b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+        "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+    (t6, (f6, r6)), g6 = kernels_step.fused_loss_and_grad_plain(f64(params), b64, spec, "f32x3")
+    real = [assert_tier_close(got, wx, wf, w6, **X3) for got, wx, wf, w6 in
+            ((t, tx, tf, t6), (f, fx, ff, f6), (r, rx, rf, r6))]
+    real += [assert_tier_close(g[k], gx[k], gf[k], g6[k], **X3) for k in g]
+    assert any(real)  # the flagship's K1 outputs show it too (PERF.md)
+
+
+@pytest.mark.cuda
+def test_cuda_f32x3_cmb_training_runs_on_k2_and_k3(cuda_device, tmp_path):
+    """A CMB Trainer at kernel_precision f32x3 on the card, with
+    residual_chunk_size set (dropped on the kernel path): every loss
+    evaluation launches K2-f32x3 and K3-f32x3 twice, and K4 never."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=120, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, 20, 4, tol_grad=1e-12, tol_change=1e-14, nx=41, ny=61,
+                          interval=1, training_points=100)
+    init = numpy_params((2,) + (10,) * 10 + (6,), "xavier", seed=1)
+    init["b_out"][3] += 1.0
+    run = str(tmp_path / "x3")
+    os.makedirs(run)
+    trainer = Trainer(parse_config(dict(raw, kernel_precision="f32x3", residual_chunk_size=512)),
+                      run_dir=run, echo_every=0, initial_params=init, device=cuda_device)
+    k2 = dict(kernels.mlp_fwd_tangents.launches_by_tier)
+    k3 = dict(kernels_vjp.packed_mlp_bwd.launches_by_tier)
+    k4 = kernels_vjp.packed_mlp_bwd_rebuild.launches
+    trainer.train_adam()
+    trainer.train_lbfgs()
+    epochs, _, _, totals = read_log(run)
+    n = len(epochs)
+    assert n > 20 and np.isfinite(totals).all()
+    assert kernels_vjp.packed_mlp_bwd.launches_by_tier["f32x3"] - k3["f32x3"] == 2 * n
+    assert kernels.mlp_fwd_tangents.launches_by_tier["f32x3"] - k2["f32x3"] == 2 * n
+    assert kernels_vjp.packed_mlp_bwd_rebuild.launches == k4

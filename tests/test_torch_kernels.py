@@ -94,12 +94,13 @@ def test_precision_tiers():
     spec = MLPSpec(sizes=(2, 20, 20, 3))
     params = params_from_numpy(numpy_params(spec.sizes), "cpu")
     x = torch.zeros(8, 2)
-    # bf16 is ported (tests/test_torch_bf16.py); f32x3 is not, and says where
-    # it is queued
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        kernels.mlp_fwd_tangents(params, x, spec, 0, precision="f32x3")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        kernels.fused_residual_continuity(params, x, spec, precision="f32x3")
+    # bf16 and f32x3 are ported (tests/test_torch_bf16.py,
+    # tests/test_torch_f32x3.py): on the CPU the wrappers take the tier's
+    # plain version
+    y, _ = kernels.mlp_fwd_tangents(params, x, spec, 0, precision="f32x3")
+    assert torch.equal(y, kernels.mlp_fwd_tangents_plain(params, x, spec, 0, "f32x3")[0])
+    fc = kernels.fused_residual_continuity(params, x, spec, precision="f32x3")
+    assert torch.equal(fc, kernels.residual_continuity_plain(params, x, spec, "f32x3"))
     with pytest.raises(ValueError, match="precision"):
         kernels.mlp_fwd_tangents(params, x, spec, 0, precision="fp8")
 

@@ -118,10 +118,11 @@ def test_wrappers_refuse_what_k3_does_not_take():
     spec = MLPSpec(sizes=(2, 8, 8, 3))
     params = params_from_numpy(numpy_params(spec.sizes), "cpu")
     x, ybar, dybar = torch.zeros((4, 2)), torch.zeros((4, 3)), torch.zeros((2, 4, 3))
-    for impl in ("auto", "stream", "rebuild"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-            kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision="f32x3",
-                                       impl=impl)
+    want = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, 2, "f32x3")
+    for impl in ("auto", "stream", "rebuild"):  # f32x3 is ported: the CPU takes the plain version
+        got = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision="f32x3",
+                                         impl=impl)
+        assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="impl"):
         kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, impl="ring")
     with pytest.raises(ValueError, match="CUDA"):

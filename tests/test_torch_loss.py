@@ -211,7 +211,9 @@ def test_loud_errors(mat):
         loss.build_loss_fn(cfg, spec)
     with pytest.raises(NotImplementedError, match="M3"):
         loss.build_loss_fn(parse_config(raw_config(mat)), spec, residual_chunk_size=64)
-    cfg = parse_config(raw_config(mat, kernel_precision="f32x3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+    cfg = parse_config(raw_config(mat, kernel_precision="f32x3"))  # ported: it builds
+    assert loss.build_value_and_grad_fn(cfg, spec, fused_kernel=True, fidelity_is_residual=True,
+                                        fused_precision=cfg.resolved_kernel_precision())
+    with pytest.raises(ValueError, match="precision"):
         loss.build_value_and_grad_fn(cfg, spec, fused_kernel=True, fidelity_is_residual=True,
-                                     fused_precision=cfg.resolved_kernel_precision())
+                                     fused_precision="fp8")

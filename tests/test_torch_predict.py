@@ -254,9 +254,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(served, monkeypatch):
 
 
 def test_kernel_precision_tier_refused_on_the_kernel_path(served, monkeypatch):
-    """On CUDA the Predictor takes K2, whose f32x3 tier is not ported: it
-    raises at construction instead of serving another tier; bf16 serves
-    through K2-bf16."""
+    """On CUDA the Predictor takes K2 at the config's tier: f32x3 serves
+    through K2-f32x3, bf16 through K2-bf16; an unknown tier raises at
+    construction instead of serving another."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(
         "pinn_depthestimation_tpu_torch.inference.restore_params_any",
@@ -265,7 +265,10 @@ def test_kernel_precision_tier_refused_on_the_kernel_path(served, monkeypatch):
     raw = dict(served.raw, kernel_precision="f32x3")
     raw["layers"] = dict(raw["layers"], hidden_width=20)  # a width K2 takes
     cfg = parse_config(raw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+    f32x3 = Predictor(cfg, served.pth)
+    assert f32x3.use_kernel and f32x3.precision == "f32x3"
+    cfg.kernel_precision = "fp8"
+    with pytest.raises(ValueError, match="precision"):
         Predictor(cfg, served.pth)
     bf16 = Predictor(parse_config(dict(raw, kernel_precision="bf16")), served.pth)
     assert bf16.use_kernel and bf16.precision == "bf16"

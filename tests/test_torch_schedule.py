@@ -201,7 +201,7 @@ def test_cli_precision_schedule_flag(mat, tmp_path, monkeypatch):
 
 def test_cli_trains_under_the_schedule(mat, tmp_path, capsys):
     """CLI train with the flag on the CPU: the Trainer reports the prefix and
-    logs every evaluation; an f32x3 prefix exits 1, naming Queue 2."""
+    logs every evaluation; an f32x3 prefix trains too."""
     cfg = tmp_path / "config.json"
     cfg.write_text(json.dumps(newmethod_raw(mat, adam_it=12, lbfgs_it=2, fused_kernel="on")))
     args = ["train", "--config", str(cfg), "--log-root", str(tmp_path), "--device", "cpu"]
@@ -210,5 +210,7 @@ def test_cli_trains_under_the_schedule(mat, tmp_path, capsys):
     assert "the first 5 Adam steps at bf16, then f32" in out
     epochs, _, _, totals = read_log(str(tmp_path / "ok"))
     assert epochs[:12] == list(range(1, 13)) and np.all(np.isfinite(totals))
-    assert cli.main(args + ["--run-name", "x3", "--precision-schedule", "5:f32x3"]) == 1
-    assert "ROADMAP.md Queue 2" in capsys.readouterr().out
+    assert cli.main(args + ["--run-name", "x3", "--precision-schedule", "5:f32x3"]) == 0
+    assert "the first 5 Adam steps at f32x3, then f32" in capsys.readouterr().out
+    epochs, _, _, totals = read_log(str(tmp_path / "x3"))
+    assert epochs[:12] == list(range(1, 13)) and np.all(np.isfinite(totals))

@@ -169,8 +169,9 @@ def test_precision_tiers_and_devices():
     spec = MLPSpec(sizes=(2, 16, 16, 3))
     params = params_from_numpy(numpy_params(spec.sizes), "cpu")
     b = port_batch(*step_inputs(8, 2), 2, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        kernels_step.fused_loss_and_grad(params, b, spec, precision="f32x3")
+    (total, _), grads = kernels_step.fused_loss_and_grad(params, b, spec, precision="f32x3")
+    (want, _), want_grads = kernels_step.fused_loss_and_grad_plain(params, b, spec, "f32x3")
+    assert torch.equal(total, want) and all(torch.equal(grads[k], want_grads[k]) for k in grads)
     with pytest.raises(ValueError, match="precision"):
         kernels_step.fused_loss_and_grad(params, b, spec, precision="fp8")
     meta = kernels_step.make_step_batch(

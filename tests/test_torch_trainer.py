@@ -254,10 +254,10 @@ def test_trainer_refuses_what_is_not_ported(mat, tmp_path):
     tr = Trainer(parse_config(newmethod_raw(mat, precision_schedule=True, fused_kernel="on")),
                  run_dir=d, device="cpu")
     assert tr._prefix_iters == 35_000 and tr._prefix_value_and_grad is not tr.value_and_grad_fn
-    # an f32x3 prefix is not ported, and says where it is queued
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        Trainer(parse_config(newmethod_raw(mat, fused_kernel="on", precision_schedule={
-            "prefix_precision": "f32x3", "prefix_iters": 5})), run_dir=d, device="cpu")
+    # an f32x3 prefix is ported too: its own value-and-grad function
+    tr = Trainer(parse_config(newmethod_raw(mat, fused_kernel="on", precision_schedule={
+        "prefix_precision": "f32x3", "prefix_iters": 5})), run_dir=d, device="cpu")
+    assert tr._prefix_iters == 5 and tr._prefix_value_and_grad is not tr.value_and_grad_fn
     # K3 is ported: 'on' outside the one-kernel gate (an anchored 3-head
     # fidelity) takes the generic fused path, K2 forward + K3 backward
     anchored_three_heads = dict(base_data(mat), trues=["U", "V", "h"], unknowns=[])
