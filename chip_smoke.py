@@ -28,7 +28,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    observed heads, under parity (every point selected) and parity=false
    (some selected), twice for determinism; width 10 anchorless with three
    heads; width 16 leaky-relu; a width-32 stack deeper than one
-   shared-memory chunk; a batch with masked rows;
+   shared-memory chunk; a batch with masked rows; then widths 20 and 10 at
+   point counts around the walk's tiles (1, 15, 17, 12,516, and one either
+   side of a full wave of the width's largest tiles), each launched twice;
 8. the training path through its entry points: CLI ``train`` on
    ``examples/newmethod.json`` with the synthetic grid (Adam, the snapshot,
    L-BFGS, ``model.npz``), then CLI ``test`` on the trained model; the log,
@@ -36,14 +38,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    equal the number of loss evaluations;
 9. iteration-1 equality and a 20-step Adam prefix of a Trainer on K1
    against one on the plain autograd path, from the same numpy weights;
-10. training times: K1 beside its plain version and bound, the flagship
-   Adam step (``run_train_step_bench``) and L-BFGS evaluations per second
-   (median, min and max of 5 runs of the configured 500-iteration phase);
+10. training times: K1 beside its plain version, its bound and the share
+   of it, with CUDA events and with the device time ``torch.profiler``
+   records (``device_ms``), with the walk's launch plan (tiles, points per tile, blocks), the
+   flagship Adam step (``run_train_step_bench``) and L-BFGS evaluations per
+   second (median, min and max of 5 runs of the configured 500-iteration
+   phase);
 11. K3 (``csrc/mlp_bwd.cu``) against its plain version on the card: the
    2->[10]x10->6 CMB net at K=2 on the ~20,500 points of the CMB bench grid
    and at K=0 on its 200 fidelity rows, the flagship at K=2 on the 12,516
    grid points, a leaky-relu net at K=1 and K=3, a width-32 stack deeper
    than one shared-memory chunk, a ragged N; two launches bit-identical;
+   then the CMB net at K=2 at the point counts around the tiles of phase 7;
 12. the CMB training path through its entry points: ``synth`` writes the
    CMB pair, CLI ``train`` runs ``examples/cmb.json`` on it (interval 1,
    300 Adam steps, L-BFGS cut to 20 iterations), CLI ``test`` serves the
@@ -52,8 +58,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    20-step Adam prefix of a K2+K3 Trainer against an autograd Trainer from
    the same numpy weights, under parity and parity=false;
 13. times: K3 beside its plain version and bound at the CMB and flagship
-   shapes, and the CMB Adam step (``run_cmb_step_bench``) with K2 + K3's
-   share of it;
+   shapes, with CUDA events (on the CMB grid they measure the host's launch
+   rate; ``tools/k1_refactor_check.py --time`` gives the device time), and
+   the CMB Adam step (``run_cmb_step_bench``) with K2 +
+   K3's share of it;
 14. the bf16 tier and K4 against their plain versions on the card, each
    bf16 output held to the tier's own error (``compare_tier``: an L2 gap
    within a quarter of gap(plain-bf16, plain-f32), or four times the
@@ -77,8 +85,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 17. times: K2-bf16 (CMB grid, 10M points, serve grid), K1-bf16 and K4
    (both tiers, beside K3) beside the f32 tier, their plain versions and
    their bounds (f32 on the CUDA cores' FMA rate, bf16 on the tensor
-   cores' bf16 rate), K4's segment length C swept, and the bf16 Adam
-   steps of the flagship and the CMB net beside f32;
+   cores' bf16 rate), K4's segment length
+   C swept, and the bf16 Adam steps of the flagship and the CMB net beside
+   f32;
 18. the f32x3 tier of K2, K1, K3 and K4 against the plain f32x3 versions on
    the cases of phases 3, 7, 11 and 14 (``compare_tier`` with the f32x3
    floor ``X3_REL_FLOOR``), two launches bit-identical each;
@@ -96,10 +105,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 20. ``bench --suite`` through the CLI: one JSON line, every extra present,
    no ``_error`` key;
 21. times of the f32x3 tier (K2 on the CMB grid, at 10M points and on the
-   serve grid; K1; K3 and K4 with K4's C swept) beside the plain f32x3
-   versions and the bound of the tier's three bf16 products on the tensor
-   cores (with the CUDA cores' figure beside it), and the CMB Adam step at
-   f32x3.
+   serve grid; K1; K3 and K4 with K4's C swept), beside the plain f32x3 versions and the bound of the tier's
+   three bf16 products on the tensor cores (with the CUDA cores' figure
+   beside it), and the CMB Adam step at f32x3.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
@@ -134,6 +142,9 @@ K3_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:701"  # packed_mlp_bw
 K3_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd.cu"
 K4_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:268"  # _make_bwd_kernel (impl='rebuild')
 K4_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd_rebuild.cu"
+# the walk kernel's name, for device_ms
+WALK_KERNEL = {"k1": "k1_train_step_kernel", "k3": "cotangent_walk_kernel",
+               "k4": "cotangent_walk_kernel"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 # kernel vs plain: max|kernel - plain| <= REL_TOL * max|plain| + ABS_TOL. f32 FMA
@@ -275,6 +286,39 @@ def cuda_ms(fn, reps: int, inner: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, calls: int, kernel: str):
+    """Device time per call of ``fn``: the own times of the launches of
+    ``kernel`` (a substring of the walk kernel's name) and of the walk's
+    fixed-order reduction that ``torch.profiler`` records over ``calls``
+    calls, after one warm-up call; None, said so, unless it recorded
+    exactly one ``kernel`` launch per call (a profiler that drops events
+    would undercount). CUDA events around back-to-back calls measure the
+    host instead where a call takes longer to enqueue than the card takes
+    to run it (the walk's kernels on the CMB grid)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and ("reduce_kernel" in e.name or kernel in e.name)]
+    walks = sum(kernel in e.name for e in events)
+    if walks != calls:
+        print(f"  (torch.profiler recorded {walks} of {calls} {kernel} launches: no device time)")
+        return None
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+
+
+def fmt_ms(ms) -> str:
+    """A device time for the log: ms, or 'not recorded'."""
+    return "not recorded" if ms is None else f"{ms:.4f} ms"
 
 
 def host_ms(fn, reps: int) -> float:
@@ -427,6 +471,21 @@ def k1_cases(dev, repo: str, tmp: str):
     return cases, n_grid, flag_params
 
 
+def ragged_points(lib, kernel: str, dev) -> list[int]:
+    """Point counts around the walk's tiles (``ops/walk_plan.py``): one
+    point, one either side of the smallest tile, the flagship's 12,516, and
+    one either side of a full wave of the width's largest tiles at f32 (the
+    last block then walks a second tile of one point, or the last tile is
+    one short)."""
+    import torch
+
+    from pinn_depthestimation_tpu_torch.ops.walk_plan import TILE_STEP
+
+    wave = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * getattr(lib, f"{kernel}_max_tile")())
+    return [1, TILE_STEP - 1, TILE_STEP + 1, 12_516, wave - 1, wave + 1]
+
+
 def training_phases(dev, repo: str, bound) -> dict:
     """Phases 7-10; returns K1's entry of the ``kernels`` line."""
     import numpy as np
@@ -434,8 +493,9 @@ def training_phases(dev, repo: str, bound) -> dict:
 
     from pinn_depthestimation_tpu_torch import benchmarks, cli
     from pinn_depthestimation_tpu_torch.config import load_config
-    from pinn_depthestimation_tpu_torch.models import MLPSpec
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+    from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
 
@@ -446,10 +506,13 @@ def training_phases(dev, repo: str, bound) -> dict:
         cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
         err_k1 = 0.0
         for name, spec, params, b in cases:
-            chunk = kernels_step.k1_library().libs[spec.width].k1_chunk_layers(spec.n_hidden - 1)
+            lib = kernels_step.k1_library().libs[spec.width]
+            plan = card_plan(lib, "k1", "f32", b.coords.shape[0], dev)
+            chunk = lib.k1_chunk_layers(spec.n_hidden - 1, plan.tile)
             print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
                   f"{spec.init_type}, N={b.coords.shape[0]}, selected {int(b.n_sel)}, "
-                  f"{chunk} hidden layers per smem chunk")
+                  f"{plan.tiles} tiles of {plan.tile} points on {plan.grid} blocks of "
+                  f"{plan.threads} threads, {chunk} hidden layers per smem chunk")
             (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec)
             torch.cuda.synchronize()
             (t2, (f2, r2)), g2 = kernels_step.fused_loss_and_grad_plain(params, b, spec)
@@ -464,6 +527,31 @@ def training_phases(dev, repo: str, bound) -> dict:
                     fail(f"{name}: two K1 launches on the same inputs differ")
                 print("  two launches bit-identical")
         flag_batch = cases[0][3]
+        # ragged point counts around the tiles, at the flagship's width and
+        # at width 10 (five neurons per lane)
+        rng = np.random.RandomState(12)
+        for width in (20, 10):
+            spec = MLPSpec(sizes=(2,) + (width,) * 6 + (3,))
+            params = params_from_numpy(numpy_params(spec.sizes, "xavier", 12), dev)
+            for n in ragged_points(kernels_step.k1_library().libs[width], "k1", dev):
+                x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
+                x[0, 0] = -0.5  # at least one anchored point
+                tr = torch.as_tensor((rng.randn(n, 2) * 0.1).astype(np.float32)).to(dev)
+                ones = torch.ones(n, device=dev)
+                b = kernels_step.make_step_batch(x, tr, (x[:, 0] < 0.3).float(), ones, [1.0, 1.0],
+                                                 2, 1.0, 1.0, anchor_depth=0.75, has_anchor=True)
+                plan = card_plan(kernels_step.k1_library().libs[width], "k1", "f32", n, dev)
+                print(f" ragged: 2->[{width}]x6->3, N={n}: {plan.tiles} tiles of {plan.tile} "
+                      f"points on {plan.grid} blocks")
+                (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec)
+                torch.cuda.synchronize()
+                (t2, (f2, r2)), g2 = kernels_step.fused_loss_and_grad_plain(params, b, spec)
+                for term, got, want in (("total", t1, t2), ("fidelity", f1, f2),
+                                        ("residual", r1, r2), *((f"d{k}", g1[k], g2[k]) for k in g1)):
+                    compare(term, got, want)
+                (t3, _), g3 = kernels_step.fused_loss_and_grad(params, b, spec)
+                if not (torch.equal(t1, t3) and all(torch.equal(g1[k], g3[k]) for k in g1)):
+                    fail(f"ragged K1 at N={n}, width {width}: two launches differ")
 
         # 8. the training path ---------------------------------------------
         print("== phase 8: training path (CLI train, then CLI test on the trained model)")
@@ -556,22 +644,29 @@ def training_phases(dev, repo: str, bound) -> dict:
         # 10. training times -------------------------------------------------
         print("== phase 10: training times")
         ms_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship), 7, 20)
+        dev_k1 = device_ms(lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship),
+                           20, "k1_train_step_kernel")
         plain_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad_plain(flag_params, flag_batch, flagship), 5, 3)
         b_k1, by_k1 = bound(k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2))
         step = benchmarks.run_train_step_bench(device=dev)
-        print(f"  K1 + reduction, {n_grid} points: {ms_k1:.4f} ms (plain {plain_k1:.4f} ms, bound "
-              f"{b_k1:.4f} ms by {by_k1}, {b_k1 / ms_k1:.1%} of bound; "
-              f"{k1_flops(flagship, 1):,.0f} FLOP per point)")
+        plan = card_plan(kernels_step.k1_library().libs[flagship.width], "k1", "f32", n_grid, dev)
+        print(f"  K1 + reduction, {n_grid} points: {ms_k1:.4f} ms, device time {fmt_ms(dev_k1)} "
+              f"(plain {plain_k1:.4f} ms, bound {b_k1:.4f} ms by {by_k1}, {b_k1 / ms_k1:.1%} of bound; "
+              f"{k1_flops(flagship, 1):,.0f} FLOP per point; {plan.tiles} tiles of {plan.tile} "
+              f"points on {plan.grid} blocks of {plan.threads} threads)")
         print(f"  run_train_step_bench: {json.dumps(step)}; K1 is "
               f"{ms_k1 / step['ms_per_iter']:.1%} of the Adam step")
         # the L-BFGS phase as examples/newmethod.json configures it (500
         # iterations, 625 evaluations), its tolerances lowered so that it
-        # runs to those limits; several repetitions from the same weights
+        # runs to those limits; several repetitions from the same weights.
+        # tolerance_change 0 stops only on a step or loss change of exactly
+        # zero: at 1e-12 the chaotic f32 trajectory stopped after 73
+        # evaluations once K1's sums changed order
         def lbfgs_phase(max_it: int, max_eval: int):
             path = newmethod_config(tmp, repo, adam_optimizer={"max_it": 0},
                                     lbfgs_optimizer={"max_it": max_it, "max_evaluation": max_eval,
                                                      "tolerance_grad": 1e-9,
-                                                     "tolerance_change": 1e-12})
+                                                     "tolerance_change": 0.0})
             run = os.path.join(tmp, f"lbfgs_timing_{len(os.listdir(tmp))}")
             os.makedirs(run)
             tr = Trainer(load_config(path), run_dir=run, echo_every=0, initial_params=init,
@@ -594,7 +689,8 @@ def training_phases(dev, repo: str, bound) -> dict:
 
     return {"name": "k1_continuity_train_step", "route": "cuda", "source": K1_SOURCE,
             "replaces": K1_REPLACES, "launches": train_launches["fused_loss_and_grad"],
-            "max_abs_err": err_k1, "ms": ms_k1, "plain_ms": plain_k1, "bound_ms": b_k1,
+            "max_abs_err": err_k1, "ms": ms_k1, "device_ms": dev_k1, "plain_ms": plain_k1,
+            "bound_ms": b_k1,
             "bound_by": by_k1, "points": n_grid, "library_ms": None,
             "adam_ms_per_iter": step["ms_per_iter"],
             "lbfgs_evals_per_s": lbfgs_rate,
@@ -711,8 +807,9 @@ def cmb_phases(dev, repo: str, bound) -> dict:
     from pinn_depthestimation_tpu_torch import benchmarks, cli
     from pinn_depthestimation_tpu_torch.config import load_config, parse_config
     from pinn_depthestimation_tpu_torch.data import load_training_data
-    from pinn_depthestimation_tpu_torch.models import MLPSpec
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
+    from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
@@ -729,9 +826,12 @@ def cmb_phases(dev, repo: str, bound) -> dict:
         inputs, err_k3 = {}, 0.0
         for name, spec, params, x, ybar, dybar, kt in k3_cases(dev, repo, tmp, res_pts, fid_pts):
             n = x.shape[0]
-            chunk = kernels_vjp.k3_library().libs[spec.width].k3_chunk_layers(spec.n_hidden - 1, kt)
+            lib = kernels_vjp.k3_library().libs[spec.width]
+            plan = card_plan(lib, "k3", "f32", n, dev)
+            chunk = lib.k3_chunk_layers(spec.n_hidden - 1, kt, plan.tile)
             print(f" {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
-                  f"{spec.init_type}, K={kt}, N={n}, {chunk} hidden layers per smem chunk")
+                  f"{spec.init_type}, K={kt}, N={n}, {plan.tiles} tiles of {plan.tile} points on "
+                  f"{plan.grid} blocks, {chunk} hidden layers per smem chunk")
             g1 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
             torch.cuda.synchronize()
             g2 = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt)
@@ -743,6 +843,24 @@ def cmb_phases(dev, repo: str, bound) -> dict:
                 fail(f"{name}: two K3 launches on the same inputs differ")
             print("  two launches bit-identical")
             inputs[name] = (params, x, ybar, dybar, spec, kt)
+        # ragged point counts around the tiles, on the CMB net at K=2
+        rng = np.random.RandomState(14)
+        params = params_from_numpy(numpy_params(cmb_net.sizes, "xavier", 14), dev)
+        for n in ragged_points(kernels_vjp.k3_library().libs[10], "k3", dev):
+            x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
+            ybar = torch.as_tensor(rng.randn(n, 6).astype(np.float32)).to(dev)
+            dybar = torch.as_tensor(rng.randn(2, n, 6).astype(np.float32)).to(dev)
+            plan = card_plan(kernels_vjp.k3_library().libs[10], "k3", "f32", n, dev)
+            print(f" ragged: CMB net, K=2, N={n}: {plan.tiles} tiles of {plan.tile} points on "
+                  f"{plan.grid} blocks")
+            g1 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, cmb_net, 2)
+            torch.cuda.synchronize()
+            g2 = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, cmb_net, 2)
+            for k in g1:
+                compare(f"d{k}", g1[k], g2[k])
+            g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, cmb_net, 2)
+            if not all(torch.equal(g1[k], g3[k]) for k in g1):
+                fail(f"ragged K3 at N={n}: two launches differ")
 
         # 12. the CMB training path ---------------------------------------------
         print("== phase 12: CMB training path (CLI synth, train, then test on the trained model)")
@@ -853,9 +971,11 @@ def cmb_phases(dev, repo: str, bound) -> dict:
             plain = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt), 5, 3)
             b, by = bound(k3_flops(spec, x.shape[0], kt), k3_bytes(params, spec, x.shape[0], kt))
             times[name] = (ms, plain, b, by)
-            print(f"  K3 {name} (K={kt}, {x.shape[0]} points): {ms:.4f} ms (plain {plain:.4f} ms, "
-                  f"bound {b:.5f} ms by {by}, {b / ms:.1%} of bound; "
-                  f"{k3_flops(spec, 1, kt):,.0f} FLOP per point)")
+            plan = card_plan(kernels_vjp.k3_library().libs[spec.width], "k3", "f32", x.shape[0], dev)
+            print(f"  K3 {name} (K={kt}, {x.shape[0]} points): {ms:.4f} ms "
+                  f"(plain {plain:.4f} ms, bound {b:.5f} ms by {by}, {b / ms:.1%} of bound; "
+                  f"{k3_flops(spec, 1, kt):,.0f} FLOP per point; {plan.tiles} tiles of "
+                  f"{plan.tile} points on {plan.grid} blocks)")
         params = inputs["CMB net, residual grid"][0]
         fwd = {kt: cuda_ms(lambda kt=kt, x=x: kernels.mlp_fwd_tangents(params, x, cmb_net, kt), 7, 20)
                for kt, x in ((2, res_pts), (0, fid_pts))}
@@ -1072,7 +1192,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
         bwd_inputs = {}
         for name, spec, params, x, ybar, dybar, kt in k34:
             ckpt = 4 if name.startswith("short") else 0
-            cs = {t: kernels_vjp.rebuild_ckpt_every(spec, kt, t, ckpt) for t in ("f32", "bf16")}
+            cs = {t: kernels_vjp.rebuild_ckpt_every(spec, kt, t, ckpt, n_points=x.shape[0])
+                  for t in ("f32", "bf16")}
             print(f" K3-bf16 / K4 {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->"
                   f"{spec.d_out} {spec.init_type}, K={kt}, N={x.shape[0]}, K4 segments of "
                   f"{cs['f32']} (f32) and {cs['bf16']} (bf16) layers")
@@ -1315,11 +1436,11 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
                           7, 20, k4_flops(spec, x.shape[0], kt), nb, tier == "bf16")
                 plain_bwd[name] = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16"), 5, 3)
                 # the segment length C, on the card
-                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16")
+                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16", n_points=x.shape[0])
                 sweep = {}
                 for c in (1, 2, 3, 4, 6, 8, 10):
                     try:
-                        kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16", c)
+                        kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16", c, n_points=x.shape[0])
                     except ValueError:
                         continue
                     if c > spec.n_hidden - 1:
@@ -1351,7 +1472,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     k4_entry = {
         "name": "k4_mlp_bwd_rebuild[bf16]", **common, "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": cmb_counts["packed_mlp_bwd_rebuild"]["bf16"], "max_abs_err": err["k4"],
-        "ms": k4_ms, "plain_ms": plain_bwd[res], "bound_ms": k4_b, "bound_by": k4_by,
+        "ms": k4_ms, "plain_ms": plain_bwd[res],
+        "bound_ms": k4_b, "bound_by": k4_by,
         "points": n_res, "ckpt_every": times[f"k4 C sweep {res}"][0],
         "ms_f32": times[f"k4 {res} f32"][0], "bound_ms_f32": times[f"k4 {res} f32"][1],
         "ms_fidelity_k0": times[f"k4 {fidr} bf16"][0], "ms_flagship_k2": times[f"k4 {flag} bf16"][0],
@@ -1363,7 +1485,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     k2_entry = {
         "name": "k2_mlp_fwd_tangents[bf16]", **common, "source": K2_SOURCE, "replaces": REPLACES,
         "launches": cmb_counts["mlp_fwd_tangents"]["bf16"], "max_abs_err": err["k2"],
-        "ms": k2_ms, "plain_ms": plain_cmb, "bound_ms": k2_b, "bound_by": k2_by,
+        "ms": k2_ms, "plain_ms": plain_cmb,
+        "bound_ms": k2_b, "bound_by": k2_by,
         "points": n_res, "ms_f32": times["k2 cmb grid f32"][0],
         "ms_10m_continuity": times["k2 10M continuity bf16"][0],
         "ms_10m_continuity_f32": times["k2 10M continuity f32"][0],
@@ -1376,7 +1499,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     k1_entry = {
         "name": "k1_continuity_train_step[bf16]", **common, "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": sched_counts["fused_loss_and_grad"]["bf16"],
-        "max_abs_err": err["k1"], "ms": k1_ms, "plain_ms": plain_k1, "bound_ms": k1_b,
+        "max_abs_err": err["k1"], "ms": k1_ms,
+        "plain_ms": plain_k1, "bound_ms": k1_b,
         "bound_by": k1_by, "points": n_grid, "ms_f32": times["k1 f32"][0],
         "adam_ms_per_iter_bf16": step["ms_per_iter"],
     }
@@ -1384,7 +1508,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     # picks the backward (main() completes the entries)
     k3_bf16_entry = {
         "name": "k3_mlp_bwd[bf16]", **common, "source": K3_SOURCE, "replaces": K3_REPLACES,
-        "max_abs_err": err["k3"], "ms": times[f"k3 {res} bf16"][0], "plain_ms": plain_bwd[res],
+        "max_abs_err": err["k3"], "ms": times[f"k3 {res} bf16"][0],
+        "plain_ms": plain_bwd[res],
         "bound_ms": times[f"k3 {res} bf16"][1], "bound_by": times[f"k3 {res} bf16"][2],
         "points": n_res, "ms_fidelity_k0": times[f"k3 {fidr} bf16"][0],
         "ms_flagship_k2": times[f"k3 {flag} bf16"][0],
@@ -1392,9 +1517,10 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     k4_f32_entry = {
         "name": "k4_mlp_bwd_rebuild[f32]", **common, "source": K4_SOURCE, "replaces": K4_REPLACES,
         "max_abs_err": err["k4_f32"], "ms": times[f"k4 {res} f32"][0],
+       
         "bound_ms": times[f"k4 {res} f32"][1], "bound_by": times[f"k4 {res} f32"][2],
         "points": n_res, "ckpt_every": kernels_vjp.rebuild_ckpt_every(
-            cmb_net, 2, "f32"),
+            cmb_net, 2, "f32", n_points=n_res),
         "ms_fidelity_k0": times[f"k4 {fidr} f32"][0], "ms_flagship_k2": times[f"k4 {flag} f32"][0],
     }
     return {"k4": k4_entry, "k2_bf16": k2_entry, "k1_bf16": k1_entry,
@@ -1431,6 +1557,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
     from pinn_depthestimation_tpu_torch.data import load_test_data
     from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
@@ -1530,7 +1657,9 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
 
         cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
         for name, spec, params, b in cases:
-            chunk = kernels_step.k1_library().libs[spec.width].k1_chunk_layers_f32x3(spec.n_hidden - 1)
+            lib = kernels_step.k1_library().libs[spec.width]
+            chunk = lib.k1_chunk_layers_f32x3(
+                spec.n_hidden - 1, card_plan(lib, "k1", X3, b.coords.shape[0], dev).tile)
             print(f" K1-f32x3 {name}: sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->"
                   f"{spec.d_out}, N={b.coords.shape[0]}, {chunk} hidden layers per smem chunk")
             (t1, (f1, r1)), g1 = kernels_step.fused_loss_and_grad(params, b, spec, precision=X3)
@@ -1560,7 +1689,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
         bwd_inputs = {}
         for name, spec, params, x, ybar, dybar, kt in k34:
             ckpt = 4 if name.startswith("short") else 0
-            c = kernels_vjp.rebuild_ckpt_every(spec, kt, X3, ckpt)
+            c = kernels_vjp.rebuild_ckpt_every(spec, kt, X3, ckpt, n_points=x.shape[0])
             print(f" K3-f32x3 / K4-f32x3 {name}: sizes {spec.d_in}->[{spec.width}]x"
                   f"{spec.n_hidden}->{spec.d_out} {spec.init_type}, K={kt}, N={x.shape[0]}, "
                   f"K4 segments of {c} layers")
@@ -1837,13 +1966,13 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
                 timed(f"k4 {name}", lambda: kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt, precision=X3),
                       7, 20, k4_flops(spec, x.shape[0], kt), nb)
                 plain[f"bwd {name}"] = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, X3), 5, 3)
-                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, X3)
+                c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, X3, n_points=x.shape[0])
                 sweep = {}
                 for c in (1, 2, 3, 4, 6, 8, 10):
                     if c > spec.n_hidden - 1:
                         continue
                     try:
-                        kernels_vjp.rebuild_ckpt_every(spec, kt, X3, c)
+                        kernels_vjp.rebuild_ckpt_every(spec, kt, X3, c, n_points=x.shape[0])
                     except ValueError:
                         continue
                     sweep[c] = cuda_ms(lambda c=c: kernels_vjp.packed_mlp_bwd_rebuild(
@@ -1856,8 +1985,8 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
         cmb_step = benchmarks.run_cmb_step_bench(n_iters=100, kernel_precision=X3, device=dev)
 
     for key, (ms, b_tc, by, b_cc) in times.items():
-        print(f"  {key}{'' if key.endswith(('f32', X3)) else ' f32x3'}: {ms:.4f} ms, bound "
-              f"{b_tc:.5f} ms by {by} (three bf16 products on the tensor cores; "
+        print(f"  {key}{'' if key.endswith(('f32', X3)) else ' f32x3'}: {ms:.4f} ms, "
+              f"bound {b_tc:.5f} ms by {by} (three bf16 products on the tensor cores; "
               f"{b_tc / ms:.2%} of it), {b_cc:.4f} ms on the CUDA cores' f32 FMA rate "
               f"({b_cc / ms:.1%} of it)")
     print(f"  plain f32x3: continuity at 10M points {plain_10m:.3f} ms, "
@@ -1871,7 +2000,8 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
     def entry(name, source, replaces, key, launches, plain_ms, e, **more):
         ms, b_tc, by, b_cc = times[key]
         return {"name": name, **common, "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "launches": launches, "max_abs_err": e, "ms": ms,
+                "plain_ms": plain_ms,
                 "bound_ms": b_tc, "bound_by": by, "bound_ms_cuda_cores": b_cc, **more}
 
     k2_entry = entry("k2_mlp_fwd_tangents[f32x3]", K2_SOURCE, REPLACES, "k2 cmb grid",

@@ -22,9 +22,10 @@
 // Outputs: every parameter gradient and the statistics, summed over points.
 //
 // Design. The forward replay, the layer-state scratch and the backward walk
-// (per-layer block product over 128 points, per-block partial rows, the
-// ordered second-pass sum, no atomics) are mlp_bwd_common.cuh's under its
-// StoreAll policy (K1 is always the JAX 'stream' body), which K3 and K4
+// (a lane pair per point, tiles sized per launch, the per-layer block
+// product on every thread, per-block partial rows, the ordered second-pass
+// sum, no atomics) are mlp_bwd_common.cuh's under its StoreAll policy (K1
+// is always the JAX 'stream' body), which K3 and K4
 // share; this file holds the continuity epilogue that turns the last state
 // into the loss statistics and the output cotangents, and instantiates the
 // walk at K=2 with three heads. At the bf16 tier (k1_train_step_bf16) the
@@ -38,9 +39,9 @@
 // that backward (476,000), plus L*W tanhf, against a few bytes of inputs
 // and ~0.6 MB of weights and gradients: the CUDA cores' f32 FMA rate bounds
 // it. What the design spends beyond that: the layer states go to device
-// memory and back (24,000 B per point at the flagship, ~0.6 GB of traffic
-// at 12,516 points, mostly served by L2 only in part), and the per-layer
-// block product reads shared memory once per two FMAs. Tensor cores are
+// memory and back once (24,240 B per point at the flagship, ~0.6 GB of
+// traffic at 12,516 points), the lane pairs' shuffles and the block
+// products' shared-memory loads (mlp_bwd_common.cuh). Tensor cores are
 // left for later work (ROADMAP.md).
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
@@ -58,9 +59,7 @@
 
 namespace {
 
-using mlp_bwd::kLd;
 using mlp_bwd::kMaxIn;
-using mlp_bwd::kThreads;
 using mlp_bwd::accumulate;
 
 constexpr int kOut = 3;                // heads (U, V, h)
@@ -74,8 +73,8 @@ struct Args {
 };
 
 // Steps 2-4 of the header: from the last state, the loss terms of one point
-// and the output cotangents; the statistics are staged after the
-// cotangents and summed over the block's points.
+// and the output cotangents (both lanes of a pair); the statistics are
+// staged after the cotangents (lane 0) and summed over the tile's points.
 struct ContinuityEpilogue {
   static constexpr int kMaxOut = kOut;
   static constexpr int kExtra = kStats;
@@ -150,26 +149,26 @@ struct ContinuityEpilogue {
     ybt[1][2] = fbar * V;
   }
 
-  __device__ __forceinline__ void stage(float* __restrict__ sB) const {
-    sB[kStatRow * kLd] = fc * fc;
-    sB[(kStatRow + 1) * kLd] = anch * anch;
+  __device__ __forceinline__ void stage(float* __restrict__ sB, int ld) const {
+    sB[kStatRow * ld] = fc * fc;
+    sB[(kStatRow + 1) * ld] = anch * anch;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) sB[(kStatRow + 2 + j) * kLd] = err[j] * err[j];
+    for (int j = 0; j < 3; ++j) sB[(kStatRow + 2 + j) * ld] = err[j] * err[j];
   }
 
-  __device__ __forceinline__ void reduce(const float* __restrict__ s_B,
+  __device__ __forceinline__ void reduce(const float* __restrict__ s_B, int ld, int P,
                                          float* __restrict__ g_stats, bool first) const {
-    for (int s = threadIdx.x; s < 5; s += kThreads) {
+    for (int s = threadIdx.x; s < 5; s += blockDim.x) {
       float acc = 0.f;
-      for (int q = 0; q < kThreads; ++q) acc += s_B[(kStatRow + s) * kLd + q];
+      for (int q = 0; q < P; ++q) acc += s_B[(kStatRow + s) * ld + q];
       g_stats[s] = accumulate(g_stats + s, acc, first);
     }
-    for (int s = 5 + threadIdx.x; s < kStats; s += kThreads) g_stats[s] = 0.f;
+    for (int s = 5 + threadIdx.x; s < kStats; s += blockDim.x) g_stats[s] = 0.f;
   }
 };
 
 template <class Tier, int W, int ACT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mlp_bwd::kMaxThreads<Tier, W>)
 k1_train_step_kernel(const Args args) {
   extern __shared__ __align__(16) unsigned char smem[];
   ContinuityEpilogue epi(args);
@@ -179,8 +178,9 @@ k1_train_step_kernel(const Args args) {
 constexpr int kStreams = 3;  // the primal and two tangent streams
 
 template <class Tier>
-int chunk_layers(int n_stack) {
-  return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack, sizeof(typename Tier::WT), 0);
+int chunk_layers(int n_stack, int tile) {
+  return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack, sizeof(typename Tier::WT), 0,
+                               tile);
 }
 
 template <class Tier>
@@ -188,29 +188,29 @@ int run(const float* coords, const float* trues, const float* sel, const float* 
         const float* scal, const float* w_in, const float* b_in, const float* w_h,
         const float* b_h, const float* w_out, const float* b_out, float* partial,
         float* states, float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
-        int act, int grid, void* stream) {
+        int act, int grid, int tile, void* stream) {
+  constexpr int W = K1_WIDTH;
   if (n <= 0 || d_in < 2 || d_in > kMaxIn || n_stack < 0 || n_true < 1 || n_true > 3 ||
-      (has_anchor && n_true > 2) || (act != 0 && act != 1) || grid < 1 ||
-      grid > (n + kThreads - 1) / kThreads)
+      (has_anchor && n_true > 2) || (act != 0 && act != 1) ||
+      !mlp_bwd::plan_ok<Tier, W>(n, tile, grid))
     return cudaErrorInvalidValue;
   int chunk = 0;
   if (n_stack > 0) {
-    chunk = chunk_layers<Tier>(n_stack);
+    chunk = chunk_layers<Tier>(n_stack, tile);
     if (chunk < 1) return cudaErrorInvalidValue;
   }
-  constexpr int W = K1_WIDTH;
   const long long n_ent = mlp_bwd::n_params(W, d_in, kOut, n_stack) + kStats;
   const Args a{{coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, kOut,
-                n_stack, chunk, 0},
+                n_stack, chunk, 0, tile},
                trues, sel, mask, scal, n_true, has_anchor};
   const size_t smem =
-      mlp_bwd::smem_bytes(W, kStreams, kOut, chunk, sizeof(typename Tier::WT), 0);
+      mlp_bwd::smem_bytes(W, kStreams, kOut, chunk, sizeof(typename Tier::WT), 0, tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return act == 0
-             ? mlp_bwd::launch(k1_train_step_kernel<Tier, W, 0>, a, smem, grid, partial, out,
-                               static_cast<int>(n_ent), s)
-             : mlp_bwd::launch(k1_train_step_kernel<Tier, W, 1>, a, smem, grid, partial, out,
-                               static_cast<int>(n_ent), s);
+             ? mlp_bwd::launch(k1_train_step_kernel<Tier, W, 0>, a, smem, grid, tile, partial,
+                               out, static_cast<int>(n_ent), s)
+             : mlp_bwd::launch(k1_train_step_kernel<Tier, W, 1>, a, smem, grid, tile, partial,
+                               out, static_cast<int>(n_ent), s);
 }
 
 }  // namespace
@@ -219,43 +219,63 @@ extern "C" {
 
 int k1_width() { return K1_WIDTH; }
 
-int k1_threads() { return kThreads; }
+// Threads per point: a block of a tile of P points has k1_lanes() * P
+// threads.
+int k1_lanes() { return mlp_bwd::kLanes; }
 
 const char* k1_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Hidden layers one shared-memory chunk holds on the current device (0 when
-// not even one fits beside the staging rows), per tier.
+// The most points a tile may hold, per tier.
 #if WITH_TIER(0)
-int k1_chunk_layers(int n_stack) { return chunk_layers<tier::TierF32>(n_stack); }
+int k1_max_tile() { return mlp_bwd::max_tile<tier::TierF32, K1_WIDTH>(); }
 #endif
 
 #if WITH_TIER(1)
-int k1_chunk_layers_bf16(int n_stack) { return chunk_layers<tier::TierBf16>(n_stack); }
+int k1_max_tile_bf16() { return mlp_bwd::max_tile<tier::TierBf16, K1_WIDTH>(); }
 #endif
 
 #if WITH_TIER(2)
-int k1_chunk_layers_f32x3(int n_stack) { return chunk_layers<tier::TierF32x3>(n_stack); }
+int k1_max_tile_f32x3() { return mlp_bwd::max_tile<tier::TierF32x3, K1_WIDTH>(); }
 #endif
 
-// One training-step evaluation: K1 on a grid of `grid` blocks into
-// `partial` (grid rows of n_params + 8 floats), then the fixed-order
-// reduction into `out` (n_params + 8: the gradients in sorted-key order,
-// then the statistics). `states` holds grid * (n_stack + 1) * 3W * 128
-// floats. Returns a cudaError_t; nothing synchronises. k1_train_step_bf16
-// and k1_train_step_f32x3 take the same arguments at the bf16 and f32x3
-// tiers.
+// Hidden layers one shared-memory chunk holds on the current device for
+// tiles of `tile` points (0 when not even one fits beside the staging
+// rows), per tier.
+#if WITH_TIER(0)
+int k1_chunk_layers(int n_stack, int tile) { return chunk_layers<tier::TierF32>(n_stack, tile); }
+#endif
+
+#if WITH_TIER(1)
+int k1_chunk_layers_bf16(int n_stack, int tile) {
+  return chunk_layers<tier::TierBf16>(n_stack, tile);
+}
+#endif
+
+#if WITH_TIER(2)
+int k1_chunk_layers_f32x3(int n_stack, int tile) {
+  return chunk_layers<tier::TierF32x3>(n_stack, tile);
+}
+#endif
+
+// One training-step evaluation: K1 on a grid of `grid` blocks of tiles of
+// `tile` points (ops/walk_plan.py) into `partial` (grid rows of n_params +
+// 8 floats), then the fixed-order reduction into `out` (n_params + 8: the
+// gradients in sorted-key order, then the statistics). `states` holds
+// grid * (n_stack + 1) * 3W * tile floats. Returns a cudaError_t; nothing
+// synchronises. k1_train_step_bf16 and k1_train_step_f32x3 take the same
+// arguments at the bf16 and f32x3 tiers.
 #if WITH_TIER(0)
 int k1_train_step(const float* coords, const float* trues, const float* sel,
                   const float* mask, const float* scal, const float* w_in,
                   const float* b_in, const float* w_h, const float* b_h,
                   const float* w_out, const float* b_out, float* partial, float* states,
                   float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
-                  int act, int grid, void* stream) {
+                  int act, int grid, int tile, void* stream) {
   return run<tier::TierF32>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out, b_out,
                             partial, states, out, n, d_in, n_stack, n_true, has_anchor, act,
-                            grid, stream);
+                            grid, tile, stream);
 }
 #endif
 
@@ -265,10 +285,10 @@ int k1_train_step_bf16(const float* coords, const float* trues, const float* sel
                        const float* b_in, const float* w_h, const float* b_h,
                        const float* w_out, const float* b_out, float* partial, float* states,
                        float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
-                       int act, int grid, void* stream) {
+                       int act, int grid, int tile, void* stream) {
   return run<tier::TierBf16>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out,
                              b_out, partial, states, out, n, d_in, n_stack, n_true, has_anchor,
-                             act, grid, stream);
+                             act, grid, tile, stream);
 }
 #endif
 
@@ -278,10 +298,10 @@ int k1_train_step_f32x3(const float* coords, const float* trues, const float* se
                         const float* b_in, const float* w_h, const float* b_h,
                         const float* w_out, const float* b_out, float* partial, float* states,
                         float* out, int n, int d_in, int n_stack, int n_true, int has_anchor,
-                        int act, int grid, void* stream) {
+                        int act, int grid, int tile, void* stream) {
   return run<tier::TierF32x3>(coords, trues, sel, mask, scal, w_in, b_in, w_h, b_h, w_out,
                               b_out, partial, states, out, n, d_in, n_stack, n_true, has_anchor,
-                              act, grid, stream);
+                              act, grid, tile, stream);
 }
 #endif
 

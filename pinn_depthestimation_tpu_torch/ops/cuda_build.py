@@ -214,19 +214,21 @@ def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k1", {"train_step": [_P] * 14 + [_I] * 7 + [_P],
-                             "width": [], "threads": [], "chunk_layers": [_I]})
+    return _bind(lib, "k1", {"train_step": [_P] * 14 + [_I] * 8 + [_P],
+                             "width": [], "lanes": [], "max_tile": [],
+                             "chunk_layers": [_I, _I]})
 
 
 def _bind_k3(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k3", {"mlp_bwd": [_P] * 12 + [_I] * 7 + [_P],
-                             "width": [], "threads": [], "chunk_layers": [_I, _I]})
+    return _bind(lib, "k3", {"mlp_bwd": [_P] * 12 + [_I] * 8 + [_P],
+                             "width": [], "lanes": [], "max_tile": [],
+                             "chunk_layers": [_I] * 3})
 
 
 def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k4", {"mlp_bwd": [_P] * 12 + [_I] * 8 + [_P],
-                             "width": [], "threads": [], "ckpt_every": [_I] * 3,
-                             "chunk_layers": [_I] * 3})
+    return _bind(lib, "k4", {"mlp_bwd": [_P] * 12 + [_I] * 9 + [_P],
+                             "width": [], "lanes": [], "max_tile": [],
+                             "ckpt_every": [_I] * 4, "chunk_layers": [_I] * 4})
 
 
 @functools.cache

@@ -47,6 +47,7 @@ import torch
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.ops import tiers
 from pinn_depthestimation_tpu_torch.ops.cuda_build import K1_WIDTHS, k1_library
+from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
 from pinn_depthestimation_tpu_torch.ops.kernels import (
     _ACT,
     _MAX_POINTS,
@@ -285,13 +286,8 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
     lib = lib or k1_library().libs[spec.width]
     dev = b.coords.device
     n, W, n_stack = b.coords.shape[0], spec.width, spec.n_hidden - 1
-    threads = lib.k1_threads()
-    n_tiles = -(-n // threads)
-    grid = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_ent = n_flat(spec) + N_STATS
-    partial = torch.empty((grid, n_ent), dtype=torch.float32, device=dev)
-    states = torch.empty((grid * (n_stack + 1) * 3 * W * threads,), dtype=torch.float32, device=dev)
-    out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
+    plan = card_plan(lib, "k1", precision, n, dev)
+    partial, states, out = plan.scratch(n_flat(spec) + N_STATS, n_stack + 1, 1 + KT, W, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(lib, "k1_train_step", precision)(
@@ -299,14 +295,14 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
             b.scal.data_ptr(),
             *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
             partial.data_ptr(), states.data_ptr(), out.data_ptr(),
-            n, spec.d_in, n_stack, b.n_true, int(b.has_anchor), _ACT[spec.init_type], grid,
-            stream,
+            n, spec.d_in, n_stack, b.n_true, int(b.has_anchor), _ACT[spec.init_type], plan.grid,
+            plan.tile, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"K1 launch failed: CUDA error {err} ({lib.k1_error_string(err).decode()}) "
             f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}, "
-            f"precision={precision}"
+            f"precision={precision}, tile={plan.tile}, grid={plan.grid}"
         )
     return out
 

@@ -57,6 +57,7 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
 )
 from pinn_depthestimation_tpu_torch.ops.kernels_step import n_flat, unflatten
 from pinn_depthestimation_tpu_torch.ops.tiers import BWD_IMPL_DEFAULT
+from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
 
 
 def kernel_supports(spec: MLPSpec) -> bool:
@@ -153,41 +154,47 @@ def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
     lib = lib or k3_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
-    threads = lib.k3_threads()
-    grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_ent = n_flat(spec)
-    partial = torch.empty((grid, n_ent), dtype=torch.float32, device=dev)
-    states = torch.empty((grid * (n_stack + 1) * (1 + n_tangents) * W * threads,),
-                         dtype=torch.float32, device=dev)
-    out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
+    plan = card_plan(lib, "k3", precision, n, dev)
+    partial, states, out = plan.scratch(n_flat(spec), n_stack + 1, 1 + n_tangents, W, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(lib, "k3_mlp_bwd", precision)(
             coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
             *(params[k].data_ptr() for k in _WEIGHT_ORDER),
             partial.data_ptr(), states.data_ptr(), out.data_ptr(),
-            n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], grid, stream,
+            n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], plan.grid,
+            plan.tile, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"K3 launch failed: CUDA error {err} ({lib.k3_error_string(err).decode()}) "
-            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, precision={precision}"
+            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, precision={precision}, "
+            f"tile={plan.tile}, grid={plan.grid}"
         )
     return out
 
 
 def rebuild_ckpt_every(spec: MLPSpec, n_tangents: int, precision: str,
-                       ckpt_every: int = 0, lib=None) -> int:
-    """K4's segment length C on the current card: ``ckpt_every`` cut to the
-    stack depth, or with 0 the largest C <= 8 that leaves the whole stack in
-    one shared-memory chunk (``mlp_bwd::rebuild_plan``). Raises when the
-    segment buffer does not fit. ``lib``: another build of K4."""
+                       ckpt_every: int = 0, lib=None, *, n_points: int) -> int:
+    """K4's segment length C on the current card for a launch on
+    ``n_points`` points (the tile of :func:`ops.walk_plan.walk_plan` sets
+    the segment buffer's size): ``ckpt_every`` cut to the stack depth, or
+    with 0 the largest C <= 8 that leaves the whole stack in one
+    shared-memory chunk, else half of it (``mlp_bwd::rebuild_plan``). Raises
+    when the segment buffer does not fit. ``lib``: another build of K4."""
     lib = lib or k4_library().libs[spec.width]
-    c = entry(lib, "k4_ckpt_every", precision)(spec.n_hidden - 1, n_tangents, ckpt_every)
+    plan = card_plan(lib, "k4", precision, n_points, torch.cuda.current_device())
+    return _ckpt_every(lib, spec, n_tangents, precision, ckpt_every, plan.tile)
+
+
+def _ckpt_every(lib, spec: MLPSpec, n_tangents: int, precision: str, ckpt_every: int,
+                tile: int) -> int:
+    """:func:`rebuild_ckpt_every` for a launch whose plan has ``tile``."""
+    c = entry(lib, "k4_ckpt_every", precision)(spec.n_hidden - 1, n_tangents, ckpt_every, tile)
     if c < 1:
         raise ValueError(
             f"K4: a segment buffer of {ckpt_every} states does not fit in shared memory "
-            f"at sizes {spec.sizes}, K={n_tangents}, precision={precision}"
+            f"at sizes {spec.sizes}, K={n_tangents}, precision={precision}, tile={tile}"
         )
     return c
 
@@ -200,28 +207,24 @@ def _launch_k4(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
     lib = lib or k4_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
-    c = rebuild_ckpt_every(spec, n_tangents, precision, ckpt_every, lib)
-    threads = lib.k4_threads()
-    grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_ent = n_flat(spec)
-    n_ckpt = max(1, -(-n_stack // c))
-    partial = torch.empty((grid, n_ent), dtype=torch.float32, device=dev)
-    states = torch.empty((grid * n_ckpt * (1 + n_tangents) * W * threads,),
-                         dtype=torch.float32, device=dev)
-    out = torch.empty((n_ent,), dtype=torch.float32, device=dev)
+    plan = card_plan(lib, "k4", precision, n, dev)
+    c = _ckpt_every(lib, spec, n_tangents, precision, ckpt_every, plan.tile)
+    partial, states, out = plan.scratch(n_flat(spec), max(1, -(-n_stack // c)),
+                                        1 + n_tangents, W, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(lib, "k4_mlp_bwd", precision)(
             coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
             *(params[k].data_ptr() for k in _WEIGHT_ORDER),
             partial.data_ptr(), states.data_ptr(), out.data_ptr(),
-            n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], c, grid,
-            stream,
+            n, spec.d_in, spec.d_out, n_stack, n_tangents, _ACT[spec.init_type], c, plan.grid,
+            plan.tile, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"K4 launch failed: CUDA error {err} ({lib.k4_error_string(err).decode()}) "
-            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, C={c}, precision={precision}"
+            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, C={c}, precision={precision}, "
+            f"tile={plan.tile}, grid={plan.grid}"
         )
     return out
 
@@ -258,8 +261,9 @@ def packed_mlp_bwd_rebuild(params, coords, ybar, dybar, spec: MLPSpec, n_tangent
                            ckpt_every: int = 0) -> dict[str, torch.Tensor]:
     """K4: :func:`packed_mlp_bwd`'s gradients by segmented recomputation
     (the JAX ``impl='rebuild'``), segments of ``ckpt_every`` layers (0: the
-    planned C, :func:`rebuild_ckpt_every`). A CPU ``coords`` runs
-    :func:`packed_mlp_bwd_plain`; a CUDA one launches K4."""
+    planned C, :func:`rebuild_ckpt_every` at this call's point count). A
+    CPU ``coords`` runs :func:`packed_mlp_bwd_plain`; a CUDA one launches
+    K4."""
     check_precision(precision, "K4")
     if not _on_cuda(coords, "K4"):
         return packed_mlp_bwd_plain(params, coords, ybar, dybar, spec, n_tangents, precision)

@@ -134,6 +134,88 @@ def test_cuda_train_step_matches_plain_on_card(cuda_device, sizes, init_type, n_
     assert torch.equal(t, t2) and all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
 
 
+def ragged_n(which: str, lib, kernel: str, precision: str) -> int:
+    """A point count around the walk's tiles (ops/walk_plan.py): one point,
+    one either side of the smallest tile, the flagship's 12,516, and one
+    either side of a full wave of the width's largest tiles (the last block
+    then walks a second tile of one point, or the last tile is one short)."""
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+    from pinn_depthestimation_tpu_torch.ops.walk_plan import TILE_STEP
+
+    wave = (torch.cuda.get_device_properties(0).multi_processor_count
+            * entry(lib, f"{kernel}_max_tile", precision)())
+    return {"1": 1, "tile-1": TILE_STEP - 1, "tile+1": TILE_STEP + 1, "12516": 12_516,
+            "wave-1": wave - 1, "wave+1": wave + 1}[which]
+
+
+RAGGED = ("1", "tile-1", "tile+1", "12516", "wave-1", "wave+1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [20, 10])
+@pytest.mark.parametrize("which", RAGGED)
+def test_cuda_train_step_ragged_tiles(cuda_device, width, which):
+    """K1 against its plain version at point counts around the tiles, at
+    the flagship's width and at width 10 (five neurons per lane)."""
+    sizes = (2,) + (width,) * 6 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=13), cuda_device)
+    n = ragged_n(which, kernels_step.k1_library().libs[width], "k1", "f32")
+    rs = np.random.RandomState(14)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    x[0, 0] = -0.5  # at least one anchored point
+    trues = torch.from_numpy((rs.randn(n, 2) * 0.1).astype(np.float32)).to(cuda_device)
+    mask = torch.ones(n, device=cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float(), mask, [1.0, 1.0], 2,
+                                     1.0, 1.0, anchor_depth=0.6, has_anchor=True)
+    (t, (f, r)), g = kernels_step.fused_loss_and_grad(params, b, spec)
+    (t_p, (f_p, r_p)), g_p = kernels_step.fused_loss_and_grad_plain(params, b, spec)
+    for got, want in [(t, t_p), (f, f_p), (r, r_p)] + [(g[k], g_p[k]) for k in g]:
+        assert_close_to_plain(got, want)
+    (t2, _), g2 = kernels_step.fused_loss_and_grad(params, b, spec)
+    assert torch.equal(t, t2) and all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", RAGGED)
+def test_cuda_k3_ragged_tiles(cuda_device, which):
+    """K3 on the CMB net at K=2 at point counts around the tiles."""
+    sizes = (2,) + (10,) * 10 + (6,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=15), cuda_device)
+    n = ragged_n(which, kernels_vjp.k3_library().libs[10], "k3", "f32")
+    rs = np.random.RandomState(16)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, 6).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(2, n, 6).astype(np.float32)).to(cuda_device)
+    g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2)
+    g_p = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, 2)
+    for k in g:
+        assert_close_to_plain(g[k], g_p[k])
+    g2 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2)
+    assert all(torch.equal(g[k], g2[k]) for k in g)  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
+def test_cuda_libraries_report_the_walk_layout(cuda_device, kernel):
+    """Every width's library answers, at each tier, the lane count and the
+    largest tile that the CPU tests of the launch plan
+    (tests/test_torch_walk_plan.py) take for ``mlp_bwd::kLanes`` and
+    ``mlp_bwd::max_tile``: 160 points for widths <= 10 at f32 and bf16,
+    else 128."""
+    from pinn_depthestimation_tpu_torch.ops.cuda_build import TIERS
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+
+    library = {"k1": kernels_step.k1_library, "k3": kernels_vjp.k3_library,
+               "k4": kernels_vjp.k4_library}[kernel]()
+    for width, lib in library.libs.items():
+        assert getattr(lib, f"{kernel}_lanes")() == 2
+        for precision in TIERS:
+            want = 160 if width <= 10 and precision != "f32x3" else 128
+            assert entry(lib, f"{kernel}_max_tile", precision)() == want, (width, precision)
+
+
 @pytest.mark.cuda
 def test_cuda_training_launches_k1_once_per_evaluation(cuda_device, tmp_path):
     from pinn_depthestimation_tpu_torch.config import parse_config
@@ -347,11 +429,13 @@ def test_cuda_k4_segment_lengths_agree(cuda_device):
                                                     precision=precision, ckpt_every=c)
             for k in g3:
                 assert_close_to_plain(g4[k], g3[k])
-        # a segment buffer of 8 states (245,760 B) does not fit beside the
-        # staging rows; the planned C does
+        # at 20,000 points (tiles of 128) a segment buffer of 8 states
+        # (245,760 B) does not fit beside the staging rows; the planned C
+        # does, and at 517 points (tiles of 16) up to 8 fit
         with pytest.raises(ValueError, match="does not fit"):
-            kernels_vjp.rebuild_ckpt_every(spec, 2, precision, 8)
-        assert 1 <= kernels_vjp.rebuild_ckpt_every(spec, 2, precision) <= 5
+            kernels_vjp.rebuild_ckpt_every(spec, 2, precision, 8, n_points=20_000)
+        assert 1 <= kernels_vjp.rebuild_ckpt_every(spec, 2, precision, n_points=20_000) <= 5
+        assert 1 <= kernels_vjp.rebuild_ckpt_every(spec, 2, precision, n_points=517) <= 8
 
 
 @pytest.mark.cuda

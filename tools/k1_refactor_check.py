@@ -1,33 +1,46 @@
 #!/usr/bin/env python3
-"""Check that the f32 and bf16 builds of K2, K1, K3 and K4 compute the same
-bits as another build of their sources, and time both builds.
+"""Hold the kernels of this tree against another build of their sources, and
+time both builds.
 
-    python3 tools/k1_refactor_check.py --other-dir OLD_CSRC [--tiers f32,bf16]
-                                       [--kernels k2,k1,k3,k4] [--time]
+    python3 tools/k1_refactor_check.py --other-dir OLD_CSRC [--tiers f32,bf16,f32x3]
+                                       [--kernels k2,k1,k3,k4] [--exact k2] [--time]
 
 Needs one CUDA card and nvcc. ``OLD_CSRC`` holds another version of the
 kernels' sources (for example those of a parent commit:
 ``mlp_fwd_tangents.cu``, ``continuity_train_step.cu``, ``mlp_bwd.cu``,
 ``mlp_bwd_rebuild.cu`` and the headers they include, from ``git show
 <commit>:pinn_depthestimation_tpu_torch/csrc/<file>``). The tool builds them
-into a temporary directory with the port's own nvcc flags, every nvcc
-started together, then runs the cases of ``chip_smoke.py``'s phases 3 (K2),
-7 (K1) and 11 (K3, and K4 on the same cases) through the port's entry
-points and through the other build, at each tier of ``--tiers``, and
-compares every output bit for bit: K2's y, dy and continuity residual,
-K1's flat result (every gradient and the loss statistics), K3's and K4's
-flat gradients. ``--kernels`` limits the check to kernels the other
-sources have (K4 and the bf16 entries came later than K2, K1 and K3).
-``--time`` also times, with CUDA events, K1 on the flagship's 12,516 grid
-points and K2's continuity residual at 10M points at f32, both builds in
-turns (other, ours, ours, other), and prints each time with the card's
-name and power limit. Exits 1 if any output differs or a build fails.
+into a temporary directory with the port's own nvcc flags, one ``nvcc`` per
+kernel, width and tier, started together with the port's own build, then
+runs the cases of ``chip_smoke.py``'s phases 3 (K2), 7 (K1) and 11 (K3, and
+K4 on the same cases) through this tree's launchers and through the other
+build, at each tier of ``--tiers``, and compares K2's y, dy and continuity
+residual, K1's flat result (every gradient and the loss statistics), and
+K3's and K4's flat gradients. Kernels named in ``--exact`` must give the
+same bits; the others, whose walk may sum in another order, are held to
+``chip_smoke.py``'s tolerances: at f32 max|ours - theirs| <= 1e-4 x
+max|theirs| + 1e-7, at bf16 and f32x3 ``compare_tier`` with the other
+build in the plain tier version's place (two valid summation orders of
+one function). Libraries whose walk takes a fixed 128-point tile (no
+``<kernel>_lanes`` entry) are bound and launched as that walk was.
+``--kernels`` limits the check to kernels the other sources have (K4 and
+the bf16 entries came later than K2, K1 and K3, f32x3 later still).
+
+``--time`` also times both builds in turns (other, ours, ours, other), with
+CUDA events and with the device time ``torch.profiler`` records
+(``chip_smoke.device_ms``): K1 on the flagship's 12,516 grid points and K3
+on the 20,507-point CMB grid at K=2, at each tier of ``--tiers``; K4 at the
+flagship (K=2) and on the CMB grid, at each tier; K2's continuity residual
+at 10M points at f32. It prints each time with the card's name and power
+limit, then a table of the means with the ratio. Exits 1 if a check fails
+or a build fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import glob
 import os
 import shutil
@@ -38,49 +51,164 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+TIER_INDEX = {"f32": 0, "bf16": 1, "f32x3": 2}
 
-def build(other_dir: str, tmp: str, widths: dict[str, set[int]]) -> dict:
-    """The other sources' libraries ``{(kernel, width): CDLL}``, bound as the
-    port binds its own."""
+
+def bind(kind: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind ``lib`` as the port binds its own, or, for a walk with a fixed
+    128-point tile (no ``<kind>_lanes`` entry), with that walk's arguments."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build
+
+    if kind == "k2" or hasattr(lib, f"{kind}_lanes"):
+        return {"k2": cuda_build._bind_k2, "k1": cuda_build._bind_k1,
+                "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}[kind](lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sig = {"k1": {"train_step": [P] * 14 + [I] * 7 + [P], "threads": [], "chunk_layers": [I]},
+           "k3": {"mlp_bwd": [P] * 12 + [I] * 7 + [P], "threads": [], "chunk_layers": [I, I]},
+           "k4": {"mlp_bwd": [P] * 12 + [I] * 8 + [P], "threads": [], "ckpt_every": [I] * 3,
+                  "chunk_layers": [I] * 3}}[kind]
+    return cuda_build._bind(lib, kind, sig)
+
+
+def start_build(other_dir: str, tmp: str, widths: dict[str, set[int]], tiers) -> dict:
+    """Start one nvcc per (kernel, width, tier) of the other sources; returns
+    what :func:`finish_build` waits for."""
     from pinn_depthestimation_tpu_torch.ops import cuda_build
 
     src_dir = os.path.join(tmp, "src")
     os.makedirs(src_dir)
     for f in glob.glob(os.path.join(other_dir, "*.cu")) + glob.glob(os.path.join(other_dir, "*.cuh")):
         shutil.copy(f, src_dir)
-    kinds = {"k2": (cuda_build.K2_SOURCE, "K2_WIDTH", cuda_build._bind_k2),
-             "k1": (cuda_build.K1_SOURCE, "K1_WIDTH", cuda_build._bind_k1),
-             "k3": (cuda_build.K3_SOURCE, "K3_WIDTH", cuda_build._bind_k3),
-             "k4": (cuda_build.K4_SOURCE, "K4_WIDTH", cuda_build._bind_k4)}
+    sources = {"k2": (cuda_build.K2_SOURCE, "K2_WIDTH"), "k1": (cuda_build.K1_SOURCE, "K1_WIDTH"),
+               "k3": (cuda_build.K3_SOURCE, "K3_WIDTH"), "k4": (cuda_build.K4_SOURCE, "K4_WIDTH")}
     procs = {}
     for kind, ws in widths.items():
-        source, macro, _ = kinds[kind]
+        source, macro = sources[kind]
         for w in sorted(ws):
-            out = os.path.join(tmp, f"lib{kind}_other_{w}.so")
-            cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{macro}={w}", "-o", out,
-                   os.path.join(src_dir, source)]
-            procs[(kind, w)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True), out)
-    libs = {}
-    for (kind, w), (proc, out) in procs.items():
+            for tier in tiers:
+                out = os.path.join(tmp, f"lib{kind}_other_{w}_{tier}.so")
+                cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{macro}={w}",
+                       f"-DTIER_ONLY={TIER_INDEX[tier]}", "-o", out, os.path.join(src_dir, source)]
+                procs[(kind, w, tier)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                           stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def finish_build(procs: dict) -> dict:
+    """The other build's libraries ``{(kernel, width): library}``, one
+    library per width answering every tier, as the port's are."""
+    from pinn_depthestimation_tpu_torch.ops.cuda_build import WidthLibrary
+
+    per = {}
+    for (kind, w, tier), (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the other {kind} at width {w}:\n{log[-3000:]}")
-        libs[(kind, w)] = kinds[kind][2](ctypes.CDLL(out))
-    return libs
+            raise RuntimeError(f"nvcc failed for the other {kind} at width {w}, {tier}:\n"
+                               f"{log[-3000:]}")
+        per.setdefault((kind, w), []).append(bind(kind, ctypes.CDLL(out)))
+    return {key: WidthLibrary(libs) for key, libs in per.items()}
+
+
+def _fixed_tile_scratch(lib, threads_fn: str, n: int, states_per_block: int, streams: int,
+                        width: int, n_ent: int, dev):
+    """Grid, partial rows, state scratch and output of a walk whose tile is
+    a fixed ``<kernel>_threads()`` points, one thread each."""
+    import torch
+
+    threads = getattr(lib, threads_fn)()
+    grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
+    f32 = torch.float32
+    return (grid, torch.empty((grid, n_ent), dtype=f32, device=dev),
+            torch.empty((grid * states_per_block * streams * width * threads,), dtype=f32,
+                        device=dev),
+            torch.empty((n_ent,), dtype=f32, device=dev))
+
+
+def _stream(dev):
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_k1(lib, params, b, spec, precision: str = "f32"):
+    """K1's flat result from ``lib``: through the port's launcher where the
+    library sizes its tile per launch (``k1_lanes``), else with the fixed
+    128-point tile of the older walk."""
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+
+    if hasattr(lib, "k1_lanes"):
+        return kernels_step._launch_k1(params, b, spec, lib=lib, precision=precision)
+    dev, n, n_stack = b.coords.device, b.coords.shape[0], spec.n_hidden - 1
+    grid, partial, states, out = _fixed_tile_scratch(
+        lib, "k1_threads", n, n_stack + 1, 3, spec.width,
+        kernels_step.n_flat(spec) + kernels_step.N_STATS, dev)
+    err = kernels.entry(lib, "k1_train_step", precision)(
+        b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
+        b.scal.data_ptr(), *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
+        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, n_stack,
+        b.n_true, int(b.has_anchor), kernels._ACT[spec.init_type], grid, _stream(dev))
+    if err:
+        raise RuntimeError(f"K1 (fixed tile) launch failed: CUDA error {err}")
+    return out
+
+
+def launch_k3(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"):
+    """K3's flat gradients from ``lib`` (either walk, as :func:`launch_k1`)."""
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+
+    if hasattr(lib, "k3_lanes"):
+        return kernels_vjp._launch_k3(params, x, ybar, dybar, spec, kt, precision, lib=lib)
+    dev, n, n_stack = x.device, x.shape[0], spec.n_hidden - 1
+    grid, partial, states, out = _fixed_tile_scratch(
+        lib, "k3_threads", n, n_stack + 1, 1 + kt, spec.width, kernels_step.n_flat(spec), dev)
+    err = kernels.entry(lib, "k3_mlp_bwd", precision)(
+        x.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if kt else None,
+        *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
+        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, spec.d_out,
+        n_stack, kt, kernels._ACT[spec.init_type], grid, _stream(dev))
+    if err:
+        raise RuntimeError(f"K3 (fixed tile) launch failed: CUDA error {err}")
+    return out
+
+
+def launch_k4(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"):
+    """K4's flat gradients from ``lib`` at its planned segment length
+    (either walk, as :func:`launch_k1`)."""
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+
+    if hasattr(lib, "k4_lanes"):
+        return kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, precision, lib=lib)
+    dev, n, n_stack = x.device, x.shape[0], spec.n_hidden - 1
+    c = kernels.entry(lib, "k4_ckpt_every", precision)(n_stack, kt, 0)
+    if c < 1:
+        raise RuntimeError("K4 (fixed tile): no segment length fits")
+    grid, partial, states, out = _fixed_tile_scratch(
+        lib, "k4_threads", n, max(1, -(-n_stack // c)), 1 + kt, spec.width,
+        kernels_step.n_flat(spec), dev)
+    err = kernels.entry(lib, "k4_mlp_bwd", precision)(
+        x.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if kt else None,
+        *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
+        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, spec.d_out,
+        n_stack, kt, kernels._ACT[spec.init_type], c, grid, _stream(dev))
+    if err:
+        raise RuntimeError(f"K4 (fixed tile) launch failed: CUDA error {err}")
+    return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other-dir", required=True,
                         help="a directory with the other version of the kernels' sources")
-    parser.add_argument("--tiers", default="f32,bf16", help="tiers to compare (f32, bf16)")
+    parser.add_argument("--tiers", default="f32,bf16,f32x3", help="tiers to compare")
     parser.add_argument("--kernels", default="k2,k1,k3,k4", help="kernels to compare")
+    parser.add_argument("--exact", default="k2",
+                        help="kernels that must give the same bits as the other build")
     parser.add_argument("--time", action="store_true",
-                        help="time K1 (flagship) and K2 (10M-point residual) of both builds")
+                        help="time K1, K3, K4 and K2 of both builds in turns")
     args = parser.parse_args()
     tiers = args.tiers.split(",")
     wanted = set(args.kernels.split(","))
+    exact = set(args.exact.split(",")) if args.exact else set()
 
     import torch
 
@@ -93,26 +221,50 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi("name,power.limit"))
-    same = True
+    failed = []
 
-    def check(label: str, ours, theirs) -> None:
-        nonlocal same
+    def check(kind: str, tier: str, label: str, ours, theirs, plain=None):
+        """Ours against theirs: bits for the ``--exact`` kernels, else each
+        output to the tolerance of the tier (above); ``plain``: the outputs'
+        plain versions at f32 and at the tier with f64 sums, for
+        ``compare_tier``."""
         torch.cuda.synchronize()
-        equal = torch.equal(ours, theirs)
-        diff = float((ours - theirs).abs().max()) if ours.numel() else 0.0
-        print(f"{label}: {ours.numel()} floats, bit-identical {equal} (max abs diff {diff:.3e})")
-        same &= equal
+        if not isinstance(ours, dict):
+            ours, theirs = {"": ours}, {"": theirs}
+        equal = all(torch.equal(ours[k], theirs[k]) for k in ours)
+        diff = max(float((ours[k] - theirs[k]).abs().max()) if ours[k].numel() else 0.0
+                   for k in ours)
+        n = sum(v.numel() for v in ours.values())
+        print(f"{label}: {n} floats, bit-identical {equal} (max abs diff {diff:.3e})")
+        if kind in exact:
+            if not equal:
+                failed.append(label)
+            return
+        for k in ours:
+            if not ours[k].numel():
+                continue
+            try:
+                if tier == "f32":
+                    chip_smoke.compare(f"{label} {k}", ours[k], theirs[k])
+                else:
+                    chip_smoke.compare_tier(
+                        f"{label} {k}", ours[k], theirs[k], plain["f32"][k], plain["f64"][k], tier,
+                        rel_floor=chip_smoke.X3_REL_FLOOR if tier == "f32x3" else chip_smoke.REL_TOL,
+                        distinct=chip_smoke.X3_DISTINCT if tier == "f32x3" else 0.0)
+            except SystemExit:
+                failed.append(f"{label} {k}")
 
     with tempfile.TemporaryDirectory() as tmp:
         k2 = chip_smoke.k2_cases(dev)
-        k1, _, _ = chip_smoke.k1_cases(dev, REPO, tmp)
+        k1, n_grid, _ = chip_smoke.k1_cases(dev, REPO, tmp)
         _, _, res_pts, fid_pts = chip_smoke.cmb_bench_points(dev, tmp)
         k3 = chip_smoke.k3_cases(dev, REPO, tmp, res_pts, fid_pts)
         widths = {"k2": {c[0].width for c in k2}, "k1": {c[1].width for c in k1},
                   "k3": {c[1].width for c in k3}, "k4": {c[1].width for c in k3}}
         widths = {k: v for k, v in widths.items() if k in wanted}
-        cuda_build.k2_library()  # the port's own build, every nvcc at once
-        other = build(args.other_dir, tmp, widths)
+        procs = start_build(args.other_dir, tmp, widths, tiers)
+        cuda_build.k2_library()  # the port's own build, beside the other's
+        other = finish_build(procs)
 
         for tier in tiers:
             with torch.no_grad():
@@ -127,7 +279,7 @@ def main() -> int:
                             kernels._launch_k2(params, x, spec, k, tier, epilogue=False, y=y,
                                                dy=dy if k else None, lib=which)
                             outs.append(torch.cat([y.reshape(-1), dy.reshape(-1)]))
-                        check(f"{name} K={k}", *outs)
+                        check("k2", tier, f"{name} K={k}", *outs)
                     if spec.d_out == 3 and spec.init_type == "xavier":
                         outs = []
                         for which in (None, lib):
@@ -135,50 +287,105 @@ def main() -> int:
                             kernels._launch_k2(params, x, spec, 2, tier, epilogue=True, fc=fc,
                                                lib=which)
                             outs.append(fc)
-                        check(f"{name} continuity epilogue", *outs)
+                        check("k2", tier, f"{name} continuity epilogue", *outs)
             for name, spec, params, b in (k1 if "k1" in wanted else []):
-                check(f"K1-{tier} {name}", kernels_step._launch_k1(params, b, spec, precision=tier),
-                      kernels_step._launch_k1(params, b, spec, lib=other[("k1", spec.width)],
-                                              precision=tier))
-            for name, spec, params, x, ybar, dybar, kt in k3:
-                if "k3" in wanted:
-                    check(f"K3-{tier} {name}",
-                          kernels_vjp._launch_k3(params, x, ybar, dybar, spec, kt, tier),
-                          kernels_vjp._launch_k3(params, x, ybar, dybar, spec, kt, tier,
-                                                 lib=other[("k3", spec.width)]))
-                if "k4" in wanted:
-                    check(f"K4-{tier} {name}",
-                          kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, tier),
-                          kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, tier,
-                                                 lib=other[("k4", spec.width)]))
+                n_p = kernels_step.n_flat(spec)
 
-        if args.time and {"k1", "k2"} <= wanted:
+                def k1_outputs(flat):
+                    total = kernels_step._combine_stats(flat[n_p:], b.fid_weights, b.n_res,
+                                                        b.n_sel, b.n_true, b.w_fid, b.w_res,
+                                                        b.has_anchor)[0]
+                    return {"total": total.reshape(1),
+                            **{f"d{k}": v for k, v in kernels_step.unflatten(flat[:n_p], spec).items()}}
+
+                plain = None
+                if tier != "f32" and "k1" not in exact:
+                    b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+                        "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+                    plain = {}
+                    for key, p, batch, t in (("f32", params, b, "f32"),
+                                             ("f64", chip_smoke.f64(params), b64, tier)):
+                        (tot, _), g = kernels_step.fused_loss_and_grad_plain(p, batch, spec, t)
+                        plain[key] = {"total": tot.reshape(1), **{f"d{k}": v for k, v in g.items()}}
+                check("k1", tier, f"K1-{tier} {name}",
+                      k1_outputs(launch_k1(kernels_step.k1_library().libs[spec.width], params, b,
+                                           spec, tier)),
+                      k1_outputs(launch_k1(other[("k1", spec.width)], params, b, spec, tier)),
+                      plain)
+            for name, spec, params, x, ybar, dybar, kt in k3:
+                plain = None
+                if tier != "f32":
+                    plain = {key: {f"d{k}": v for k, v in kernels_vjp.packed_mlp_bwd_plain(
+                        p, xx, yb, dyb, spec, kt, t).items()}
+                        for key, p, xx, yb, dyb, t in (
+                            ("f32", params, x, ybar, dybar, "f32"),
+                            ("f64", chip_smoke.f64(params), x.double(), ybar.double(),
+                             dybar.double(), tier))}
+                for kind, launch, libs in (("k3", launch_k3, kernels_vjp.k3_library()),
+                                           ("k4", launch_k4, kernels_vjp.k4_library())):
+                    if kind in wanted:
+                        ours, theirs = (
+                            {f"d{k}": v for k, v in kernels_step.unflatten(
+                                launch(lib, params, x, ybar, dybar, spec, kt, tier), spec).items()}
+                            for lib in (libs.libs[spec.width], other[(kind, spec.width)]))
+                        check(kind, tier, f"{kind.upper()}-{tier} {name}", ours, theirs, plain)
+
+        if args.time:
             flag_name, flag, flag_params, flag_batch = k1[0]
+            cmb = next(c for c in k3 if c[0] == "CMB net, residual grid")
+            fl3 = next(c for c in k3 if c[0] == "flagship, train grid")
             spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
             fc = torch.empty((c10.shape[0],), device=dev)
-
-            def k1_call(lib):
-                return lambda: kernels_step._launch_k1(flag_params, flag_batch, flag, lib=lib)
-
-            def k2_call(lib):
-                return lambda: kernels._launch_k2(p10, c10, spec10, 2, "f32", epilogue=True,
-                                                  fc=fc, lib=lib)
-
-            for label, make, reps, inner in (
-                    (f"K1-f32 {flag_name} ({flag_batch.coords.shape[0]} points)", k1_call, 7, 20),
-                    ("K2-f32 continuity residual at 10M points", k2_call, 5, 1)):
-                lib_other = other[("k1" if make is k1_call else "k2", 20)]
+            cases = []  # (label, kind, width, call(lib), reps, inner)
+            for tier in tiers:
+                if "k1" in wanted:
+                    cases.append((f"K1-{tier} {flag_name} ({n_grid} points)", "k1", flag.width,
+                                  lambda lib, t=tier: launch_k1(lib, flag_params, flag_batch, flag, t),
+                                  7, 20))
+                for kind, launch in (("k3", launch_k3), ("k4", launch_k4)):
+                    shapes = [cmb] if kind == "k3" else [fl3, cmb]
+                    for name, spec, params, x, ybar, dybar, kt in shapes:
+                        if kind in wanted:
+                            cases.append((f"{kind.upper()}-{tier} {name} ({x.shape[0]} points, K={kt})",
+                                          kind, spec.width,
+                                          lambda lib, a=(params, x, ybar, dybar, spec, kt), t=tier,
+                                          fn=launch: fn(lib, *a, t), 7, 20))
+            if "k2" in wanted and "f32" in tiers:
+                cases.append(("K2-f32 continuity residual at 10M points", "k2", 20,
+                              lambda lib: kernels._launch_k2(p10, c10, spec10, 2, "f32",
+                                                             epilogue=True, fc=fc, lib=lib), 5, 1))
+            ours_libs = {"k1": kernels_step.k1_library(), "k3": kernels_vjp.k3_library(),
+                         "k4": kernels_vjp.k4_library(), "k2": kernels.k2_library()}
+            rows = []
+            for label, kind, width, call, reps, inner in cases:
                 times = {"other": [], "ours": []}
+                device = {"other": [], "ours": []}
                 for who in ("other", "ours", "ours", "other"):
-                    fn = make(lib_other if who == "other" else None)
-                    times[who].append(chip_smoke.cuda_ms(fn, reps, inner))
+                    lib = other[(kind, width)] if who == "other" else ours_libs[kind].libs[width]
+                    times[who].append(chip_smoke.cuda_ms(lambda: call(lib), reps, inner))
+                    d = chip_smoke.device_ms(lambda: call(lib), inner,
+                                             chip_smoke.WALK_KERNEL.get(kind, "mlp_fwd"))
+                    device[who].append(float("nan") if d is None else d)
                 print(f"time {label}: other build {times['other']} ms, this build "
-                      f"{times['ours']} ms (CUDA events, median of {reps} x {inner} calls; "
-                      f"order other, ours, ours, other)")
+                      f"{times['ours']} ms (CUDA events, median of {reps} x {inner} calls); "
+                      f"device time other {device['other']} ms, this {device['ours']} ms "
+                      f"(torch.profiler, {inner} calls); order other, ours, ours, other")
+                rows.append((label, *(sum(v) / 2 for v in (times["other"], times["ours"],
+                                                           device["other"], device["ours"]))))
+            print("| kernel and shape | other (events ms) | this (events ms) | other (device ms) "
+                  "| this (device ms) | this / other (device) |")
+            print("| --- | --- | --- | --- | --- | --- |")
+            for label, t_other, t_ours, d_other, d_ours in rows:
+                print(f"| {label} | {t_other:.4f} | {t_ours:.4f} | {d_other:.4f} | {d_ours:.4f} | "
+                      f"{d_ours / d_other:.3f} |")
     what = ", ".join(k.upper() for k in ("k2", "k1", "k3", "k4") if k in wanted)
-    print(f"{what} ({'/'.join(tiers)}) are bit-identical to the other build" if same
-          else f"{what} ({'/'.join(tiers)}) DIFFER from the other build")
-    return 0 if same else 1
+    if failed:
+        print(f"{what} ({'/'.join(tiers)}): {len(failed)} outputs FAIL against the other build: "
+              f"{failed}")
+        return 1
+    print(f"{what} ({'/'.join(tiers)}) agree with the other build (bit for bit: "
+          f"{', '.join(sorted(k.upper() for k in exact & wanted)) or 'none'})")
+    return 0
 
 
 if __name__ == "__main__":
