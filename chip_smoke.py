@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (``csrc/continuity_train_step.cu``), K3 (``csrc/mlp_bwd.cu``) and K4
    (``csrc/mlp_bwd_rebuild.cu``) from the checkout's sources, each library
    holding the f32, bf16 and f32x3 tiers, every ``nvcc`` started together;
-   registers and spills per width;
+   registers and spills per width; the HMMA instructions of K2's kernels
+   at width 20 (``cuobjdump -sass``): in every bf16 and f32x3 kernel (the
+   tensor-core body), in no f32 one;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -85,7 +87,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 17. times: K2-bf16 (CMB grid, 10M points, serve grid), K1-bf16 and K4
    (both tiers, beside K3) beside the f32 tier, their plain versions and
    their bounds (f32 on the CUDA cores' FMA rate, bf16 on the tensor
-   cores' bf16 rate), K4's segment length
+   cores' bf16 rate; K2-bf16 also beside the CUDA-core issue count of its
+   tensor-core body, ``k2_issue_count``), K4's segment length
    C swept, and the bf16 Adam steps of the flagship and the CMB net beside
    f32;
 18. the f32x3 tier of K2, K1, K3 and K4 against the plain f32x3 versions on
@@ -107,7 +110,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 21. times of the f32x3 tier (K2 on the CMB grid, at 10M points and on the
    serve grid; K1; K3 and K4 with K4's C swept), beside the plain f32x3 versions and the bound of the tier's
    three bf16 products on the tensor cores (with the CUDA cores' figure
-   beside it), and the CMB Adam step at f32x3.
+   beside it; K2 also beside its CUDA-core issue count), and the CMB Adam
+   step at f32x3.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
@@ -337,6 +341,58 @@ def k2_flops(spec, n_points: int, n_tangents: int, epilogue: bool) -> float:
     W = spec.width
     per_point = 2 * (spec.d_in * W + (spec.n_hidden - 1) * W * W + W * spec.d_out) * (1 + n_tangents)
     return float(n_points) * (per_point + (7 if epilogue else 0))
+
+
+def k2_issue_count(spec, n_points: int, n_tangents: int, tier: str) -> int:
+    """The CUDA-core count of K2's tensor-core body (bf16, f32x3): warp
+    instructions around the MMAs over every 16-point tile and hidden layer
+    (``csrc/mlp_fwd_tangents_mma.cuh``; per tile and layer counted from the
+    code: 300 and 462 at W=20, K=2, where phase 2 reads 304 and 467 in the
+    SASS). With T column tiles, E = 4T elements a lane per stream and S = T
+    * ceil(T/2) MMA steps a stream: S vector loads of B fragments, 2T bias
+    loads, 19 a primal element (accurate tanhf and act'), K per element (the
+    tangent products), and per stream its MMAs and conversions (bf16: S +
+    2T packs; f32x3: 3S + 4T packs + 3 a split element). A model of the
+    code, not a measurement."""
+    T = -(-spec.width // 8)
+    E, steps = 4 * T, T * -(-T // 2)
+    per = steps + 2 * T + 19 * E + n_tangents * E
+    per += (1 + n_tangents) * ((steps + 2 * T) if tier == "bf16" else (3 * steps + 4 * T + 3 * E))
+    return -(-n_points // 16) * (spec.n_hidden - 1) * per
+
+
+def issue_ms(count: int) -> float:
+    """The time ``count`` warp instructions take when each of the SMs' four
+    schedulers issues one a clock at the card's maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return count / (sms * 4 * clock_hz) * 1e3
+
+
+def sass_kernels(so_path: str) -> dict:
+    """Per kernel of a built library (``cuobjdump -sass``): its HMMA
+    instructions, and the instructions and HMMA of its innermost loop that
+    holds an HMMA (K2's hidden layer), or None where none does."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so_path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        code = [(int(m.group(1), 16), line) for line in fn.split("\n")
+                if (m := re.search(r"/\*([0-9a-f]{4,})\*/", line))]
+        loops = []
+        for at, line in code:  # a branch back to an earlier address closes a loop
+            target = re.search(r"BRA\s.*?0x([0-9a-f]+)", line)
+            if target and int(target.group(1), 16) < at:
+                body = [ln for a, ln in code if int(target.group(1), 16) <= a <= at]
+                if any("HMMA" in ln for ln in body):
+                    loops.append((len(body), sum("HMMA" in ln for ln in body)))
+        out[fn.split("\n")[0].strip()] = (fn.count("HMMA"), min(loops) if loops else None)
+    return out
 
 
 def k2_bytes(params, n_points: int, spec, out_floats_per_point: int) -> float:
@@ -1082,7 +1138,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     from pinn_depthestimation_tpu_torch import benchmarks, cli
     from pinn_depthestimation_tpu_torch.config import parse_config
     from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
-    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.ops import k2_plan, kernels, kernels_step, kernels_vjp
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
@@ -1138,8 +1194,10 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
                 name, spec, x, tangent_counts = case[:4]
                 params = case[4] if len(case) > 4 else params_from_numpy(
                     numpy_params(spec.sizes, spec.init_type, 8), dev)
-                chunk = kernels.k2_library().libs[spec.width].k2_chunk_layers_bf16(spec.n_hidden - 1)
-                print(f" K2-bf16 {name}, N={x.shape[0]}, {chunk} hidden layers per bf16 smem chunk")
+                plan = k2_plan.card_plan(kernels.k2_library().libs[spec.width], x.shape[0],
+                                         spec.width, spec.n_hidden - 1, "bf16", x.device)
+                print(f" K2-bf16 {name}, N={x.shape[0]}, {plan.chunk} hidden layers per bf16 "
+                      f"smem chunk (ops/k2_plan.py)")
                 for k in tangent_counts:
                     y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision="bf16")
                     torch.cuda.synchronize()
@@ -1463,6 +1521,14 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
     print(f"  Adam step at bf16: flagship {json.dumps(step)}; CMB {json.dumps(cmb_step)}; at "
           f"f32 (phases 10, 13): flagship {f32_steps['flagship']:.4f} ms, CMB "
           f"{f32_steps['cmb']:.4f} ms")
+    issue = {"k2 10M continuity bf16": k2_issue_count(spec10, 10_000_000, 2, "bf16"),
+             "k2 serve bf16": k2_issue_count(flagship, n_serve, 0, "bf16"),
+             "k2 cmb grid bf16": k2_issue_count(cmb_net, n_res, 2, "bf16")}
+    for key, count in issue.items():
+        ms, b, _ = times[key]
+        print(f"  {key}: {ms:.4f} ms against the tensor-core bound {b:.5f} ms ({b / ms:.2%}) "
+              f"and the CUDA-core count {count:.4e} warp instructions (modelled; "
+              f"{issue_ms(count):.4f} ms of issue at the max clock, {issue_ms(count) / ms:.1%})")
 
     res, fidr, flag = ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid")
     k4_ms, k4_b, k4_by = times[f"k4 {res} bf16"]
@@ -1556,7 +1622,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
     from pinn_depthestimation_tpu_torch.config import load_config, parse_config
     from pinn_depthestimation_tpu_torch.data import load_test_data
     from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
-    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.ops import k2_plan, kernels, kernels_step, kernels_vjp
     from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
@@ -1631,8 +1697,10 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
                                 f"{spec.init_type}", spec, x, tangent_counts, params))
             for name, spec, x, tangent_counts, params in k2_more:
                 params = params or params_from_numpy(numpy_params(spec.sizes, spec.init_type, 8), dev)
-                chunk = kernels.k2_library().libs[spec.width].k2_chunk_layers_f32x3(spec.n_hidden - 1)
-                print(f" K2-f32x3 {name}, N={x.shape[0]}, {chunk} hidden layers per smem chunk")
+                plan = k2_plan.card_plan(kernels.k2_library().libs[spec.width], x.shape[0],
+                                         spec.width, spec.n_hidden - 1, X3, x.device)
+                print(f" K2-f32x3 {name}, N={x.shape[0]}, {plan.chunk} hidden layers per smem "
+                      f"chunk (ops/k2_plan.py)")
                 main = "k2" if name in main_path or spec.sizes == flagship.sizes else None
                 for k in tangent_counts:
                     y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision=X3)
@@ -1993,6 +2061,15 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in plain.items()))
     print(f"  Adam step at f32x3: flagship {extras['adam_step_ms_f32x3']} ms (bench --suite; "
           f"f32 {extras['adam_step_ms']} ms), CMB {json.dumps(cmb_step)}")
+    issue = {f"k2 10M continuity {X3}": k2_issue_count(spec10, 10_000_000, 2, X3),
+             "k2 serve": k2_issue_count(flagship, n_serve, 0, X3),
+             "k2 cmb grid": k2_issue_count(cmb_net, n_res, 2, X3)}
+    for key, count in issue.items():
+        ms, b_tc = times[key][:2]
+        print(f"  {key}{'' if key.endswith(X3) else ' f32x3'}: {ms:.4f} ms against the "
+              f"tensor-core bound {b_tc:.5f} ms ({b_tc / ms:.2%}) and the CUDA-core count "
+              f"{count:.4e} warp instructions (modelled; {issue_ms(count):.4f} ms of issue at "
+              f"the max clock, {issue_ms(count) / ms:.1%})")
 
     res, fidr, flag = ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid")
     common = {"route": "cuda", "library_ms": None}
@@ -2092,6 +2169,17 @@ def main() -> None:
                   f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
                   f"{head.group(3)} s after {head.group(4)} s of CPU")
     print(f"  the sixty nvcc took {cpu_s:.1f} s of CPU on {os.cpu_count()} cores")
+    for tier in ("f32", "bf16", "f32x3"):  # the cheap tiers on the tensor cores, f32 not
+        sass = sass_kernels(str(lib.log_path.parent / f"libk2_20_{tier}.so"))
+        hmma = [n for n, _ in sass.values()]
+        # the tanh, K=2, epilogue kernel: the residual bench's
+        loop = next((lp for name, (_, lp) in sass.items() if "ELi0ELi2ELb1E" in name), None)
+        print(f"  SASS of K2 width 20 {tier}: {len(sass)} kernels, HMMA per kernel "
+              f"{min(hmma, default=0)}..{max(hmma, default=0)}"
+              + (f"; the continuity kernel's hidden-layer loop: {loop[0]} instructions, "
+                 f"{loop[1]} HMMA" if loop else ""))
+        if not sass or not all((n == 0) == (tier == "f32") for n in hmma):
+            fail(f"K2-{tier}: expected {'no' if tier == 'f32' else 'an'} HMMA in every kernel")
 
     # 3. kernel vs plain ----------------------------------------------------
     print("== phase 3: K2 against its plain version on the card")

@@ -10,36 +10,30 @@
 //   K = 2 + EPI    only fc (N,) = (h_x*U + h*U_x) + (h_y*V + h*V_y), the
 //                  continuity residual at heads (U, V, h) = (0, 1, 2) and
 //                  tangents (x, y) = (0, 1).
-// At the bf16 tier (tier.cuh, ops/tiers.py) the weights are rounded to bf16
-// as they are staged, the tangent seeds are rows of the rounded w_in, and
-// every runtime operand (the coordinates, the activation, each scaled
-// tangent stream, the last state) is rounded to bf16 before its product. At
-// the f32x3 tier the weights are staged as bf16 (hi, lo) pairs, the seeds
-// are rows of hi + lo, and the same operands are split into (hi, lo) and
-// meet each weight in three FMAs summed as (cross) + main (tier.cuh).
+// The bf16 and f32x3 tiers (-DTIER_ONLY=1, 2) run on the tensor cores:
+// mlp_fwd_tangents_mma.cuh has their design, bound and launch plan. This
+// file holds the f32 tier, which stays true f32 on the CUDA cores (TF32 is
+// not f32), and the C entries of all three.
 //
-// Design: one thread per point. The primal (W floats) and the K tangent
-// streams (K*W floats) stay in registers through every layer, so the width
-// W is a compile-time constant: this file is compiled once per supported
-// width with -DK2_WIDTH=W. The hidden weights sit in dynamic shared memory
-// (f32 or bf16 by tier); every thread of a warp reads the same weight at the
-// same time (a broadcast), as a vector along a row where W allows. When the
+// f32 design: one thread per point. The primal (W floats) and the K
+// tangent streams (K*W floats) stay in registers through every layer, so
+// the width W is a compile-time constant: this file is compiled once per
+// supported width with -DK2_WIDTH=W. The hidden weights sit in dynamic
+// shared memory; every thread of a warp reads the same weight at the same
+// time (a broadcast), as a vector along a row where W allows. When the
 // whole stack does not fit, it is staged in chunks of whole layers with
 // __syncthreads around each chunk (one chunk for the 2->[20]x100->3
-// flagship: 99*(20*20*4+20*4) = 166,320 B at f32, 87,120 B at bf16, of the
-// 232,448 B a block may opt into). Threads past N compute on zeros and store
-// nothing, so every thread reaches every barrier.
+// flagship: 99*(20*20*4+20*4) = 166,320 B of the 232,448 B a block may
+// opt into). Threads past N compute on zeros and store nothing, so every
+// thread reaches every barrier.
 //
-// Bound on the H100: per point the kernel does 2*(d_in*W + (L-1)*W^2 +
-// W*d_out)*(1+K) FLOPs (about 238,000 for the flagship at K=2) plus L*W
+// Bound on the H100 at f32: per point the kernel does 2*(d_in*W + (L-1)*W^2
+// + W*d_out)*(1+K) FLOPs (about 238,000 for the flagship at K=2) plus L*W
 // tanhf, and moves about 12 B of device memory (8 B in, 4 B out with the
 // epilogue). It is bound by the CUDA cores' f32 FMA rate, never by memory:
 // the design keeps every intermediate in registers and feeds the FMAs from
 // broadcast shared-memory reads, one load per weight shared by the 1+K
-// streams. The bf16 tier runs the same FMAs plus the conversions; the
-// f32x3 tier three FMAs per product plus the splits, with twice the
-// accumulator registers (z and zt hold (cross, main) pairs; ptxas reports
-// the spills into build.log); tensor cores are later work.
+// streams.
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
 // widths; 1 <= d_in <= 8; 1 <= d_out <= 8; 0 <= K <= min(3, d_in); N < 2^31.
@@ -55,11 +49,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxIn = 8;
-constexpr int kMaxOut = 8;
-constexpr int kMaxTangents = 3;
-
+// The activation and its derivative from the pre-activation z and the
+// activation a; the tensor-core body (mlp_fwd_tangents_mma.cuh) uses them
+// too.
 template <int ACT>
 __device__ __forceinline__ float act_fn(float z) {
   if constexpr (ACT == 0) {
@@ -69,7 +61,6 @@ __device__ __forceinline__ float act_fn(float z) {
   }
 }
 
-// Derivative from the pre-activation z and the activation a.
 template <int ACT>
 __device__ __forceinline__ float act_deriv(float z, float a) {
   if constexpr (ACT == 0) {
@@ -79,69 +70,77 @@ __device__ __forceinline__ float act_deriv(float z, float a) {
   }
 }
 
+}  // namespace
+
+// The f32 tier's body, compiled only into the f32 variant.
+#if WITH_TIER(0)
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxIn = 8;
+constexpr int kMaxOut = 8;
+constexpr int kMaxTangents = 3;
+
 using tier::load_vec;
 using tier::row_vec;
-using tier::w_f;
-using tier::w_ld;
 
 // a <- act(a @ w + b); t[k] <- (t[k] @ w) * act'(.), for one hidden layer
 // whose (W, W) weights (row-major, (in, out)) and (W,) bias are in shared
-// memory; a and t[k] prepared at the tier before the products.
-template <class Tier, int W, int ACT, int K>
-__device__ __forceinline__ void hidden_layer(const typename Tier::WT* __restrict__ w,
+// memory.
+template <int W, int ACT, int K>
+__device__ __forceinline__ void hidden_layer(const float* __restrict__ w,
                                              const float* __restrict__ b,
                                              float (&a)[W],
                                              float (&t)[K > 0 ? K : 1][W]) {
-  using Acc = typename Tier::Acc;
-  using Op = typename Tier::Op;
-  using WV = typename Tier::WV;
   constexpr int V = row_vec<W>();
-  Acc z[W];
-  Acc zt[K > 0 ? K : 1][W];
+  float z[W];
+  float zt[K > 0 ? K : 1][W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    z[j] = Tier::acc(b[j]);
+    z[j] = b[j];
 #pragma unroll
-    for (int k = 0; k < K; ++k) zt[k][j] = Tier::acc(0.f);
+    for (int k = 0; k < K; ++k) zt[k][j] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const Op ai = Tier::op(a[i]);
-    Op ti[K > 0 ? K : 1];
-#pragma unroll
-    for (int k = 0; k < K; ++k) ti[k] = Tier::op(t[k][i]);
+    const float ai = a[i];
 #pragma unroll
     for (int j = 0; j < W; j += V) {
-      WV wv[V];
+      float wv[V];
       load_vec<V>(w + i * W + j, wv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        Tier::mac(z[j + v], ai, wv[v]);
+        z[j + v] = fmaf(ai, wv[v], z[j + v]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) Tier::mac(zt[k][j + v], ti[k], wv[v]);
+        for (int k = 0; k < K; ++k) zt[k][j + v] = fmaf(t[k][i], wv[v], zt[k][j + v]);
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    const float zj = Tier::fin(z[j]);
+    const float zj = z[j];
     const float na = act_fn<ACT>(zj);
     const float d = act_deriv<ACT>(zj, na);
     a[j] = na;
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k][j] = Tier::fin(zt[k][j]) * d;
+    for (int k = 0; k < K; ++k) t[k][j] = zt[k][j] * d;
   }
 }
 
-// The dynamic shared memory of one block: the f32 biases first, then the
-// weights at the tier's type, each region 16-byte aligned.
-__host__ __device__ inline size_t smem_bytes(int W, int chunk, size_t wt) {
+// The dynamic shared memory of one block: the biases first, then the
+// weights, each region 16-byte aligned.
+__host__ __device__ inline size_t smem_bytes(int W, int chunk) {
   using tier::align16;
   return align16(chunk * W * 4) + align16(W * 4) + align16(kMaxOut * 4) +
-         align16(chunk * W * W * wt) + align16(kMaxIn * W * wt) + align16(W * kMaxOut * wt);
+         align16(chunk * W * W * 4) + align16(kMaxIn * W * 4) + align16(W * kMaxOut * 4);
 }
 
-template <class Tier, int W, int ACT, int K, bool EPI>
+__device__ __forceinline__ void stage(float* __restrict__ dst, const float* __restrict__ src,
+                                      int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+template <int W, int ACT, int K, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
                            const float* __restrict__ w_in,   // (d_in, W)
@@ -154,22 +153,21 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
                            float* __restrict__ dy,           // (K, n, d_out)
                            float* __restrict__ fc,           // (n,)
                            int n, int d_in, int d_out, int n_stack, int chunk) {
-  using WT = typename Tier::WT;
   using tier::align16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* cur = smem;
   auto carve = [&](size_t bytes) { unsigned char* p = cur; cur += align16(bytes); return p; };
-  float* s_bh = reinterpret_cast<float*>(carve(chunk * W * 4));          // chunk * W
-  float* s_bin = reinterpret_cast<float*>(carve(W * 4));                 // W
-  float* s_bout = reinterpret_cast<float*>(carve(kMaxOut * 4));          // kMaxOut
-  WT* s_wh = reinterpret_cast<WT*>(carve(chunk * W * W * sizeof(WT)));   // chunk * W * W
-  WT* s_win = reinterpret_cast<WT*>(carve(kMaxIn * W * sizeof(WT)));     // kMaxIn * W
-  WT* s_wout = reinterpret_cast<WT*>(carve(W * kMaxOut * sizeof(WT)));   // W * kMaxOut
+  float* s_bh = reinterpret_cast<float*>(carve(chunk * W * 4));        // chunk * W
+  float* s_bin = reinterpret_cast<float*>(carve(W * 4));               // W
+  float* s_bout = reinterpret_cast<float*>(carve(kMaxOut * 4));        // kMaxOut
+  float* s_wh = reinterpret_cast<float*>(carve(chunk * W * W * 4));    // chunk * W * W
+  float* s_win = reinterpret_cast<float*>(carve(kMaxIn * W * 4));      // kMaxIn * W
+  float* s_wout = reinterpret_cast<float*>(carve(W * kMaxOut * 4));    // W * kMaxOut
 
   const int tid = threadIdx.x;
-  tier::stage_weights<Tier>(s_win, w_in, d_in * W);
+  stage(s_win, w_in, d_in * W);
   for (int i = tid; i < W; i += kThreads) s_bin[i] = b_in[i];
-  tier::stage_weights<Tier>(s_wout, w_out, W * d_out);
+  stage(s_wout, w_out, W * d_out);
   for (int i = tid; i < d_out; i += kThreads) s_bout[i] = b_out[i];
 
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + tid;
@@ -179,27 +177,21 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
   for (int c = 0; c < kMaxIn; ++c) xin[c] = (active && c < d_in) ? x[p * d_in + c] : 0.f;
   __syncthreads();
 
-  // Input layer. The tangent seed of coordinate k is row k of (the tier's)
-  // w_in times act' (models/mlp.py: (e_k @ w_in) * act'(z)).
-  using Acc = typename Tier::Acc;
-  using Op = typename Tier::Op;
-  Op xo[kMaxIn];
-#pragma unroll
-  for (int c = 0; c < kMaxIn; ++c) xo[c] = Tier::op(xin[c]);
+  // Input layer. The tangent seed of coordinate k is row k of w_in times
+  // act' (models/mlp.py: (e_k @ w_in) * act'(z)).
   float a[W];
   float t[K > 0 ? K : 1][W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    Acc za = Tier::acc(s_bin[j]);
+    float z = s_bin[j];
 #pragma unroll
     for (int c = 0; c < kMaxIn; ++c) {
-      if (c < d_in) Tier::mac(za, xo[c], w_ld(s_win[c * W + j]));
+      if (c < d_in) z = fmaf(xin[c], s_win[c * W + j], z);
     }
-    const float z = Tier::fin(za);
     a[j] = act_fn<ACT>(z);
     const float d = act_deriv<ACT>(z, a[j]);
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k][j] = w_f(s_win[k * W + j]) * d;
+    for (int k = 0; k < K; ++k) t[k][j] = s_win[k * W + j] * d;
   }
 
   // Hidden stack, staged chunk by chunk of whole layers.
@@ -208,49 +200,37 @@ k2_mlp_fwd_tangents_kernel(const float* __restrict__ x,      // (n, d_in)
     __syncthreads();  // the previous chunk is no longer read
     const float* src_w = w_h + static_cast<size_t>(l0) * W * W;
     const float* src_b = b_h + static_cast<size_t>(l0) * W;
-    tier::stage_weights<Tier>(s_wh, src_w, nl * W * W);
+    stage(s_wh, src_w, nl * W * W);
     for (int i = tid; i < nl * W; i += kThreads) s_bh[i] = src_b[i];
     __syncthreads();
 #pragma unroll 1
     for (int l = 0; l < nl; ++l) {
-      hidden_layer<Tier, W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t);
+      hidden_layer<W, ACT, K>(s_wh + l * W * W, s_bh + l * W, a, t);
     }
   }
 
   // Output layer.
-  Acc yacc[kMaxOut];
-  Acc dyacc[K > 0 ? K : 1][kMaxOut];
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    yacc[o] = Tier::acc(o < d_out ? s_bout[o] : 0.f);
-#pragma unroll
-    for (int k = 0; k < K; ++k) dyacc[k][o] = Tier::acc(0.f);
-  }
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const Op aj = Tier::op(a[j]);
-    Op tj[K > 0 ? K : 1];
-#pragma unroll
-    for (int k = 0; k < K; ++k) tj[k] = Tier::op(t[k][j]);
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) {
-      if (o < d_out) {
-        const typename Tier::WV wv = w_ld(s_wout[j * d_out + o]);
-        Tier::mac(yacc[o], aj, wv);
-#pragma unroll
-        for (int k = 0; k < K; ++k) Tier::mac(dyacc[k][o], tj[k], wv);
-      }
-    }
-  }
-  if (!active) return;
   float yo[kMaxOut];
   float dyo[K > 0 ? K : 1][kMaxOut];
 #pragma unroll
   for (int o = 0; o < kMaxOut; ++o) {
-    yo[o] = Tier::fin(yacc[o]);
+    yo[o] = o < d_out ? s_bout[o] : 0.f;
 #pragma unroll
-    for (int k = 0; k < K; ++k) dyo[k][o] = Tier::fin(dyacc[k][o]);
+    for (int k = 0; k < K; ++k) dyo[k][o] = 0.f;
   }
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) {
+      if (o < d_out) {
+        const float wv = s_wout[j * d_out + o];
+        yo[o] = fmaf(a[j], wv, yo[o]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) dyo[k][o] = fmaf(t[k][j], wv, dyo[k][o]);
+      }
+    }
+  }
+  if (!active) return;
 
   if constexpr (EPI) {
     const float U = yo[0], V = yo[1], h = yo[2];
@@ -276,9 +256,9 @@ struct Args {
   int n, d_in, d_out, n_stack;
 };
 
-template <class Tier, int ACT, int K, bool EPI>
+template <int ACT, int K, bool EPI>
 cudaError_t launch(const Args& a, int chunk, size_t smem, cudaStream_t stream) {
-  auto kernel = k2_mlp_fwd_tangents_kernel<Tier, K2_WIDTH, ACT, K, EPI>;
+  auto kernel = k2_mlp_fwd_tangents_kernel<K2_WIDTH, ACT, K, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -289,22 +269,22 @@ cudaError_t launch(const Args& a, int chunk, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <class Tier, int ACT>
+template <int ACT>
 cudaError_t dispatch_mode(const Args& a, int n_tangents, int epilogue, int chunk,
                           size_t smem, cudaStream_t stream) {
-  if (epilogue) return launch<Tier, ACT, 2, true>(a, chunk, smem, stream);
+  if (epilogue) return launch<ACT, 2, true>(a, chunk, smem, stream);
   switch (n_tangents) {
-    case 0: return launch<Tier, ACT, 0, false>(a, chunk, smem, stream);
-    case 1: return launch<Tier, ACT, 1, false>(a, chunk, smem, stream);
-    case 2: return launch<Tier, ACT, 2, false>(a, chunk, smem, stream);
-    case 3: return launch<Tier, ACT, 3, false>(a, chunk, smem, stream);
+    case 0: return launch<ACT, 0, false>(a, chunk, smem, stream);
+    case 1: return launch<ACT, 1, false>(a, chunk, smem, stream);
+    case 2: return launch<ACT, 2, false>(a, chunk, smem, stream);
+    case 3: return launch<ACT, 3, false>(a, chunk, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Hidden layers one shared-memory chunk holds on the current device at
-// weight size wt (0 when not even one fits).
-int chunk_layers(int n_stack, size_t wt) {
+// Hidden layers one shared-memory chunk holds on the current device (0
+// when not even one fits).
+int chunk_layers(int n_stack) {
   int dev = 0, max_smem = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
@@ -312,11 +292,10 @@ int chunk_layers(int n_stack, size_t wt) {
     return 0;
   constexpr int W = K2_WIDTH;
   int fit = 0;
-  while (fit < n_stack && smem_bytes(W, fit + 1, wt) <= static_cast<size_t>(max_smem)) ++fit;
+  while (fit < n_stack && smem_bytes(W, fit + 1) <= static_cast<size_t>(max_smem)) ++fit;
   return fit;
 }
 
-template <class Tier>
 int run(const float* x, const float* w_in, const float* b_in, const float* w_h,
         const float* b_h, const float* w_out, const float* b_out, float* y, float* dy,
         float* fc, int n, int d_in, int d_out, int n_stack, int n_tangents, int act,
@@ -325,21 +304,24 @@ int run(const float* x, const float* w_in, const float* b_in, const float* w_h,
       n_tangents < 0 || n_tangents > kMaxTangents || n_tangents > d_in || n_stack < 0 ||
       (act != 0 && act != 1) || (epilogue && (n_tangents != 2 || d_out != 3)))
     return cudaErrorInvalidValue;
-  constexpr int W = K2_WIDTH;
-  const size_t wt = sizeof(typename Tier::WT);
   int chunk = 0;
   if (n_stack > 0) {
-    chunk = chunk_layers(n_stack, wt);
+    chunk = chunk_layers(n_stack);
     if (chunk < 1) return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(W, chunk, wt);
+  const size_t smem = smem_bytes(K2_WIDTH, chunk);
   const Args a{x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out, n_stack};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return act == 0 ? dispatch_mode<Tier, 0>(a, n_tangents, epilogue, chunk, smem, s)
-                  : dispatch_mode<Tier, 1>(a, n_tangents, epilogue, chunk, smem, s);
+  return act == 0 ? dispatch_mode<0>(a, n_tangents, epilogue, chunk, smem, s)
+                  : dispatch_mode<1>(a, n_tangents, epilogue, chunk, smem, s);
 }
 
 }  // namespace
+#endif
+
+#if WITH_TIER(1) || WITH_TIER(2)
+#include "mlp_fwd_tangents_mma.cuh"
+#endif
 
 extern "C" {
 
@@ -349,45 +331,58 @@ const char* k2_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Number of hidden layers one shared-memory chunk holds on the current
-// device (0 when not even one fits), per tier.
+// Number of hidden layers one shared-memory chunk of the f32 tier holds on
+// the current device (0 when not even one fits).
 #if WITH_TIER(0)
-int k2_chunk_layers(int n_stack) { return chunk_layers(n_stack, sizeof(float)); }
+int k2_chunk_layers(int n_stack) { return chunk_layers(n_stack); }
+#endif
+
+#if WITH_TIER(1) || WITH_TIER(2)
+// The tensor-core body's tile (points per warp) and, per tier, its warps
+// per block and the shared-memory bytes of a chunk of hidden layers: what
+// ops/k2_plan.py assumes (the plan decides the chunk).
+int k2_mma_rows() { return k2mma::kRows; }
 #endif
 
 #if WITH_TIER(1)
-int k2_chunk_layers_bf16(int n_stack) { return chunk_layers(n_stack, sizeof(__nv_bfloat16)); }
-#endif
-
-#if WITH_TIER(2)
-int k2_chunk_layers_f32x3(int n_stack) {
-  return chunk_layers(n_stack, sizeof(tier::TierF32x3::WT));
+int k2_mma_warps_bf16() { return k2mma::warps<tier::TierBf16, K2_WIDTH>(); }
+int k2_mma_smem_bf16(int chunk) {
+  return static_cast<int>(k2mma::smem_bytes(K2_WIDTH, chunk, false));
 }
 #endif
 
-// One launch at the f32 tier, or (k2_mlp_fwd_tangents_bf16,
-// k2_mlp_fwd_tangents_f32x3) at the bf16 or f32x3 tier, with the same
-// arguments. Returns a cudaError_t: 0 on success; the launch does not
-// synchronise.
+#if WITH_TIER(2)
+int k2_mma_warps_f32x3() { return k2mma::warps<tier::TierF32x3, K2_WIDTH>(); }
+int k2_mma_smem_f32x3(int chunk) {
+  return static_cast<int>(k2mma::smem_bytes(K2_WIDTH, chunk, true));
+}
+#endif
+
+// One launch at the f32 tier. Returns a cudaError_t: 0 on success; the
+// launch does not synchronise.
 #if WITH_TIER(0)
 int k2_mlp_fwd_tangents(const float* x, const float* w_in, const float* b_in,
                         const float* w_h, const float* b_h, const float* w_out,
                         const float* b_out, float* y, float* dy, float* fc, int n, int d_in,
                         int d_out, int n_stack, int n_tangents, int act, int epilogue,
                         void* stream) {
-  return run<tier::TierF32>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
-                            n_stack, n_tangents, act, epilogue, stream);
+  return run(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out, n_stack,
+             n_tangents, act, epilogue, stream);
 }
 #endif
 
+// One launch at the bf16 or f32x3 tier on the tensor cores, with the f32
+// entry's arguments and then the launch plan's grid and hidden layers per
+// shared-memory chunk (ops/k2_plan.py).
 #if WITH_TIER(1)
 int k2_mlp_fwd_tangents_bf16(const float* x, const float* w_in, const float* b_in,
                              const float* w_h, const float* b_h, const float* w_out,
                              const float* b_out, float* y, float* dy, float* fc, int n,
                              int d_in, int d_out, int n_stack, int n_tangents, int act,
-                             int epilogue, void* stream) {
-  return run<tier::TierBf16>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
-                             n_stack, n_tangents, act, epilogue, stream);
+                             int epilogue, int grid, int chunk, void* stream) {
+  return k2mma::run<tier::TierBf16>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in,
+                                    d_out, n_stack, n_tangents, act, epilogue, grid, chunk,
+                                    stream);
 }
 #endif
 
@@ -396,9 +391,10 @@ int k2_mlp_fwd_tangents_f32x3(const float* x, const float* w_in, const float* b_
                               const float* w_h, const float* b_h, const float* w_out,
                               const float* b_out, float* y, float* dy, float* fc, int n,
                               int d_in, int d_out, int n_stack, int n_tangents, int act,
-                              int epilogue, void* stream) {
-  return run<tier::TierF32x3>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,
-                              n_stack, n_tangents, act, epilogue, stream);
+                              int epilogue, int grid, int chunk, void* stream) {
+  return k2mma::run<tier::TierF32x3>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n,
+                                     d_in, d_out, n_stack, n_tangents, act, epilogue, grid,
+                                     chunk, stream);
 }
 #endif
 

@@ -209,8 +209,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k2", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 7 + [_P],
-                             "width": [], "chunk_layers": [_I]})
+    """K2's entries. The bf16 and f32x3 launches (the tensor-core body) take
+    the f32 launch's arguments and then the plan's grid and chunk
+    (``ops/k2_plan.py``)."""
+    _bind(lib, "k2", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 9 + [_P], "width": [],
+                      "chunk_layers": [_I], "mma_rows": [], "mma_warps": [], "mma_smem": [_I]})
+    if hasattr(lib, "k2_mlp_fwd_tangents"):
+        lib.k2_mlp_fwd_tangents.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    return lib
 
 
 def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:

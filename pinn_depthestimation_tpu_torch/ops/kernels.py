@@ -5,23 +5,26 @@ Replaces the JAX package's TPU kernel ``ops/kernels.py::_mlp_kernel``
 ``packed_mlp_fwd_tangents`` and ``fused_residual_continuity``). The kernel
 is CUDA C++ in ``csrc/mlp_fwd_tangents.cu``, built by ``ops.cuda_build``.
 It computes what ``models.mlp.mlp_apply_with_tangents`` computes for the
-coordinate-basis tangents, and none of the TPU's lane packing carries over:
-one thread per point keeps the primal and K tangent streams in registers,
-with the hidden weights broadcast from shared memory.
+coordinate-basis tangents, and none of the TPU's lane packing carries over.
 
-What bounds it on the H100: FLOPs, not bytes. Per point it does
-``2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K)`` FLOPs (about 238,000 for the
-2->[20]x100->3 flagship at K=2, plus 100*W tanh) against about 12 B of
-device memory, so the f32 tier is bound by the CUDA cores' FMA rate
-(``SMs x 128 lanes x 2 x SM clock``). The design keeps every intermediate
-on chip and shares each shared-memory weight load among the 1+K streams.
+f32: one thread per point keeps the primal and K tangent streams in
+registers, with the hidden weights broadcast from shared memory. What bounds
+it on the H100: FLOPs, not bytes. Per point it does ``2*(d_in*W + (L-1)*W^2
++ W*d_out)*(1+K)`` FLOPs (about 238,000 for the 2->[20]x100->3 flagship at
+K=2, plus 100*W tanh) against about 12 B of device memory, so it is bound by
+the CUDA cores' FMA rate (``SMs x 128 lanes x 2 x SM clock``); f32 stays
+true f32 there (TF32 is not).
 
-Tiers: ``f32``, ``bf16`` and ``f32x3`` (defined in ``ops.tiers``; bf16
-weights in shared memory and every runtime operand rounded to bf16 before
-it meets a weight, or at f32x3 bf16 (hi, lo) weight pairs and every
-runtime operand split, three FMAs per product; all on the CUDA cores, so
-bf16 saves shared memory and no operation, and f32x3 triples the FMAs).
-Tensor-core products are later work.
+bf16 and f32x3 (defined in ``ops.tiers``: bf16 operands, f32 sums; f32x3
+three products of (hi, lo) splits, ``(a_lo w_hi + a_hi w_lo) + a_hi w_hi``)
+run on the tensor cores (``csrc/mlp_fwd_tangents_mma.cuh``): a warp owns 16
+points, each of the 1+K streams is the m16 operand of ``mma.sync``
+m16n8k16 products against the layer's B fragments, and a layer's
+accumulators are the next layer's operands, rounded or split in registers.
+Its launch plan (a persistent grid, the stack's chunks) is
+:mod:`ops.k2_plan`'s. The tensor cores' bound is a few percent of the time:
+what binds is the CUDA cores' issue of everything around the products
+(accurate tanhf, act', the conversions; ``PERF.md``).
 
 Beside the kernel, per the port's rules:
 
@@ -44,7 +47,7 @@ import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import MLPSpec, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS, k2_library
-from pinn_depthestimation_tpu_torch.ops import tiers
+from pinn_depthestimation_tpu_torch.ops import k2_plan, tiers
 from pinn_depthestimation_tpu_torch.ops.tiers import check_precision
 from pinn_depthestimation_tpu_torch.physics import continuity_only_residuals
 
@@ -148,10 +151,16 @@ def entry(lib, name: str, precision: str):
 
 def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
                epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
-    """One K2 launch into ``y``/``dy`` or ``fc``. ``lib``: another build of
-    K2 for this width (a check of a rebuilt source)."""
+    """One K2 launch into ``y``/``dy`` or ``fc``; at bf16 and f32x3 with the
+    grid and chunk of :func:`ops.k2_plan.card_plan`. ``lib``: another build
+    of K2 for this width (a check of a rebuilt source)."""
     lib = lib or k2_library().libs[spec.width]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    n, n_stack = coords.shape[0], spec.n_hidden - 1
+    extra = ()  # the f32 entry takes no plan
+    if precision != "f32":
+        plan = k2_plan.card_plan(lib, n, spec.width, n_stack, precision, coords.device)
+        extra = (plan.grid, plan.chunk)
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream(coords.device).cuda_stream
         err = entry(lib, "k2_mlp_fwd_tangents", precision)(
@@ -159,8 +168,9 @@ def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *
             ptr(params["w_hidden"]), ptr(params["b_hidden"]),
             ptr(params["w_out"]), ptr(params["b_out"]),
             ptr(y), ptr(dy), ptr(fc),
-            coords.shape[0], spec.d_in, spec.d_out, spec.n_hidden - 1,
-            n_tangents, _ACT[spec.init_type], int(epilogue), stream,
+            n, spec.d_in, spec.d_out, n_stack,
+            n_tangents, _ACT[spec.init_type], int(epilogue),
+            *extra, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -346,13 +346,18 @@ def f64(params):
     return {k: v.double() for k, v in params.items()}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sizes,init_type,kt,n", [
+K2_TIER_CASES = [
     ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
     ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
     ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
     ((2,) + (32,) * 120 + (3,), "xavier", 2, 300),     # deeper than one smem chunk
-])
+    ((3,) + (8,) * 4 + (4,), "xavier", 3, 257),        # one m16n8k8 per product
+    ((3,) + (20,) * 8 + (3,), "kaiming", 3, 401),      # three tangents at the flagship's width
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,init_type,kt,n", K2_TIER_CASES)
 def test_cuda_k2_bf16_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
     spec = MLPSpec(sizes=sizes, init_type=init_type)
     params = params_from_numpy(numpy_params(sizes, init_type, seed=3), cuda_device)
@@ -515,12 +520,7 @@ def shows_tier(sizes) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sizes,init_type,kt,n", [
-    ((2,) + (20,) * 100 + (3,), "xavier", 2, 1_003),   # the flagship
-    ((2,) + (10,) * 10 + (6,), "xavier", 0, 200),      # the CMB fidelity rows
-    ((3,) + (16,) * 5 + (4,), "kaiming", 3, 777),      # leaky-relu, three tangents
-    ((2,) + (32,) * 120 + (3,), "xavier", 2, 300),     # deeper than one smem chunk
-])
+@pytest.mark.parametrize("sizes,init_type,kt,n", K2_TIER_CASES)
 def test_cuda_k2_f32x3_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
     spec = MLPSpec(sizes=sizes, init_type=init_type)
     params = params_from_numpy(numpy_params(sizes, init_type, seed=3), cuda_device)
@@ -544,6 +544,76 @@ def test_cuda_k2_f32x3_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
                                                             "f32x3"), **X3)
     y2, dy2 = kernels.mlp_fwd_tangents(params, x, spec, kt, precision="f32x3")
     assert torch.equal(y, y2) and torch.equal(dy, dy2)
+
+
+# ------------------------------------------- K2's tensor-core body (both tiers)
+
+K2_RAGGED = ("1", "15", "17", "wave-1", "wave+1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "f32x3"])
+@pytest.mark.parametrize("which", K2_RAGGED)
+def test_cuda_k2_cheap_tiers_ragged_tiles(cuda_device, precision, which):
+    """K2 at bf16 and f32x3 at point counts around its 16-point warp tiles:
+    one point, one either side of a tile, and one either side of a
+    persistent wave (every warp of every SM one tile; ops/k2_plan.py), with
+    K=2 and the continuity epilogue. The first n points of a launch on more
+    points are the same rows of the same tiles, and an MMA's rows are
+    independent, so the ragged launch must give their bits; the longer
+    launch is held to the plain tier (the L2 gap over many points)."""
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+
+    sizes = (2,) + (20,) * 6 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=21), cuda_device)
+    lib = kernels.k2_library().libs[20]
+    wave = (torch.cuda.get_device_properties(0).multi_processor_count * lib.k2_mma_rows()
+            * entry(lib, "k2_mma_warps", precision)())
+    n = {"1": 1, "15": 15, "17": 17, "wave-1": wave - 1, "wave+1": wave + 1}[which]
+    x = torch.from_numpy(np.random.RandomState(22).uniform(-1, 1, (wave + 33, 2))
+                         .astype(np.float32)).to(cuda_device)
+    tol = X3 if precision == "f32x3" else {}
+    y, dy = kernels.mlp_fwd_tangents(params, x, spec, 2, precision=precision)
+    yt, dyt = kernels.mlp_fwd_tangents_plain(params, x, spec, 2, precision)
+    yf, dyf = kernels.mlp_fwd_tangents_plain(params, x, spec, 2, "f32")
+    y6, dy6 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, 2, precision)
+    assert_tier_close(y, yt, yf, y6, **tol)
+    assert_tier_close(dy, dyt, dyf, dy6, **tol)
+    fc = kernels.fused_residual_continuity(params, x, spec, precision=precision)
+    assert_tier_close(fc, kernels.residual_continuity_plain(params, x, spec, precision),
+                      kernels.residual_continuity_plain(params, x, spec, "f32"),
+                      kernels.residual_continuity_plain(f64(params), x.double(), spec, precision),
+                      **tol)
+    yn, dyn = kernels.mlp_fwd_tangents(params, x[:n], spec, 2, precision=precision)
+    assert torch.equal(yn, y[:n]) and torch.equal(dyn, dy[:, :n])
+    assert torch.equal(kernels.fused_residual_continuity(params, x[:n], spec, precision=precision),
+                       fc[:n])
+
+
+@pytest.mark.cuda
+def test_cuda_k2_libraries_report_the_mma_tile(cuda_device):
+    """Every width's K2 library answers, at bf16 and f32x3, the warp tile,
+    the warps per block and the shared-memory bytes of a chunk that the CPU
+    tests of the launch plan (tests/test_torch_k2_plan.py) take from
+    ops/k2_plan.py, and the chunks the plan picks fit the card."""
+    from pinn_depthestimation_tpu_torch.ops import k2_plan
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    k2_plan.SMEM_LIMIT)
+    for width, lib in kernels.k2_library().libs.items():
+        assert lib.k2_mma_rows() == k2_plan.ROWS
+        for precision in ("bf16", "f32x3"):
+            assert (entry(lib, "k2_mma_warps", precision)()
+                    == k2_plan.block_warps(precision, width)), (width, precision)
+            for chunk in (0, 1, 9, 56, 99):
+                assert (entry(lib, "k2_mma_smem", precision)(chunk)
+                        == k2_plan.smem_bytes(width, chunk, precision)), (width, precision, chunk)
+            for n_stack in (9, 99, 119):  # the plan's chunk fits the card's opt-in bytes
+                chunk = k2_plan.chunk_layers(width, n_stack, precision, optin)
+                assert 1 <= chunk <= n_stack, (width, precision, n_stack)
+                assert entry(lib, "k2_mma_smem", precision)(chunk) <= optin
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@
 time both builds.
 
     python3 tools/k1_refactor_check.py --other-dir OLD_CSRC [--tiers f32,bf16,f32x3]
-                                       [--kernels k2,k1,k3,k4] [--exact k2] [--time]
+                                       [--kernels k2,k1,k3,k4] [--exact k2:f32] [--time]
 
 Needs one CUDA card and nvcc. ``OLD_CSRC`` holds another version of the
 kernels' sources (for example those of a parent commit:
@@ -16,22 +16,24 @@ runs the cases of ``chip_smoke.py``'s phases 3 (K2), 7 (K1) and 11 (K3, and
 K4 on the same cases) through this tree's launchers and through the other
 build, at each tier of ``--tiers``, and compares K2's y, dy and continuity
 residual, K1's flat result (every gradient and the loss statistics), and
-K3's and K4's flat gradients. Kernels named in ``--exact`` must give the
-same bits; the others, whose walk may sum in another order, are held to
-``chip_smoke.py``'s tolerances: at f32 max|ours - theirs| <= 1e-4 x
-max|theirs| + 1e-7, at bf16 and f32x3 ``compare_tier`` with the other
-build in the plain tier version's place (two valid summation orders of
-one function). Libraries whose walk takes a fixed 128-point tile (no
-``<kernel>_lanes`` entry) are bound and launched as that walk was.
-``--kernels`` limits the check to kernels the other sources have (K4 and
-the bf16 entries came later than K2, K1 and K3, f32x3 later still).
+K3's and K4's flat gradients. ``--exact`` names the kernels, or
+``kernel:tier`` pairs, that must give the same bits (by default K2 at
+f32); the others are held to ``chip_smoke.py``'s tolerances: at f32
+max|ours - theirs| <= 1e-4 x max|theirs| + 1e-7, at bf16 and f32x3
+``compare_tier`` with the other build in the plain tier version's place
+(two valid summation orders of one function). The other build's walk must
+take its tile per launch (the lane-pair walk); a K2 whose bf16 and
+f32x3 entries take no launch plan (no ``k2_mma_rows``, sources before the
+tensor-core body) is bound and launched with its own arguments.
+``--kernels`` limits the check to kernels the other sources have.
 
 ``--time`` also times both builds in turns (other, ours, ours, other), with
 CUDA events and with the device time ``torch.profiler`` records
 (``chip_smoke.device_ms``): K1 on the flagship's 12,516 grid points and K3
 on the 20,507-point CMB grid at K=2, at each tier of ``--tiers``; K4 at the
-flagship (K=2) and on the CMB grid, at each tier; K2's continuity residual
-at 10M points at f32. It prints each time with the card's name and power
+flagship (K=2) and on the CMB grid, at each tier; K2 at each tier: the
+continuity residual at 10M points, the 21,141-point serving grid (K=0) and
+the CMB grid (K=2). It prints each time with the card's name and power
 limit, then a table of the means with the ratio. Exits 1 if a check fails
 or a build fails.
 """
@@ -55,19 +57,19 @@ TIER_INDEX = {"f32": 0, "bf16": 1, "f32x3": 2}
 
 
 def bind(kind: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Bind ``lib`` as the port binds its own, or, for a walk with a fixed
-    128-point tile (no ``<kind>_lanes`` entry), with that walk's arguments."""
+    """Bind ``lib`` as the port binds its own; a K2 without the tensor-core
+    body's launch plan (no ``k2_mma_rows``) with its own cheap-tier
+    arguments, the f32 entry's."""
     from pinn_depthestimation_tpu_torch.ops import cuda_build
 
-    if kind == "k2" or hasattr(lib, f"{kind}_lanes"):
-        return {"k2": cuda_build._bind_k2, "k1": cuda_build._bind_k1,
-                "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}[kind](lib)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    sig = {"k1": {"train_step": [P] * 14 + [I] * 7 + [P], "threads": [], "chunk_layers": [I]},
-           "k3": {"mlp_bwd": [P] * 12 + [I] * 7 + [P], "threads": [], "chunk_layers": [I, I]},
-           "k4": {"mlp_bwd": [P] * 12 + [I] * 8 + [P], "threads": [], "ckpt_every": [I] * 3,
-                  "chunk_layers": [I] * 3}}[kind]
-    return cuda_build._bind(lib, kind, sig)
+    lib = {"k2": cuda_build._bind_k2, "k1": cuda_build._bind_k1,
+           "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}[kind](lib)
+    if kind == "k2" and not hasattr(lib, "k2_mma_rows"):
+        for entry in ("k2_mlp_fwd_tangents_bf16", "k2_mlp_fwd_tangents_f32x3"):
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = [cuda_build._P] * 10 + [cuda_build._I] * 7 + [
+                    cuda_build._P]
+    return lib
 
 
 def start_build(other_dir: str, tmp: str, widths: dict[str, set[int]], tiers) -> dict:
@@ -109,90 +111,49 @@ def finish_build(procs: dict) -> dict:
     return {key: WidthLibrary(libs) for key, libs in per.items()}
 
 
-def _fixed_tile_scratch(lib, threads_fn: str, n: int, states_per_block: int, streams: int,
-                        width: int, n_ent: int, dev):
-    """Grid, partial rows, state scratch and output of a walk whose tile is
-    a fixed ``<kernel>_threads()`` points, one thread each."""
+def launch_k2(lib, params, x, spec, kt: int, precision: str, *, epilogue: bool, **out):
+    """One K2 launch from ``lib`` into ``out`` (``y``/``dy`` or ``fc``):
+    through the port's launcher, or, for a cheap tier of a K2 without the
+    launch plan, with the f32 entry's arguments on the same host path (the
+    device's context and current stream, so CUDA events compare alike)."""
     import torch
 
-    threads = getattr(lib, threads_fn)()
-    grid = min(-(-n // threads), torch.cuda.get_device_properties(dev).multi_processor_count)
-    f32 = torch.float32
-    return (grid, torch.empty((grid, n_ent), dtype=f32, device=dev),
-            torch.empty((grid * states_per_block * streams * width * threads,), dtype=f32,
-                        device=dev),
-            torch.empty((n_ent,), dtype=f32, device=dev))
+    from pinn_depthestimation_tpu_torch.ops import kernels
 
-
-def _stream(dev):
-    import torch
-
-    return torch.cuda.current_stream(dev).cuda_stream
+    if precision == "f32" or hasattr(lib, "k2_mma_rows"):
+        return kernels._launch_k2(params, x, spec, kt, precision, epilogue=epilogue, lib=lib,
+                                  **out)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        err = kernels.entry(lib, "k2_mlp_fwd_tangents", precision)(
+            ptr(x), *(ptr(params[k]) for k in ("w_in", "b_in", "w_hidden", "b_hidden",
+                                              "w_out", "b_out")),
+            ptr(out.get("y")), ptr(out.get("dy")), ptr(out.get("fc")), x.shape[0], spec.d_in,
+            spec.d_out, spec.n_hidden - 1, kt, kernels._ACT[spec.init_type], int(epilogue),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"K2 ({precision}, no launch plan) launch failed: CUDA error {err}")
 
 
 def launch_k1(lib, params, b, spec, precision: str = "f32"):
-    """K1's flat result from ``lib``: through the port's launcher where the
-    library sizes its tile per launch (``k1_lanes``), else with the fixed
-    128-point tile of the older walk."""
-    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    """K1's flat result from ``lib``."""
+    from pinn_depthestimation_tpu_torch.ops import kernels_step
 
-    if hasattr(lib, "k1_lanes"):
-        return kernels_step._launch_k1(params, b, spec, lib=lib, precision=precision)
-    dev, n, n_stack = b.coords.device, b.coords.shape[0], spec.n_hidden - 1
-    grid, partial, states, out = _fixed_tile_scratch(
-        lib, "k1_threads", n, n_stack + 1, 3, spec.width,
-        kernels_step.n_flat(spec) + kernels_step.N_STATS, dev)
-    err = kernels.entry(lib, "k1_train_step", precision)(
-        b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
-        b.scal.data_ptr(), *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
-        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, n_stack,
-        b.n_true, int(b.has_anchor), kernels._ACT[spec.init_type], grid, _stream(dev))
-    if err:
-        raise RuntimeError(f"K1 (fixed tile) launch failed: CUDA error {err}")
-    return out
+    return kernels_step._launch_k1(params, b, spec, lib=lib, precision=precision)
 
 
 def launch_k3(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"):
-    """K3's flat gradients from ``lib`` (either walk, as :func:`launch_k1`)."""
-    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    """K3's flat gradients from ``lib``."""
+    from pinn_depthestimation_tpu_torch.ops import kernels_vjp
 
-    if hasattr(lib, "k3_lanes"):
-        return kernels_vjp._launch_k3(params, x, ybar, dybar, spec, kt, precision, lib=lib)
-    dev, n, n_stack = x.device, x.shape[0], spec.n_hidden - 1
-    grid, partial, states, out = _fixed_tile_scratch(
-        lib, "k3_threads", n, n_stack + 1, 1 + kt, spec.width, kernels_step.n_flat(spec), dev)
-    err = kernels.entry(lib, "k3_mlp_bwd", precision)(
-        x.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if kt else None,
-        *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
-        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, spec.d_out,
-        n_stack, kt, kernels._ACT[spec.init_type], grid, _stream(dev))
-    if err:
-        raise RuntimeError(f"K3 (fixed tile) launch failed: CUDA error {err}")
-    return out
+    return kernels_vjp._launch_k3(params, x, ybar, dybar, spec, kt, precision, lib=lib)
 
 
 def launch_k4(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"):
-    """K4's flat gradients from ``lib`` at its planned segment length
-    (either walk, as :func:`launch_k1`)."""
-    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    """K4's flat gradients from ``lib`` at its planned segment length."""
+    from pinn_depthestimation_tpu_torch.ops import kernels_vjp
 
-    if hasattr(lib, "k4_lanes"):
-        return kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, precision, lib=lib)
-    dev, n, n_stack = x.device, x.shape[0], spec.n_hidden - 1
-    c = kernels.entry(lib, "k4_ckpt_every", precision)(n_stack, kt, 0)
-    if c < 1:
-        raise RuntimeError("K4 (fixed tile): no segment length fits")
-    grid, partial, states, out = _fixed_tile_scratch(
-        lib, "k4_threads", n, max(1, -(-n_stack // c)), 1 + kt, spec.width,
-        kernels_step.n_flat(spec), dev)
-    err = kernels.entry(lib, "k4_mlp_bwd", precision)(
-        x.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if kt else None,
-        *(params[k].data_ptr() for k in kernels_vjp._WEIGHT_ORDER),
-        partial.data_ptr(), states.data_ptr(), out.data_ptr(), n, spec.d_in, spec.d_out,
-        n_stack, kt, kernels._ACT[spec.init_type], c, grid, _stream(dev))
-    if err:
-        raise RuntimeError(f"K4 (fixed tile) launch failed: CUDA error {err}")
-    return out
+    return kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, precision, lib=lib)
 
 
 def main() -> int:
@@ -201,19 +162,26 @@ def main() -> int:
                         help="a directory with the other version of the kernels' sources")
     parser.add_argument("--tiers", default="f32,bf16,f32x3", help="tiers to compare")
     parser.add_argument("--kernels", default="k2,k1,k3,k4", help="kernels to compare")
-    parser.add_argument("--exact", default="k2",
-                        help="kernels that must give the same bits as the other build")
+    parser.add_argument("--exact", default="k2:f32",
+                        help="kernels, or kernel:tier pairs, that must give the same bits as "
+                             "the other build")
     parser.add_argument("--time", action="store_true",
-                        help="time K1, K3, K4 and K2 of both builds in turns")
+                        help="time K2, K1, K3 and K4 of both builds in turns")
     args = parser.parse_args()
     tiers = args.tiers.split(",")
     wanted = set(args.kernels.split(","))
     exact = set(args.exact.split(",")) if args.exact else set()
 
+    def is_exact(kind: str, tier: str) -> bool:
+        return kind in exact or f"{kind}:{tier}" in exact
+
     import torch
 
     import chip_smoke
     from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_test_data
+    from pinn_depthestimation_tpu_torch.models import params_from_numpy
     from pinn_depthestimation_tpu_torch.ops import cuda_build, kernels, kernels_step, kernels_vjp
 
     if not torch.cuda.is_available():
@@ -236,7 +204,7 @@ def main() -> int:
                    for k in ours)
         n = sum(v.numel() for v in ours.values())
         print(f"{label}: {n} floats, bit-identical {equal} (max abs diff {diff:.3e})")
-        if kind in exact:
+        if is_exact(kind, tier):
             if not equal:
                 failed.append(label)
             return
@@ -271,23 +239,35 @@ def main() -> int:
                 for spec, params, x, tangent_counts in (k2 if "k2" in wanted else []):
                     name = f"K2-{tier} {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out}"
                     n, lib = x.shape[0], other[("k2", spec.width)]
+                    ours_lib = kernels.k2_library().libs[spec.width]
+                    with_refs = not is_exact("k2", tier) and tier != "f32"
+                    p64, x64 = chip_smoke.f64(params), x.double()
                     for k in tangent_counts:
                         outs = []
-                        for which in (None, lib):
+                        for which in (ours_lib, lib):
                             y = torch.empty((n, spec.d_out), device=dev)
                             dy = torch.empty((k, n, spec.d_out), device=dev)
-                            kernels._launch_k2(params, x, spec, k, tier, epilogue=False, y=y,
-                                               dy=dy if k else None, lib=which)
-                            outs.append(torch.cat([y.reshape(-1), dy.reshape(-1)]))
-                        check("k2", tier, f"{name} K={k}", *outs)
+                            launch_k2(which, params, x, spec, k, tier, epilogue=False, y=y,
+                                      dy=dy if k else None)
+                            outs.append({"y": y, "dy": dy})
+                        refs = None
+                        if with_refs:
+                            refs = {key: dict(zip(("y", "dy"), kernels.mlp_fwd_tangents_plain(
+                                pp, xx, spec, k, t))) for key, pp, xx, t in (
+                                ("f32", params, x, "f32"), ("f64", p64, x64, tier))}
+                        check("k2", tier, f"{name} K={k}", *outs, refs)
                     if spec.d_out == 3 and spec.init_type == "xavier":
                         outs = []
-                        for which in (None, lib):
+                        for which in (ours_lib, lib):
                             fc = torch.empty((n,), device=dev)
-                            kernels._launch_k2(params, x, spec, 2, tier, epilogue=True, fc=fc,
-                                               lib=which)
-                            outs.append(fc)
-                        check("k2", tier, f"{name} continuity epilogue", *outs)
+                            launch_k2(which, params, x, spec, 2, tier, epilogue=True, fc=fc)
+                            outs.append({"fc": fc})
+                        refs = None
+                        if with_refs:
+                            refs = {key: {"fc": kernels.residual_continuity_plain(pp, xx, spec, t)}
+                                    for key, pp, xx, t in (("f32", params, x, "f32"),
+                                                           ("f64", p64, x64, tier))}
+                        check("k2", tier, f"{name} continuity epilogue", *outs, refs)
             for name, spec, params, b in (k1 if "k1" in wanted else []):
                 n_p = kernels_step.n_flat(spec)
 
@@ -299,7 +279,7 @@ def main() -> int:
                             **{f"d{k}": v for k, v in kernels_step.unflatten(flat[:n_p], spec).items()}}
 
                 plain = None
-                if tier != "f32" and "k1" not in exact:
+                if tier != "f32" and not is_exact("k1", tier):
                     b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
                         "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
                     plain = {}
@@ -336,6 +316,14 @@ def main() -> int:
             fl3 = next(c for c in k3 if c[0] == "flagship, train grid")
             spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
             fc = torch.empty((c10.shape[0],), device=dev)
+            # the 81x261 serving grid (phase 17's), and the CMB grid at K=2
+            x_serve = torch.as_tensor(load_test_data(load_config(
+                chip_smoke.newmethod_config(tmp, REPO))).inputs).to(dev)
+            n_serve = x_serve.shape[0]
+            serve_params = params_from_numpy(chip_smoke.numpy_params(flag.sizes, "xavier", 3), dev)
+            y_serve = torch.empty((n_serve, flag.d_out), device=dev)
+            y_cmb = torch.empty((cmb[3].shape[0], cmb[1].d_out), device=dev)
+            dy_cmb = torch.empty((2, cmb[3].shape[0], cmb[1].d_out), device=dev)
             cases = []  # (label, kind, width, call(lib), reps, inner)
             for tier in tiers:
                 if "k1" in wanted:
@@ -350,10 +338,19 @@ def main() -> int:
                                           kind, spec.width,
                                           lambda lib, a=(params, x, ybar, dybar, spec, kt), t=tier,
                                           fn=launch: fn(lib, *a, t), 7, 20))
-            if "k2" in wanted and "f32" in tiers:
-                cases.append(("K2-f32 continuity residual at 10M points", "k2", 20,
-                              lambda lib: kernels._launch_k2(p10, c10, spec10, 2, "f32",
-                                                             epilogue=True, fc=fc, lib=lib), 5, 1))
+                if "k2" in wanted:
+                    cases += [
+                        (f"K2-{tier} continuity residual at 10M points", "k2", 20,
+                         lambda lib, t=tier: launch_k2(lib, p10, c10, spec10, 2, t,
+                                                       epilogue=True, fc=fc), 5, 1),
+                        (f"K2-{tier} serving grid ({n_serve} points, K=0)", "k2", flag.width,
+                         lambda lib, t=tier: launch_k2(lib, serve_params, x_serve, flag, 0, t,
+                                                       epilogue=False, y=y_serve), 7, 20),
+                        (f"K2-{tier} CMB grid ({cmb[3].shape[0]} points, K=2)", "k2",
+                         cmb[1].width,
+                         lambda lib, t=tier: launch_k2(lib, cmb[2], cmb[3], cmb[1], 2, t,
+                                                       epilogue=False, y=y_cmb, dy=dy_cmb),
+                         7, 20)]
             ours_libs = {"k1": kernels_step.k1_library(), "k3": kernels_vjp.k3_library(),
                          "k4": kernels_vjp.k4_library(), "k2": kernels.k2_library()}
             rows = []
@@ -364,7 +361,7 @@ def main() -> int:
                     lib = other[(kind, width)] if who == "other" else ours_libs[kind].libs[width]
                     times[who].append(chip_smoke.cuda_ms(lambda: call(lib), reps, inner))
                     d = chip_smoke.device_ms(lambda: call(lib), inner,
-                                             chip_smoke.WALK_KERNEL.get(kind, "mlp_fwd"))
+                                             chip_smoke.WALK_KERNEL.get(kind, "k2_"))
                     device[who].append(float("nan") if d is None else d)
                 print(f"time {label}: other build {times['other']} ms, this build "
                       f"{times['ours']} ms (CUDA events, median of {reps} x {inner} calls); "
@@ -384,7 +381,7 @@ def main() -> int:
               f"{failed}")
         return 1
     print(f"{what} ({'/'.join(tiers)}) agree with the other build (bit for bit: "
-          f"{', '.join(sorted(k.upper() for k in exact & wanted)) or 'none'})")
+          f"{', '.join(sorted(exact)) or 'none'})")
     return 0
 
 

@@ -52,48 +52,27 @@ sys.path.insert(0, REPO)
 
 COMMON = "mlp_bwd_common.cuh"
 
-# Patches of mlp_bwd_common.cuh: variant -> [(regex, replacement)]. The
-# first table fits walks whose tile is 128 points with one thread each;
-# the second the walk with lane pairs and a tile sized per launch. Each
-# regex must match at least once.
-_BODY_RETURN = r"\1\n  return;"
+# Patches of mlp_bwd_common.cuh (the walk with lane pairs and a tile sized
+# per launch): variant -> [(regex, replacement)]. Each regex must match at
+# least once.
 PATCHES = {
-    "fixed-tile": {
-        "states": [(r"auto state = \[&\]\(int s\) \{ return st0 \+ static_cast<size_t>\(s\) \* "
-                    r"state_floats; \};",
-                    "auto state = [&](int s) { (void)s; return st0; };")],
-        "wgrad": [(r"(void accum_square\([^{]*\{)", _BODY_RETURN),
-                  (r"(void accum_rect\([^{]*\{)", _BODY_RETURN)],
-        "barriers": [(r"__syncthreads\(\);  // the previous layer's block product is done", ""),
-                     (r"(stage_state<W, ACT, K>\(st_prev, sA\);)\n\s*__syncthreads\(\);", r"\1")],
-        "cotangent": [(r"Tier::mac\(nai, cao\[q \+ v\], wv\[v\]\);", "(void)0;"),
-                      (r"Tier::mac\(nti\[k\], cto\[k\]\[q \+ v\], wv\[v\]\);", "(void)0;")],
-    },
-    "lane-pair": {
-        "states": [(r"auto state = \[&\]\(int s\) \{ return st0 \+ static_cast<size_t>\(s\) \* "
-                    r"state_floats; \};",
-                    "auto state = [&](int s) { (void)s; return st0; };")],
-        "wgrad": [(r"(int accum_square\([^{]*\{)", r"\1\n  return 1;"),
-                  (r"(int accum_rect\([^{]*\{)", r"\1\n  return 1;")],
-        "barriers": [(r"__syncthreads\(\);  // the previous product is done: the buffers are free",
-                      "(void)0;"),
-                     (r"__syncthreads\(\);  // layer barrier", "(void)0;")],
-        "cotangent": [(r"Tier::mac\(acc, zo\[q \+ v\], wv\[v\]\);", "(void)0;"),
-                      (r"Tier::mac\(acct\[k\], zto\[k\]\[q \+ v\], wv\[v\]\);", "(void)0;")],
-    },
+    "states": [(r"auto state = \[&\]\(int s\) \{ return st0 \+ static_cast<size_t>\(s\) \* "
+                r"state_floats; \};",
+                "auto state = [&](int s) { (void)s; return st0; };")],
+    "wgrad": [(r"(int accum_square\([^{]*\{)", r"\1\n  return 1;"),
+              (r"(int accum_rect\([^{]*\{)", r"\1\n  return 1;")],
+    "barriers": [(r"__syncthreads\(\);  // the previous product is done: the buffers are free",
+                  "(void)0;"),
+                 (r"__syncthreads\(\);  // layer barrier", "(void)0;")],
+    "cotangent": [(r"Tier::mac\(acc, zo\[q \+ v\], wv\[v\]\);", "(void)0;"),
+                  (r"Tier::mac\(acct\[k\], zto\[k\]\[q \+ v\], wv\[v\]\);", "(void)0;")],
 }
 VARIANTS = ("states", "wgrad", "barriers", "cotangent")
 
 
-def layout(text: str) -> str:
-    """Which patch table fits this walk."""
-    return "lane-pair" if "kLanes" in text else "fixed-tile"
-
-
 def patch(text: str, variant: str) -> str:
-    table = PATCHES[layout(text)]
     for v in (VARIANTS if variant == "all" else (variant,)):
-        for pattern, repl in table[v]:
+        for pattern, repl in PATCHES[v]:
             text, n = re.subn(pattern, repl, text)
             if n == 0:
                 raise RuntimeError(f"patch {v!r} found no {pattern!r} in {COMMON}")
@@ -176,8 +155,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi("name,power.limit"))
     print(ncu_status())
-    with open(os.path.join(args.csrc, COMMON)) as f:
-        print(f"sources {args.csrc}: walk layout {layout(f.read())!r}")
+    print(f"sources {args.csrc}")
 
     variants = ("untouched",) + VARIANTS + ("all",)
     with tempfile.TemporaryDirectory() as tmp:
