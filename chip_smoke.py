@@ -111,7 +111,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    serve grid; K1; K3 and K4 with K4's C swept), beside the plain f32x3 versions and the bound of the tier's
    three bf16 products on the tensor cores (with the CUDA cores' figure
    beside it; K2 also beside its CUDA-core issue count), and the CMB Adam
-   step at f32x3.
+   step at f32x3;
+22. the flagship parity run at full width: CLI ``parity`` with the flags of
+   the reference's own 50,000-step run (50,000 Adam, 500 L-BFGS,
+   2->[20]x100->3, 81x261, NaN fraction 0.408) on ``.soak/ref_50k.npz``,
+   K1 on every evaluation, then the harness recomposed from the caches it
+   wrote for its numbers: the verdict PASS (h RMSE <= 1 % of the truth or
+   predicted range), iteration 1 within 1e-5 relative, the first 10 Adam
+   losses within 2e-4, the terminal log10 gap < 0.1, K1 launches == log
+   rows, every row finite; prints the Adam prefix within 5e-3, the wall
+   time, the Adam and L-BFGS seconds and the evaluations;
+23. the same on the structured fields (``.soak/ref_50k_structured.npz``),
+   gated on the port's predicted h range >= 10 % of the truth range in
+   place of the verdict, its h RMSE printed beside the JAX package's
+   1.28 % and the reference's fork spread of 1.22 %;
+24. test-time adaptation: CLI ``test`` with ``perform_optimization: true``
+   on phase 8's trained flagship and phase 12's trained CMB model at f32
+   and on the flagship at bf16: K2 == evaluations + 1, K3 (K4 at bf16) ==
+   evaluations, no call of a plain version; then ``Predictor.adapt``
+   through the kernels against the plain path on the card (f32:
+   ``use_kernel=False``, the same evaluations, losses within 1e-4
+   relative, parameters within 1e-4 x max|change| + 1e-7, predictions by
+   ``compare``; bf16: the plain bf16 functions, held to the tier's own
+   error, the served prediction by ``compare_tier`` at the adapted
+   weights).
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
@@ -119,8 +142,9 @@ flagship training path), again before phase 12's CLI ``train`` and read
 after its CLI ``test`` (the CMB path), before phase 15's CLI ``train`` and
 after its ``test`` (the bf16 CMB path), and before phase 16's CLI
 ``train`` and after its ``test`` (the schedule), and likewise around each
-of phase 19's paths: each kernel must have launched on each path that
-runs it, at the tier that path asks for. The ``kernels`` line holds one
+of phase 19's paths, each CLI ``parity`` run of phases 22-23 (K1) and
+each CLI ``test`` of phase 24 (K2, K3, K4): each kernel must have launched
+on each path that runs it, at the tier that path asks for. The ``kernels`` line holds one
 entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3). The last
 two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 {...}}``.
@@ -128,6 +152,7 @@ two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -542,8 +567,9 @@ def ragged_points(lib, kernel: str, dev) -> list[int]:
     return [1, TILE_STEP - 1, TILE_STEP + 1, 12_516, wave - 1, wave + 1]
 
 
-def training_phases(dev, repo: str, bound) -> dict:
-    """Phases 7-10; returns K1's entry of the ``kernels`` line."""
+def training_phases(dev, repo: str, bound, keep: str) -> dict:
+    """Phases 7-10; returns K1's entry of the ``kernels`` line. Phase 8's
+    trained model goes to ``keep`` (:func:`keep_run`)."""
     import numpy as np
     import torch
 
@@ -667,6 +693,7 @@ def training_phases(dev, repo: str, bound) -> dict:
         print(f"  {n_evals} loss evaluations (300 Adam + {n_evals - 300} L-BFGS), total "
               f"{totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} "
               f"(L-BFGS); CLI train wall time {train_s:.2f} s")
+        keep_run(keep, "flagship", cfg_path, model)
 
         # 9. iteration-1 equality and a tracked prefix ----------------------
         print("== phase 9: iteration 1 and a 20-step Adam prefix, K1 against the plain path")
@@ -854,8 +881,9 @@ def cmb_config(tmp: str, repo: str, csv: str, mat: str, **overrides) -> str:
     return path
 
 
-def cmb_phases(dev, repo: str, bound) -> dict:
-    """Phases 11-13; returns K3's entry of the ``kernels`` line."""
+def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
+    """Phases 11-13; returns K3's entry of the ``kernels`` line. Phase 12's
+    trained model goes to ``keep`` (:func:`keep_run`)."""
     import numpy as np
     import torch
     from scipy.io import loadmat
@@ -981,6 +1009,7 @@ def cmb_phases(dev, repo: str, bound) -> dict:
               f"{load_training_data(load_config(cfg_path)).residual_input.shape[0]} collocation "
               f"points, total {totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> "
               f"{min(totals[300:]):.5e} (L-BFGS); CLI train wall time {train_s:.2f} s")
+        keep_run(keep, "cmb", cfg_path, os.path.join(run_dir, "model.npz"))
 
         # iteration 1 and a tracked prefix, K2 + K3 against autograd ----------
         print("== phase 12b: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
@@ -2112,6 +2141,283 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
             "picked": picked, "suite": suite, "suite_s": suite_s}
 
 
+class Spy:
+    """``obj.name`` wrapped for the length of a ``with`` block: counts the
+    calls and keeps ``keep(args, result)`` of each (the result itself by
+    default). How the smoke reads what an entry point did inside (a
+    Trainer's phase times, an adaptation's evaluations) and shows that a
+    path never called a plain version."""
+
+    def __init__(self, obj, name: str, keep=None):
+        self.obj, self.name, self.keep = obj, name, keep or (lambda args, result: result)
+
+    def __enter__(self):
+        self.real = real = getattr(self.obj, self.name)
+        self.calls, self.results = 0, []
+
+        def wrapper(*args, **kwargs):
+            result = real(*args, **kwargs)
+            self.calls += 1
+            self.results.append(self.keep(args, result))
+            return result
+
+        setattr(self.obj, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
+
+
+def keep_run(keep: str, name: str, cfg_path: str, model: str) -> None:
+    """A trained run's config (``config.json``), the data files it names and
+    its ``model.npz``, copied into ``keep/name`` for phase 24."""
+    import shutil
+
+    dst = os.path.join(keep, name)
+    os.makedirs(dst)
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    for section in ("data", "data_fidelity", "data_residual", "data_test"):
+        block = raw.get(section)
+        if isinstance(block, dict) and block.get("file"):
+            target = os.path.join(dst, os.path.basename(block["file"]))
+            if not os.path.exists(target):
+                shutil.copy(block["file"], target)
+            block["file"] = target
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(raw, f)
+    shutil.copy(model, os.path.join(dst, "model.npz"))
+
+
+# the flags of the reference's own 50,000-step flagship runs (.soak/ref_50k*.npz)
+FLAGSHIP_PARITY = ["--iters", "50000", "--lbfgs", "500", "--hidden-layers", "100", "--width", "20",
+                   "--nx", "81", "--ny", "261", "--nan-fraction", "0.408"]
+
+
+def parity_run(phase: str, repo: str, tmp: str, fields: str) -> dict:
+    """CLI ``parity`` at the flagship's full width against the reference's
+    committed 50,000-step run on ``fields``, through K1 on every
+    evaluation; then the harness recomposed from the caches it wrote, for
+    its numbers. Checks every gate both phases share and returns the
+    numbers, the caches' losses and what the run did."""
+    import numpy as np
+
+    from pinn_depthestimation_tpu_torch import cli, parity
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+
+    ref = os.path.join(repo, ".soak", "ref_50k.npz" if fields == "plane" else
+                       "ref_50k_structured.npz")
+    fw = os.path.join(tmp, f"fw_{fields}.npz")
+    argv = FLAGSHIP_PARITY + ["--fields", fields, "--ref-cache", ref, "--fw-cache", fw,
+                              "--device", "cuda"]
+    kernels.reset_launches(kernels_step.fused_loss_and_grad)
+    with Spy(Trainer, "train", keep=lambda args, _: dict(args[0].stats)) as train:
+        t0 = time.perf_counter()
+        rc = cli.main(["parity", *argv, "--out", os.path.join(tmp, f"report_{fields}.md")])
+        wall = time.perf_counter() - t0
+    k1 = kernels_step.fused_loss_and_grad.launches
+    if train.calls != 1:
+        fail(f"phase {phase}: CLI parity trained {train.calls} times, not once")
+    rc_again, num = parity.run(argv + ["--out", os.path.join(tmp, f"recomposed_{fields}.md")])
+    if rc_again != rc:
+        fail(f"phase {phase}: the run exited {rc}, its recomposition {rc_again}")
+    with np.load(ref) as z, np.load(fw) as zf:
+        rt = np.asarray(z["totals"])
+        rows = {k: np.asarray(zf[k]) for k in ("totals", "fids", "ress")}
+    ot = rows["totals"]
+    rel = np.abs(ot[:50_000] - rt[:50_000]) / np.abs(rt[:50_000])
+    prefix = int(np.argmax(rel > 5e-3)) if (rel > 5e-3).any() else rel.size
+    stats = train.results[0]
+    print(f"  CLI parity exit {rc} ({num['verdict']}); {len(ot)} loss evaluations "
+          f"({num['n_compared']} Adam + {num['lbfgs_evals_fw']} L-BFGS; the reference "
+          f"{num['lbfgs_evals_ref']} L-BFGS), K1 launches {k1}; wall {wall:.1f} s, of which "
+          f"Adam {stats['adam_seconds']:.1f} s and L-BFGS {stats['lbfgs_seconds']:.1f} s")
+    print(f"  iteration 1: reference {rt[0]:.6e}, port {ot[0]:.6e}, rel {num['iter1_rel']:.3e}; "
+          f"first 10 max rel {rel[:10].max():.3e}; Adam prefix within 5e-3: {prefix} of "
+          f"{rel.size}; Adam median rel {num['adam_median_rel']:.3e}")
+    print(f"  L-BFGS: tracked prefix {num.get('tracked', 0)}; terminal minima reference "
+          f"{num.get('ref_min', float('nan')):.6e}, port {num.get('fw_min', float('nan')):.6e}, "
+          f"log10 gap {num['log10_gap'] if 'log10_gap' in num else float('nan'):.4f}")
+    print(f"  h field: RMSE {num['h_rmse']:.4e} m = {num['rmse_truth_frac']:.2%} of the truth "
+          f"scale {num['h_truth_scale']:.4f} m, {num['rmse_pred_frac']:.2%} of the predicted "
+          f"range; predicted ranges reference {num['ref_pred_range']:.4f} m, port "
+          f"{num['fw_pred_range']:.4f} m ({num['fw_structure_frac']:.1%} of truth)")
+    if not all(np.isfinite(v).all() for v in rows.values()):
+        fail(f"phase {phase}: a log row is not finite")
+    if k1 != len(ot):
+        fail(f"phase {phase}: K1 launched {k1} times for {len(ot)} log rows: some evaluation "
+             "bypassed the kernel")
+    if not num["iter1_rel"] <= 1e-5:
+        fail(f"phase {phase}: iteration 1 differs from the reference's by {num['iter1_rel']:.3e}")
+    if not rel[:10].max() <= 2e-4:
+        fail(f"phase {phase}: the first 10 Adam losses differ by up to {rel[:10].max():.3e}")
+    if not num.get("log10_gap", float("inf")) < 0.1:
+        fail(f"phase {phase}: the terminal minima are not in one basin (log10 gap "
+             f"{num.get('log10_gap')})")
+    return {**num, "exit": rc, "wall_s": wall, "k1_launches": k1, "adam_prefix_5e-3": prefix,
+            **stats}
+
+
+def adapt_compare(label: str, cfg, model: str, dev, tier: str) -> int:
+    """``Predictor.adapt`` through the kernels against its plain version on
+    the card, on the same weights and the config's test grid; returns the
+    evaluation count. f32: against ``use_kernel=False``: the same count,
+    each evaluation's loss within ``REL_TOL`` relative, the parameters
+    after it within 1e-4 x max|change| + 1e-7, the predictions after it by
+    ``compare``. The loss is a mean of squared residuals that cancel: on
+    the trained flagship the residual is ~1e-3 of its terms, so the
+    kernels' ~1e-5-of-scale agreement on y and dy reads as up to 7.0e-5 of
+    the loss (measured on an H100 80GB HBM3 at 700 W), above the 1e-5
+    a loss away from such cancellation keeps; ``REL_TOL`` is the smoke's
+    kernel-against-plain tolerance for every f32 output. bf16: against the
+    plain bf16 functions on the card (``PlainFused``), each held to the
+    tier's own error, measured between the plain bf16 and plain f32 runs:
+    the losses within a quarter of their first evaluation's gap +
+    ``REL_TOL`` relative, the parameters within a quarter of their gap +
+    f32's limit, the served prediction by ``compare_tier`` against the
+    plain tier at the same adapted weights. Against the plain route's
+    prediction at its own weights (8.2e-8 away) the L2 gap read 4.7 x the
+    spread of two summation orders on the trained flagship, past
+    ``compare_tier``'s 4 x: a weight gap that small flips bf16 roundings
+    as a summation order does, so the weights and the kernel are held
+    apart."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch.data import load_test_data
+    from pinn_depthestimation_tpu_torch.inference import Predictor
+    from pinn_depthestimation_tpu_torch.ops import kernels
+
+    x_all = load_test_data(cfg).inputs
+    x = torch.as_tensor(x_all[np.isfinite(x_all).all(axis=1)]).to(dev)
+    kern = Predictor(cfg, model, device=dev)
+    p0 = {k: v.clone() for k, v in kern.params.items()}
+    n = kern.adapt(x_all)
+    plain = Predictor(cfg, model, device=dev, use_kernel=False)
+    n_plain = plain.adapt(x_all)
+    ref = plain
+    if tier != "f32":
+        with PlainFused():
+            ref = Predictor(cfg, model, device=dev)
+            n_plain = ref.adapt(x_all)
+    if n != n_plain:
+        fail(f"{label}: {n} evaluations through the kernels, {n_plain} on the plain path")
+    lk, lr = kern.adapt_losses, ref.adapt_losses
+    moved = max(float((ref.params[k] - p0[k]).abs().max()) for k in p0)
+    gap = max(float((kern.params[k] - ref.params[k]).abs().max()) for k in p0)
+    loss_tol = REL_TOL * np.abs(lr)
+    param_tol = 1e-4 * moved + 1e-7
+    if tier != "f32":
+        loss_tol = loss_tol + 0.25 * abs(float(ref.adapt_losses[0] - plain.adapt_losses[0]))
+        param_tol += 0.25 * max(float((ref.params[k] - plain.params[k]).abs().max()) for k in p0)
+    rel = np.abs(lk - lr) / np.abs(lr)
+    sci = lambda v: np.array2string(v, formatter={"float_kind": "{:.3e}".format})  # noqa: E731
+    print(f"  {label}: {n} evaluations; losses {lk[0]:.6e} -> {lk.min():.6e} (plain "
+          f"{lr[0]:.6e} -> {lr.min():.6e}), relative gaps {sci(rel)} "
+          f"(tolerance {sci(loss_tol / np.abs(lr))}); parameters moved "
+          f"{moved:.3e}, max |kernels - plain| {gap:.3e} (tolerance {param_tol:.3e})")
+    if not (np.abs(lk - lr) <= loss_tol).all():
+        fail(f"{label}: the adaptation's losses through the kernels and the plain path differ")
+    if not gap <= param_tol:
+        fail(f"{label}: the adapted parameters through the kernels and the plain path differ")
+    with torch.no_grad():
+        got, _ = kernels.mlp_fwd_tangents(kern.params, x, kern.spec, 0, precision=tier)
+        if tier == "f32":
+            compare(f"{label}: adapted prediction", got,
+                    torch.as_tensor(plain.predict(x.cpu().numpy())).to(dev))
+        else:
+            # the plain tier at the kernels' own adapted weights: the two
+            # routes' weights are held above, and at bf16 their ~1e-7 gap
+            # flips roundings as another summation order would (the gap
+            # across the routes is printed)
+            fwd, p = kernels.mlp_fwd_tangents_plain, kern.params
+            compare_tier(f"{label}: adapted prediction", got, fwd(p, x, kern.spec, 0, tier)[0],
+                         fwd(p, x, kern.spec, 0, "f32")[0],
+                         fwd(f64(p), x.double(), kern.spec, 0, tier)[0], tier)
+            cross = float((got - fwd(ref.params, x, kern.spec, 0, tier)[0]).double().norm())
+            print(f"  (L2 gap to the plain route's prediction at its own weights {cross:.3e})")
+    return n
+
+
+def parity_phases(dev, repo: str, keep: str) -> None:
+    """Phases 22-24: the flagship's parity runs against the reference's
+    committed 50,000-step runs through CLI ``parity``, and test-time
+    adaptation through CLI ``test`` on phases 8 and 12's trained models."""
+    import torch
+
+    from pinn_depthestimation_tpu_torch import cli, inference
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.inference import Predictor
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 22. the flagship parity run -------------------------------------------
+        print("== phase 22: flagship parity against the reference's 50,000-step run "
+              "(CLI parity, .soak/ref_50k.npz)")
+        flag = parity_run("22", repo, tmp, "plane")
+        if flag["exit"] != 0 or flag["verdict"] != "PASS":
+            fail(f"phase 22: the harness's verdict is {flag['verdict']} (exit {flag['exit']}): "
+                 f"h RMSE {flag['rmse_truth_frac']:.2%} of truth, {flag['rmse_pred_frac']:.2%} "
+                 "of the predicted range, above 1 % on both")
+        print(f"  verdict PASS: h RMSE {flag['rmse_truth_frac']:.2%} of truth (the JAX "
+              "package read 0.08 %, PARITY_FLAGSHIP_50K.md)")
+
+        # 23. the same on the structured fields -----------------------------------
+        print("== phase 23: structured-fields parity (CLI parity, .soak/ref_50k_structured.npz)")
+        struct = parity_run("23", repo, tmp, "structured")
+        print(f"  h RMSE {struct['rmse_truth_frac']:.2%} of the truth scale beside the JAX "
+              "package's 1.28 % and the reference's own fork spread of 1.22 % "
+              f"(PARITY_STRUCTURED_50K.md); harness verdict {struct['verdict']}; predicted range "
+              f"{struct['fw_structure_frac']:.1%} of truth (reference "
+              f"{struct['ref_structure_frac']:.1%}; criterion >= 10 %)")
+        if not struct["fw_structure_frac"] >= 0.10:
+            fail("phase 23: the port's recovered h field is degenerate (predicted range below "
+                 "10 % of the truth range)")
+
+        # 24. test-time adaptation on the card --------------------------------------
+        print("== phase 24: test-time adaptation (CLI test with perform_optimization)")
+        counted = {"k2": kernels.mlp_fwd_tangents, "k3": kernels_vjp.packed_mlp_bwd,
+                   "k4": kernels_vjp.packed_mlp_bwd_rebuild}
+        plain_paths = [(inference, "mlp_apply_with_tangents"), (inference, "mlp_apply"),
+                       (kernels, "mlp_fwd_tangents_plain"),
+                       (kernels_vjp, "packed_mlp_bwd_plain")]
+        for name, tier in (("flagship", "f32"), ("cmb", "f32"), ("flagship", "bf16")):
+            with open(os.path.join(keep, name, "config.json")) as f:
+                raw = json.load(f)
+            raw.update(perform_optimization=True, kernel_precision=tier)
+            path = os.path.join(tmp, f"adapt_{name}_{tier}.json")
+            with open(path, "w") as f:
+                json.dump(raw, f)
+            model = os.path.join(keep, name, "model.npz")
+            for wrapper in counted.values():
+                kernels.reset_launches(wrapper)
+            with contextlib.ExitStack() as stack:
+                adapt = stack.enter_context(Spy(Predictor, "adapt"))
+                spies = [stack.enter_context(Spy(obj, attr)) for obj, attr in plain_paths]
+                rc = cli.main(["test", "--config", path, "--model", model, "--device", "cuda",
+                               "--debug"])
+            torch.cuda.synchronize()
+            if rc != 0 or adapt.calls != 1:
+                fail(f"CLI test with perform_optimization on the {name} model at {tier} exited "
+                     f"{rc} after {adapt.calls} adaptations")
+            evals = adapt.results[0]
+            launches = {k: w.launches_by_tier[tier] for k, w in counted.items()}
+            others = {k: w.launches - w.launches_by_tier[tier] for k, w in counted.items()}
+            bwd = "k4" if tier == "bf16" else "k3"
+            print(f"  {name} at {tier}: {evals} evaluations; launches {launches} (other tiers "
+                  f"{others}); plain-path calls {[spy.calls for spy in spies]}")
+            want = {"k2": evals + 1, bwd: evals, ("k3" if bwd == "k4" else "k4"): 0}
+            if launches != want or any(others.values()):
+                fail(f"{name} at {tier}: launches {launches} (other tiers {others}), expected "
+                     f"{want}: K2 once per evaluation and once for the prediction, the "
+                     "backward once per evaluation")
+            if any(spy.calls for spy in spies):
+                fail(f"{name} at {tier}: the adaptation or the prediction called a plain version")
+            adapt_compare(f"{name} at {tier}, kernels against plain", load_config(path), model,
+                          dev, tier)
+
+
 def main() -> None:
     import torch
 
@@ -2301,10 +2607,12 @@ def main() -> None:
           f"{n_res / ms_res * 1e3:.4g} evals/s)")
     print(f"  K2 residual, 1M points: {ms_res_1m:.3f} ms (plain {plain_res_1m:.3f} ms, "
           f"bound {b_1m:.3f} ms, {b_1m / ms_res_1m:.1%} of bound)")
+    # phases 8 and 12 leave their trained models here for phase 24
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     # 7.-10. the training slice ------------------------------------------
-    k1_report = training_phases(dev, repo, bound)
+    k1_report = training_phases(dev, repo, bound, keep.name)
     # 11.-13. the CMB slice ------------------------------------------------
-    k3_report = cmb_phases(dev, repo, bound)
+    k3_report = cmb_phases(dev, repo, bound, keep.name)
 
     def bound_bf16(flops, nbytes):
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -2316,6 +2624,9 @@ def main() -> None:
                                "cmb": k3_report["cmb_adam_ms_per_iter"]})
     # 18.-21. the f32x3 tier, its paths and the bench suite -----------------
     x3_report = f32x3_phases(dev, repo, bound, bound_bf16)
+    # 22.-24. the parity harness against the reference's runs, adaptation --
+    parity_phases(dev, repo, keep.name)
+    keep.cleanup()
     print(f"  total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
 
     # one entry per kernel and tier; K3-bf16 and K4-f32 launched on phase

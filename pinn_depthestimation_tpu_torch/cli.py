@@ -9,12 +9,19 @@ slices:
                                                        [--precision-schedule PREFIX_ITERS[:TIER]]
     python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
                                                        [--save OUT.mat] [--device cuda|cpu]
+    python -m pinn_depthestimation_tpu_torch.cli parity [--iters 50000] [--lbfgs 500]
+                                                       [--ref-cache REF.npz] [--fw-cache FW.npz]
+                                                       [--out REPORT.md] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
                                                        [--precision f32|f32x3|bf16]
                                                        [--suite | --step]
 
-``train`` and ``test`` take newmethod and CMB configs. ``bench`` prints one
+``train`` and ``test`` take newmethod and CMB configs; ``test`` on a config
+with ``perform_optimization: true`` first adapts the weights to the physics
+on the test grid (``Predictor.adapt``) and prints how many loss evaluations
+that took. ``parity`` runs the full-schedule parity experiment against the
+reference (``parity.py``, whose flags it takes). ``bench`` prints one
 JSON line: the residual rate at ``--precision``, with ``--suite`` the JAX
 suite's record (every tier's residual rate, the plain version's under
 ``plain``, the Adam steps; ``benchmarks.run_bench_suite``), with ``--step``
@@ -26,8 +33,8 @@ the verb fails unless ``--device cpu`` is given. ``train
 steps at TIER (default ``bf16``), merged onto the config's
 ``precision_schedule`` block; ``0`` disables it. ``train --mesh`` and
 ``--f64-polish`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
-``video``, ``parity``, ``test --plot`` and the legacy ``synth`` outputs
-come with later slices.
+``video``, ``test --plot`` and the legacy ``synth`` outputs come with later
+slices.
 """
 
 from __future__ import annotations
@@ -159,6 +166,10 @@ def cmd_test(args) -> int:
         print(f"Error loading model: {e}")
         return 1
     result = predictor.run()
+    if result.adapted:
+        losses = predictor.adapt_losses
+        print(f"Test-time adaptation: {result.adapt_evaluations} loss evaluations, "
+              f"physics loss {losses[0]:.5e} -> {losses.min():.5e}")
     for key, arr in result.pred.items():
         # masked (NaN) grid cells are data-driven; summarize over wet cells
         nan_pct = 100.0 * float(np.isnan(arr).mean())
@@ -171,6 +182,12 @@ def cmd_test(args) -> int:
         print(f"Predictions saved to {args.save}")
     print("Prediction done!")
     return 0
+
+
+def cmd_parity(args) -> int:
+    from pinn_depthestimation_tpu_torch.parity import run_args
+
+    return run_args(args)[0]
 
 
 def cmd_bench(args) -> int:
@@ -239,6 +256,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-raise errors with a full traceback instead of "
                          "the friendly exit-1 message")
     te.set_defaults(fn=cmd_test)
+
+    from pinn_depthestimation_tpu_torch.parity import build_parser as parity_parser
+
+    pa = sub.add_parser(
+        "parity", parents=[parity_parser(add_help=False)],
+        help="full-schedule parity experiment vs the actual reference",
+    )
+    pa.set_defaults(fn=cmd_parity)
 
     b = sub.add_parser("bench", help="residual-evaluation benchmark (one JSON line)")
     b.add_argument("--points", type=int, default=10_000_000)

@@ -712,3 +712,81 @@ def test_cuda_f32x3_cmb_training_runs_on_k2_and_k3(cuda_device, tmp_path):
     assert kernels_vjp.packed_mlp_bwd.launches_by_tier["f32x3"] - k3["f32x3"] == 2 * n
     assert kernels.mlp_fwd_tangents.launches_by_tier["f32x3"] - k2["f32x3"] == 2 * n
     assert kernels_vjp.packed_mlp_bwd_rebuild.launches == k4
+
+
+# ------------------------------------------------ test-time adaptation (M6)
+
+def adapt_config(tmp_path, kind: str, tier: str):
+    """A small newmethod (2->[20]x6->3) or CMB (2->[10]x4->6) config whose
+    test grid the adaptation runs on, and seeded weights for it (.npz)."""
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config, make_config
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = str(tmp_path / "grid.mat")
+    if kind == "newmethod":
+        synthetic.make_newmethod_mat(mat, nx=41, ny=61, nan_fraction=0.1, seed=3)
+        raw = make_config(mat, 1, 1, hidden_layers=6, hidden_width=20)
+        raw["data_test"].update(file=mat, outputs=["U", "V", "h"], nx=41, ny=61,
+                                inputs={"x": {"requires_grad": ["true"]},
+                                        "y": {"requires_grad": ["true"]}})
+        arrays = numpy_params((2,) + (20,) * 6 + (3,), seed=4)
+    else:
+        csv = str(tmp_path / "fid.csv")
+        synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=60, seed=6, nan_fraction=0.03)
+        raw = make_cmb_config(csv, mat, 1, 1, hidden_layers=4, nx=41, ny=61, interval=2,
+                              training_points=40)
+        raw["data_test"].pop("model")
+        arrays = numpy_params((2,) + (10,) * 4 + (6,), seed=5)
+        arrays["b_out"][3] += 1.0  # eta + h away from 0
+    npz = str(tmp_path / "w.npz")
+    np.savez(npz, **arrays)
+    return parse_config(dict(raw, kernel_precision=tier)), npz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tier", [("newmethod", "f32"), ("cmb", "f32"),
+                                       ("newmethod", "bf16")])
+def test_cuda_adaptation_through_the_kernels_matches_plain(cuda_device, tmp_path, kind, tier):
+    """``Predictor.adapt`` on the card: K2 once and the backward (K3 at f32,
+    K4 at bf16) once per evaluation. At f32 against ``use_kernel=False``:
+    the same evaluations, losses within 1e-4 relative (the residuals
+    cancel: ``chip_smoke.adapt_compare``), parameters within 1e-4 x
+    max|change| + 1e-7. At bf16 the first evaluation (the same weights on
+    both routes) against the plain bf16 loss, within a quarter of the
+    tier's own error + 1e-4 relative."""
+    from pinn_depthestimation_tpu_torch import physics
+    from pinn_depthestimation_tpu_torch.data import load_test_data
+    from pinn_depthestimation_tpu_torch.inference import Predictor
+
+    cfg, npz = adapt_config(tmp_path, kind, tier)
+    x = load_test_data(cfg).inputs
+    kern = Predictor(cfg, npz, device=cuda_device)
+    plain = Predictor(cfg, npz, device=cuda_device, use_kernel=False)
+    assert kern.use_kernel
+    p0 = {k: v.clone() for k, v in kern.params.items()}
+    bwd = kernels_vjp.packed_mlp_bwd_rebuild if tier == "bf16" else kernels_vjp.packed_mlp_bwd
+    k2, kb = kernels.mlp_fwd_tangents.launches_by_tier[tier], bwd.launches_by_tier[tier]
+    n = kern.adapt(x)
+    assert kernels.mlp_fwd_tangents.launches_by_tier[tier] - k2 == n
+    assert bwd.launches_by_tier[tier] - kb == n
+    n_plain = plain.adapt(x)
+    lk, lp = kern.adapt_losses, plain.adapt_losses
+    assert np.isfinite(lk).all() and all(bool(v.isfinite().all()) for v in kern.params.values())
+    if tier == "f32":
+        assert n == n_plain
+        np.testing.assert_allclose(lk, lp, rtol=1e-4)
+        moved = max(float((plain.params[k] - p0[k]).abs().max()) for k in p0)
+        for k in p0:
+            assert float((kern.params[k] - plain.params[k]).abs().max()) <= 1e-4 * moved + 1e-7
+        return
+    # the plain bf16 loss at the starting weights: the adaptation's first evaluation
+    finite = torch.as_tensor(x[np.isfinite(x).all(axis=1)]).to(cuda_device)
+    y, dy = kernels.mlp_fwd_tangents_plain(p0, finite, kern.spec, 2, "bf16")
+    names = list(cfg.data_test.outputs)
+    fields = {name: y[:, i] for i, name in enumerate(names)}
+    grads = {c: {name: dy[j][:, i] for i, name in enumerate(names)}
+             for j, c in enumerate(("x", "y"))}
+    coords = {"x": finite[:, 0], "y": finite[:, 1]}
+    want = float(physics.residual_loss(cfg.physics)(coords, fields, grads, parity=cfg.parity))
+    assert abs(lk[0] - want) <= 0.25 * abs(want - lp[0]) + 1e-4 * abs(want)

@@ -198,12 +198,14 @@ def test_predictor_seeded_init_is_deterministic(served):
 
 
 def test_adaptation_raises_not_implemented(served):
+    """Test-time adaptation is ported (``tests/test_torch_adapt.py`` holds it
+    to the JAX package); only its legacy equation, ``navier_stokes``, still
+    raises, naming its roadmap item."""
     raw = dict(served.raw, perform_optimization=True)
     pred = Predictor(parse_config(raw), served.pth, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pred.run()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pred.adapt(np.zeros((4, 2), np.float32))
+    assert pred.run().adapted
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*M9"):
+        pred.adapt(np.zeros((4, 2), np.float32), equation="navier_stokes")
 
 
 def test_cli_test_save_keys_and_synth(served, tmp_path, capsys):

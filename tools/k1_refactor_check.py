@@ -22,9 +22,8 @@ f32); the others are held to ``chip_smoke.py``'s tolerances: at f32
 max|ours - theirs| <= 1e-4 x max|theirs| + 1e-7, at bf16 and f32x3
 ``compare_tier`` with the other build in the plain tier version's place
 (two valid summation orders of one function). The other build's walk must
-take its tile per launch (the lane-pair walk); a K2 whose bf16 and
-f32x3 entries take no launch plan (no ``k2_mma_rows``, sources before the
-tensor-core body) is bound and launched with its own arguments.
+take its tile per launch (the lane-pair walk), and its K2's bf16 and f32x3
+entries their launch plan (``k2_mma_rows``: the tensor-core body).
 ``--kernels`` limits the check to kernels the other sources have.
 
 ``--time`` also times both builds in turns (other, ours, ours, other), with
@@ -56,22 +55,6 @@ sys.path.insert(0, REPO)
 TIER_INDEX = {"f32": 0, "bf16": 1, "f32x3": 2}
 
 
-def bind(kind: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Bind ``lib`` as the port binds its own; a K2 without the tensor-core
-    body's launch plan (no ``k2_mma_rows``) with its own cheap-tier
-    arguments, the f32 entry's."""
-    from pinn_depthestimation_tpu_torch.ops import cuda_build
-
-    lib = {"k2": cuda_build._bind_k2, "k1": cuda_build._bind_k1,
-           "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}[kind](lib)
-    if kind == "k2" and not hasattr(lib, "k2_mma_rows"):
-        for entry in ("k2_mlp_fwd_tangents_bf16", "k2_mlp_fwd_tangents_f32x3"):
-            if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = [cuda_build._P] * 10 + [cuda_build._I] * 7 + [
-                    cuda_build._P]
-    return lib
-
-
 def start_build(other_dir: str, tmp: str, widths: dict[str, set[int]], tiers) -> dict:
     """Start one nvcc per (kernel, width, tier) of the other sources; returns
     what :func:`finish_build` waits for."""
@@ -99,40 +82,26 @@ def start_build(other_dir: str, tmp: str, widths: dict[str, set[int]], tiers) ->
 def finish_build(procs: dict) -> dict:
     """The other build's libraries ``{(kernel, width): library}``, one
     library per width answering every tier, as the port's are."""
-    from pinn_depthestimation_tpu_torch.ops.cuda_build import WidthLibrary
+    from pinn_depthestimation_tpu_torch.ops import cuda_build
 
+    binders = {"k2": cuda_build._bind_k2, "k1": cuda_build._bind_k1,
+               "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}
     per = {}
     for (kind, w, tier), (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the other {kind} at width {w}, {tier}:\n"
                                f"{log[-3000:]}")
-        per.setdefault((kind, w), []).append(bind(kind, ctypes.CDLL(out)))
-    return {key: WidthLibrary(libs) for key, libs in per.items()}
+        per.setdefault((kind, w), []).append(binders[kind](ctypes.CDLL(out)))
+    return {key: cuda_build.WidthLibrary(libs) for key, libs in per.items()}
 
 
 def launch_k2(lib, params, x, spec, kt: int, precision: str, *, epilogue: bool, **out):
-    """One K2 launch from ``lib`` into ``out`` (``y``/``dy`` or ``fc``):
-    through the port's launcher, or, for a cheap tier of a K2 without the
-    launch plan, with the f32 entry's arguments on the same host path (the
-    device's context and current stream, so CUDA events compare alike)."""
-    import torch
-
+    """One K2 launch from ``lib`` into ``out`` (``y``/``dy`` or ``fc``),
+    through the port's launcher."""
     from pinn_depthestimation_tpu_torch.ops import kernels
 
-    if precision == "f32" or hasattr(lib, "k2_mma_rows"):
-        return kernels._launch_k2(params, x, spec, kt, precision, epilogue=epilogue, lib=lib,
-                                  **out)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x.device):
-        err = kernels.entry(lib, "k2_mlp_fwd_tangents", precision)(
-            ptr(x), *(ptr(params[k]) for k in ("w_in", "b_in", "w_hidden", "b_hidden",
-                                              "w_out", "b_out")),
-            ptr(out.get("y")), ptr(out.get("dy")), ptr(out.get("fc")), x.shape[0], spec.d_in,
-            spec.d_out, spec.n_hidden - 1, kt, kernels._ACT[spec.init_type], int(epilogue),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"K2 ({precision}, no launch plan) launch failed: CUDA error {err}")
+    kernels._launch_k2(params, x, spec, kt, precision, epilogue=epilogue, lib=lib, **out)
 
 
 def launch_k1(lib, params, b, spec, precision: str = "f32"):
