@@ -134,7 +134,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    relative, parameters within 1e-4 x max|change| + 1e-7, predictions by
    ``compare``; bf16: the plain bf16 functions, held to the tier's own
    error, the served prediction by ``compare_tier`` at the adapted
-   weights).
+   weights);
+25. the legacy pipeline at ``examples/legacy.json``'s width
+   (5->[20]x20->4, ``navier_stokes``): ``synth --legacy --nx 41 --ny 31``
+   and the loader (26,691 collocation points, 300 fidelity rows); K2 at
+   K=3 and K=0, K3 and K4 at that shape against their plain versions at
+   each tier (f32 by ``compare``, bf16 and f32x3 by ``compare_tier``); CLI
+   ``train`` on the example uncut (500 Adam, L-BFGS 100/125) at f32 (K2 ==
+   K3 == 2 x evaluations, no K1 or K4, no plain call, every log row finite,
+   the last total below the first) and at bf16 with Adam cut to 100
+   (K4-bf16 == 2 x evaluations, no K3); iteration 1 and a 20-step Adam
+   prefix of a K2 + K3 Trainer against an autograd one (rel 1e-5, 1e-6);
+   the legacy Adam step at f32 and bf16 (``run_legacy_step_bench``), K2
+   (K=3), K3 and K4-bf16 beside their bounds, and the step's profile
+   (``tools/profile_cmb_step.py --pipeline legacy``, in a process of its
+   own): the device's idle share and the device time of K2 (K=3) and K3.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
@@ -143,9 +157,12 @@ after its CLI ``test`` (the CMB path), before phase 15's CLI ``train`` and
 after its ``test`` (the bf16 CMB path), and before phase 16's CLI
 ``train`` and after its ``test`` (the schedule), and likewise around each
 of phase 19's paths, each CLI ``parity`` run of phases 22-23 (K1) and
-each CLI ``test`` of phase 24 (K2, K3, K4): each kernel must have launched
+each CLI ``test`` of phase 24 (K2, K3, K4) and each CLI ``train`` of
+phase 25 (K1, K2, K3, K4): each kernel must have launched
 on each path that runs it, at the tier that path asks for. The ``kernels`` line holds one
-entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3). The last
+entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3); the
+entries of K2-f32, K2-bf16, K3-f32 and K4-bf16 also carry phase 25's
+launches (``launches_legacy``) and times (``*_legacy*``). The last
 two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 {...}}``.
 """
@@ -862,6 +879,20 @@ def k3_cases(dev, repo: str, tmp: str, res_pts, fid_pts):
     return out
 
 
+def write_config(tmp: str, name: str, raw: dict, overrides: dict) -> str:
+    """``raw`` with ``overrides`` merged in (a dict value into its section),
+    written to a new file under ``tmp``; returns its path."""
+    for key, value in overrides.items():
+        if isinstance(value, dict):
+            raw[key] = {**raw.get(key, {}), **value}
+        else:
+            raw[key] = value
+    path = os.path.join(tmp, f"{name}_{len(os.listdir(tmp))}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
 def cmb_config(tmp: str, repo: str, csv: str, mat: str, **overrides) -> str:
     """``examples/cmb.json`` with its files replaced by ``csv``/``mat`` and
     ``overrides`` merged in; returns the config path."""
@@ -870,15 +901,7 @@ def cmb_config(tmp: str, repo: str, csv: str, mat: str, **overrides) -> str:
     raw["data_fidelity"]["file"] = csv
     raw["data_residual"]["file"] = mat
     raw["data_test"]["file"] = mat
-    for key, value in overrides.items():
-        if isinstance(value, dict):
-            raw[key] = {**raw.get(key, {}), **value}
-        else:
-            raw[key] = value
-    path = os.path.join(tmp, f"cmb_{len(os.listdir(tmp))}.json")
-    with open(path, "w") as f:
-        json.dump(raw, f)
-    return path
+    return write_config(tmp, "cmb", raw, overrides)
 
 
 def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
@@ -2418,6 +2441,271 @@ def parity_phases(dev, repo: str, keep: str) -> None:
                           dev, tier)
 
 
+LEGACY_POINTS, LEGACY_ROWS = 26_691, 300  # synth --legacy --nx 41 --ny 31: 41 x 31 x 21
+
+
+def legacy_config_file(tmp: str, repo: str, snap_dir: str, **overrides) -> str:
+    """``examples/legacy.json`` with its files in ``snap_dir`` and
+    ``overrides`` merged in; returns the config path."""
+    with open(os.path.join(repo, "examples", "legacy.json")) as f:
+        raw = json.load(f)
+    raw["data_fidelity"]["dir"] = os.path.join(snap_dir, "fidelity.csv")
+    raw["numerical_model"]["dir"] = snap_dir
+    return write_config(tmp, "legacy", raw, overrides)
+
+
+def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
+    """Phase 25: the legacy pipeline at ``examples/legacy.json``'s full
+    width. Returns the legacy numbers of the ``kernels`` line's K2-f32,
+    K2-bf16, K3-f32 and K4-bf16 entries."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import load_config, parse_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.training import driver
+    from pinn_depthestimation_tpu_torch.training import loss as loss_mod
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    t_phase = time.perf_counter()
+    spec = MLPSpec(sizes=(5,) + (20,) * 20 + (4,), init_type="xavier")
+    counted = {"k1": kernels_step.fused_loss_and_grad, "k2": kernels.mlp_fwd_tangents,
+               "k3": kernels_vjp.packed_mlp_bwd, "k4": kernels_vjp.packed_mlp_bwd_rebuild}
+    plain_paths = [(loss_mod, "mlp_apply_with_tangents"), (loss_mod, "mlp_apply"),
+                   (driver, "mlp_apply"), (kernels, "mlp_fwd_tangents_plain"),
+                   (kernels_vjp, "packed_mlp_bwd_plain")]
+    with tempfile.TemporaryDirectory() as tmp:
+        print("== phase 25: the legacy pipeline (CLI synth --legacy, the loader; K2, K3 and K4 "
+              "at 5->[20]x20->4 against their plain versions)")
+        if cli.main(["synth", "--out", tmp, "--legacy", "--nx", "41", "--ny", "31"]) != 0:
+            fail("synth --legacy failed")
+        snap_dir = os.path.join(tmp, "beach2d")
+        cfg_path = legacy_config_file(tmp, repo, snap_dir)
+        td = load_training_data(load_config(cfg_path))
+        if td.residual_input.shape != (LEGACY_POINTS, 5) or td.fidelity_input.shape != (
+                LEGACY_ROWS, 5):
+            fail(f"the legacy loader gave {td.residual_input.shape} residual and "
+                 f"{td.fidelity_input.shape} fidelity rows")
+        res_pts = torch.as_tensor(td.residual_input).to(dev)
+        fid_pts = torch.as_tensor(td.fidelity_input).to(dev)
+        params = params_from_numpy(numpy_params(spec.sizes, "xavier", 25), dev)
+        rng = np.random.RandomState(25)
+        cases = []
+        for name, x, kt in (("residual points", res_pts, 3), ("fidelity rows", fid_pts, 0)):
+            n = x.shape[0]
+            cases.append((name, x, kt,
+                          torch.as_tensor(rng.randn(n, 4).astype(np.float32)).to(dev),
+                          torch.as_tensor(rng.randn(kt, n, 4).astype(np.float32)).to(dev)))
+        err = {"k2": 0.0, "k3": 0.0, "k4_bf16": 0.0}
+        for name, x, kt, ybar, dybar in cases:
+            print(f" {name}: K={kt}, N={x.shape[0]}, K4 segments of "
+                  f"{kernels_vjp.rebuild_ckpt_every(spec, kt, 'f32', n_points=x.shape[0])} "
+                  f"layers (f32)")
+            with torch.no_grad():
+                y, dy = kernels.mlp_fwd_tangents(params, x, spec, kt)
+                torch.cuda.synchronize()
+                y32, dy32 = kernels.mlp_fwd_tangents_plain(params, x, spec, kt)
+                err["k2"] = max(err["k2"], compare(f"K2-f32 K={kt} y", y, y32),
+                                *([compare(f"K2-f32 K={kt} dy", dy, dy32)] if kt else []))
+            g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt)
+            g4 = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt)
+            torch.cuda.synchronize()
+            g32 = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt)
+            err["k3"] = max(err["k3"], *(compare(f"K3-f32 d{k}", g3[k], g32[k]) for k in g3))
+            for k in g4:
+                compare(f"K4-f32 d{k}", g4[k], g32[k])
+            for tier in ("bf16", "f32x3"):
+                kw = dict(tier=tier) if tier == "bf16" else dict(
+                    tier=tier, rel_floor=X3_REL_FLOOR, distinct=X3_DISTINCT)
+                with torch.no_grad():
+                    yt, dyt = kernels.mlp_fwd_tangents(params, x, spec, kt, precision=tier)
+                    torch.cuda.synchronize()
+                    yp, dyp = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, tier)
+                    y6, dy6 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, kt,
+                                                             tier)
+                    outs = [(f"K2-{tier} K={kt} y", yt, yp, y32, y6)] + (
+                        [(f"K2-{tier} K={kt} dy", dyt, dyp, dy32, dy6)] if kt else [])
+                g3t = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt,
+                                                 precision=tier, impl="stream")
+                g4t = kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt,
+                                                         precision=tier)
+                torch.cuda.synchronize()
+                gp = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, tier)
+                g6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                                      dybar.double(), spec, kt, tier)
+                outs += [(f"K3-{tier} d{k}", g3t[k], gp[k], g32[k], g6[k]) for k in g3t]
+                outs += [(f"K4-{tier} d{k}", g4t[k], gp[k], g32[k], g6[k]) for k in g4t]
+                real = {}
+                for label, got, want, want32, want64 in outs:
+                    e, r = compare_tier(f"{name}: {label}", got, want, want32, want64, **kw)
+                    kernel = label.split("-")[0]
+                    real[kernel] = real.get(kernel, False) or r
+                    if tier == "bf16" and kernel == "K4":
+                        err["k4_bf16"] = max(err["k4_bf16"], e)
+                print(f"  {tier}: outputs that show the tier apart from f32, by kernel: {real}")
+                if tier == "bf16" and not all(real.values()):
+                    fail(f"{name}: a bf16 kernel shows no output with the tier's error above "
+                         "the floor")
+        compare_s = time.perf_counter() - t_phase
+
+        # 25b. the uncut example through CLI train, at f32 and at bf16 -------------
+        def train(label: str, path: str, tier: str) -> tuple[dict, int, float]:
+            for wrapper in counted.values():
+                kernels.reset_launches(wrapper)
+            with contextlib.ExitStack() as stack:
+                spies = [stack.enter_context(Spy(obj, attr)) for obj, attr in plain_paths]
+                t0 = time.perf_counter()
+                rc = cli.main(["train", "--config", path, "--log-root", tmp, "--run-name", label,
+                               "--device", "cuda", "--debug"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"CLI train on the legacy config at {tier} exited {rc}")
+            launches = {k: w.launches_by_tier[tier] for k, w in counted.items()}
+            others = {k: w.launches - w.launches_by_tier[tier] for k, w in counted.items()}
+            epochs, fids, ress, totals = read_log(os.path.join(tmp, label))
+            n = len(epochs)
+            bwd = "k4" if tier == "bf16" else "k3"
+            want = {"k1": 0, "k2": 2 * n, "k3": 0, "k4": 0, bwd: 2 * n}
+            print(f"  {label}: {n} loss evaluations, launches {launches} (other tiers {others}), "
+                  f"plain-path calls {[spy.calls for spy in spies]}; total {totals[0]:.5e} -> "
+                  f"{totals[-1]:.5e} (min {min(totals):.5e}); CLI train wall time {wall:.2f} s")
+            if epochs != list(range(1, n + 1)):
+                fail(f"{label}: log.txt rows are not epochs 1..n")
+            if not all(math.isfinite(v) for v in (*fids, *ress, *totals)):
+                fail(f"{label}: log.txt holds a non-finite value")
+            if not totals[-1] < totals[0]:
+                fail(f"{label}: the last total {totals[-1]} is not below the first {totals[0]}")
+            if launches != want or any(others.values()):
+                fail(f"{label}: launches {launches} (other tiers {others}), expected {want}: K2 "
+                     f"twice per loss evaluation (K=3 residual, K=0 fidelity), {bwd.upper()} "
+                     "twice, no K1")
+            if any(spy.calls for spy in spies):
+                fail(f"{label}: training called a plain version")
+            return launches, n, wall
+
+        print("== phase 25b: examples/legacy.json uncut through CLI train (500 Adam, L-BFGS "
+              "100/125) at f32, then at bf16 with Adam cut to 100")
+        launches_f32, evals_f32, wall_f32 = train("legacy_f32", cfg_path, "f32")
+        if evals_f32 < 501:
+            fail(f"the legacy run logged {evals_f32} evaluations, fewer than 500 Adam + 1")
+        launches_bf16, evals_bf16, wall_bf16 = train(
+            "legacy_bf16", legacy_config_file(tmp, repo, snap_dir, kernel_precision="bf16",
+                                              adam_optimizer={"max_it": 100}), "bf16")
+
+        # 25c. kernel and plain Trainers from the same weights -------------------------
+        print("== phase 25c: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
+        with open(cfg_path) as f:
+            raw = json.load(f)
+        raw["adam_optimizer"]["max_it"], raw["lbfgs_optimizer"]["max_it"] = 20, 0
+        init = numpy_params(spec.sizes, "xavier", 26)
+        runs = {}
+        for mode in ("auto", "off"):
+            run = os.path.join(tmp, f"prefix_{mode}")
+            os.makedirs(run)
+            tr = driver.Trainer(parse_config(dict(raw, fused_kernel=mode)), run_dir=run,
+                                echo_every=0, initial_params=init, device=dev)
+            if tr.kernel_plan != (False, mode == "auto", mode == "auto"):
+                fail(f"fused_kernel={mode!r} chose {tr.kernel_plan} for the legacy net on the card")
+            losses = tr._adam_steps(20).cpu().numpy()
+            runs[mode] = (losses, {k: v.clone() for k, v in tr.state.params.items()})
+        (l_on, p_on), (l_off, p_off) = runs["auto"], runs["off"]
+        rel1 = np.abs(l_on[0] - l_off[0]) / np.abs(l_off[0])
+        gap = max(float((p_on[k] - p_off[k]).abs().max()) for k in p_on)
+        moved = max(float((p_off[k] - torch.as_tensor(init[k]).to(dev)).abs().max()) for k in p_on)
+        drift = float(np.max(np.abs(l_on - l_off) / np.abs(l_off)))
+        print(f"  iteration 1 (fid, res, total): K2+K3 {l_on[0]} autograd {l_off[0]} rel {rel1}; "
+              f"after 20 steps (parameters moved up to {moved:.3e}) max |p_kernels - p_plain| "
+              f"{gap:.3e}, max relative loss gap {drift:.3e}; tolerances 1e-5 and 1e-6")
+        if not (rel1 <= 1e-5).all():
+            fail("iteration-1 legacy losses of K2+K3 and autograd differ by more than 1e-5")
+        if not gap <= 1e-6:
+            fail("the 20-step Adam prefix of K2+K3 and autograd diverged on the legacy net")
+
+        # 25d. times ---------------------------------------------------------------------
+        print("== phase 25d: legacy times")
+        smi = nvidia_smi("name,power.limit")
+        steps = {t: benchmarks.run_legacy_step_bench(kernel_precision=t, device=dev)
+                 for t in ("f32", "bf16")}
+        _, x, kt, ybar, dybar = cases[0]
+        times = {}
+        for label, fn, plain, flops, nbytes, rate in (
+            ("K2 (K=3)", lambda: kernels.mlp_fwd_tangents(params, x, spec, kt),
+             lambda: kernels.mlp_fwd_tangents_plain(params, x, spec, kt),
+             k2_flops(spec, x.shape[0], kt, False),
+             k2_bytes(params, x.shape[0], spec, (1 + kt) * spec.d_out), bound),
+            ("K3-f32", lambda: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt),
+             lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt),
+             k3_flops(spec, x.shape[0], kt), k3_bytes(params, spec, x.shape[0], kt), bound),
+            ("K4-bf16", lambda: kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec,
+                                                                    kt, precision="bf16"),
+             lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16"),
+             k4_flops(spec, x.shape[0], kt), k3_bytes(params, spec, x.shape[0], kt),
+             bound_bf16),
+        ):
+            with torch.no_grad() if label.startswith("K2") else contextlib.nullcontext():
+                ms = cuda_ms(fn, 7, 10)
+                plain_ms = cuda_ms(plain, 5, 2)
+            b, by = rate(flops, nbytes)
+            times[label] = (ms, plain_ms, b, by)
+            print(f"  {label} at {x.shape[0]} points: {ms:.4f} ms by CUDA events (plain "
+                  f"{plain_ms:.4f} ms, bound {b:.5f} ms by {by}, {b / ms:.1%} of bound; "
+                  f"{flops / x.shape[0]:,.0f} FLOP per point)")
+        # the step's profile runs in a process of its own: late in this long
+        # process torch.profiler records no device event (device_ms)
+        prof = subprocess.run([sys.executable, os.path.join(repo, "tools", "profile_cmb_step.py"),
+                               "--pipeline", "legacy", "--steps", "50"], capture_output=True,
+                              text=True, timeout=600, cwd=repo)
+        if prof.returncode != 0:
+            fail(f"tools/profile_cmb_step.py --pipeline legacy exited {prof.returncode}: "
+                 f"{prof.stderr[-2000:]}")
+        step_prof = json.loads(prof.stdout.strip().splitlines()[-1])
+        idle, busy = step_prof["idle_share"], step_prof["device_busy_ms"]
+        # one launch per step each at K=3 (the largest of its kernel's
+        # entries: the K=0 fidelity launch on 300 rows is the smaller)
+        per_step = step_prof["kernels_us_per_step"] or {}
+        dev_ms = {label: max((us / 1e3 for name, us in per_step.items() if key in name),
+                             default=None)
+                  for label, key in (("K2 (K=3)", "k2_mlp_fwd"),
+                                     ("K3-f32", WALK_KERNEL["k3"]))}
+        for label, d in dev_ms.items():
+            b = times[label][2]
+            print(f"  {label} device time in the profiled step: {fmt_ms(d)}"
+                  + ("" if d is None else f" ({b / d:.1%} of its {b:.5f} ms bound)"))
+        ms_f32, ms_bf16 = steps["f32"]["ms_per_iter"], steps["bf16"]["ms_per_iter"]
+        print(f"  {smi}: legacy Adam step (500 steps, median of 3) f32 {ms_f32:.4f} ms, bf16 "
+              f"{ms_bf16:.4f} ms ({json.dumps(steps['f32'])}); one step under torch.profiler "
+              f"(50 steps): {step_prof['ms_profiled']:.4f} ms ({step_prof['ms_unprofiled']:.4f} "
+              f"unprofiled), device busy {fmt_ms(busy)}, idle share "
+              + ("not recorded" if idle is None else
+                 f"{idle:.1%} of the profiled step, "
+                 f"{1 - busy / step_prof['ms_unprofiled']:.1%} of the unprofiled one"))
+        print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s (kernel checks "
+              f"{compare_s:.1f} s, CLI train {wall_f32:.1f} s at f32 and {wall_bf16:.1f} s at "
+              "bf16)")
+
+    k2, k3, k4 = times["K2 (K=3)"], times["K3-f32"], times["K4-bf16"]
+    return {
+        "k2": {"launches_legacy": launches_f32["k2"], "max_abs_err_legacy": err["k2"],
+               "ms_legacy_k3": k2[0], "device_ms_legacy_k3": dev_ms["K2 (K=3)"],
+               "plain_ms_legacy_k3": k2[1], "bound_ms_legacy_k3": k2[2],
+               "points_legacy": LEGACY_POINTS},
+        "k2_bf16": {"launches_legacy": launches_bf16["k2"]},
+        "k3": {"launches_legacy": launches_f32["k3"], "max_abs_err_legacy": err["k3"],
+               "ms_legacy": k3[0], "device_ms_legacy": dev_ms["K3-f32"],
+               "plain_ms_legacy": k3[1],
+               "bound_ms_legacy": k3[2], "legacy_adam_ms_per_iter": steps["f32"]["ms_per_iter"],
+               "legacy_idle_share": idle, "legacy_prefix_gap": gap},
+        "k4_bf16": {"launches_legacy": launches_bf16["k4"], "max_abs_err_legacy": err["k4_bf16"],
+                    "ms_legacy": k4[0], "plain_ms_legacy": k4[1],
+                    "bound_ms_legacy": k4[2],
+                    "legacy_adam_ms_per_iter": steps["bf16"]["ms_per_iter"]},
+    }
+
+
 def main() -> None:
     import torch
 
@@ -2627,6 +2915,8 @@ def main() -> None:
     # 22.-24. the parity harness against the reference's runs, adaptation --
     parity_phases(dev, repo, keep.name)
     keep.cleanup()
+    # 25. the legacy pipeline --------------------------------------------------
+    legacy = legacy_phases(dev, repo, bound, bound_bf16)
     print(f"  total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
 
     # one entry per kernel and tier; K3-bf16 and K4-f32 launched on phase
@@ -2647,10 +2937,11 @@ def main() -> None:
     k4_f32 = {**bf16_report["k4_f32"], "launches": picked[("f32", "rebuild")],
               "plain_ms": k3_report["plain_ms"]}
     report = {"kernels": [
-        k2_f32, bf16_report["k2_bf16"], x3_report["k2"],
+        {**k2_f32, **legacy["k2"]}, {**bf16_report["k2_bf16"], **legacy["k2_bf16"]},
+        x3_report["k2"],
         k1_report, bf16_report["k1_bf16"], x3_report["k1"],
-        k3_report, k3_bf16, x3_report["k3"],
-        k4_f32, bf16_report["k4"], x3_report["k4"],
+        {**k3_report, **legacy["k3"]}, k3_bf16, x3_report["k3"],
+        k4_f32, {**bf16_report["k4"], **legacy["k4_bf16"]}, x3_report["k4"],
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

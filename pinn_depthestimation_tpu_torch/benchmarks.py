@@ -16,6 +16,10 @@ Port of the JAX package's ``benchmarks.py``:
   ~20,500 collocation points), through the ``Trainer``'s step loop — K2 and
   K3 (``f32``, ``f32x3``) or K4 (``bf16``) for the residual and the
   fidelity term, the physics in PyTorch, Adam;
+* ``run_legacy_step_bench``: the legacy Adam step in ms per iteration
+  (``examples/legacy.json``'s 5->[20]x20->4 net, ``navier_stokes``, the
+  26,691 ``(t, x, y, u, v)`` points of ``synth --legacy --nx 41 --ny 31``
+  at K=3 and its 300 fidelity rows), through the same step loop;
 * ``run_bench_suite``: the JAX suite's one-line record — the f32 residual
   headline, then ``extras``: the ``f32x3`` and ``bf16`` residual rates, the
   plain version's rate at a quarter of the points under ``plain`` (the port
@@ -237,18 +241,69 @@ def cmb_bench_trainer(tmp: str, n_iters: int, device: torch.device,
         return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
 
 
-def run_cmb_step_bench(
-    *,
-    n_iters: int = 500,
-    reps: int = 3,
-    kernel_precision: str | None = None,
-    device: str | torch.device = "cuda",
-) -> dict:
-    """CMB Adam-step time, ms per iteration (median of ``reps`` runs of
-    ``n_iters`` steps after one warm-up run), on :func:`cmb_bench_trainer`'s
-    workload, at ``kernel_precision`` if given. Each run ends in
-    ``torch.cuda.synchronize()``. Returns ``{"ms_per_iter", "points",
-    "fidelity_points", "path", "precision", "device"}``."""
+def legacy_config(snap_dir: str, csv_path: str, adam_iters: int, lbfgs_iters: int) -> dict:
+    """``examples/legacy.json`` as a raw config dict, its files at
+    ``snap_dir``/``csv_path`` and its Adam and L-BFGS iterations (the
+    example's: 500 and 100, at most 125 evaluations) set: the reference's
+    legacy ``config.json`` schema (5->[20]x20->4, xavier, ``navier_stokes``,
+    a 41x31 grid of 2 m cells, snapshots 200-220)."""
+    return {
+        "layers": {"input_features": 5, "hidden_layers": 20, "hidden_width": 20,
+                   "output_features": 4, "dropout_rate": 0.0, "init_type": "xavier"},
+        "adam_optimizer": {"max_it": adam_iters, "learning_rate": 1e-3,
+                           "scheduler_step_size": 200, "scheduler_gamma": 0.8},
+        "lbfgs_optimizer": {"max_it": lbfgs_iters, "learning_rate": 1,
+                            "max_evaluation": round(lbfgs_iters * 1.25), "history_size": 50,
+                            "tolerance_grad": 1e-7, "tolerance_change": 1e-9,
+                            "line_search_fn": "strong_wolfe"},
+        "loss": {"weight_fid_loss": 1, "weight_res_loss": 1},
+        "data_fidelity": {"dir": csv_path, "inputs": ["t", "x", "y", "u", "v"],
+                          "outputs": ["h", "z", "u", "v"], "training_points": 500},
+        "data_residual": {
+            "inputs": {"t": {"file": "t", "requires_grad": ["true"]},
+                       "x": {"file": "X", "requires_grad": ["true"]},
+                       "y": {"file": "Y", "requires_grad": ["true"]},
+                       "u": {"file": "u", "requires_grad": ["false"]},
+                       "v": {"file": "v", "requires_grad": ["false"]}},
+            "outputs": {"h": {"file": "dep.out"}, "z": {"file": "eta"},
+                        "u": {"file": "u"}, "v": {"file": "v"}},
+            "numerical_model_snapshots": list(range(200, 221)),
+        },
+        "numerical_model": {"dir": snap_dir, "nx": 41, "ny": 31, "dx": 2.0, "dy": 2.0,
+                            "x_min": 0.0, "x_max": 80.0, "y_min": 0.0, "y_max": 60.0,
+                            "interval_x": 1, "interval_y": 1, "dt": 1.0,
+                            "number_of_files": 501},
+        "physics": "navier_stokes",
+    }
+
+
+def legacy_bench_trainer(tmp: str, n_iters: int, device: torch.device,
+                         kernel_precision: str | None = None):
+    """A ``Trainer`` on :func:`legacy_config`'s workload, its files under
+    ``tmp`` (what ``synth --legacy --nx 41 --ny 31`` writes: 21 snapshots,
+    26,691 collocation points, 300 fidelity rows), ``n_iters`` Adam steps, at
+    ``kernel_precision`` if given."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    snap_dir, csv = synthetic.make_funwave_snapshot_dir(
+        os.path.join(tmp, "beach2d"), nx=41, ny=31, snapshots=tuple(range(200, 221)), seed=0)
+    raw = legacy_config(snap_dir, csv, n_iters, 0)
+    if kernel_precision is not None:
+        raw["kernel_precision"] = kernel_precision
+    run_dir = os.path.join(tmp, "run")
+    os.makedirs(run_dir)
+    with contextlib.redirect_stdout(sys.stderr):
+        return Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, device=device)
+
+
+def _step_bench(make_trainer, n_iters: int, reps: int, kernel_precision, device) -> dict:
+    """Adam-step time of ``make_trainer(tmp, n_iters, dev, kernel_precision)``,
+    ms per iteration: the median of ``reps`` runs of ``n_iters`` steps after
+    one warm-up run, each run ending in ``torch.cuda.synchronize()``."""
     import tempfile
 
     dev = resolve_device(device)
@@ -258,8 +313,8 @@ def run_cmb_step_bench(
             torch.cuda.synchronize(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = cmb_bench_trainer(tmp, n_iters, dev, kernel_precision)
-        trainer._adam_steps(n_iters)  # warm-up (the first call in a process builds the kernels)
+        trainer = make_trainer(tmp, n_iters, dev, kernel_precision)
+        trainer._adam_steps(n_iters)  # the first call in a process builds the kernels
         sync()
         times = []
         for _ in range(reps):
@@ -278,6 +333,34 @@ def run_cmb_step_bench(
         "precision": tier,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+
+
+def run_cmb_step_bench(
+    *,
+    n_iters: int = 500,
+    reps: int = 3,
+    kernel_precision: str | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """CMB Adam-step time, ms per iteration (median of ``reps`` runs of
+    ``n_iters`` steps after one warm-up run), on :func:`cmb_bench_trainer`'s
+    workload, at ``kernel_precision`` if given. Each run ends in
+    ``torch.cuda.synchronize()``. Returns ``{"ms_per_iter", "points",
+    "fidelity_points", "path", "precision", "device"}``."""
+    return _step_bench(cmb_bench_trainer, n_iters, reps, kernel_precision, device)
+
+
+def run_legacy_step_bench(
+    *,
+    n_iters: int = 500,
+    reps: int = 3,
+    kernel_precision: str | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Legacy Adam-step time, ms per iteration, on
+    :func:`legacy_bench_trainer`'s workload: :func:`run_cmb_step_bench`'s
+    protocol and record."""
+    return _step_bench(legacy_bench_trainer, n_iters, reps, kernel_precision, device)
 
 
 def run_bench_suite(*, n_points: int = 10_000_000, reps: int = 7,

@@ -13,28 +13,31 @@ slices:
                                                        [--ref-cache REF.npz] [--fw-cache FW.npz]
                                                        [--out REPORT.md] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli synth --out DIR [--nx 81 --ny 261]
+                                                       [--legacy [--snapshots 21]]
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
                                                        [--precision f32|f32x3|bf16]
                                                        [--suite | --step]
 
-``train`` and ``test`` take newmethod and CMB configs; ``test`` on a config
-with ``perform_optimization: true`` first adapts the weights to the physics
-on the test grid (``Predictor.adapt``) and prints how many loss evaluations
-that took. ``parity`` runs the full-schedule parity experiment against the
+``train`` takes newmethod, CMB and legacy configs, ``test`` newmethod and
+CMB ones; ``test`` on a config with ``perform_optimization: true`` first
+adapts the weights to the physics on the test grid (``Predictor.adapt``)
+and prints how many loss evaluations that took. ``parity`` runs the full-schedule parity experiment against the
 reference (``parity.py``, whose flags it takes). ``bench`` prints one
 JSON line: the residual rate at ``--precision``, with ``--suite`` the JAX
 suite's record (every tier's residual rate, the plain version's under
 ``plain``, the Adam steps; ``benchmarks.run_bench_suite``), with ``--step``
-the flagship Adam step in ms. ``synth`` writes the
-newmethod grid ``data_synth.mat`` and the CMB pair ``input_fid.csv`` +
-``input_res.mat``. ``--device`` defaults to ``cuda``; without a CUDA device
-the verb fails unless ``--device cpu`` is given. ``train
+the flagship Adam step in ms. ``synth`` writes the newmethod grid
+``data_synth.mat`` and the CMB pair ``input_fid.csv`` + ``input_res.mat``,
+and with ``--legacy`` the FUNWAVE snapshot directory ``beach2d/``
+(``dep.out``, ``eta_/u_/v_NNNNN`` for ``--snapshots`` snapshots from 200,
+``fidelity.csv``) that ``examples/legacy.json`` reads. ``--device``
+defaults to ``cuda``; without a CUDA device the verb fails unless
+``--device cpu`` is given. ``train
 --precision-schedule PREFIX_ITERS[:TIER]`` runs the first PREFIX_ITERS Adam
 steps at TIER (default ``bf16``), merged onto the config's
 ``precision_schedule`` block; ``0`` disables it. ``train --mesh`` and
 ``--f64-polish`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
-``video``, ``test --plot`` and the legacy ``synth`` outputs come with later
-slices.
+``video`` and ``test --plot`` come with later slices.
 """
 
 from __future__ import annotations
@@ -217,6 +220,12 @@ def cmd_synth(args) -> int:
     csv, res = os.path.join(args.out, "input_fid.csv"), os.path.join(args.out, "input_res.mat")
     synthetic.make_cmb_dataset(csv, res, nx=args.nx, ny=args.ny, seed=args.seed)
     print(f"Wrote {csv} and {res}")
+    if args.legacy:
+        snap_dir, fid_csv = synthetic.make_funwave_snapshot_dir(
+            os.path.join(args.out, "beach2d"), nx=args.nx, ny=args.ny,
+            snapshots=tuple(range(200, 200 + args.snapshots)), seed=args.seed,
+        )
+        print(f"Wrote {snap_dir}/ (FUNWAVE snapshots) and {fid_csv}")
     return 0
 
 
@@ -278,11 +287,17 @@ def build_parser() -> argparse.ArgumentParser:
                       help="only the flagship Adam-step time (ms/iteration)")
     b.set_defaults(fn=cmd_bench)
 
-    s = sub.add_parser("synth", help="write synthetic newmethod and CMB data (reference schema)")
+    s = sub.add_parser("synth",
+                       help="write synthetic newmethod, CMB and legacy data (reference schema)")
     s.add_argument("--out", required=True)
     s.add_argument("--nx", type=int, default=81)
     s.add_argument("--ny", type=int, default=261)
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--legacy", action="store_true",
+                   help="also write a FUNWAVE snapshot dir + fidelity CSV "
+                        "for the legacy numerical_model pipeline (config.json schema)")
+    s.add_argument("--snapshots", type=int, default=21,
+                   help="snapshot count for --legacy (reference uses 21: 200-220)")
     s.set_defaults(fn=cmd_synth)
     return p
 

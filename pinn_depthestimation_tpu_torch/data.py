@@ -13,16 +13,20 @@ Port of the JAX package's ``data.py`` for the newmethod and CMB pipelines:
   (normalized per key, with the config's x/y bounds) and raw true fields,
   with the NaN mask of the trues applied to both (reference
   ``train_newmethod.py:226-255``);
+* :func:`load_legacy_training_data` — the legacy ``numerical_model``
+  pipeline: the FUNWAVE-extracted fidelity CSV (read with ``csv`` in the
+  cases ``pandas.read_csv`` takes, :func:`read_legacy_fidelity_csv`) and a
+  directory of time-indexed snapshot grids for the ``(t, x, y, ...)``
+  collocation set;
 * :func:`load_test_data` — full-grid inputs normalized with dict-wide
   min/max and flattened in C order (reference ``test.py:156-183``).
-
-The legacy loader comes with its pipeline (``ROADMAP.md`` M9), and
-:func:`load_training_data` raises for it.
 """
 
 from __future__ import annotations
 
 import csv
+import io
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -162,16 +166,224 @@ def load_newmethod_training_data(config: Config) -> TrainingData:
     )
 
 
-def load_training_data(config: Config) -> TrainingData:
+# the tokens pandas.read_csv reads as NaN by default
+_NA_TOKENS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+})
+LEGACY_COLUMNS = ("t", "x", "y", "h", "z", "u", "v")
+
+
+def _is_number(tok: str) -> bool:
+    try:
+        float(tok)  # accepts 1.5e-3, nan, inf (dry-gauge rows print 'nan')
+        return True
+    except ValueError:
+        return False
+
+
+def _float_rows(path: str, rows: list[list[str]], width: int, first_line: int) -> np.ndarray:
+    """Rows of fields as a ``(len(rows), width)`` float64 array, as pandas
+    builds a numeric frame: a NA token is NaN, a short row is padded with
+    NaN, a long row is an error."""
+    out = np.full((len(rows), width), np.nan)
+    for i, row in enumerate(rows):
+        if len(row) > width:
+            raise ValueError(f"{path!r}: expected {width} fields in line {first_line + i}, "
+                             f"saw {len(row)}")
+        for j, tok in enumerate(row):
+            if tok.strip() not in _NA_TOKENS:
+                out[i, j] = float(tok)
+    return out
+
+
+def read_whitespace_table(path: str, width: int | None = None) -> np.ndarray:
+    """A headerless table split on runs of whitespace, as float64 (what
+    ``pandas.read_csv(sep=r"\\s+", header=None)`` reads): blank lines
+    skipped, NA tokens NaN, ``width`` columns (default: the first row's)."""
+    with open(path) as f:
+        rows = [line.split() for line in f if line.split()]
+    if not rows:
+        raise ValueError(f"{path!r} is empty")
+    return _float_rows(path, rows, width or len(rows[0]), 1)
+
+
+def _sniffed_rows(text: str) -> list[list[str]]:
+    """``pandas.read_csv(sep=None, engine="python")``'s split: the delimiter
+    sniffed (``csv.Sniffer``) from the first line alone, then the excel
+    dialect with that delimiter; blank lines skipped."""
+    first = text.splitlines(keepends=True)[0]
+    delimiter = csv.Sniffer().sniff(first).delimiter
+    return [r for r in csv.reader(io.StringIO(text), delimiter=delimiter, strict=True) if r]
+
+
+def read_legacy_fidelity_csv(path: str) -> dict[str, np.ndarray]:
+    """The legacy FUNWAVE-extracted fidelity CSV as float64 columns by name.
+
+    The reference's prep script writes it space-separated with no header in
+    the column order ``t x y h z u v`` (reference
+    ``utilities/input_prep_B2d.py:4,59``), while ``train.py:217`` reads it
+    as if it had one (SURVEY.md §5 quirk 5). As the JAX package's reader
+    does: a first line that is not all numbers (``nan`` counts as a number)
+    is a header, and the delimiter is sniffed from it; a headerless file
+    with a comma on its first line is sniffed too; any other headerless
+    file splits on runs of whitespace (hand- or Fortran-aligned columns).
+    A headerless file must have the seven prep-script columns."""
+    with open(path, newline="") as f:
+        text = f.read()
+    lines = text.splitlines()
+    if not lines or not text.strip():
+        raise ValueError(f"{path!r} is empty")
+    first = lines[0]
+    if not all(_is_number(t) for t in first.replace(",", " ").split()):
+        header, *body = _sniffed_rows(text)
+        values = _float_rows(path, body, len(header), 2)
+        return {name: values[:, i] for i, name in enumerate(header)}
+    if "," in first:
+        rows = _sniffed_rows(text)
+        values = _float_rows(path, rows, len(rows[0]), 1)
+    else:
+        values = read_whitespace_table(path)
+    if values.shape[1] != len(LEGACY_COLUMNS):
+        raise ValueError(
+            f"{path!r}: headerless legacy fidelity CSV must have the "
+            f"{len(LEGACY_COLUMNS)} columns {list(LEGACY_COLUMNS)} "
+            f"(input_prep_B2d.py order), got {values.shape[1]}"
+        )
+    return {name: values[:, i] for i, name in enumerate(LEGACY_COLUMNS)}
+
+
+def _read_funwave_grid(path: str, nx: int, ny: int) -> np.ndarray:
+    """One whitespace-ASCII FUNWAVE grid file -> (ny, nx) float array
+    (the ``dep.out`` layout read by reference ``input_prep_B2d.py:41-44``)."""
+    arr = np.atleast_2d(np.loadtxt(path, dtype=np.float64))
+    if arr.shape != (ny, nx):
+        raise ValueError(f"{path!r}: expected a ({ny}, {nx}) grid, got {arr.shape}")
+    return arr
+
+
+def load_legacy_training_data(
+    config: Config, rng: np.random.RandomState | None = None
+) -> TrainingData:
+    """The legacy ``numerical_model`` pipeline (reference ``config.json:38-69``):
+    fidelity from the FUNWAVE-extracted CSV, residual collocation points from
+    a directory of time-indexed snapshot grids. The reference's own
+    ``train.py`` cannot run this schema (SURVEY.md §5 quirk 5); this is the
+    JAX package's reconstruction, value for value:
+
+    * the fidelity CSV is rounded to 3 decimals (reference ``train.py:218``)
+      and its rows with a non-finite used value (FUNWAVE's dry gauges) are
+      dropped before the min/max; ``training_points`` rows are drawn with
+      ``rng.choice`` (default ``np.random.RandomState(config.seed)``);
+    * the coordinate channels ``t``/``X``/``Y`` come from the
+      ``numerical_model`` grid block (``t = dt * snapshot``);
+    * a field channel (stem ``eta``, ``u``, ...) loads
+      ``<dir>/<stem>_<snap:05d>`` (FUNWAVE-TVD naming); a stem that names an
+      existing file (``dep.out``) loads once and is tiled over the snapshots;
+    * grids are subsampled ``[::interval_y, ::interval_x]`` and flattened in
+      Fortran order per snapshot (reference ``train.py:265-267``);
+    * a residual input is normalized with the fidelity bounds where the key
+      has them (reference ``train.py:263``), else its own range; rows with a
+      NaN are dropped.
+    """
+    fd, rd, nm = config.data_fidelity, config.data_residual, config.numerical_model
+    if fd is None or rd is None or nm is None:
+        raise ValueError("the legacy loader needs data_fidelity, data_residual and "
+                         "numerical_model sections")
+    if not rd.snapshots:
+        raise ValueError(
+            "legacy numerical_model pipeline needs data_residual.numerical_model_snapshots"
+        )
+    if rng is None:
+        rng = np.random.RandomState(config.seed)
+
+    # fidelity: legacy CSV, round(3) (reference train.py:218), dry rows out
+    frame = {k: np.round(v, 3) for k, v in read_legacy_fidelity_csv(fd.file).items()}
+    missing = [k for k in (*fd.inputs, *fd.outputs) if k not in frame]
+    if missing:
+        raise KeyError(f"{fd.file!r} is missing fidelity columns {missing}")
+    used_cols = list(dict.fromkeys((*fd.inputs, *fd.outputs)))
+    finite = np.isfinite(np.column_stack([frame[k] for k in used_cols])).all(axis=1)
+    if not finite.any():
+        raise ValueError(
+            f"{fd.file!r}: every fidelity row has a non-finite value in "
+            f"{used_cols} — nothing to train on"
+        )
+    fidelity_input = {k: frame[k][finite] for k in fd.inputs}
+    fidelity_true = {k: frame[k][finite] for k in fd.outputs}
+    input_min_max = ops.get_min_max(fidelity_input, config.raw)
+    for key in fidelity_input:
+        lo, hi = input_min_max[key]
+        fidelity_input[key] = ops.normalize(fidelity_input[key], lo, hi)
+    fid_in = np.column_stack([fidelity_input[k] for k in fd.inputs])
+    fid_true = np.column_stack([fidelity_true[k] for k in fd.outputs])
+    if fd.training_points and fd.training_points < fid_in.shape[0]:
+        idx = rng.choice(fid_in.shape[0], fd.training_points, replace=False)
+        fid_in, fid_true = fid_in[idx, :], fid_true[idx, :]
+
+    # residual: snapshot-grid channels
+    ix, iy = nm.interval_x, nm.interval_y
+    X, Y = np.meshgrid(nm.x_min + nm.dx * np.arange(nm.nx),
+                       nm.y_min + nm.dy * np.arange(nm.ny))   # (ny, nx)
+    X, Y = X[::iy, ::ix], Y[::iy, ::ix]
+    snaps = list(rd.snapshots)
+    if nm.number_of_files is not None:
+        bad = [s for s in snaps if not 0 <= s < nm.number_of_files]
+        if bad:
+            raise ValueError(
+                f"snapshots {bad} outside numerical_model.number_of_files={nm.number_of_files}"
+            )
+
+    def channel(stem: str) -> np.ndarray:
+        """(n_snaps * points, 1) Fortran-flattened stacked channel."""
+        low = stem.lower()
+        if low == "t":
+            t_vals = np.asarray([nm.dt * s for s in snaps], np.float64)
+            return np.repeat(t_vals, X.size).reshape(-1, 1)
+        if low in ("x", "y"):
+            return np.concatenate([_fortran_column(X if low == "x" else Y)] * len(snaps))
+        static_path = os.path.join(nm.dir, stem)
+        if os.path.exists(static_path):
+            g = _read_funwave_grid(static_path, nm.nx, nm.ny)[::iy, ::ix]
+            return np.concatenate([_fortran_column(g)] * len(snaps))
+        cols = []
+        for s in snaps:
+            snap_path = os.path.join(nm.dir, f"{stem}_{s:05d}")
+            if not os.path.exists(snap_path):
+                raise FileNotFoundError(
+                    f"snapshot file {snap_path!r} not found (stem {stem!r}, snapshot {s}; "
+                    f"expected FUNWAVE '<stem>_NNNNN' naming or a static file named {stem!r})"
+                )
+            cols.append(_fortran_column(_read_funwave_grid(snap_path, nm.nx, nm.ny)[::iy, ::ix]))
+        return np.concatenate(cols)
+
+    columns = []
+    for key, stem in zip(rd.inputs, rd.input_files):
+        col = channel(stem)
+        if key in input_min_max:
+            lo, hi = input_min_max[key]          # reference train.py:263
+        else:
+            lo, hi = ops.get_min_max({key: col}, config.raw)[key]
+        columns.append(ops.normalize(col, lo, hi))
+        input_min_max.setdefault(key, (lo, hi))
+    residual_input = np.hstack(columns)
+    residual_input = residual_input[~np.isnan(residual_input).any(axis=1)]
+
+    return TrainingData(
+        fidelity_input=np.asarray(fid_in, dtype=np.float32),
+        fidelity_true=np.asarray(fid_true, dtype=np.float32),
+        residual_input=np.asarray(residual_input, dtype=np.float32),
+        input_min_max={k: (float(lo), float(hi)) for k, (lo, hi) in input_min_max.items()},
+    )
+
+
+def load_training_data(config: Config, rng: np.random.RandomState | None = None) -> TrainingData:
     if config.kind == "newmethod":
         return load_newmethod_training_data(config)
     rd = config.data_residual
     if config.numerical_model is not None and rd is not None and rd.snapshots and not rd.file:
-        raise NotImplementedError(
-            f"the {config.kind!r} training loader is not ported yet "
-            "(ROADMAP.md Queue 1, M9, legacy pipeline)"
-        )
-    return load_cmb_training_data(config)
+        return load_legacy_training_data(config, rng)
+    return load_cmb_training_data(config, rng)
 
 
 @dataclass

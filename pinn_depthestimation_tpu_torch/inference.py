@@ -180,8 +180,8 @@ class Predictor:
         The equation defaults to ``config.physics`` (the equation the model
         was trained against), as in the JAX package; the reference
         hardcodes ``Navier_Stokes`` (``test.py:6,96``), which its CMB test
-        inputs cannot feed. ``equation='navier_stokes'`` raises until the
-        legacy pipeline is ported (``ROADMAP.md`` M9).
+        inputs cannot feed; ``equation='navier_stokes'`` needs ``(t, x, y)``
+        among the test inputs.
 
         Rows with a non-finite coordinate (the grid's masked cells) are left
         out of the loss. The JAX ``adapt`` averages over them, and then its

@@ -5,9 +5,10 @@ pipelines:
 
 * ``continuity_only``  — depth-anchored continuity (reference ``physics.py:18-33``);
 * ``continuity_ftemp`` — anchor-free continuity (reference ``physics.py:37-47``);
+* ``navier_stokes``    — time-dependent continuity + momentum with wave
+  breaking (reference ``physics.py:50-88``), the legacy pipeline's equation;
 * ``wave_averaged``    — wave-averaged momentum with bottom friction and
-  radiation stresses (reference ``physics.py:91-120``), with its
-  sufficient-statistics form;
+  radiation stresses (reference ``physics.py:91-120``);
 
 and the model -> physics bridge :func:`model_fields_and_grads`. Callers
 supply ``grads[coord][field]``, forward-mode derivatives of every network
@@ -17,8 +18,9 @@ stresses, which the JAX package takes with ``jax.jvp`` of a pointwise
 function of ``(h, Hrms, k)``, are the chain rule written out, so plain
 autograd differentiates them.
 
-``navier_stokes`` belongs to the legacy pipeline and is queued in
-``ROADMAP.md`` (M9).
+Each loss also has a sufficient-statistics form (``residual_stats`` and
+``residual_from_stats``): the sums the loss is a ratio of, so a chunked
+evaluation that adds the chunks' statistics reproduces the full-batch loss.
 
 Parity quirks (SURVEY.md §5), kept:
 
@@ -41,6 +43,7 @@ import torch
 G = 9.81          # m/s^2 (reference physics.py:75,97)
 RHO = 1025.0      # kg/m^3 (reference physics.py:98)
 CD = 0.002        # drag coefficient (reference physics.py:71,99)
+GAMMA_B = 0.78    # breaking index (reference physics.py:76)
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -94,6 +97,43 @@ def continuity_ftemp(coords, fields, grads, *, mask=None, parity: bool = True):
     del coords, parity
     fc = continuity_only_residuals(fields, grads)
     return masked_mean(fc**2, mask)
+
+
+# ---------------------------------------------------------------------------
+# navier_stokes — reference physics.py:50-88
+# ---------------------------------------------------------------------------
+
+def navier_stokes_residuals(fields, grads):
+    """Pointwise (continuity, x-momentum, y-momentum) residuals; every
+    derivative comes from the tangents (``d(h+z)/dx = h_x + z_x``, and the
+    product rule for ``(h+z)*u``)."""
+    h, z, u, v = fields["h"], fields["z"], fields["u"], fields["v"]
+    dt, dx, dy = grads["t"], grads["x"], grads["y"]
+
+    u_t, u_x, u_y = dt["u"], dx["u"], dy["u"]
+    v_t, v_x, v_y = dt["v"], dx["v"], dy["v"]
+    z_t, z_x, z_y = dt["z"], dx["z"], dy["z"]
+
+    depth = h + z
+    h_x = dx["h"] + dx["z"]           # compute_gradient(h+z, x), physics.py:64
+    h_y = dy["h"] + dy["z"]
+    hu_x = h_x * u + depth * u_x      # compute_gradient((h+z)*u, x), physics.py:67
+    hv_y = h_y * v + depth * v_y
+
+    # Friction disabled in the reference (physics.py:72-73).
+    fbr_x = 3.0 / 16.0 * G * GAMMA_B**2 * h_x * depth
+    fbr_y = 3.0 / 16.0 * G * GAMMA_B**2 * h_y * depth
+
+    fc = z_t + hu_x + hv_y
+    fm_x = u_t + u * u_x + v * u_y + G * z_x + fbr_x
+    fm_y = v_t + u * v_x + v * v_y + G * z_y + fbr_y
+    return fc, fm_x, fm_y
+
+
+def navier_stokes(coords, fields, grads, *, mask=None, parity: bool = True):
+    del coords, parity
+    fc, fm_x, fm_y = navier_stokes_residuals(fields, grads)
+    return masked_mean(fc**2, mask) + masked_mean(fm_x**2, mask) + masked_mean(fm_y**2, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -180,16 +220,50 @@ def wave_averaged(coords, fields, grads, *, mask=None, parity: bool = True):
     return masked_mean(fc**2, mask) + masked_mean(fx**2, mask) + masked_mean(fy**2, mask)
 
 
+# ---------------------------------------------------------------------------
+# Sufficient-statistics forms (chunked evaluation)
+# ---------------------------------------------------------------------------
+# Every residual loss is a ratio of sums (masked means, possibly over a
+# data-dependent subset such as the depth anchor). The ``*_stats`` form
+# returns those sums, so summing them over chunks of the points and combining
+# at the end gives the full-batch loss (same numerators and denominators).
+
 def _mask_of(values, mask):
     return torch.ones_like(values) if mask is None else mask.to(values.dtype)
 
 
-def wave_averaged_stats(coords, fields, grads, *, mask=None, parity: bool = True):
-    """The sums ``wave_averaged`` is a ratio of: summed over chunks of the
-    points and combined by :func:`_three_term_from_stats`, they give the
-    full-batch loss exactly."""
-    del coords
-    fc, fx, fy = wave_averaged_residuals(fields, grads, parity=parity)
+def continuity_only_stats(
+    coords, fields, grads, *, mask=None, parity=True,
+    anchor_threshold=25.5, anchor_depth=0.75,
+):
+    del parity
+    fc = continuity_only_residuals(fields, grads)
+    m = _mask_of(fc, mask)
+    sel = (coords["x"] < anchor_threshold).to(fc.dtype) * m
+    return {
+        "sum_fc2": torch.sum(fc**2 * m),
+        "n": torch.sum(m),
+        "sum_anchor": torch.sum(sel * (fields["h"] - anchor_depth) ** 2),
+        "n_anchor": torch.sum(sel),
+    }
+
+
+def continuity_only_from_stats(s):
+    return s["sum_fc2"] / s["n"] + s["sum_anchor"] / s["n_anchor"]
+
+
+def continuity_ftemp_stats(coords, fields, grads, *, mask=None, parity=True):
+    del coords, parity
+    fc = continuity_only_residuals(fields, grads)
+    m = _mask_of(fc, mask)
+    return {"sum_fc2": torch.sum(fc**2 * m), "n": torch.sum(m)}
+
+
+def continuity_ftemp_from_stats(s):
+    return s["sum_fc2"] / s["n"]
+
+
+def _three_term_stats(fc, fx, fy, mask):
     m = _mask_of(fc, mask)
     return {
         "sum_fc2": torch.sum(fc**2 * m),
@@ -197,6 +271,16 @@ def wave_averaged_stats(coords, fields, grads, *, mask=None, parity: bool = True
         "sum_fy2": torch.sum(fy**2 * m),
         "n": torch.sum(m),
     }
+
+
+def navier_stokes_stats(coords, fields, grads, *, mask=None, parity=True):
+    del coords, parity
+    return _three_term_stats(*navier_stokes_residuals(fields, grads), mask)
+
+
+def wave_averaged_stats(coords, fields, grads, *, mask=None, parity: bool = True):
+    del coords
+    return _three_term_stats(*wave_averaged_residuals(fields, grads, parity=parity), mask)
 
 
 def _three_term_from_stats(s):
@@ -237,23 +321,25 @@ def model_fields_and_grads(
     return coord_dict, fields, grads
 
 
-# Registry: config name -> (loss_fn, required coordinate-derivative names).
-EQUATIONS: dict[str, tuple[Callable, tuple[str, ...]]] = {
-    "continuity_only": (continuity_only, ("x", "y")),
-    "continuity_ftemp": (continuity_ftemp, ("x", "y")),
-    "wave_averaged": (wave_averaged, ("x", "y")),
+# Registry: config name -> (loss_fn, required coordinate-derivative names,
+# stats_fn, combiner).
+EQUATIONS: dict[str, tuple[Callable, tuple[str, ...], Callable, Callable]] = {
+    "continuity_only": (
+        continuity_only, ("x", "y"), continuity_only_stats, continuity_only_from_stats,
+    ),
+    "continuity_ftemp": (
+        continuity_ftemp, ("x", "y"), continuity_ftemp_stats, continuity_ftemp_from_stats,
+    ),
+    "navier_stokes": (
+        navier_stokes, ("t", "x", "y"), navier_stokes_stats, _three_term_from_stats,
+    ),
+    "wave_averaged": (
+        wave_averaged, ("x", "y"), wave_averaged_stats, _three_term_from_stats,
+    ),
 }
-
-# Equations of the JAX package that the port has not reached yet.
-_QUEUED = {"navier_stokes": "M9"}
 
 
 def _lookup(name: str):
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"physics equation {name!r} is not ported yet "
-            f"(ROADMAP.md Queue 1, {_QUEUED[name]})"
-        )
     try:
         return EQUATIONS[name]
     except KeyError:
@@ -269,3 +355,13 @@ def required_grad_coords(name: str) -> tuple[str, ...]:
 def residual_loss(name: str):
     """Look up a residual loss by its config name."""
     return _lookup(name)[0]
+
+
+def residual_stats(name: str):
+    """Sufficient-statistics form: ``stats_fn(coords, fields, grads, ...)``."""
+    return _lookup(name)[2]
+
+
+def residual_from_stats(name: str):
+    """Combiner: ``loss = combine(summed stats)``."""
+    return _lookup(name)[3]

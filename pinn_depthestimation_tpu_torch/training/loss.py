@@ -22,9 +22,11 @@ backward, K3 (``f32``, ``f32x3``) or K4 (``bf16``) on the card.
 ``fused_precision`` is the kernels' tier for the forward and the backward
 of both terms, and for K1. ``residual_chunk_size`` is dropped on the kernel
 paths, whose backward is O(1) in activations, as the JAX package drops it
-under ``fused_kernel``; the plain path's chunked loss under
-``jax.checkpoint`` is not ported yet, and there a set chunk size raises
-(``ROADMAP.md`` Queue 1, M3 chunked path).
+under ``fused_kernel``; on the plain path it evaluates the residual term
+in chunks of points under ``torch.utils.checkpoint`` (JAX
+``training/loss.py:314-385``), summing each chunk's sufficient statistics
+(``physics.residual_stats``), so only one chunk's activations live through
+the backward and the loss is the full-batch one.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pinn_depthestimation_tpu_torch import physics
 from pinn_depthestimation_tpu_torch.config import Config
@@ -124,19 +127,20 @@ def build_loss_fn(
     measurement.
 
     ``residual_chunk_size``: dropped under ``fused_kernel`` (the kernels'
-    backward is O(1) in activations; JAX ``training/loss.py:126-127``); on
-    the plain path it raises ``NotImplementedError`` naming M3."""
-    if residual_chunk_size is not None and not fused_kernel:
-        raise NotImplementedError(
-            "the chunked residual loss of the plain path (residual_chunk_size without "
-            "fused_kernel) is not ported yet (ROADMAP.md Queue 1, M3 chunked path)"
-        )
+    backward is O(1) in activations; JAX ``training/loss.py:126-127``). On
+    the plain path a collocation set larger than it is evaluated in chunks
+    of that many points (:func:`_chunked_terms`); a smaller one takes the
+    unchunked path, as in the JAX package."""
+    if fused_kernel:
+        residual_chunk_size = None
     names = resolve_names(config)
     fid_outputs = names["fidelity_outputs"]
     net_outputs = names["network_outputs"]
     residual_inputs = names["residual_inputs"]
 
     equation = physics.residual_loss(config.physics)
+    stats_fn = physics.residual_stats(config.physics)
+    combine_fn = physics.residual_from_stats(config.physics)
     needed = physics.required_grad_coords(config.physics)
     missing = [c for c in needed if c not in residual_inputs]
     if missing:
@@ -170,9 +174,11 @@ def build_loss_fn(
     # certifies one point set and the forward is deterministic
     share_forward = fidelity_is_residual and spec.dropout_rate == 0.0
 
-    if one_kernel_step_applicable(config, spec, fidelity_is_residual):
+    if residual_chunk_size is None and one_kernel_step_applicable(config, spec,
+                                                                  fidelity_is_residual):
         # inside the one-kernel gate the shared-forward loss has one plain
-        # form, the one K1's plain version differentiates
+        # form, the one K1's plain version differentiates (a chunked plain
+        # loss sums the statistics of build_loss_fn's own chunks instead)
         step_batch = _step_batch_fn(config, input_min_max)
 
         tier = fused_precision if fused_kernel else "f32"
@@ -215,21 +221,71 @@ def build_loss_fn(
             )
             return torch.sum(fid_weights * per_output)
 
-        coords, fields, grads = physics.model_fields_and_grads(
-            apply_with_tangents(params), res_input, residual_inputs, grad_coords, net_outputs,
-        )
-        residual = equation(coords, fields, grads, mask=batch.get("residual_mask"),
-                            parity=parity, **equation_kwargs)
-        if share_forward:
-            # fidelity output i == network output i for the true heads
-            fidelity = fidelity_from(torch.stack([fields[k] for k in net_outputs], dim=-1))
+        def bundle(points):
+            return physics.model_fields_and_grads(
+                apply_with_tangents(params), points, residual_inputs, grad_coords, net_outputs)
+
+        if residual_chunk_size is not None and res_input.shape[0] > residual_chunk_size:
+            residual, per_output = _chunked_terms(
+                bundle, batch, residual_chunk_size, stats_fn, combine_fn, net_outputs,
+                len(fid_outputs) if share_forward else 0,
+                dict(parity=parity, **equation_kwargs))
+            if share_forward:
+                fidelity = torch.sum(fid_weights * per_output)
         else:
+            coords, fields, grads = bundle(res_input)
+            residual = equation(coords, fields, grads, mask=batch.get("residual_mask"),
+                                parity=parity, **equation_kwargs)
+            if share_forward:
+                # fidelity output i == network output i for the true heads
+                fidelity = fidelity_from(torch.stack([fields[k] for k in net_outputs], dim=-1))
+        if not share_forward:
             fidelity = fidelity_from(
                 fidelity_forward(params, batch["fidelity_input"], dropout_generator))
         total = config.weight_fidelity * fidelity + config.weight_residual * residual
         return total, (fidelity, residual)
 
     return loss_fn
+
+
+def _chunked_terms(bundle, batch, chunk: int, stats_fn, combine_fn, net_outputs,
+                   n_fid: int, equation_kwargs: dict):
+    """The residual term (and, with ``n_fid`` shared fidelity heads, the
+    fidelity's per-output mean squared errors) from chunks of ``chunk``
+    points: each chunk's sufficient statistics under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward,
+    not kept), summed, then combined (JAX ``training/loss.py:314-385``). The
+    last chunk is the remainder: the JAX package pads to a multiple of the
+    chunk because ``lax.map`` needs one shape, which PyTorch does not.
+    Where the fidelity rows are the residual rows, the fidelity term rides
+    the same sweep: a separate full-batch forward over those rows would keep
+    every layer's activations for the whole set, the memory chunking saves.
+    Returns ``(residual, per_output)``, ``per_output`` None without
+    ``n_fid``."""
+    points = batch["residual_input"]
+    ones = points.new_ones((points.shape[0],))
+    mask = batch.get("residual_mask", ones)
+    if n_fid:
+        fid_true, fid_mask = batch["fidelity_true"], batch.get("fidelity_mask", ones)
+
+    def chunk_stats(pts, m, *fid):
+        coords, fields, grads = bundle(pts)
+        stats = dict(stats_fn(coords, fields, grads, mask=m, **equation_kwargs))
+        if n_fid:
+            f_true, f_m = fid
+            pred = torch.stack([fields[k] for k in net_outputs], dim=-1)[..., :n_fid]
+            stats["_fid_sum_err2"] = torch.sum((f_true - pred) ** 2 * f_m[:, None], dim=0)
+            stats["_fid_n"] = torch.sum(f_m)
+        return stats
+
+    summed: dict = {}
+    for start in range(0, points.shape[0], chunk):
+        rows = slice(start, start + chunk)
+        args = (points[rows], mask[rows]) + ((fid_true[rows], fid_mask[rows]) if n_fid else ())
+        for k, v in checkpoint(chunk_stats, *args, use_reentrant=False).items():
+            summed[k] = v if k not in summed else summed[k] + v
+    per_output = summed.pop("_fid_sum_err2") / summed.pop("_fid_n") if n_fid else None
+    return combine_fn(summed), per_output
 
 
 def value_and_grad(loss_fn: Callable) -> Callable:

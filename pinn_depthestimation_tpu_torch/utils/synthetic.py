@@ -11,16 +11,19 @@ same layout, so the pipelines run end to end:
   ``train_newmethod.py:226-250``);
 * CMB fidelity CSV with columns ``x, y, h, U, V, eta_mean, Hrms, k``
   (reference ``train.py:217``) and residual ``.mat`` with 2-D grid
-  variables (reference ``train.py:258-260``).
+  variables (reference ``train.py:258-260``);
+* the legacy FUNWAVE snapshot directory: ``dep.out`` and
+  ``eta_/u_/v_NNNNN`` grids plus the prep-script fidelity CSV (reference
+  ``config.json:38-69``).
 
 Each generator makes the same draws as the JAX package's for the same
-arguments. The FUNWAVE snapshot directory comes with the legacy slice
-(``ROADMAP.md`` M9).
+arguments, and the text files it writes are byte for byte the JAX ones.
 """
 
 from __future__ import annotations
 
 import csv
+import os
 
 import numpy as np
 from scipy.io import savemat
@@ -144,3 +147,66 @@ def make_cmb_dataset(
         mat["x"] = xg.reshape(X.shape)
     savemat(mat_path, mat)
     return columns, mat
+
+
+def wave_fields(t, x, y, *, h0=2.0, slope=0.004, a=0.15):
+    """Time-dependent long-wave fields for the legacy FUNWAVE-snapshot
+    pipeline: depth ``h`` (static), surface ``z`` and velocities ``u``/``v``
+    as a shoaling wave train — smooth, bounded, physically plausible."""
+    h = h0 + slope * np.asarray(x)
+    kx, ky, om = 0.02, 0.008, 0.12
+    z = a * np.cos(kx * x + ky * y - om * t)
+    c = np.sqrt(9.81 / np.maximum(h, 1e-6))
+    u = z * c * np.cos(0.01 * y)
+    v = 0.3 * z * c * np.sin(0.01 * x)
+    return {"h": h, "z": z, "u": u, "v": v}
+
+
+def make_funwave_snapshot_dir(
+    dirpath: str,
+    *,
+    nx=25,
+    ny=21,
+    dx=2.0,
+    dy=2.0,
+    x_min=0.0,
+    y_min=0.0,
+    snapshots=(200, 201, 202),
+    dt=1.0,
+    n_fidelity=300,
+    nan_fraction=0.0,
+    seed=0,
+):
+    """Write a legacy FUNWAVE snapshot directory and its fidelity CSV
+    (reference ``config.json:38-69`` schema): whitespace-ASCII ``dep.out``
+    plus ``eta_NNNNN`` / ``u_NNNNN`` / ``v_NNNNN`` grids per snapshot
+    (FUNWAVE-TVD naming), and ``fidelity.csv`` in the prep script's format
+    (space-separated, headerless, columns ``t x y h z u v``;
+    ``input_prep_B2d.py:59``). Returns ``(snapshot_dir, csv_path)``."""
+    os.makedirs(dirpath, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    xs = x_min + dx * np.arange(nx)
+    ys = y_min + dy * np.arange(ny)
+    X, Y = np.meshgrid(xs, ys)  # (ny, nx)
+
+    np.savetxt(os.path.join(dirpath, "dep.out"), wave_fields(0.0, X, Y)["h"], fmt="%.6f")
+    for s in snapshots:
+        f = wave_fields(dt * s, X, Y)
+        for stem, key in (("eta", "z"), ("u", "u"), ("v", "v")):
+            g = f[key]
+            if nan_fraction:
+                g = g.copy().reshape(-1)
+                bad = rng.choice(g.size, int(nan_fraction * g.size), replace=False)
+                g[bad] = np.nan
+                g = g.reshape(X.shape)
+            np.savetxt(os.path.join(dirpath, f"{stem}_{s:05d}"), g, fmt="%.6f")
+
+    # fidelity CSV: random space-time samples of the same fields
+    tq = dt * rng.choice(list(snapshots), n_fidelity)
+    xq = rng.uniform(xs[0], xs[-1], n_fidelity)
+    yq = rng.uniform(ys[0], ys[-1], n_fidelity)
+    fq = wave_fields(tq, xq, yq)
+    rows = np.column_stack([tq, xq, yq, fq["h"], fq["z"], fq["u"], fq["v"]])
+    csv_path = os.path.join(dirpath, "fidelity.csv")
+    np.savetxt(csv_path, rows, fmt="%.6f")
+    return dirpath, csv_path

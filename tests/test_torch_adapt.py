@@ -201,8 +201,8 @@ def test_adapt_refuses_what_it_cannot_take(tmp_path):
     npz, _ = weights_files(tmp_path, arrays)
     pred = Predictor(parse_config(raw), npz, device="cpu")
     x = np.zeros((5, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="M9"):
-        pred.adapt(x, equation="navier_stokes")
+    with pytest.raises(ValueError, match=r"needs input coordinates \['t', 'x', 'y'\]"):
+        pred.adapt(x, equation="navier_stokes")  # ported; these inputs lack t
     with pytest.raises(KeyError, match="unknown physics"):
         pred.adapt(x, equation="heat")
 

@@ -2,9 +2,10 @@
 
 * ``residual_chunk_size`` on the kernel paths: the JAX ``build_loss_fn``
   drops it under ``fused_kernel`` (its backward is O(1) in activations), and
-  so does the port's, while the plain path still refuses it (M3, the chunked
-  plain loss, is not ported). A Trainer passes one decision, K1 or K2 with
-  K3/K4, into both loss builders, as the JAX Trainer's ``use_fused_kernel``.
+  so does the port's, while the plain path evaluates the residual in chunks
+  (``tests/test_torch_chunked_loss.py``). A Trainer passes one decision, K1
+  or K2 with K3/K4, into both loss builders, as the JAX Trainer's
+  ``use_fused_kernel``.
 * the bench suite (``benchmarks.run_bench_suite``, ``bench --suite`` and
   ``--step``): the JAX suite's record, with ``plain`` in place of ``xla``.
 
@@ -18,6 +19,7 @@ import pathlib
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -136,16 +138,27 @@ def test_the_card_plan_builds_and_steps(newmethod, cmb, tmp_path, monkeypatch):
 
 def test_the_plain_path_still_refuses_the_chunk_size(newmethod, cmb, tmp_path):
     """Off the kernels (``fused_kernel`` false, or a Trainer on the CPU with
-    'auto') the chunked plain loss (M3) is still missing, and says so."""
+    'auto') the chunk size is no longer refused: the chunked plain loss
+    (M3) is ported. A Trainer there builds with it and its first Adam step
+    equals an unchunked Trainer's within rel 1e-6, at the example's 4096
+    (more than these points: the unchunked path) and at 17 (chunks)."""
     for raw in (newmethod, cmb):
         cfg = parse_config(raw)
-        spec = MLPSpec.from_layers(cfg.layers)
-        with pytest.raises(NotImplementedError, match="M3"):
-            loss.build_loss_fn(cfg, spec, residual_chunk_size=CHUNK)
-        run = tmp_path / f"plain_{cfg.kind}"
-        run.mkdir()
-        with pytest.raises(NotImplementedError, match="M3"):
-            Trainer(cfg, run_dir=str(run), device="cpu")
+        assert loss.build_loss_fn(cfg, MLPSpec.from_layers(cfg.layers),
+                                  residual_chunk_size=CHUNK)
+        rows = {}
+        for chunk in (None, CHUNK, 17):
+            run = tmp_path / f"plain_{cfg.kind}_{chunk}"
+            run.mkdir()
+            tr = Trainer(parse_config(dict(raw, residual_chunk_size=chunk) if chunk else
+                                      {k: v for k, v in raw.items() if k != "residual_chunk_size"}),
+                         run_dir=str(run), echo_every=0, device="cpu")
+            assert not tr.uses_kernels
+            assert tr.config.residual_chunk_size == chunk
+            rows[chunk] = tr._adam_steps(2).numpy()
+        assert np.isfinite(rows[None]).all()
+        for chunk in (CHUNK, 17):
+            np.testing.assert_allclose(rows[chunk][0], rows[None][0], rtol=1e-6)
 
 
 # ------------------------------------------------------------ the bench suite

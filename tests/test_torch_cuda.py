@@ -790,3 +790,128 @@ def test_cuda_adaptation_through_the_kernels_matches_plain(cuda_device, tmp_path
     coords = {"x": finite[:, 0], "y": finite[:, 1]}
     want = float(physics.residual_loss(cfg.physics)(coords, fields, grads, parity=cfg.parity))
     assert abs(lk[0] - want) <= 0.25 * abs(want - lp[0]) + 1e-4 * abs(want)
+
+
+# ------------------------------------------------------- the legacy pipeline
+
+LEGACY_SIZES = (5,) + (20,) * 20 + (4,)  # examples/legacy.json
+
+
+def legacy_points(n, seed):
+    """``n`` points shaped as the legacy loader's (t, x, y, u, v) rows."""
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.uniform(-1, 1, (n, 5)).astype(np.float32)), rs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f32x3"])
+@pytest.mark.parametrize("kt,n", [(3, 4_099), (0, 300)])
+def test_cuda_legacy_shape_kernels_match_plain(cuda_device, precision, kt, n):
+    """K2, K3 and K4 at the legacy net (d_in 5, the tangents of t, x, y
+    leading it; width 20, 20 hidden layers) at each tier, against the plain
+    version (f32: the f32 tolerance; bf16, f32x3: ``assert_tier_close``)."""
+    spec = MLPSpec(sizes=LEGACY_SIZES, init_type="xavier")
+    params = params_from_numpy(numpy_params(LEGACY_SIZES, "xavier", seed=25), cuda_device)
+    x, rs = legacy_points(n, seed=26)
+    x = x.to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, 4).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(kt, n, 4).astype(np.float32)).to(cuda_device)
+    kw = X3 if precision == "f32x3" else {}
+    with torch.no_grad():
+        y, dy = kernels.mlp_fwd_tangents(params, x, spec, kt, precision=precision)
+        want = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, precision)
+        f32 = kernels.mlp_fwd_tangents_plain(params, x, spec, kt, "f32")
+        w64 = kernels.mlp_fwd_tangents_plain(f64(params), x.double(), spec, kt, precision)
+    outs = [(y, want[0], f32[0], w64[0])] + ([(dy, want[1], f32[1], w64[1])] if kt else [])
+    for impl in ("stream", "rebuild"):
+        g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=precision,
+                                       impl=impl)
+        g_t = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, precision)
+        g_f = kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "f32")
+        g_6 = kernels_vjp.packed_mlp_bwd_plain(f64(params), x.double(), ybar.double(),
+                                               dybar.double(), spec, kt, precision)
+        outs += [(g[k], g_t[k], g_f[k], g_6[k]) for k in g]
+    if precision == "f32":
+        for got, want_t, _, _ in outs:
+            assert_close_to_plain(got, want_t)
+    else:
+        shown = [assert_tier_close(*o, **kw) for o in outs]
+        assert precision == "f32x3" or any(shown)
+
+
+def legacy_trainer_raw(tmp_path, adam_iters):
+    from pinn_depthestimation_tpu_torch.benchmarks import legacy_config
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    snap_dir, csv = synthetic.make_funwave_snapshot_dir(
+        str(tmp_path / "beach2d"), nx=21, ny=17, snapshots=(200, 201, 202, 203), seed=2)
+    raw = legacy_config(snap_dir, csv, adam_iters, 0)
+    raw["numerical_model"].update(nx=21, ny=17, x_max=40.0, y_max=32.0)
+    raw["data_residual"]["numerical_model_snapshots"] = [200, 201, 202, 203]
+    return raw
+
+
+@pytest.mark.cuda
+def test_cuda_legacy_trainer_kernels_match_plain(cuda_device, tmp_path):
+    """A few Adam steps of the legacy net (full width, 21x17x4 points)
+    through K2 + K3 against the plain Trainer from the same weights:
+    iteration 1 within rel 1e-5, the parameters after 5 steps within 1e-6;
+    K2 and K3 launch twice per step, K1 and K4 never."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+
+    raw = legacy_trainer_raw(tmp_path, 5)
+    init = numpy_params(LEGACY_SIZES, "xavier", seed=3)
+    out = {}
+    for mode in ("auto", "off"):
+        run = str(tmp_path / mode)
+        os.makedirs(run)
+        trainer = Trainer(parse_config(dict(raw, fused_kernel=mode)), run_dir=run,
+                          echo_every=0, initial_params=init, device=cuda_device)
+        assert trainer.kernel_plan.fused == (mode == "auto") and not trainer.kernel_plan.k1
+        counts = [w.launches for w in (kernels.mlp_fwd_tangents, kernels_vjp.packed_mlp_bwd,
+                                       kernels_vjp.packed_mlp_bwd_rebuild,
+                                       kernels_step.fused_loss_and_grad)]
+        losses = trainer._adam_steps(5).cpu().numpy()
+        after = [w.launches for w in (kernels.mlp_fwd_tangents, kernels_vjp.packed_mlp_bwd,
+                                      kernels_vjp.packed_mlp_bwd_rebuild,
+                                      kernels_step.fused_loss_and_grad)]
+        want = [10, 10, 0, 0] if mode == "auto" else [0, 0, 0, 0]
+        assert [a - b for a, b in zip(after, counts)] == want
+        out[mode] = (losses, {k: v.clone() for k, v in trainer.state.params.items()})
+    (l_k, p_k), (l_p, p_p) = out["auto"], out["off"]
+    np.testing.assert_allclose(l_k[0], l_p[0], rtol=1e-5)
+    assert max(float((p_k[k] - p_p[k]).abs().max()) for k in p_k) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_plain_loss_equals_unchunked(cuda_device, tmp_path):
+    """The chunked plain loss on the card (``fused_kernel='off'``,
+    ``residual_chunk_size`` 4096 over the legacy net's 26,691 points):
+    the loss within rel 1e-6 of the unchunked one, each gradient within the
+    f32 tolerance of its largest entry (cuBLAS may sum a chunk's products in
+    another order than the whole batch's)."""
+    from pinn_depthestimation_tpu_torch import data
+    from pinn_depthestimation_tpu_torch.benchmarks import legacy_config
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training import loss
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    snap_dir, csv = synthetic.make_funwave_snapshot_dir(
+        str(tmp_path / "beach2d"), nx=41, ny=31, snapshots=tuple(range(200, 221)), seed=0)
+    cfg = parse_config(dict(legacy_config(snap_dir, csv, 1, 0), fused_kernel="off"))
+    td = data.load_training_data(cfg)
+    assert td.residual_input.shape[0] == 26_691
+    spec = MLPSpec(sizes=LEGACY_SIZES, init_type="xavier")
+    batch = {k: torch.from_numpy(getattr(td, k)).to(cuda_device)
+             for k in ("fidelity_input", "fidelity_true", "residual_input")}
+    params = params_from_numpy(numpy_params(LEGACY_SIZES, "xavier", seed=4), cuda_device)
+    (t_f, (f_f, r_f)), g_f = loss.value_and_grad(loss.build_loss_fn(cfg, spec))(params, batch)
+    (t_c, (f_c, r_c)), g_c = loss.value_and_grad(
+        loss.build_loss_fn(cfg, spec, residual_chunk_size=4096))(params, batch)
+    for a, b in ((t_c, t_f), (f_c, f_f), (r_c, r_f)):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
+    for k in g_f:
+        assert_close_to_plain(g_c[k], g_f[k])

@@ -97,7 +97,9 @@ def test_newmethod_loader_matches_jax(mat):
 
 def test_cmb_loader_is_queued(tmp_path):
     """The CMB loader (M8) is ported: a CMB config loads its CSV and grid;
-    the legacy loader (snapshot directory, M9) is still queued."""
+    so is the legacy loader (snapshot directory, M9), which a config with a
+    ``numerical_model`` block and snapshots reaches: here its coordinate
+    channels come from the grid block alone, equal to the JAX loader's."""
     from pinn_depthestimation_tpu_torch.utils import synthetic as psynth
 
     csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
@@ -111,9 +113,11 @@ def test_cmb_loader_is_queued(tmp_path):
     assert not td.fidelity_is_residual
     raw["data_residual"] = {"inputs": ["x", "y"], "outputs": ["U", "V", "h"], "snapshots": [1]}
     raw["numerical_model"] = {"dir": str(tmp_path), "nx": 4, "ny": 5, "dx": 1.0,
-                              "dy": 1.0, "x_min": 0.0, "y_min": 0.0, "number_of_files": 1}
-    with pytest.raises(NotImplementedError, match="M9"):
-        data.load_training_data(parse_config(raw))
+                              "dy": 1.0, "x_min": 0.0, "y_min": 0.0, "number_of_files": 2}
+    td, jtd = data.load_training_data(parse_config(raw)), jdata.load_training_data(jparse(raw))
+    assert td.residual_input.shape == (20, 2) and td.fidelity_true.shape == (12, 2)
+    for k in ("fidelity_input", "fidelity_true", "residual_input"):
+        np.testing.assert_array_equal(getattr(td, k), getattr(jtd, k))
 
 
 @pytest.mark.parametrize("physics", ["continuity_only", "continuity_ftemp"])
@@ -209,8 +213,8 @@ def test_loud_errors(mat):
     spec = MLPSpec.from_layers(cfg.layers)
     with pytest.raises(ValueError, match="input_min_max"):
         loss.build_loss_fn(cfg, spec)
-    with pytest.raises(NotImplementedError, match="M3"):
-        loss.build_loss_fn(parse_config(raw_config(mat)), spec, residual_chunk_size=64)
+    # the chunked plain loss (M3) is ported: it builds
+    assert loss.build_loss_fn(parse_config(raw_config(mat)), spec, residual_chunk_size=64)
     cfg = parse_config(raw_config(mat, kernel_precision="f32x3"))  # ported: it builds
     assert loss.build_value_and_grad_fn(cfg, spec, fused_kernel=True, fidelity_is_residual=True,
                                         fused_precision=cfg.resolved_kernel_precision())

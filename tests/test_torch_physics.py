@@ -120,7 +120,9 @@ def test_model_fields_and_grads_matches_jax():
 def test_registry():
     with pytest.raises(KeyError, match="available"):
         physics.residual_loss("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        physics.residual_loss("navier_stokes")
+    # the legacy equation is ported: its loss, its coordinates, its statistics
+    assert physics.residual_loss("navier_stokes") is physics.navier_stokes
+    assert physics.required_grad_coords("navier_stokes") == ("t", "x", "y")
+    assert physics.residual_stats("navier_stokes") is physics.navier_stokes_stats
     assert physics.residual_loss("wave_averaged") is physics.wave_averaged
     assert physics.required_grad_coords("wave_averaged") == ("x", "y")

@@ -199,12 +199,14 @@ def test_predictor_seeded_init_is_deterministic(served):
 
 def test_adaptation_raises_not_implemented(served):
     """Test-time adaptation is ported (``tests/test_torch_adapt.py`` holds it
-    to the JAX package); only its legacy equation, ``navier_stokes``, still
-    raises, naming its roadmap item."""
+    to the JAX package), its legacy equation ``navier_stokes`` too
+    (``tests/test_torch_legacy.py``): nothing raises ``NotImplementedError``;
+    an ``(x, y)`` grid cannot feed ``navier_stokes`` and says which
+    coordinate it lacks."""
     raw = dict(served.raw, perform_optimization=True)
     pred = Predictor(parse_config(raw), served.pth, device="cpu")
     assert pred.run().adapted
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*M9"):
+    with pytest.raises(ValueError, match=r"needs input coordinates .*missing \['t'\]"):
         pred.adapt(np.zeros((4, 2), np.float32), equation="navier_stokes")
 
 
