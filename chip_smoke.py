@@ -150,6 +150,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (``tools/profile_cmb_step.py --pipeline legacy``, in a process of its
    own): the device's idle share and the device time of K2 (K=3) and K3.
 
+26. the float64 polish at the flagship's full width: one f64 evaluation
+   (loss and gradient by autograd) timed by CUDA events beside its bound
+   (714,200 FLOP per point over the f64 tensor-core peak, derived from the
+   SM count and clock), then CLI ``train`` on ``examples/deep_f64.json`` on
+   the train-grid cell's 12,516 points with the cuts ``DEEP_F64_CUTS``
+   lists: K1 launches == the f32 evaluations, none inside the polish, the
+   polish's iterate float64 on the card, the log rows the f32 evaluations
+   plus the polish's numbered 1..n, the polish's final f64 loss below the
+   f64 loss at the f32 phases' end (its log minimum at or below theirs),
+   the final ``model.npz`` with f32 parameters and ``params64``;
+   a checkpoint cut inside the polish (by a Trainer subclass the CLI runs,
+   near the end of its budget) resumed through CLI ``--resume``: no K1
+   launch, the first row the next evaluation, whether the rest replays bit
+   for bit printed;
+27. the mesh: ``examples/newmethod_scaled.json`` as shipped
+   (``parallel.data`` 8) exits 1 with the mesh error on fewer than 8
+   devices; CLI ``--mesh 1`` gives the unsharded run's log rows and final
+   parameters bit for bit, K1 == evaluations; a flagship Trainer and a CMB
+   Trainer on 4 shards of the one card against unsharded ones (K1 == 4 x
+   evaluations; K2 == K3 == 2 x 4 x evaluations; iteration 1 within 1e-5
+   relative; the flagship's parameters after 20 Adam steps within 1e-6), and
+   the Adam step's time on 4 shards beside the unsharded one.
+
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
 flagship training path), again before phase 12's CLI ``train`` and read
@@ -157,12 +180,15 @@ after its CLI ``test`` (the CMB path), before phase 15's CLI ``train`` and
 after its ``test`` (the bf16 CMB path), and before phase 16's CLI
 ``train`` and after its ``test`` (the schedule), and likewise around each
 of phase 19's paths, each CLI ``parity`` run of phases 22-23 (K1) and
-each CLI ``test`` of phase 24 (K2, K3, K4) and each CLI ``train`` of
-phase 25 (K1, K2, K3, K4): each kernel must have launched
+each CLI ``test`` of phase 24 (K2, K3, K4), each CLI ``train`` of
+phase 25 (K1, K2, K3, K4), each CLI ``train`` of phases 26 and 27 and each
+sharded Trainer of phase 27 (K1, K2, K3): each kernel must have launched
 on each path that runs it, at the tier that path asks for. The ``kernels`` line holds one
 entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3); the
 entries of K2-f32, K2-bf16, K3-f32 and K4-bf16 also carry phase 25's
-launches (``launches_legacy``) and times (``*_legacy*``). The last
+launches (``launches_legacy``) and times (``*_legacy*``); K1-f32's carries
+phase 26's ``f64_polish`` record and K1-f32's, K2-f32's and K3-f32's phase
+27's launches and step times (``*mesh*``). The last
 two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 {...}}``.
 """
@@ -492,11 +518,7 @@ def newmethod_config(tmp: str, repo: str, **overrides) -> str:
     """``examples/newmethod.json`` on the synthetic 81x261 grid with 40.8 %
     NaN rows (12,516 training points), with ``overrides`` merged in; returns
     the config path."""
-    from pinn_depthestimation_tpu_torch.utils import synthetic
-
-    mat = os.path.join(tmp, "grid_0408.mat")
-    if not os.path.exists(mat):
-        synthetic.make_newmethod_mat(mat, nx=81, ny=261, nan_fraction=0.408, seed=21)
+    mat = flagship_grid(tmp)
     with open(os.path.join(repo, "examples", "newmethod.json")) as f:
         raw = json.load(f)
     raw["data"]["file"] = mat
@@ -2706,6 +2728,317 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
     }
 
 
+# the cuts of examples/deep_f64.json in phase 26: none (its f32 L-BFGS
+# phase stops on its step tolerance after ~500 evaluations on an H100; the
+# polish runs its 1,250 evaluations in ~55 s): PERF.md section 4
+DEEP_F64_CUTS: dict = {}
+
+
+def flagship_grid(tmp: str) -> str:
+    """The train-grid cell's data: the synthetic 81x261 grid with 40.8 % NaN
+    rows (12,516 points), written once under ``tmp``."""
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = os.path.join(tmp, "grid_0408.mat")
+    if not os.path.exists(mat):
+        synthetic.make_newmethod_mat(mat, nx=81, ny=261, nan_fraction=0.408, seed=21)
+    return mat
+
+
+def example_config(tmp: str, repo: str, example: str, **overrides) -> str:
+    """``examples/<example>.json`` on :func:`flagship_grid` with ``overrides``
+    merged in; returns the config path."""
+    with open(os.path.join(repo, "examples", f"{example}.json")) as f:
+        raw = json.load(f)
+    raw["data"]["file"] = flagship_grid(tmp)
+    if "file" in raw.get("data_test", {}):
+        raw["data_test"]["file"] = raw["data"]["file"]
+    return write_config(tmp, example, raw, overrides)
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def polish_phase(dev, repo: str, f64_fma_peak: float) -> dict:
+    """Phase 26: ``examples/deep_f64.json`` through CLI ``train`` on the
+    card, K1 for the f32 phases and the float64 polish on plain autograd,
+    a mid-polish checkpoint resumed through CLI ``--resume``. Returns the
+    numbers for K1-f32's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+    from pinn_depthestimation_tpu_torch.optim import lbfgs as lbfgs_mod
+    from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
+    from pinn_depthestimation_tpu_torch.training import driver
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
+
+    t_phase = time.perf_counter()
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    k1 = kernels_step.fused_loss_and_grad
+    keys = ("fidelity_input", "fidelity_true", "residual_input")
+    seen: dict = {}
+
+    class PolishWitness(driver.Trainer):
+        """The CLI's Trainer, reading K1's count around the polish and saving
+        one checkpoint inside it (the newmethod cadence cuts none there)."""
+
+        def train_f64_polish(self):
+            seen.update(trainer=self, k1_before=k1.launches, evals_before=self.state.iteration,
+                        start={k: v.detach().clone() for k, v in self.state.params.items()})
+            t0 = time.perf_counter()
+            super().train_f64_polish()
+            torch.cuda.synchronize()
+            seen.update(k1_after=k1.launches, seconds=time.perf_counter() - t0)
+
+        def _record(self, losses):
+            super()._record(losses)
+            live = self._live_lbfgs64_state
+            if live is None or live.reason != lbfgs_mod.RUNNING:
+                return
+            # the first boundary inside the polish, replaced by the first one
+            # within 200 evaluations of its budget: the resume then replays
+            # a short tail, not the whole polish
+            near_end = live.func_evals >= self.config.f64_polish.max_evaluation - 200
+            if "mid" not in seen or (near_end and not seen.get("near_end")):
+                seen.update(mid=self.save("model_midpolish"), mid_iteration=self.state.iteration,
+                            near_end=near_end)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print("== phase 26: examples/deep_f64.json through CLI train: K1 for the f32 phases, "
+              f"the float64 polish on the card (cuts: {json.dumps(DEEP_F64_CUTS)})")
+        path = example_config(tmp, repo, "deep_f64", **DEEP_F64_CUTS)
+        cfg = load_config(path)
+        td = load_training_data(cfg)
+        n = td.residual_input.shape[0]
+        # one f64 evaluation alone: the polish's loss and gradient
+        loss_fn = build_loss_fn(cfg, flagship, input_min_max=td.input_min_max,
+                                fidelity_is_residual=td.fidelity_is_residual)
+        p64 = f64(params_from_numpy(numpy_params(flagship.sizes, "xavier", 26), dev))
+        b64 = {k: torch.as_tensor(np.asarray(getattr(td, k), np.float64)).to(dev) for k in keys}
+        vg = value_and_grad(loss_fn)
+        ms_f64 = cuda_ms(lambda: vg(p64, b64), 5, 4)
+        (t64, _), g64 = vg(p64, b64)
+        if t64.dtype != torch.float64 or any(v.dtype != torch.float64 for v in g64.values()):
+            fail("the polish's loss or gradient is not float64")
+        flops = k1_flops(flagship, n)
+        bound_fma = flops / f64_fma_peak * 1e3
+        bound_tc = flops / (2 * f64_fma_peak) * 1e3
+        print(f"  one f64 evaluation (loss + gradient, autograd) at {n} points: {ms_f64:.3f} ms "
+              f"by CUDA events; bound {bound_tc:.4f} ms over the f64 tensor-core peak "
+              f"{2 * f64_fma_peak / 1e12:.2f} TFLOP/s ({bound_tc / ms_f64:.2%} of it; "
+              f"{bound_fma:.4f} ms over the f64 FMA peak {f64_fma_peak / 1e12:.2f} TFLOP/s), "
+              f"{flops / n:,.0f} FLOP per point")
+
+        kernels.reset_launches(k1)
+        kernels.reset_launches(kernels.mlp_fwd_tangents)
+        t0 = time.perf_counter()
+        with patched(driver, "Trainer", PolishWitness):
+            rc = cli.main(["train", "--config", path, "--log-root", tmp, "--run-name", "deep",
+                           "--device", "cuda", "--debug"])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI train on examples/deep_f64.json exited {rc}")
+        tr = seen["trainer"]
+        n_f32 = tr.stats["loss_evaluations"]
+        n_pol = tr.stats["f64_polish_evaluations"]
+        epochs, _, _, totals = read_log(os.path.join(tmp, "deep"))
+        state = tr._live_lbfgs64_state
+        # the f32 phases' end in float64: the polish's starting value
+        (f_start, _), _ = vg(f64(seen["start"]), b64)
+        f_start, f_end = float(f_start), float(state.f)
+        print(f"  {n_f32} f32 evaluations ({cfg.adam.max_it} Adam + {n_f32 - cfg.adam.max_it} "
+              f"L-BFGS, {tr.lbfgs_stop_reason}), K1 {seen['k1_before']} launches; polish "
+              f"{n_pol} f64 evaluations ({tr.polish_stop_reason}; {state.num} curvature pairs "
+              f"held at the end, {state.restarts} stall restarts) in {seen['seconds']:.2f} s "
+              f"= {n_pol / seen['seconds']:.2f} evaluations/s, K1 "
+              f"{seen['k1_after'] - seen['k1_before']} launches in it; the f64 loss "
+              f"{f_start:.12e} at the f32 phases' end -> {f_end:.12e} at the polish's end "
+              f"({(f_start - f_end) / f_start:.3e} relative); log.txt minimum "
+              f"{min(totals[:n_f32]):.6e} (f32 rows) -> {min(totals[n_f32:]):.6e} (polish rows); "
+              f"CLI wall {wall:.1f} s; phase times {json.dumps(tr.stats)}")
+        if seen["k1_before"] != n_f32 or seen["evals_before"] != n_f32:
+            fail(f"K1 launched {seen['k1_before']} times for {n_f32} f32 evaluations")
+        if seen["k1_after"] != seen["k1_before"]:
+            fail("K1 launched inside the f64 polish")
+        if state.x.dtype != torch.float64 or state.x.device.type != "cuda" or not isinstance(
+                state.f, np.float64):
+            fail(f"the polish's iterate is {state.x.dtype} on {state.x.device}")
+        if epochs != list(range(1, n_f32 + n_pol + 1)) or n_pol < 1:
+            fail(f"log.txt has {len(epochs)} rows, not {n_f32} f32 + {n_pol} polish, numbered 1..n")
+        if not (f_end < f_start and min(totals[n_f32:]) <= min(totals[:n_f32])):
+            fail("the polish did not descend below the f32 phases' end")
+        final = ckpt_mod.load_raw(os.path.join(tmp, "deep", "model.npz"))
+        if any(final[k].dtype != np.float32 for k in PARAM_KEYS) or final.get(
+                "params64") is None or final["params64"].dtype != np.float64:
+            fail("the final model.npz lacks f32 parameters or the f64 iterate params64")
+        if "mid" not in seen:
+            fail("no checkpoint was cut inside the polish")
+
+        # the mid-polish checkpoint through CLI --resume ---------------------------
+        kernels.reset_launches(k1)
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config", path, "--log-root", tmp, "--run-name", "resumed",
+                       "--device", "cuda", "--debug", "--resume", seen["mid"]])
+        resume_wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI train --resume from the mid-polish checkpoint exited {rc}")
+        mid = seen["mid_iteration"]
+        ep_b, _, _, tot_b = read_log(os.path.join(tmp, "resumed"))
+        bitwise = ep_b == epochs[mid:] and tot_b == totals[mid:]
+        same = next((i for i, (a, b) in enumerate(zip(tot_b, totals[mid:])) if a != b),
+                    min(len(tot_b), len(totals) - mid))
+        print(f"  resumed at evaluation {mid} (polish row {mid - n_f32}): {len(ep_b)} rows, K1 "
+              f"{k1.launches} launches; the remaining rows bit for bit as the uninterrupted "
+              f"run's: {bitwise} ({same} of {len(totals) - mid} rows equal as log.txt prints "
+              f"them); minimum {min(tot_b):.6e}; CLI wall {resume_wall:.1f} s")
+        if k1.launches != 0 or not ep_b or ep_b[0] != mid + 1:
+            fail("the resumed run ran an f32 row or did not start at the checkpoint")
+        if not (tot_b[0] <= totals[mid - 1] * 1.5 and min(tot_b) <= min(totals[mid:]) * 1.05):
+            fail("the resumed polish restarted instead of continuing")
+        print(f"  phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return {"f64_polish": {
+        "launches_f32_phases": n_f32, "launches_in_polish": seen["k1_after"] - seen["k1_before"],
+        "polish_evaluations": n_pol, "polish_seconds": seen["seconds"],
+        "polish_evals_per_s": n_pol / seen["seconds"], "ms_per_f64_evaluation": ms_f64,
+        "bound_ms_tensor_core": bound_tc, "bound_ms_fma": bound_fma,
+        "f32_min": min(totals[:n_f32]), "f64_min": min(totals[n_f32:]),
+        "f64_loss_at_f32_end": f_start, "f64_loss_at_polish_end": f_end,
+        "curvature_pairs_at_end": state.num,
+        "resume_bit_for_bit": bitwise, "cuts": DEEP_F64_CUTS}}
+
+
+def mesh_phase(dev, repo: str) -> dict:
+    """Phase 27: the data-parallel mesh on the one card. Returns the numbers
+    for K1-f32's, K2-f32's and K3-f32's entries of the ``kernels`` line."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks, cli, parallel
+    from pinn_depthestimation_tpu_torch.config import load_config, parse_config
+    from pinn_depthestimation_tpu_torch.models import MLPSpec
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    t_phase = time.perf_counter()
+    k1, k2, k3 = (kernels_step.fused_loss_and_grad, kernels.mlp_fwd_tangents,
+                  kernels_vjp.packed_mlp_bwd)
+    flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    n_dev = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        print("== phase 27: the data-parallel mesh (CLI --mesh, parallel.data, 4 shards of one "
+              "card)")
+        scaled = example_config(tmp, repo, "newmethod_scaled")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--config", scaled, "--log-root", tmp, "--run-name", "eight",
+                           "--device", "cuda"])
+        want = f"Error building device mesh: mesh 8x1 needs 8 devices, have {n_dev}"
+        print(f"  examples/newmethod_scaled.json as shipped (parallel.data 8) on {n_dev} "
+              f"device(s): exit {rc}, {out.getvalue().strip().splitlines()[-1]!r}")
+        if n_dev < 8 and (rc != 1 or want not in out.getvalue()):
+            fail("parallel.data 8 on fewer devices did not exit 1 with the mesh error")
+
+        # --mesh 1 against the unsharded run, bit for bit ---------------------------------
+        with open(scaled) as f:
+            raw = json.load(f)
+        raw["parallel"] = {}
+        plain = write_config(tmp, "scaled_unsharded", raw, {})
+        runs = {}
+        for name, path, extra in (("mesh1", scaled, ["--mesh", "1"]), ("unsharded", plain, [])):
+            kernels.reset_launches(k1)
+            rc = cli.main(["train", "--config", path, "--log-root", tmp, "--run-name", name,
+                           "--device", "cuda", "--debug"] + extra)
+            if rc != 0:
+                fail(f"CLI train ({name}) exited {rc}")
+            log = read_log(os.path.join(tmp, name))
+            runs[name] = (log, ckpt_mod.load_raw(os.path.join(tmp, name, "model.npz")),
+                          k1.launches)
+        (log1, model1, k1_mesh1), (log0, model0, _) = runs["mesh1"], runs["unsharded"]
+        equal = log1 == log0 and all(np.array_equal(model1[k], model0[k])
+                                     for k in ("w_in", "b_in", "w_hidden", "b_hidden",
+                                               "w_out", "b_out"))
+        print(f"  --mesh 1: {len(log1[0])} evaluations, K1 {k1_mesh1} launches; log rows and "
+              f"final parameters bit for bit as the unsharded run's: {equal}")
+        if not equal:
+            fail("--mesh 1 differs from the unsharded run")
+        if k1_mesh1 != len(log1[0]):
+            fail(f"--mesh 1: K1 launched {k1_mesh1} times for {len(log1[0])} evaluations")
+
+        # 4 shards of cuda:0 against the unsharded Trainer --------------------------------
+        mesh4 = parallel.make_mesh(4, devices=[dev] * 4)
+        csv, mat, _, _ = cmb_bench_points(dev, tmp)
+        cmb_cfg = parse_config(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200))
+        cmb_init = numpy_params(MLPSpec.from_layers(cmb_cfg.layers).sizes, "xavier", 27)
+        cmb_init["b_out"][3] += 1.0  # eta + h away from 0
+        cases = (("flagship", load_config(example_config(tmp, repo, "newmethod")),
+                  numpy_params(flagship.sizes, "xavier", 27)),
+                 ("cmb", cmb_cfg, cmb_init))
+        numbers = {}
+        for name, cfg, init in cases:
+            got = {}
+            for shards, mesh in ((1, None), (4, mesh4)):
+                run = os.path.join(tmp, f"{name}_{shards}")
+                os.makedirs(run)
+                tr = Trainer(cfg, run_dir=run, echo_every=0, initial_params=init, mesh=mesh,
+                             device=dev)
+                for w in (k1, k2, k3):
+                    kernels.reset_launches(w)
+                losses = tr._adam_steps(20).cpu().numpy()
+                counts = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches}
+                params = {k: v.clone() for k, v in tr.state.params.items()}
+
+                def steps(tr=tr):
+                    tr._adam_steps(50)
+                    torch.cuda.synchronize()
+
+                ms = host_ms(steps, 3) / 50
+                got[shards] = (losses, params, counts, ms)
+            (l1, p1, c1, ms1), (l4, p4, c4, ms4) = got[1], got[4]
+            rel1 = float(np.max(np.abs(l4[0] - l1[0]) / np.abs(l1[0])))
+            gap = max(float((p4[k] - p1[k]).abs().max()) for k in p1)
+            print(f"  {name}: 20 Adam steps unsharded {c1} launches, 4 shards {c4}; iteration 1 "
+                  f"rel {rel1:.3e} (tolerance 1e-5), parameters after 20 steps {gap:.3e} apart "
+                  f"(tolerance 1e-6); Adam step {ms1:.4f} ms unsharded, {ms4:.4f} ms on 4 "
+                  f"shards (host clock, 50 steps, median of 3)")
+            want = ({"k1": 80, "k2": 0, "k3": 0} if name == "flagship"
+                    else {"k1": 0, "k2": 160, "k3": 160})
+            if c4 != want or c1 != {k: v // 4 for k, v in want.items()}:
+                fail(f"{name} on 4 shards launched {c4} (unsharded {c1}), expected {want}")
+            if not rel1 <= 1e-5:
+                fail(f"{name}: iteration 1 on 4 shards differs by {rel1:.3e}")
+            if name == "flagship" and not gap <= 1e-6:
+                fail(f"{name}: 20 Adam steps on 4 shards diverged by {gap:.3e}")
+            numbers[name] = {"launches_mesh4": c4, "adam_ms": ms1, "adam_ms_mesh4": ms4,
+                             "iter1_rel_mesh4": rel1, "params_gap_mesh4": gap}
+        print(f"  phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": {"launches_mesh1": k1_mesh1, "launches_mesh4": numbers["flagship"]["launches_mesh4"]["k1"],
+                   "adam_ms_mesh4": numbers["flagship"]["adam_ms_mesh4"],
+                   "adam_ms_unsharded_same_call": numbers["flagship"]["adam_ms"]},
+            "k2": {"launches_mesh4_cmb": numbers["cmb"]["launches_mesh4"]["k2"]},
+            "k3": {"launches_mesh4_cmb": numbers["cmb"]["launches_mesh4"]["k3"],
+                   "cmb_adam_ms_mesh4": numbers["cmb"]["adam_ms_mesh4"],
+                   "cmb_adam_ms_unsharded_same_call": numbers["cmb"]["adam_ms"]}}
+
+
 def main() -> None:
     import torch
 
@@ -2736,8 +3069,13 @@ def main() -> None:
     props = torch.cuda.get_device_properties(dev)
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     f32_peak = props.multi_processor_count * 128 * 2 * sm_clock_mhz * 1e6
+    # Hopper: 64 f64 FMA lanes per SM (half the f32 lanes); the f64 tensor
+    # cores (DMMA) reach twice that
+    f64_fma_peak = props.multi_processor_count * 64 * 2 * sm_clock_mhz * 1e6
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; {props.multi_processor_count} SMs, "
-          f"max SM clock {sm_clock_mhz:.0f} MHz -> f32 FMA peak {f32_peak / 1e12:.2f} TFLOP/s")
+          f"max SM clock {sm_clock_mhz:.0f} MHz -> f32 FMA peak {f32_peak / 1e12:.2f} TFLOP/s, "
+          f"f64 FMA peak {f64_fma_peak / 1e12:.2f} TFLOP/s (f64 tensor cores "
+          f"{2 * f64_fma_peak / 1e12:.2f})")
 
     # 2. build --------------------------------------------------------------
     print("== phase 2: build")
@@ -2917,6 +3255,9 @@ def main() -> None:
     keep.cleanup()
     # 25. the legacy pipeline --------------------------------------------------
     legacy = legacy_phases(dev, repo, bound, bound_bf16)
+    # 26. the f64 polish; 27. the mesh ------------------------------------------
+    polish = polish_phase(dev, repo, f64_fma_peak)
+    mesh = mesh_phase(dev, repo)
     print(f"  total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
 
     # one entry per kernel and tier; K3-bf16 and K4-f32 launched on phase
@@ -2937,10 +3278,10 @@ def main() -> None:
     k4_f32 = {**bf16_report["k4_f32"], "launches": picked[("f32", "rebuild")],
               "plain_ms": k3_report["plain_ms"]}
     report = {"kernels": [
-        {**k2_f32, **legacy["k2"]}, {**bf16_report["k2_bf16"], **legacy["k2_bf16"]},
+        {**k2_f32, **legacy["k2"], **mesh["k2"]}, {**bf16_report["k2_bf16"], **legacy["k2_bf16"]},
         x3_report["k2"],
-        k1_report, bf16_report["k1_bf16"], x3_report["k1"],
-        {**k3_report, **legacy["k3"]}, k3_bf16, x3_report["k3"],
+        {**k1_report, **polish, **mesh["k1"]}, bf16_report["k1_bf16"], x3_report["k1"],
+        {**k3_report, **legacy["k3"], **mesh["k3"]}, k3_bf16, x3_report["k3"],
         k4_f32, {**bf16_report["k4"], **legacy["k4_bf16"]}, x3_report["k4"],
     ]}
     print(json.dumps(report))

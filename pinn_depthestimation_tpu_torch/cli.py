@@ -7,6 +7,7 @@ slices:
                                                        [--run-name NAME] [--resume CKPT.npz]
                                                        [--init-from PTH|NPZ] [--device cuda|cpu]
                                                        [--precision-schedule PREFIX_ITERS[:TIER]]
+                                                       [--mesh N] [--f64-polish MAX_IT]
     python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
                                                        [--save OUT.mat] [--device cuda|cpu]
     python -m pinn_depthestimation_tpu_torch.cli parity [--iters 50000] [--lbfgs 500]
@@ -35,9 +36,14 @@ defaults to ``cuda``; without a CUDA device the verb fails unless
 ``--device cpu`` is given. ``train
 --precision-schedule PREFIX_ITERS[:TIER]`` runs the first PREFIX_ITERS Adam
 steps at TIER (default ``bf16``), merged onto the config's
-``precision_schedule`` block; ``0`` disables it. ``train --mesh`` and
-``--f64-polish`` exit 1 (``ROADMAP.md`` M10, M11); ``plot-log``,
-``video`` and ``test --plot`` come with later slices.
+``precision_schedule`` block; ``0`` disables it. ``train --f64-polish
+MAX_IT`` appends the float64 L-BFGS polish with MAX_IT iterations, merged
+onto the config's ``f64_polish`` block (its evaluation budget re-derived);
+``0`` disables it. ``train --mesh N`` (or a config's ``parallel.data``)
+trains data-parallel over N shards: one per visible CUDA device, or N
+shards in the one CPU process with ``--device cpu``; too few devices exit 1
+with "Error building device mesh". ``plot-log``, ``video`` and ``test
+--plot`` come with later slices.
 """
 
 from __future__ import annotations
@@ -51,19 +57,16 @@ import sys
 def cmd_train(args) -> int:
     import time
 
+    import torch
+
     from pinn_depthestimation_tpu_torch.config import load_config
     from pinn_depthestimation_tpu_torch.device import resolve_device
     from pinn_depthestimation_tpu_torch.models import MLPSpec
+    from pinn_depthestimation_tpu_torch.parallel import make_mesh
     from pinn_depthestimation_tpu_torch.training.checkpoint import restore_params_any
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
     from pinn_depthestimation_tpu_torch.training.logging_utils import make_run_dir
 
-    device = resolve_device(args.device)  # no CUDA device: raise, never the CPU
-    for flag, item in (("mesh", "M11"), ("f64_polish", "M10")):
-        if getattr(args, flag) is not None:
-            print(f"Error: --{flag.replace('_', '-')} is not ported yet "
-                  f"(ROADMAP.md Queue 1, {item})")
-            return 1
     try:
         config = load_config(args.config)
     except Exception as e:
@@ -71,6 +74,37 @@ def cmd_train(args) -> int:
             raise
         print(f"Error reading config file: {e}")
         return 1
+    mesh = None
+    try:
+        if args.mesh:
+            n_data, n_model = args.mesh, 1
+        else:
+            n_data, n_model = config.parallel.data, config.parallel.model
+        if n_data:
+            # the visible CUDA devices; N shards in this process on the CPU
+            on_cpu = torch.device(args.device).type == "cpu"
+            mesh = make_mesh(n_data, n_model, devices=[args.device] * n_data if on_cpu else None)
+    except ValueError as e:
+        if args.debug:
+            raise
+        print(f"Error building device mesh: {e}")
+        return 1
+    # no CUDA device: raise, never the CPU
+    device = mesh.first_device if mesh is not None else resolve_device(args.device)
+    if args.f64_polish is not None:
+        # N > 0 re-budgets max_it on top of a JSON-configured block (its
+        # backend, tolerances and history stay; the evaluation budget is
+        # re-derived from the new max_it); 0 disables the phase
+        from pinn_depthestimation_tpu_torch.config import _parse_f64_polish
+
+        if args.f64_polish > 0:
+            block = config.raw.get("f64_polish")
+            block = dict(block) if isinstance(block, dict) else {}
+            block["max_it"] = args.f64_polish
+            block.pop("max_evaluation", None)
+            config.f64_polish = _parse_f64_polish(block)
+        else:
+            config.f64_polish = None
     if args.precision_schedule is not None:
         # "PREFIX_ITERS[:TIER]" merges onto a JSON-configured block (an
         # explicit :TIER overrides its tier); "0" disables the schedule
@@ -121,14 +155,8 @@ def cmd_train(args) -> int:
 
     run_dir = make_run_dir(args.log_root, args.run_name)
     print(f"Run directory: {run_dir}")
-    try:
-        trainer = Trainer(config, run_dir=run_dir, initial_params=initial_params,
-                          device=device)
-    except NotImplementedError as e:
-        if args.debug:
-            raise
-        print(f"Error: {e}")
-        return 1
+    trainer = Trainer(config, run_dir=run_dir, initial_params=initial_params, device=device,
+                      mesh=mesh)
     if args.init_from:
         print(f"Initialized weights from {args.init_from}")
     if args.resume:
@@ -137,8 +165,6 @@ def cmd_train(args) -> int:
     start = time.time()
     trainer.train()
     if device.type == "cuda":
-        import torch
-
         torch.cuda.synchronize(device)
     # the reference's only perf instrumentation (train.py:286)
     print("Training time: %.4f" % (time.time() - start))
@@ -250,8 +276,14 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--precision-schedule", default=None, metavar="PREFIX_ITERS[:TIER]",
                     help="run the first PREFIX_ITERS Adam steps at TIER (default bf16); "
                          "0 disables the config's schedule")
-    for flag in ("--mesh", "--f64-polish"):
-        tr.add_argument(flag, default=None, help="not ported yet (exits 1)")
+    tr.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="data-parallel mesh of N shards (one per CUDA device; with "
+                         "--device cpu, N shards on the CPU)")
+    tr.add_argument("--f64-polish", type=int, default=None, metavar="MAX_IT",
+                    help="append the float64 L-BFGS polish with MAX_IT iterations, "
+                         "merged onto the config's f64_polish block (its backend, "
+                         "tolerances and history kept; the evaluation budget "
+                         "re-derived); 0 disables it")
     tr.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="predict the test grid")

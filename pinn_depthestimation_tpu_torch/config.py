@@ -6,8 +6,9 @@ The kernel fields parse here too: the port reads ``kernel_precision``
 (:meth:`Config.resolved_kernel_precision`: the kernels' tier, ``f32``,
 ``bf16`` or ``f32x3``), ``fused_kernel`` (whether training
 takes the kernels; ``'off'`` also sends the Trainer's predictions through
-the plain ``mlp_apply``) and ``precision_schedule``, and refuses a set
-``f64_polish``, which it has not ported yet.
+the plain ``mlp_apply``), ``precision_schedule``, ``f64_polish`` (the
+float64 polish after the f32 L-BFGS phase) and ``parallel`` (the mesh a
+Trainer trains over).
 
 The reference drives everything from plain JSON with no schema or defaults
 (reference ``train.py:35``, ``test.py:137``): sections ``layers``,
@@ -137,12 +138,15 @@ class F64PolishConfig:
     where f32 loss-evaluation noise stops strong-Wolfe bracketing above the
     optimum (full diagnosis in PARITY_LBFGS_WARM.md).
 
-    ``backend`` says where the JAX package runs the loop and its loss
-    evaluations: ``'device_eval'`` (loop on the host, evaluations on the
+    ``backend`` says where the loop and its loss evaluations run. In the JAX
+    package: ``'device_eval'`` (loop on the host, evaluations on the
     accelerator), ``'cpu'`` (both on the host; the bit-exact resume
-    guarantee) or ``'default'`` (the whole loop on the accelerator). The
-    JAX package's ``config.py`` records its TPU measurements for each; the
-    port has no polish phase yet (``ROADMAP.md`` M10). Tolerances default far
+    guarantee) or ``'default'`` (the whole loop on the accelerator); its
+    ``config.py`` records its TPU measurements for each. In the port the
+    card has native float64, so ``'device_eval'`` and ``'default'`` both run
+    the loop and its evaluations on the Trainer's device (the card), and
+    ``'cpu'`` both on the host CPU (the bit-exact resume guarantee;
+    ``training.driver.Trainer.polish_device``). Tolerances default far
     tighter than the f32 phase's since they gate on f64-resolvable changes.
     """
 

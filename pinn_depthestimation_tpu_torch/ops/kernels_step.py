@@ -36,6 +36,19 @@ and the cotangent scales) are built once by :func:`make_step_batch`; an
 evaluation is then the kernel, the reduction and the combination of three
 statistics, with no host synchronisation. Tiers ``f32``, ``bf16`` and
 ``f32x3`` (``ops.tiers``).
+
+The plain form follows the batch's float type: a float64 batch (the f64
+polish, ``training.driver.Trainer.train_f64_polish``) evaluates in float64
+throughout. K1 itself takes float32 only.
+
+Data parallelism (counterpart of the JAX ``fused_loss_and_grad_sharded``):
+a batch is a list of shards. :func:`make_step_batches` builds one
+:class:`StepBatch` per shard with the GLOBAL masked counts and scales, and
+:func:`fused_loss_and_grad` runs K1 (or its plain statistics and gradients)
+on each shard's rows, sums the flat ``(n_flat + 8,)`` outputs in shard order
+on the first shard's device and combines the statistics once. With global
+scales each shard's gradient is a partial sum of the full-batch gradient,
+so the shards add exactly. An unsharded batch is the one-shard case.
 """
 
 from __future__ import annotations
@@ -91,21 +104,20 @@ def kernel_supports(spec: MLPSpec) -> bool:
     )
 
 
-def _loss_scales(sel, mask, fid_weights, n_true, w_fid, w_res, anchor_depth, has_anchor):
-    """Global denominators and the cotangent-scale vector
-    ``[res_scale, anchor_scale, anchor_depth, fid_scale_0..]`` (8 floats).
-    The masked counts are batch statistics with zero parameter gradient."""
-    n_res = torch.sum(mask)
-    n_sel = torch.sum(sel)
+def _scales_from_counts(n_res, n_sel, fid_weights, n_true, w_fid, w_res, anchor_depth,
+                        has_anchor):
+    """The cotangent-scale vector ``[res_scale, anchor_scale, anchor_depth,
+    fid_scale_0..]`` (8 floats, in the counts' dtype) from the global
+    masked counts, batch statistics with zero parameter gradient."""
     res_scale = 2.0 * w_res / n_res
     anchor_scale = (2.0 * w_res / n_sel) if has_anchor else torch.zeros_like(n_res)
-    fid_scales = 2.0 * w_fid * fid_weights.to(torch.float32) / n_res
-    scal = torch.zeros((8,), dtype=torch.float32, device=mask.device)
+    fid_scales = 2.0 * w_fid * fid_weights.to(n_res.dtype) / n_res
+    scal = torch.zeros((8,), dtype=n_res.dtype, device=n_res.device)
     scal[0] = res_scale
     scal[1] = anchor_scale
     scal[2] = anchor_depth
     scal[3 : 3 + n_true] = fid_scales
-    return n_res, n_sel, scal
+    return scal
 
 
 def _combine_stats(stats, fid_weights, n_res, n_sel, n_true, w_fid, w_res, has_anchor):
@@ -113,7 +125,7 @@ def _combine_stats(stats, fid_weights, n_res, n_sel, n_true, w_fid, w_res, has_a
     residual = stats[0] / n_res
     if has_anchor:
         residual = residual + stats[1] / n_sel
-    fidelity = torch.sum(fid_weights.to(torch.float32) * stats[2 : 2 + n_true]) / n_res
+    fidelity = torch.sum(fid_weights.to(stats.dtype) * stats[2 : 2 + n_true]) / n_res
     total = w_fid * fidelity + w_res * residual
     return total, fidelity, residual
 
@@ -129,7 +141,7 @@ class StepBatch:
     fid_weights: torch.Tensor   # (n_true,) per-output fidelity weights
     n_res: torch.Tensor         # sum(mask)
     n_sel: torch.Tensor         # sum(sel)
-    scal: torch.Tensor          # (8,) cotangent scales (_loss_scales)
+    scal: torch.Tensor          # (8,) cotangent scales (_scales_from_counts)
     n_true: int
     w_fid: float
     w_res: float
@@ -137,25 +149,66 @@ class StepBatch:
     has_anchor: bool
 
 
-def make_step_batch(coords, trues, sel, mask, fid_weights, n_true: int, w_fid: float,
-                    w_res: float, anchor_depth: float = 0.75,
-                    has_anchor: bool = True) -> StepBatch:
-    """Build the constants once; every later evaluation reuses them.
-    Arguments are those of the JAX ``fused_loss_and_grad``."""
-    f32 = torch.float32
-    coords = coords.to(f32).contiguous()
-    dev = coords.device
-    mask = mask.to(dev, f32).contiguous()
-    sel = sel.to(dev, f32).contiguous()
-    fid_weights = torch.as_tensor(fid_weights, dtype=f32).to(dev)
-    n_res, n_sel, scal = _loss_scales(sel, mask, fid_weights, n_true, float(w_fid),
-                                      float(w_res), float(anchor_depth), has_anchor)
-    return StepBatch(
-        coords=coords, trues=trues.to(dev, f32)[:, :n_true].contiguous(), sel=sel,
-        mask=mask, fid_weights=fid_weights, n_res=n_res, n_sel=n_sel, scal=scal,
+def make_step_batches(coords, trues, sel, mask, fid_weights, n_true: int, w_fid: float,
+                      w_res: float, anchor_depth: float = 0.75,
+                      has_anchor: bool = True) -> list[StepBatch]:
+    """Build the constants once; every later evaluation reuses them. One
+    :class:`StepBatch` per shard: ``coords``, ``trues``, ``sel`` and ``mask``
+    are lists of the shards' rows, each on its device; the other arguments
+    are those of the JAX ``fused_loss_and_grad``. Everything is cast to the
+    float type of ``coords`` (float32 unless it is float64). The masked
+    counts are summed over the shards in order on the first shard's device
+    and every shard's scales are built from those GLOBAL counts, once per
+    batch, before any launch (K1 reads its scales from device memory, so a
+    shard's local counts would give a wrong gradient)."""
+    shards = []
+    for c, t, s, m in zip(coords, trues, sel, mask):
+        dt = _batch_dtype(c)
+        c = c.to(dt).contiguous()
+        dev = c.device
+        shards.append((c, t.to(dev, dt)[:, :n_true].contiguous(), s.to(dev, dt).contiguous(),
+                       m.to(dev, dt).contiguous()))
+    first = shards[0][0]
+    fid_weights = torch.as_tensor(fid_weights, dtype=first.dtype).to(first.device)
+    n_res = _sum_in_order([torch.sum(m).to(first.device) for _, _, _, m in shards])
+    n_sel = _sum_in_order([torch.sum(s).to(first.device) for _, _, s, _ in shards])
+    scal = _scales_from_counts(n_res, n_sel, fid_weights, n_true, float(w_fid), float(w_res),
+                               float(anchor_depth), has_anchor)
+    return [StepBatch(
+        coords=c, trues=t, sel=s, mask=m, fid_weights=fid_weights.to(c.device),
+        n_res=n_res.to(c.device), n_sel=n_sel.to(c.device), scal=scal.to(c.device),
         n_true=n_true, w_fid=float(w_fid), w_res=float(w_res),
         anchor_depth=float(anchor_depth), has_anchor=has_anchor,
-    )
+    ) for c, t, s, m in shards]
+
+
+def make_step_batch(coords, trues, sel, mask, *args, **kwargs) -> StepBatch:
+    """:func:`make_step_batches` of one shard."""
+    return make_step_batches([coords], [trues], [sel], [mask], *args, **kwargs)[0]
+
+
+def _batch_dtype(coords: torch.Tensor) -> torch.dtype:
+    return torch.float64 if coords.dtype == torch.float64 else torch.float32
+
+
+def _shards(b) -> list[StepBatch]:
+    """A batch as its list of shards (an unsharded batch is one shard)."""
+    return [b] if isinstance(b, StepBatch) else list(b)
+
+
+def _shard_params(params, shard: StepBatch, first: StepBatch):
+    """``params`` as the shard sees them: the master copy itself on the
+    first shard (which must hold it), a differentiable copy elsewhere."""
+    if shard is first:
+        return params
+    return {k: params[k].to(shard.coords.device) for k in PARAM_KEYS}
+
+
+def _sum_in_order(values: list[torch.Tensor]) -> torch.Tensor:
+    out = values[0]
+    for v in values[1:]:
+        out = out + v
+    return out
 
 
 # ------------------------------------------------------------ plain version
@@ -183,23 +236,62 @@ def _stats_from_outputs(y, dy, b: StepBatch) -> torch.Tensor:
     return torch.stack(stats)
 
 
-def shared_forward_loss_plain(params, b: StepBatch, spec: MLPSpec, precision: str = "f32"):
-    """``(total, fidelity, residual)`` of the shared-forward continuity loss
-    in plain PyTorch. The one plain form of this loss: K1's plain version
-    differentiates it, and so does ``training.loss.build_loss_fn`` for a
-    configuration inside the one-kernel gate. At ``f32`` it is
-    differentiable; at ``bf16`` and ``f32x3`` it is the value at the tier
-    (``ops.tiers.tier_forward``), which no autograd differentiates: the
-    tier's gradient is :func:`fused_loss_and_grad_plain`'s."""
+def _shard_stats_plain(params, b: StepBatch, spec: MLPSpec, precision: str):
+    """The (8,) statistics of :func:`shared_forward_loss_plain` on one
+    shard's rows (differentiable at ``f32``)."""
     _check_step_spec(spec, b.n_true, b.has_anchor)
     check_precision(precision, "K1")
     if precision == "f32":
-        stats = _step_stats_plain(params, b, spec)
-    else:
-        fwd = tiers.tier_forward(params, b.coords, spec, KT, precision, keep_states=False)
-        stats = _stats_from_outputs(fwd.y, fwd.dy, b)
-    return _combine_stats(stats, b.fid_weights, b.n_res, b.n_sel, b.n_true, b.w_fid,
-                          b.w_res, b.has_anchor)
+        return _step_stats_plain(params, b, spec)
+    fwd = tiers.tier_forward(params, b.coords, spec, KT, precision, keep_states=False)
+    return _stats_from_outputs(fwd.y, fwd.dy, b)
+
+
+def shared_forward_loss_plain(params, b, spec: MLPSpec, precision: str = "f32"):
+    """``(total, fidelity, residual)`` of the shared-forward continuity loss
+    in plain PyTorch. The one plain form of this loss: K1's plain version
+    differentiates it, and so does ``training.loss.build_loss_fn`` for a
+    configuration inside the one-kernel gate. ``b`` is a :class:`StepBatch`
+    or a list of shards (:func:`make_step_batches`): each shard's statistics
+    on its device from a copy of ``params``, summed in shard order on the
+    first device, combined once. At ``f32`` it is differentiable (back to
+    ``params``); at ``bf16`` and ``f32x3`` it is the value at the tier
+    (``ops.tiers.tier_forward``), which no autograd differentiates: the
+    tier's gradient is :func:`fused_loss_and_grad_plain`'s."""
+    shards = _shards(b)
+    first = shards[0]
+    stats = _sum_in_order([
+        _shard_stats_plain(_shard_params(params, s, first), s, spec,
+                           precision).to(first.coords.device)
+        for s in shards])
+    return _combine_stats(stats, first.fid_weights, first.n_res, first.n_sel, first.n_true,
+                          first.w_fid, first.w_res, first.has_anchor)
+
+
+def _plain_stats_and_grads(params, b: StepBatch, spec: MLPSpec, precision: str):
+    """``(total, fidelity, residual, stats, grads)`` of plain K1 on ``b``'s
+    rows, every gradient taken at ``b``'s scales (on a shard with the global
+    counts: that shard's partial sum of the full-batch gradient)."""
+    _check_step_spec(spec, b.n_true, b.has_anchor)
+    if precision != "f32":
+        fwd = tiers.tier_forward(params, b.coords, spec, KT, precision)
+        y, dy = fwd.y.requires_grad_(), fwd.dy.requires_grad_()
+        with torch.enable_grad():
+            stats = _stats_from_outputs(y, dy, b)
+            total, fid, res = _combine_stats(stats, b.fid_weights, b.n_res, b.n_sel,
+                                             b.n_true, b.w_fid, b.w_res, b.has_anchor)
+            ybar, dybar = torch.autograd.grad(total, [y, dy])
+        grads = tiers.tier_backward(params, b.coords, fwd, ybar, dybar, spec, precision)
+        return total.detach(), fid.detach(), res.detach(), stats.detach(), grads
+    leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
+    with torch.enable_grad():
+        stats = _step_stats_plain(leaves, b, spec)
+        total, fid, res = _combine_stats(stats, b.fid_weights, b.n_res, b.n_sel, b.n_true,
+                                         b.w_fid, b.w_res, b.has_anchor)
+        grads = torch.autograd.grad(total, [leaves[k] for k in PARAM_KEYS],
+                                    allow_unused=True, materialize_grads=True)
+    return (total.detach(), fid.detach(), res.detach(), stats.detach(),
+            dict(zip(PARAM_KEYS, grads)))
 
 
 def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec, precision: str = "f32"):
@@ -208,23 +300,8 @@ def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec, precision: st
     ``bf16``, ``f32x3``: the tier's forward, the epilogue's cotangents by autograd on
     ``(y, dy)`` (f32, as in the kernel), then the tier's backward."""
     check_precision(precision, "K1")
-    if precision != "f32":
-        _check_step_spec(spec, b.n_true, b.has_anchor)
-        fwd = tiers.tier_forward(params, b.coords, spec, KT, precision)
-        y, dy = fwd.y.requires_grad_(), fwd.dy.requires_grad_()
-        with torch.enable_grad():
-            total, fid, res = _combine_stats(_stats_from_outputs(y, dy, b), b.fid_weights,
-                                             b.n_res, b.n_sel, b.n_true, b.w_fid, b.w_res,
-                                             b.has_anchor)
-            ybar, dybar = torch.autograd.grad(total, [y, dy])
-        grads = tiers.tier_backward(params, b.coords, fwd, ybar, dybar, spec, precision)
-        return (total.detach(), (fid.detach(), res.detach())), grads
-    leaves = {k: params[k].detach().requires_grad_() for k in PARAM_KEYS}
-    with torch.enable_grad():
-        total, fid, res = shared_forward_loss_plain(leaves, b, spec)
-        grads = torch.autograd.grad(total, [leaves[k] for k in PARAM_KEYS],
-                                        allow_unused=True, materialize_grads=True)
-    return (total.detach(), (fid.detach(), res.detach())), dict(zip(PARAM_KEYS, grads))
+    total, fid, res, _, grads = _plain_stats_and_grads(params, b, spec, precision)
+    return (total, (fid, res)), grads
 
 
 # -------------------------------------------------------------- CUDA launch
@@ -309,28 +386,43 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
 
 # ------------------------------------------------------------------ wrapper
 
-def fused_loss_and_grad(params, b: StepBatch, spec: MLPSpec, *, precision: str = "f32"):
+def fused_loss_and_grad(params, b, spec: MLPSpec, *, precision: str = "f32"):
     """Returns ``((total, (fidelity, residual)), grads)``: the value and the
     parameter gradients of the shared-forward continuity loss. Counterpart
-    of the JAX ``ops.kernels_step.fused_loss_and_grad``.
+    of the JAX ``ops.kernels_step.fused_loss_and_grad`` and, for a list of
+    shards, of its ``fused_loss_and_grad_sharded``, in one process.
 
-    A CPU batch runs :func:`fused_loss_and_grad_plain`; a CUDA batch
-    launches K1 at ``precision`` (``'f32'``, ``'bf16'`` or ``'f32x3'``). An empty anchor
-    selection gives NaN, as the reference's ``torch.mean`` of an empty
-    tensor does."""
+    ``b`` is a :class:`StepBatch` or a list of shards
+    (:func:`make_step_batches`). ``params`` (on the first shard's device)
+    are copied to each shard's device; a CUDA shard launches K1 at
+    ``precision`` (``'f32'``, ``'bf16'`` or ``'f32x3'``), a CPU shard runs
+    its plain statistics and gradients (:func:`fused_loss_and_grad_plain`'s);
+    the flat ``(n_flat + 8,)`` outputs are summed in shard order on the
+    first device and the statistics combined once. Every K1 launch counts
+    one in ``fused_loss_and_grad.launches``. An empty anchor selection gives
+    NaN, as the reference's ``torch.mean`` of an empty tensor does."""
     check_precision(precision, "K1")
-    _check_step_spec(spec, b.n_true, b.has_anchor)
-    if not _on_cuda(b.coords, "K1"):
-        return fused_loss_and_grad_plain(params, b, spec, precision)
-    _check_launch(params, b, spec)
-    if b.coords.shape[0] == 0:
-        raise ValueError("K1 needs at least one point")
-    out = _launch_k1(params, b, spec, precision=precision)
-    count_launch(fused_loss_and_grad, precision)
+    shards = _shards(b)
+    first = shards[0]
+    _check_step_spec(spec, first.n_true, first.has_anchor)
     n = n_flat(spec)
-    total, fid, res = _combine_stats(out[n:], b.fid_weights, b.n_res, b.n_sel, b.n_true,
-                                     b.w_fid, b.w_res, b.has_anchor)
-    return (total, (fid, res)), unflatten(out[:n], spec)
+    outs = []
+    for s in shards:
+        p = _shard_params(params, s, first)
+        if _on_cuda(s.coords, "K1"):
+            _check_launch(p, s, spec)
+            if s.coords.shape[0] == 0:
+                raise ValueError("K1 needs at least one point")
+            out = _launch_k1(p, s, spec, precision=precision)
+            count_launch(fused_loss_and_grad, precision)
+        else:
+            _, _, _, stats, grads = _plain_stats_and_grads(p, s, spec, precision)
+            out = torch.cat([grads[k].reshape(-1) for k in FLAT_KEYS] + [stats])
+        outs.append(out.to(first.coords.device))
+    flat = _sum_in_order(outs)
+    total, fid, res = _combine_stats(flat[n:], first.fid_weights, first.n_res, first.n_sel,
+                                     first.n_true, first.w_fid, first.w_res, first.has_anchor)
+    return (total, (fid, res)), unflatten(flat[:n], spec)
 
 
 reset_launches(fused_loss_and_grad)

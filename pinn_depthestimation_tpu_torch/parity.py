@@ -32,8 +32,6 @@ caches. Divergences from the JAX ``main``:
   needed; without one they are taken from the directory the environment
   variable ``PINN_REFERENCE_DIR`` names (the JAX package reads a fixed
   mount point), and without either the harness returns 2;
-* ``--f64-polish`` > 0 raises the Trainer's own "not ported yet" error
-  (``ROADMAP.md`` M10) before any work;
 * ``--out`` defaults to ``PARITY_REPORT_TORCH.md``, so a run never
   overwrites the JAX package's ``PARITY_REPORT.md``;
 * ``--device`` (default ``cuda``) places the framework phase; a report
@@ -515,11 +513,19 @@ makes discrete decisions on f32-roundoff-scale differences, after which the
 two optimizers explore different (equally valid) paths. The acceptance
 criteria are the tracked prefix and same-basin terminal minima, mirrored by
 the CI assertion in tests/test_parity.py (prefix >= 20, gap < 0.1)."""
+        polish_note = (
+            f"\n* framework rows include its f64 polish phase "
+            f"(--f64-polish {args.f64_polish}; a capability the torch "
+            f"reference lacks — its terminal minimum reflects f64 descent "
+            f"below the shared f32 noise floor)"
+            if args.f64_polish
+            else ""
+        )
         lbfgs_section = f"""
 ## L-BFGS phase (per-evaluation tracking)
 
 * evaluations executed: reference {len(lb_ref)}, framework {len(lb_our)}
-  (budget: {round(args.lbfgs * 1.25)})
+  (budget: {round(args.lbfgs * 1.25)}){polish_note}
 * tracked prefix (consecutive evals within 5e-3 relative): **{tracked}** of {m}
 * median relative diff over the phase: {np.median(lrel):.2e}
 * terminal minima: reference {lb_ref.min():.6e}, framework {lb_our.min():.6e}
@@ -673,8 +679,9 @@ def build_parser(add_help: bool = True) -> argparse.ArgumentParser:
                          "the reference's own recipe is --hidden-layers 10 "
                          "--width 10)")
     ap.add_argument("--f64-polish", type=int, default=0, metavar="MAX_IT",
-                    help="the framework's float64 polish phase: not ported yet "
-                         "(ROADMAP.md M10); > 0 raises")
+                    help="append the framework's float64 polish phase (config "
+                         "f64_polish with this max_it) after its f32 L-BFGS "
+                         "phase; the reference phase is unchanged")
     ap.add_argument("--out", default="PARITY_REPORT_TORCH.md")
     ap.add_argument("--fw-cache", default=None,
                     help="cache the FRAMEWORK phase (loss log + h-field) to "
@@ -706,11 +713,6 @@ def run_args(args) -> tuple[int, dict | None]:
         # would complete and then be discarded with the mkdtemp sandbox.
         build_parser().error("--ref-only requires --ref-cache (the reference phase "
                              "would run for hours and then be thrown away)")
-    if args.f64_polish > 0:
-        # the Trainer's own refusal, before any data or reference work
-        from pinn_depthestimation_tpu_torch.training.driver import _queued
-
-        raise _queued("the f64 L-BFGS polish", "M10")
     have_ref_cache = bool(args.ref_cache) and os.path.exists(args.ref_cache)
     if not have_ref_cache and not (REFERENCE and os.path.isdir(REFERENCE)):
         print(f"reference sources not available (PINN_REFERENCE_DIR={REFERENCE!r}) "
@@ -795,6 +797,10 @@ def run_args(args) -> tuple[int, dict | None]:
         if args.ref_only:
             return 0, None
 
+        if args.f64_polish:
+            # the framework side only, after the reference phase: the JSON the
+            # reference runs stays its own schema
+            cfg_raw["f64_polish"] = {"max_it": args.f64_polish}
         cfg = parse_config(cfg_raw)
         if args.fw_cache and os.path.exists(args.fw_cache):
             print(f"[2/3] framework phase loaded from cache {args.fw_cache}", flush=True)

@@ -33,11 +33,22 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
   reaches ``snapshot_iteration``; it and :meth:`Trainer.predict` run K2 on
   the card (``mlp_apply`` under ``fused_kernel='off'``).
 
+* the optional float64 L-BFGS polish (``f64_polish``, JAX
+  ``training/driver.py:503-663``): after the f32 L-BFGS phase, the same
+  optimizer in float64 on plain autograd (no kernel has an f64 tier, in
+  either package), its rows in the same ``log.txt``, the live iterate
+  rounded back to the f32 parameters before each record; mid-polish
+  checkpoints carry its whole state (``lbfgs64``) and every checkpoint after
+  it its f64 iterate (``params64``), so ``--resume`` continues it and a
+  later run extends it from the exact iterate;
+* data parallelism (``mesh=``, ``parallel.mesh``, JAX
+  ``training/driver.py:87``): the batch split into shards, each on its
+  device; one process drives them all, and Adam, L-BFGS, the log and the
+  checkpoints act on the one master copy of the parameters on the mesh's
+  first device. K1 (or K2 with K3/K4) launches on every shard.
+
 The iteration counter counts loss evaluations, as the reference's
 ``self.iter`` does (reference ``train.py:160``).
-
-Not ported yet, and refused with ``NotImplementedError``: the f64 polish
-(``ROADMAP.md`` M10), data parallelism (M11).
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from pinn_depthestimation_tpu_torch.models import MLPSpec, init_mlp_params, mlp_
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
 from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
 from pinn_depthestimation_tpu_torch.optim import lbfgs as lbfgs_mod
+from pinn_depthestimation_tpu_torch.parallel import Mesh, shard_batch
 from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
 from pinn_depthestimation_tpu_torch.training.logging_utils import LossLog, make_run_dir
 from pinn_depthestimation_tpu_torch.training.loss import (
@@ -89,10 +101,6 @@ def make_adam_optimizer(config: Config, params: list[torch.Tensor]):
 class TrainState:
     params: dict[str, torch.Tensor]
     iteration: int  # completed loss evaluations
-
-
-def _queued(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
 
 class KernelPlan(NamedTuple):
@@ -189,17 +197,23 @@ class Trainer:
         echo_every: int = 1000,
         initial_params=None,
         lbfgs_record_capacity: int | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         """``initial_params``: the parameter exchange dict (numpy arrays or
         tensors); without it, :func:`init_mlp_params` from a CPU
         ``torch.Generator`` seeded with ``config.seed``. ``device``: the
-        card by default; ``"cpu"`` runs the plain versions."""
-        if config.parallel.data:
-            raise _queued("data-parallel training (parallel.data)", "M11")
-        if config.f64_polish is not None and config.f64_polish.max_it > 0:
-            raise _queued("the f64 L-BFGS polish", "M10")
+        card by default; ``"cpu"`` runs the plain versions. ``mesh``
+        (``parallel.make_mesh``): train data-parallel over its shards, the
+        parameters and the optimizers on its first device (``device``, if
+        given, must be that one)."""
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.first_device:
+                raise ValueError(f"device {str(device)!r} is not the mesh's first device "
+                                 f"{str(mesh.first_device)!r}")
+            device = mesh.first_device
         self.device = resolve_device(device)
         self.spec = MLPSpec.from_layers(config.layers)
         self.echo_every = echo_every
@@ -215,10 +229,11 @@ class Trainer:
         self.run_dir = run_dir or make_run_dir(log_root)
         self.log = LossLog(self.run_dir)
 
-        self.batch = {
-            k: torch.as_tensor(np.asarray(getattr(self.data, k), np.float32)).to(self.device)
-            for k in ("fidelity_input", "fidelity_true", "residual_input")
-        }
+        if mesh is not None:
+            self.batch = shard_batch(self._host_batch(np.float32), mesh)
+        else:
+            self.batch = {k: torch.as_tensor(v).to(self.device)
+                          for k, v in self._host_batch(np.float32).items()}
         fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
         self.kernel_plan = decide_kernels(config, self.spec, fidelity_is_residual,
                                           self.device.type)
@@ -230,7 +245,7 @@ class Trainer:
             config, self.spec, residual_chunk_size=config.residual_chunk_size,
             input_min_max=self.data.input_min_max, fused_kernel=self.uses_kernels,
             fused_precision=config.resolved_kernel_precision(),
-            fidelity_is_residual=fidelity_is_residual,
+            fidelity_is_residual=fidelity_is_residual, mesh=mesh,
         )
         self.fused_step_fn = build_value_and_grad_fn(
             config, self.spec, input_min_max=self.data.input_min_max,
@@ -249,7 +264,10 @@ class Trainer:
         else:
             step = "autograd of the loss (plain PyTorch)"
         predict = f"K2 at {tier}" if self.kernel_plan.predict else "plain mlp_apply"
-        print(f"Training step: {step}; snapshot/predict: {predict}; device {self.device}")
+        where = (f"mesh {mesh.shape['data']}x{mesh.shape['model']} over "
+                 f"{[str(d) for d in mesh.data_devices]}" if mesh is not None
+                 else f"device {self.device}")
+        print(f"Training step: {step}; snapshot/predict: {predict}; {where}")
         self._prefix_iters, self._prefix_value_and_grad = self._build_schedule(fidelity_is_residual)
 
         if initial_params is not None:
@@ -268,7 +286,16 @@ class Trainer:
         self._lbfgs_runner: lbfgs_mod.LBFGSRunner | None = None
         self._live_lbfgs_state = None       # exported into checkpoints
         self._pending_lbfgs_resume = None   # raw dict from a restored checkpoint
+        # the f64 polish's counterparts (checkpoint sections lbfgs64, params64)
+        self._lbfgs64_runner: lbfgs_mod.LBFGSRunner | None = None
+        self._live_lbfgs64_state = None
+        self._pending_lbfgs64_resume = None
+        self._pending_params64 = None       # flat f64 iterate of a finished polish
         self._snapshot_done = False
+
+    def _host_batch(self, dtype) -> dict[str, np.ndarray]:
+        return {k: np.asarray(getattr(self.data, k), dtype)
+                for k in ("fidelity_input", "fidelity_true", "residual_input")}
 
     def _build_schedule(self, fidelity_is_residual: bool):
         """``(prefix_iters, prefix value-and-grad)`` of the precision
@@ -292,7 +319,7 @@ class Trainer:
         if prefix_vg is None:
             prefix_vg = value_and_grad(build_loss_fn(
                 self.config, self.spec, residual_chunk_size=self.config.residual_chunk_size,
-                **kw))
+                mesh=self.mesh, **kw))
         print(f"Precision schedule: the first {sched.prefix_iters} Adam steps at "
               f"{sched.prefix_precision}, then {main_tier}")
         return sched.prefix_iters, prefix_vg
@@ -355,6 +382,10 @@ class Trainer:
         cfg = self.config.lbfgs
         if cfg.max_it <= 0:
             return
+        if self._pending_lbfgs64_resume is not None and self._polish_enabled():
+            # resumed inside the f64 polish: the f32 phase had ended before it
+            # began, and a warm restart here would change the continuation
+            return
         if self._lbfgs_runner is None:
             self._lbfgs_runner = lbfgs_mod.LBFGSRunner(
                 loss_fn=self.loss_fn,
@@ -400,11 +431,106 @@ class Trainer:
             self._record(leftover)
         self.lbfgs_stop_reason = runner.stop_reason(state)
 
+    # ------------------------------------------------------------ f64 polish
+
+    def _polish_enabled(self) -> bool:
+        return self.config.f64_polish is not None and self.config.f64_polish.max_it > 0
+
+    def polish_device(self) -> torch.device:
+        """Where the polish runs its loop and its evaluations: the host CPU
+        for ``backend='cpu'`` (the bit-exact resume guarantee, as in the JAX
+        package), else the Trainer's device (the mesh's first device), which
+        is the card: the H100 has native float64, so ``'device_eval'`` and
+        ``'default'`` both run there. The JAX package's ``'device_eval'``
+        route, a host loop calling its accelerator per evaluation, works
+        around the TPU's emulated float64 and has no counterpart."""
+        return torch.device("cpu") if self.config.f64_polish.backend == "cpu" else self.device
+
+    def train_f64_polish(self) -> None:
+        """The optional float64 L-BFGS polish (framework extension,
+        ``config.F64PolishConfig``; JAX ``training/driver.py:503-663``).
+
+        f32 quasi-Newton descent on the deep net stops at the ~5e-9
+        evaluation-noise floor: every remaining decrement is below the noise
+        and strong-Wolfe bracketing collapses to a zero step
+        (``PARITY_LBFGS_WARM.md``). This phase reruns the same optimizer in
+        float64, where those decrements resolve again: plain autograd of the
+        loss (the unsharded batch, on :meth:`polish_device`; no kernel),
+        K1's plain form inside the one-kernel gate. Evaluations go into
+        ``log.txt`` and the checkpoints through :meth:`_record`, the live
+        iterate rounded to the f32 parameters first."""
+        if not self._polish_enabled():
+            return
+        cfg = self.config.f64_polish
+        device = self.polish_device()
+        f64 = torch.float64
+        params64 = {k: self.state.params[k].detach().to(device, f64) for k in PARAM_KEYS}
+        # the host data, not the (possibly sharded, padded) training batch:
+        # the polish is single-device, as in the JAX package
+        batch64 = {k: torch.as_tensor(v).to(device)
+                   for k, v in self._host_batch(np.float64).items()}
+        loss_fn = build_loss_fn(
+            self.config, self.spec, residual_chunk_size=self.config.residual_chunk_size,
+            input_min_max=self.data.input_min_max,
+            fidelity_is_residual=getattr(self.data, "fidelity_is_residual", False),
+        )
+        runner = lbfgs_mod.LBFGSRunner(
+            loss_fn=loss_fn,
+            params_template=params64,
+            options=lbfgs_mod.LBFGSOptions(
+                lr=cfg.learning_rate,
+                max_iter=cfg.max_it,
+                max_eval=cfg.max_evaluation,
+                history_size=cfg.history_size,
+                tolerance_grad=cfg.tolerance_grad,
+                tolerance_change=cfg.tolerance_change,
+                line_search=cfg.line_search_fn,
+            ),
+            # f64 evaluations cost more than the f32 phases': a ~50-evaluation
+            # cadence keeps log flushes and checkpoints regular
+            record_capacity=(self._lbfgs_record_capacity
+                             if self._lbfgs_record_capacity is not None
+                             else 50 + 2 * (lbfgs_mod.MAX_LS + 2)),
+        )
+        self._lbfgs64_runner = runner
+        if self._pending_lbfgs64_resume is not None:
+            # exact continuation: the f64 iterate and history come from the
+            # checkpoint (its f32 parameters are the rounded shadow); its
+            # params64 is this same iterate
+            state = runner.restore_state(self._pending_lbfgs64_resume)
+            self._pending_lbfgs64_resume = self._pending_params64 = None
+        else:
+            pending, self._pending_params64 = self._pending_params64, None
+            if pending is not None:
+                # a finished polish's exact f64 iterate, used while the live
+                # f32 parameters are still its untouched shadow: polishing
+                # from the rounded shadow would re-pay the f32 rounding the
+                # finished polish already descended through
+                flat64 = np.asarray(pending, np.float64).ravel()
+                cur = runner.flatten(self.state.params).detach().cpu().numpy()
+                if (flat64.shape == (runner.n_params,)
+                        and np.array_equal(flat64.astype(np.float32), cur)):
+                    params64 = runner.params_from_flat(torch.as_tensor(flat64).to(device))
+            state = runner.init(params64, batch64)
+        self._live_lbfgs64_state = state
+        while not runner.finished(state):
+            state, records = runner.run_chunk(state, batch64)
+            # the rounded live iterate first: checkpoints and the snapshot
+            # cut while recording must see current weights
+            self._set_params(runner.get_params(state))
+            self._record(records)
+        state, leftover = runner.drain_records(state)
+        self._set_params(runner.get_params(state))
+        if leftover.size:
+            self._record(leftover)
+        self.polish_stop_reason = runner.stop_reason(state)
+
     # ------------------------------------------------------------- lifecycle
 
     def train(self) -> None:
-        """Both phases, the snapshot and the final save (reference
-        ``train.py:185-200``; snapshot as ``train_newmethod.py:141-153``)."""
+        """Both phases, the f64 polish, the snapshot and the final save
+        (reference ``train.py:185-200``; snapshot as
+        ``train_newmethod.py:141-153``)."""
         t0 = time.time()
         start_evals = self.state.iteration
         self.train_adam()
@@ -412,9 +538,14 @@ class Trainer:
         self._maybe_snapshot()
         self.train_lbfgs()
         t_lbfgs = time.time()
+        evals_f32 = self.state.iteration
+        self.train_f64_polish()
+        t_polish = time.time()
         self.save("model")  # final save (reference train.py:288)
 
-        evals = self.state.iteration - start_evals
+        # the rate covers the f32 phases only: the polish runs in another
+        # float type at a deliberately different operating point
+        evals = evals_f32 - start_evals
         points = int(self.data.residual_input.shape[0])
         total_t = max(t_lbfgs - t0, 1e-9)
         self.stats = {
@@ -424,9 +555,14 @@ class Trainer:
             "collocation_points": points,
             "residual_point_evals_per_sec": evals * points / total_t,
         }
+        polish = ""
+        if self._polish_enabled():
+            self.stats["f64_polish_seconds"] = t_polish - t_lbfgs
+            self.stats["f64_polish_evaluations"] = self.state.iteration - evals_f32
+            polish = f", f64 polish {self.stats['f64_polish_seconds']:.1f}s"
         print(
             f"Phase times: adam {self.stats['adam_seconds']:.1f}s, "
-            f"lbfgs {self.stats['lbfgs_seconds']:.1f}s | "
+            f"lbfgs {self.stats['lbfgs_seconds']:.1f}s{polish} | "
             f"{evals} loss evals x {points} collocation pts -> "
             f"{self.stats['residual_point_evals_per_sec']:.3e} residual point-evals/s "
             f"on {self.device}"
@@ -504,6 +640,14 @@ class Trainer:
             # --resume continues the exact trajectory; finished states are
             # not exported (resuming a finished run warm-restarts)
             state["lbfgs"] = self._lbfgs_runner.export_state(run)
+        live64 = self._live_lbfgs64_state
+        if include_lbfgs and live64 is not None:
+            if live64.reason == lbfgs_mod.RUNNING:
+                # the same contract for the polish: its whole f64 state
+                state["lbfgs64"] = self._lbfgs64_runner.export_state(live64)
+            # the f64 iterate itself, finished polishes too, so a later run
+            # extends the polish without the f32 round trip
+            state["params64"] = live64.x.detach().cpu().numpy()
         return state
 
     def save(self, name: str, include_lbfgs: bool = True) -> str:
@@ -531,6 +675,8 @@ class Trainer:
             self.scheduler.last_epoch = int(opt["last_epoch"])
             self.scheduler._last_lr = [float(opt["lr"])]
         self._pending_lbfgs_resume = raw.get("lbfgs")
+        self._pending_lbfgs64_resume = raw.get("lbfgs64")
+        self._pending_params64 = raw.get("params64")
         # a run resumed past the snapshot point does not rewrite the
         # snapshot with later parameters
         snap = self.config.snapshot_iteration

@@ -27,6 +27,23 @@ in chunks of points under ``torch.utils.checkpoint`` (JAX
 ``training/loss.py:314-385``), summing each chunk's sufficient statistics
 (``physics.residual_stats``), so only one chunk's activations live through
 the backward and the loss is the full-batch one.
+
+Under a device mesh (``mesh``, ``parallel.mesh``) the batch is the list of
+shards ``parallel.shard_batch`` makes, and each shard computes the sufficient
+statistics of the residual (``physics.residual_stats``) and of the fidelity
+(``_fid_sum_err2``, ``_fid_n``) from its own copy of the parameters; the
+statistics are summed in shard order on the first shard's device and
+combined once (JAX ``training/loss.py:242-300``). Autograd carries each
+shard's gradient back to the one master copy. The unsharded generic loss
+keeps the equation's direct form, as the JAX package does, so its rounding
+stays the JAX package's. Inside the one-kernel gate an unsharded batch is
+the one-shard case of the same code: K1's plain form and K1 itself take the
+list of shards ``ops.kernels_step.make_step_batches`` builds (global
+counts), and :func:`build_value_and_grad_fn` runs K1 on every shard.
+
+Every loss follows the float type of its batch and parameters: the f64
+polish (``training.driver.Trainer.train_f64_polish``) evaluates it in
+float64.
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ from pinn_depthestimation_tpu_torch.config import Config
 from pinn_depthestimation_tpu_torch.models import MLPSpec, mlp_apply, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
 from pinn_depthestimation_tpu_torch.ops import kernels_step, kernels_vjp
+from pinn_depthestimation_tpu_torch.parallel import replicate
 
 
 def resolve_names(config: Config) -> dict:
@@ -104,9 +122,11 @@ def build_loss_fn(
     fused_kernel: bool = False,
     fused_precision: str = "f32",
     fidelity_is_residual: bool = False,
+    mesh=None,
 ) -> Callable:
     """Returns ``loss_fn(params, batch, dropout_generator=None) -> (total,
-    (fid, res))``, differentiable by autograd. ``batch`` holds
+    (fid, res))``, differentiable by autograd. With ``mesh``, ``batch`` is
+    ``parallel.shard_batch``'s list of shards (module docstring). ``batch`` holds
     ``fidelity_input``, ``fidelity_true``, ``residual_input`` and optionally
     ``fidelity_mask``/``residual_mask`` (masked means). A configuration
     inside the one-kernel gate (:func:`one_kernel_step_applicable`) gets
@@ -129,8 +149,9 @@ def build_loss_fn(
     ``residual_chunk_size``: dropped under ``fused_kernel`` (the kernels'
     backward is O(1) in activations; JAX ``training/loss.py:126-127``). On
     the plain path a collocation set larger than it is evaluated in chunks
-    of that many points (:func:`_chunked_terms`); a smaller one takes the
-    unchunked path, as in the JAX package."""
+    of that many points (:func:`_chunked_stats`); a smaller one takes the
+    unchunked path, as in the JAX package. Under a mesh the chunking is
+    per shard."""
     if fused_kernel:
         residual_chunk_size = None
     names = resolve_names(config)
@@ -206,6 +227,53 @@ def build_loss_fn(
             return y
         return mlp_apply(params, x, spec, dropout_generator=dropout_generator)
 
+    n_fid = len(fid_outputs)
+
+    def shard_stats(params, shard, dropout_generator):
+        """The residual's and the fidelity's sufficient statistics on one
+        shard's rows, chunked where the shard is larger than the chunk."""
+        pts = shard["residual_input"]
+        ones = pts.new_ones((pts.shape[0],))
+
+        def bundle(points):
+            return physics.model_fields_and_grads(
+                apply_with_tangents(params), points, residual_inputs, grad_coords, net_outputs)
+
+        shared = n_fid if share_forward else 0
+        kw = dict(parity=parity, **equation_kwargs)
+        if residual_chunk_size is not None and pts.shape[0] > residual_chunk_size:
+            stats = _chunked_stats(bundle, shard, residual_chunk_size, stats_fn, net_outputs,
+                                   shared, kw)
+        else:
+            fid = ((shard["fidelity_true"], shard.get("fidelity_mask", ones)) if shared else ())
+            stats = _point_stats(bundle, stats_fn, net_outputs, shared, kw, pts,
+                                 shard.get("residual_mask", ones), *fid)
+        if not share_forward:
+            x = shard["fidelity_input"]
+            pred = fidelity_forward(params, x, dropout_generator)[..., :n_fid]
+            f_m = shard.get("fidelity_mask", x.new_ones((x.shape[0],)))
+            stats["_fid_sum_err2"] = torch.sum((shard["fidelity_true"] - pred) ** 2
+                                               * f_m[:, None], dim=0)
+            stats["_fid_n"] = torch.sum(f_m)
+        return stats
+
+    def sharded_loss_fn(params, shards, dropout_generator=None):
+        first = shards[0]["residual_input"].device
+        summed: dict = {}
+        for copy, shard in zip(replicate(params, mesh), shards):
+            for k, v in shard_stats(copy, shard, dropout_generator).items():
+                v = v.to(first)
+                summed[k] = v if k not in summed else summed[k] + v
+        per_output = summed.pop("_fid_sum_err2") / summed.pop("_fid_n")
+        fid_weights = torch.as_tensor(fid_weight_list, dtype=per_output.dtype, device=first)
+        fidelity = torch.sum(fid_weights * per_output)
+        residual = combine_fn(summed)
+        total = config.weight_fidelity * fidelity + config.weight_residual * residual
+        return total, (fidelity, residual)
+
+    if mesh is not None:
+        return sharded_loss_fn
+
     def loss_fn(params, batch, dropout_generator=None):
         res_input = batch["residual_input"]
         fid_weights = torch.as_tensor(fid_weight_list, dtype=res_input.dtype,
@@ -226,12 +294,13 @@ def build_loss_fn(
                 apply_with_tangents(params), points, residual_inputs, grad_coords, net_outputs)
 
         if residual_chunk_size is not None and res_input.shape[0] > residual_chunk_size:
-            residual, per_output = _chunked_terms(
-                bundle, batch, residual_chunk_size, stats_fn, combine_fn, net_outputs,
-                len(fid_outputs) if share_forward else 0,
-                dict(parity=parity, **equation_kwargs))
+            summed = _chunked_stats(bundle, batch, residual_chunk_size, stats_fn, net_outputs,
+                                    n_fid if share_forward else 0,
+                                    dict(parity=parity, **equation_kwargs))
             if share_forward:
+                per_output = summed.pop("_fid_sum_err2") / summed.pop("_fid_n")
                 fidelity = torch.sum(fid_weights * per_output)
+            residual = combine_fn(summed)
         else:
             coords, fields, grads = bundle(res_input)
             residual = equation(coords, fields, grads, mask=batch.get("residual_mask"),
@@ -248,20 +317,33 @@ def build_loss_fn(
     return loss_fn
 
 
-def _chunked_terms(bundle, batch, chunk: int, stats_fn, combine_fn, net_outputs,
-                   n_fid: int, equation_kwargs: dict):
-    """The residual term (and, with ``n_fid`` shared fidelity heads, the
-    fidelity's per-output mean squared errors) from chunks of ``chunk``
-    points: each chunk's sufficient statistics under
+def _point_stats(bundle, stats_fn, net_outputs, n_fid: int, equation_kwargs: dict, pts, m,
+                 *fid):
+    """The residual's sufficient statistics on ``pts`` (mask ``m``) and, with
+    ``n_fid`` shared fidelity heads and ``fid = (f_true, f_mask)``, the
+    fidelity's ``_fid_sum_err2`` and ``_fid_n`` from the same forward."""
+    coords, fields, grads = bundle(pts)
+    stats = dict(stats_fn(coords, fields, grads, mask=m, **equation_kwargs))
+    if n_fid:
+        f_true, f_m = fid
+        pred = torch.stack([fields[k] for k in net_outputs], dim=-1)[..., :n_fid]
+        stats["_fid_sum_err2"] = torch.sum((f_true - pred) ** 2 * f_m[:, None], dim=0)
+        stats["_fid_n"] = torch.sum(f_m)
+    return stats
+
+
+def _chunked_stats(bundle, batch, chunk: int, stats_fn, net_outputs, n_fid: int,
+                   equation_kwargs: dict) -> dict:
+    """The residual's sufficient statistics (and, with ``n_fid`` shared
+    fidelity heads, the fidelity's ``_fid_sum_err2`` and ``_fid_n``) from
+    chunks of ``chunk`` points: each chunk's statistics under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward,
-    not kept), summed, then combined (JAX ``training/loss.py:314-385``). The
-    last chunk is the remainder: the JAX package pads to a multiple of the
-    chunk because ``lax.map`` needs one shape, which PyTorch does not.
-    Where the fidelity rows are the residual rows, the fidelity term rides
-    the same sweep: a separate full-batch forward over those rows would keep
-    every layer's activations for the whole set, the memory chunking saves.
-    Returns ``(residual, per_output)``, ``per_output`` None without
-    ``n_fid``."""
+    not kept), summed (JAX ``training/loss.py:314-385``). The last chunk is
+    the remainder: the JAX package pads to a multiple of the chunk because
+    ``lax.map`` needs one shape, which PyTorch does not. Where the fidelity
+    rows are the residual rows, the fidelity term rides the same sweep: a
+    separate full-batch forward over those rows would keep every layer's
+    activations for the whole set, the memory chunking saves."""
     points = batch["residual_input"]
     ones = points.new_ones((points.shape[0],))
     mask = batch.get("residual_mask", ones)
@@ -269,14 +351,7 @@ def _chunked_terms(bundle, batch, chunk: int, stats_fn, combine_fn, net_outputs,
         fid_true, fid_mask = batch["fidelity_true"], batch.get("fidelity_mask", ones)
 
     def chunk_stats(pts, m, *fid):
-        coords, fields, grads = bundle(pts)
-        stats = dict(stats_fn(coords, fields, grads, mask=m, **equation_kwargs))
-        if n_fid:
-            f_true, f_m = fid
-            pred = torch.stack([fields[k] for k in net_outputs], dim=-1)[..., :n_fid]
-            stats["_fid_sum_err2"] = torch.sum((f_true - pred) ** 2 * f_m[:, None], dim=0)
-            stats["_fid_n"] = torch.sum(f_m)
-        return stats
+        return _point_stats(bundle, stats_fn, net_outputs, n_fid, equation_kwargs, pts, m, *fid)
 
     summed: dict = {}
     for start in range(0, points.shape[0], chunk):
@@ -284,8 +359,7 @@ def _chunked_terms(bundle, batch, chunk: int, stats_fn, combine_fn, net_outputs,
         args = (points[rows], mask[rows]) + ((fid_true[rows], fid_mask[rows]) if n_fid else ())
         for k, v in checkpoint(chunk_stats, *args, use_reentrant=False).items():
             summed[k] = v if k not in summed else summed[k] + v
-    per_output = summed.pop("_fid_sum_err2") / summed.pop("_fid_n") if n_fid else None
-    return combine_fn(summed), per_output
+    return summed
 
 
 def value_and_grad(loss_fn: Callable) -> Callable:
@@ -328,10 +402,11 @@ def one_kernel_step_applicable(config: Config, spec: MLPSpec, fidelity_is_residu
 
 
 def _step_batch_fn(config: Config, input_min_max: dict | None) -> Callable:
-    """``step_batch(batch) -> kernels_step.StepBatch`` for a configuration
-    inside the one-kernel gate: the selector ``sel`` (as the JAX package
-    builds it), the mask and the scales, built once per batch dict. One
-    point set carries one mask, ``residual_mask``."""
+    """``step_batch(batch) -> list[kernels_step.StepBatch]`` for a
+    configuration inside the one-kernel gate: the selector ``sel`` (as the
+    JAX package builds it), the mask and the scales, built once per batch,
+    one ``StepBatch`` per shard with the global counts (a batch dict is one
+    shard). One point set carries one mask, ``residual_mask``."""
     names = resolve_names(config)
     n_true = len(names["fidelity_outputs"])
     # the anchor selector rides the h head; a 3-head anchored fidelity is
@@ -344,19 +419,23 @@ def _step_batch_fn(config: Config, input_min_max: dict | None) -> Callable:
     ix = names["residual_inputs"].index("x")
     cache: dict = {}
 
-    def step_batch(batch) -> kernels_step.StepBatch:
+    def step_batch(batch) -> list[kernels_step.StepBatch]:
         if cache.get("batch") is not batch:
-            coords = batch["residual_input"]
-            mask = batch.get("residual_mask")
-            if mask is None:
-                mask = torch.ones((coords.shape[0],), dtype=torch.float32, device=coords.device)
-            sel = torch.where(coords[:, ix] < anchor_threshold, 1.0, 0.0) * mask
+            coords, trues, sel, mask = [], [], [], []
+            for shard in batch if isinstance(batch, list) else [batch]:
+                x = shard["residual_input"]
+                m = shard.get("residual_mask")
+                if m is None:
+                    m = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+                coords.append(x)
+                trues.append(shard["fidelity_true"])
+                sel.append(torch.where(x[:, ix] < anchor_threshold, 1.0, 0.0).to(m.dtype) * m)
+                mask.append(m)
             cache["batch"] = batch
-            cache["step"] = kernels_step.make_step_batch(
-                coords, batch["fidelity_true"], sel, mask, fid_weights, n_true,
-                float(config.weight_fidelity), float(config.weight_residual),
-                anchor_depth=anchor_depth, has_anchor=has_anchor,
-            )
+            cache["step"] = kernels_step.make_step_batches(
+                coords, trues, sel, mask, fid_weights, n_true, float(config.weight_fidelity),
+                float(config.weight_residual), anchor_depth=anchor_depth,
+                has_anchor=has_anchor)
         return cache["step"]
 
     return step_batch
@@ -381,7 +460,8 @@ def build_value_and_grad_fn(
     ``fused_precision``: K1 for a batch on a CUDA device, its plain version
     for one on the CPU. The
     selector ``sel``, the mask and the scales are built once per batch
-    (``make_step_batch``), not per evaluation."""
+    (``make_step_batches``), not per evaluation. A list of shards
+    (``parallel.shard_batch``) runs K1 on each."""
     if not fused_kernel:
         return None
     if not one_kernel_step_applicable(config, spec, fidelity_is_residual):

@@ -915,3 +915,139 @@ def test_cuda_chunked_plain_loss_equals_unchunked(cuda_device, tmp_path):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
     for k in g_f:
         assert_close_to_plain(g_c[k], g_f[k])
+
+
+# ------------------------------------------------- the f64 polish, the mesh
+
+
+def polish_raw(mat, backend):
+    """A flagship-shaped config (width 20, K1's width) with no f32 phase:
+    the polish alone from given weights."""
+    return {
+        "layers": {"input_features": 2, "hidden_layers": 4, "hidden_width": 20,
+                   "output_features": 3, "dropout_rate": 0.0, "init_type": "xavier"},
+        "adam_optimizer": {"max_it": 0, "learning_rate": 1e-3,
+                           "scheduler_step_size": 10, "scheduler_gamma": 0.8},
+        "lbfgs_optimizer": {"max_it": 0, "learning_rate": 1, "max_evaluation": 0,
+                            "history_size": 10, "tolerance_grad": 1e-12,
+                            "tolerance_change": 1e-14, "line_search_fn": "strong_wolfe"},
+        "loss": {"weight_fid_loss": 1, "weight_res_loss": 1},
+        "data": {"file": mat, "inputs": {"x": {"requires_grad": ["true"]},
+                                         "y": {"requires_grad": ["true"]}},
+                 "trues": ["U", "V"], "unknowns": ["h"]},
+        "f64_polish": {"max_it": 15, "backend": backend},
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_f64_polish_matches_the_cpu_polish(cuda_device, tmp_path):
+    """The f64 polish on the card (``backend='device_eval'``: loop and
+    evaluations there) against the same polish on the CPU from the same f32
+    weights: both float64, so the rows as ``log.txt`` prints them agree for
+    the first 5 evaluations and the minima within 1e-9 relative (the CPU
+    polish against the JAX package's measured 5.1e-13,
+    ``tests/test_torch_f64_polish.py``). No K1 launch in the polish."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = str(tmp_path / "d.mat")
+    synthetic.make_newmethod_mat(mat, nx=16, ny=20, nan_fraction=0.05, seed=2)
+    init = numpy_params((2,) + (20,) * 4 + (3,), "xavier", seed=4)
+    out = {}
+    for backend, device in (("device_eval", cuda_device), ("cpu", "cpu")):
+        run = str(tmp_path / backend)
+        os.makedirs(run)
+        tr = Trainer(parse_config(polish_raw(mat, backend)), run_dir=run, echo_every=0,
+                     initial_params=init, device=device)
+        before = kernels_step.fused_loss_and_grad.launches
+        tr.train()
+        assert kernels_step.fused_loss_and_grad.launches == before
+        state = tr._live_lbfgs64_state
+        assert state.x.dtype == torch.float64 and state.x.device.type == torch.device(device).type
+        assert all(v.dtype == torch.float32 for v in tr.state.params.values())
+        out[backend] = (read_log(run), float(state.f))
+    (card, f_card), (cpu, f_cpu) = out["device_eval"], out["cpu"]
+    assert card[0] == list(range(1, len(card[0]) + 1))
+    for col in (1, 2, 3):
+        assert card[col][:5] == cpu[col][:5]
+    assert abs(f_card - f_cpu) <= 1e-9 * abs(f_cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_k1_matches_unsharded(cuda_device, tmp_path):
+    """K1 on 4 shards of one card (the data-parallel step) against one
+    unsharded launch: one launch per shard, the loss and every gradient
+    within the f32 tolerance; a one-shard mesh is the unsharded step bit
+    for bit."""
+    from pinn_depthestimation_tpu_torch import parallel
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.training.loss import build_value_and_grad_fn
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = str(tmp_path / "d.mat")
+    synthetic.make_newmethod_mat(mat, nx=41, ny=61, nan_fraction=0.2, seed=3)
+    raw = polish_raw(mat, "cpu")
+    raw["layers"]["hidden_layers"] = 20
+    cfg = parse_config(raw)
+    td = load_training_data(cfg)
+    spec = MLPSpec.from_layers(cfg.layers)
+    params = params_from_numpy(numpy_params(spec.sizes, "xavier", seed=5), cuda_device)
+    kw = dict(input_min_max=td.input_min_max, fused_kernel=True, fidelity_is_residual=True)
+    host = {k: np.asarray(getattr(td, k)) for k in
+            ("fidelity_input", "fidelity_true", "residual_input")}
+    whole = {k: torch.from_numpy(v).to(cuda_device) for k, v in host.items()}
+    (t0, (f0, r0)), g0 = build_value_and_grad_fn(cfg, spec, **kw)(params, whole)
+    for n in (4, 1):
+        mesh = parallel.make_mesh(n, devices=[cuda_device] * n)
+        fn = build_value_and_grad_fn(cfg, spec, **kw)
+        shards = parallel.shard_batch(host, mesh)
+        before = kernels_step.fused_loss_and_grad.launches
+        (t1, (f1, r1)), g1 = fn(params, shards)
+        assert kernels_step.fused_loss_and_grad.launches == before + n
+        if n == 1:
+            assert torch.equal(t1, t0) and all(torch.equal(g1[k], g0[k]) for k in g0)
+        for a, b in ((t1, t0), (f1, f0), (r1, r0), *((g1[k], g0[k]) for k in g0)):
+            assert_close_to_plain(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_cmb_loss_matches_unsharded(cuda_device, tmp_path):
+    """The CMB loss through K2 + K3 on 4 shards of one card against the
+    unsharded K2 + K3 loss: K2 and K3 launch twice per shard (residual at
+    K=2, fidelity at K=0); the loss terms within rel 1e-5, the gradients
+    within the f32 tolerance of their scale."""
+    from pinn_depthestimation_tpu_torch import parallel
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.loss import build_loss_fn, value_and_grad
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=120, seed=6, nan_fraction=0.03)
+    cfg = parse_config(make_cmb_config(csv, mat, 1, 0, nx=41, ny=61, interval=1,
+                                       training_points=100))
+    td = load_training_data(cfg)
+    spec = MLPSpec.from_layers(cfg.layers)
+    init = numpy_params(spec.sizes, "xavier", seed=1)
+    init["b_out"][3] += 1.0  # eta + h away from 0
+    params = params_from_numpy(init, cuda_device)
+    host = {k: np.asarray(getattr(td, k)) for k in
+            ("fidelity_input", "fidelity_true", "residual_input")}
+    whole = {k: torch.from_numpy(v).to(cuda_device) for k, v in host.items()}
+    (t0, (f0, r0)), g0 = value_and_grad(build_loss_fn(cfg, spec, fused_kernel=True))(params, whole)
+    mesh = parallel.make_mesh(4, devices=[cuda_device] * 4)
+    counts = (kernels.mlp_fwd_tangents.launches, kernels_vjp.packed_mlp_bwd.launches)
+    (t1, (f1, r1)), g1 = value_and_grad(build_loss_fn(cfg, spec, fused_kernel=True, mesh=mesh))(
+        params, parallel.shard_batch(host, mesh))
+    assert (kernels.mlp_fwd_tangents.launches - counts[0],
+            kernels_vjp.packed_mlp_bwd.launches - counts[1]) == (8, 8)
+    for a, b in ((t1, t0), (f1, f0), (r1, r0)):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
+    for k in g0:
+        assert_close_to_plain(g1[k], g0[k])

@@ -34,7 +34,6 @@ from pinn_depthestimation_tpu.utils import synthetic as jsynthetic
 from pinn_depthestimation_tpu_torch import cli, parity
 from pinn_depthestimation_tpu_torch.config import parse_config
 from pinn_depthestimation_tpu_torch.data import load_newmethod_training_data, read_csv_columns
-from pinn_depthestimation_tpu_torch.training.driver import Trainer
 from pinn_depthestimation_tpu_torch.utils import synthetic
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -265,6 +264,33 @@ def test_recompose_parity_cmb_without_training(tmp_path):
     assert "framework device: not recorded" in open(out).read()
 
 
+def test_recompose_structured_polish_run_without_training(tmp_path):
+    """The recorded structured-fields run with ``--f64-polish 300`` (the
+    port's framework phase on an H100, ``.soak/fw_50k_structured_polish300
+    .npz``, beside the reference's ``ref_50k_structured.npz``) recomposes
+    on the CPU with no training: PASS, and the numbers of
+    ``PARITY_STRUCTURED_POLISH_TORCH.md`` as it prints them."""
+    out = str(tmp_path / "R.md")
+    flags = ["--iters", "50000", "--lbfgs", "500", "--hidden-layers", "100", "--width", "20",
+             "--nx", "81", "--ny", "261", "--nan-fraction", "0.408", "--fields", "structured",
+             "--f64-polish", "300", "--ref-cache", str(SOAK / "ref_50k_structured.npz"),
+             "--fw-cache", str(SOAK / "fw_50k_structured_polish300.npz"), "--out", out,
+             "--device", "cpu"]
+    rc, num = parity.run(flags)
+    assert rc == 0 and num["verdict"] == "PASS"
+    assert num["lbfgs_evals_fw"] == 330 and num["log10_gap"] < 0.1
+    committed = " ".join((REPO / "PARITY_STRUCTURED_POLISH_TORCH.md").read_text().split())
+    again = " ".join(open(out).read().split())
+    for line in ("evaluations executed: reference 3, framework 330 (budget: 625) * framework rows "
+                 "include its f64 polish phase (--f64-polish 300;",
+                 f"terminal minima: reference 2.804690e-03, framework {num['fw_min']:.6e} "
+                 f"(log10 gap {num['log10_gap']:.3f})",
+                 f"relative field RMSE: {num['rmse_pred_frac']:.2%} of predicted range, "
+                 f"{num['rmse_truth_frac']:.2%} of truth depth scale"):
+        assert line in committed and line in again, line
+    assert f"{num['rmse_truth_frac']:.2%}" == "0.69%"
+
+
 def small_reference_cache(tmp_path, seed: int, name: str) -> str:
     """A reference cache at the small flags, the JAX Trainer standing in for
     the reference from seeded numpy weights."""
@@ -343,14 +369,33 @@ def test_ref_only_requires_ref_cache():
 
 
 def test_f64_polish_raises_the_trainers_message(tmp_path):
-    with pytest.raises(NotImplementedError) as e:
-        parity.main(SMALL + ["--f64-polish", "5", "--ref-cache", str(SOAK / "ref_50k.npz"),
-                             "--out", str(tmp_path / "R.md"), "--device", "cpu"])
-    raw = dict(parity.make_config(str(tmp_path / "none.mat"), 1, 1), f64_polish={"max_it": 5})
-    with pytest.raises(NotImplementedError) as trainer:
-        Trainer(parse_config(raw), run_dir=str(tmp_path), device="cpu")
-    assert str(e.value) == str(trainer.value) and "M10" in str(e.value)
-    assert not os.path.exists(tmp_path / "R.md")
+    """``--f64-polish`` is ported (it raised the Trainer's "not ported yet"
+    error before): the harness runs it at the small flags on the CPU, the
+    framework's rows include the polish (the reference phase is unchanged),
+    the report says so, and its fw-cache refuses another budget."""
+    ref = small_reference_cache(tmp_path, 8, "ref")
+    out = str(tmp_path / "R.md")
+    runs = {}
+    for polish in (0, 5):
+        fw = str(tmp_path / f"fw{polish}.npz")
+        flags = SMALL + ["--ref-cache", ref, "--fw-cache", fw, "--out", out, "--device", "cpu",
+                         "--f64-polish", str(polish)]
+        rc, num = parity.run(flags)
+        assert rc in (0, 1) and num["iter1_rel"] <= 1e-5
+        with np.load(fw) as zf:
+            assert int(zf["f64_polish"]) == polish
+            runs[polish] = (zf["totals"].tolist(), num, open(out).read())
+    (plain, num0, text0), (polished, num5, text5) = runs[0], runs[5]
+    assert "f64 polish" not in text0
+    assert "framework rows include its f64 polish phase (--f64-polish 5;" in text5
+    # the polish only appends rows, and descends below the f32 phases
+    assert polished[: len(plain)] == plain and len(polished) > len(plain)
+    assert min(polished[len(plain):]) < min(plain)
+    assert num5["lbfgs_evals_fw"] > num0["lbfgs_evals_fw"]
+    assert num5["lbfgs_evals_ref"] == num0["lbfgs_evals_ref"]  # the reference phase unchanged
+    with pytest.raises(SystemExit, match="--f64-polish 5, requested 0"):
+        parity.run(SMALL + ["--ref-cache", ref, "--fw-cache", str(tmp_path / "fw5.npz"),
+                            "--out", out, "--device", "cpu"])
 
 
 def test_cli_parity_passes_every_flag(monkeypatch):

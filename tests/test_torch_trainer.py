@@ -27,6 +27,7 @@ from pinn_depthestimation_tpu_torch.config import parse_config
 from pinn_depthestimation_tpu_torch.inference import Predictor, resolve_use_kernel
 from pinn_depthestimation_tpu_torch.models import MLPSpec
 from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS
+from pinn_depthestimation_tpu_torch.parallel import make_mesh
 from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt
 from pinn_depthestimation_tpu_torch.training.driver import Trainer, make_adam_optimizer
 from pinn_depthestimation_tpu_torch.training.logging_utils import LOG_HEADER, read_log
@@ -236,9 +237,17 @@ def test_cli_train_on_cpu(mat, tmp_path, capsys):
                      "--device", "cpu", "--init-from", str(tmp_path / "w.npz")]) == 0
     assert cli.main(["train", "--config", cfg, "--log-root", str(tmp_path), "--run-name", "r3",
                      "--device", "cpu", "--resume", str(run / "model.npz")]) == 0
-    for flag in ("--mesh", "--f64-polish"):
-        assert cli.main(["train", "--config", cfg, "--device", "cpu", flag, "2"]) == 1
-    assert "ROADMAP.md" in capsys.readouterr().out
+    capsys.readouterr()
+    # the polish and the mesh are ported: --f64-polish 2 trains, and a mesh
+    # of more shards than visible CUDA devices exits 1 with the mesh error
+    assert cli.main(["train", "--config", cfg, "--log-root", str(tmp_path), "--run-name", "r4",
+                     "--device", "cpu", "--f64-polish", "2"]) == 0
+    assert "f64 polish" in capsys.readouterr().out
+    if torch.cuda.device_count() < 9:
+        assert cli.main(["train", "--config", cfg, "--log-root", str(tmp_path), "--mesh",
+                         "9"]) == 1
+        assert (f"Error building device mesh: mesh 9x1 needs 9 devices, have "
+                f"{torch.cuda.device_count()}") in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["train", "--config", cfg, "--log-root", str(tmp_path)])
@@ -246,10 +255,17 @@ def test_cli_train_on_cpu(mat, tmp_path, capsys):
 
 def test_trainer_refuses_what_is_not_ported(mat, tmp_path):
     d = run_dir(tmp_path, "x")
-    for extra, item in ((dict(f64_polish={"max_it": 5}), "M10"),
-                        (dict(parallel={"data": 2}), "M11")):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(parse_config(newmethod_raw(mat, **extra)), run_dir=d, device="cpu")
+    # the f64 polish (M10b) and the mesh (M11) are ported: both build a
+    # Trainer (tests/test_torch_f64_polish.py, tests/test_torch_parallel.py)
+    tr = Trainer(parse_config(newmethod_raw(mat, f64_polish={"max_it": 5})), run_dir=d,
+                 device="cpu")
+    assert tr._polish_enabled() and tr.polish_device() == torch.device("cpu")
+    # parallel.data is the CLI's to read, as in the JAX package: a Trainer
+    # without a mesh trains unsharded, one with a mesh over its shards
+    raw = newmethod_raw(mat, parallel={"data": 2})
+    assert isinstance(Trainer(parse_config(raw), run_dir=d, device="cpu").batch, dict)
+    tr = Trainer(parse_config(raw), run_dir=d, mesh=make_mesh(2, devices=["cpu"] * 2))
+    assert len(tr.batch) == 2 and tr.mesh.shape == {"data": 2, "model": 1}
     # the precision schedule is ported: it trains (tests/test_torch_schedule.py)
     tr = Trainer(parse_config(newmethod_raw(mat, precision_schedule=True, fused_kernel="on")),
                  run_dir=d, device="cpu")

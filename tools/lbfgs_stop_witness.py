@@ -140,7 +140,7 @@ def main() -> int:
             print(f"probe at K1's stop (tolerance_change {tol:g}): loss K1 {float(f_k1)!r}, plain "
                   f"{float(f_pl)!r}; max|g_K1 - g_plain| {diff!r} of max|g_plain| {scale!r}, "
                   f"cos {cos!r}; |g|^2 {gg!r}")
-            b32 = loss_mod._step_batch_fn(off.config, off.data.input_min_max)(off.batch)
+            [b32] = loss_mod._step_batch_fn(off.config, off.data.input_min_max)(off.batch)
             b64 = dataclasses.replace(b32, **{f.name: getattr(b32, f.name).double()
                                               for f in dataclasses.fields(b32)
                                               if isinstance(getattr(b32, f.name), torch.Tensor)})
