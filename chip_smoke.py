@@ -171,7 +171,40 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    Trainer on 4 shards of the one card against unsharded ones (K1 == 4 x
    evaluations; K2 == K3 == 2 x 4 x evaluations; iteration 1 within 1e-5
    relative; the flagship's parameters after 20 Adam steps within 1e-6), and
-   the Adam step's time on 4 shards beside the unsharded one.
+   the Adam step's time on 4 shards beside the unsharded one;
+28. every shape the Pallas kernels take: K2 (K = 0-3, the epilogue), K1, K3
+   and K4 (the C sweep's default) at f32, bf16 and f32x3 held to their
+   plain versions (``compare``, ``compare_tier``) at width 17 and 24 (the
+   narrow body, padded to 20 and 32), 33 (the wide body, padded to 36), 64,
+   100 and 128 (at (d_in, d_out) = (2, 2), the JAX kernel tests' g = 1
+   shape, and with heads (U, V, h)), a net with d_out = 16 and one with d_in
+   = 12 (``csrc/mlp_wide.cuh``; phase 2 also builds it and reports its
+   registers); then each kernel and tier timed at widths 64 and 128 on the
+   path's shapes (K1, K2: 2->[W]x100->3 at 12,516 points; K3, K4:
+   2->[W]x10->6 on the ~20,500-point CMB grid), CUDA events and device
+   time, beside the plain version and the bound, after every tier is held
+   to its plain version at each shape phase 29 launches (K1 and the K2
+   epilogue there, K2 at K = 0 on the 81x261 serving grid for both nets, K2
+   at K = 2 and K3/K4 on the CMB grid, K2/K3/K4 at K = 0 on its 200
+   fidelity rows); last, K1 and the K2 epilogue at widths 17 and 24
+   (2->[W]x100->3) on the narrow body, padded, against the wide body at
+   the net's own width, in turns;
+29. the paths at full width on the wide body: CLI ``train`` and ``test`` on
+   ``examples/newmethod.json`` at ``hidden_width`` 128 and 64 (100 hidden
+   layers, phase 8's cuts; K1 == log rows, K2 serves the 81x261 grid) and on
+   ``examples/cmb.json`` at ``hidden_width`` 128, f32 (K3 == 2 x
+   evaluations) and bf16 (K4 == 2 x evaluations), every launch a wide one;
+   then, outside the path's counts, a K2 + K3 Trainer against autograd on
+   the CMB net at width 128 (iteration 1 within 1e-5, a 20-step prefix
+   within 1e-5), a K2 + K4 bf16 Trainer against the plain bf16 functions
+   (the prefix within half the tier's own gap from f32) and a K1 Trainer
+   against an autograd Trainer at width 128, iteration 1 within 1e-5;
+30. the last modules: CLI ``test`` on the JAX package's ``.msgpack``
+   fixture (``tests/data/jax_state_w20x3``) through K2, bit for bit its
+   ``.npz``; ``train --profile`` writes a Chrome trace naming K1's kernel;
+   ``Trainer(training_data=)`` takes one Adam step; ``test --plot``,
+   ``plot-log`` and ``video`` make their files or, where the machine lacks
+   ``matplotlib``/``cv2``, print or exit 1 naming the module.
 
 Launch counts are set to 0 before phase 4 and read after phase 5 (the
 serving path), set to 0 again before phase 8 and read after it (the
@@ -188,7 +221,12 @@ entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3); the
 entries of K2-f32, K2-bf16, K3-f32 and K4-bf16 also carry phase 25's
 launches (``launches_legacy``) and times (``*_legacy*``); K1-f32's carries
 phase 26's ``f64_polish`` record and K1-f32's, K2-f32's and K3-f32's phase
-27's launches and step times (``*mesh*``). The last
+27's launches and step times (``*mesh*``); every entry carries phase 28's
+wide-body numbers (``*_w64``, ``*_w128``, ``max_abs_err_wide``) and phase
+29's launches (``launches_wide``: counts set to 0 at the phase's start and
+read after its CLI runs, before its check Trainers; K1-f32, K2-f32,
+K2-bf16, K3-f32 and K4-bf16 run there); K1's and K2's entries also carry
+the padded-against-wide times (``padded_ms_w17``, ``wide_ms_w17``, ...). The last
 two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 {...}}``.
 """
@@ -3039,6 +3077,702 @@ def mesh_phase(dev, repo: str) -> dict:
                    "cmb_adam_ms_unsharded_same_call": numbers["cmb"]["adam_ms"]}}
 
 
+WIDE_SOURCES = {
+    "k2": "pinn_depthestimation_tpu_torch/csrc/mlp_fwd_tangents_wide.cu",
+    "k1": "pinn_depthestimation_tpu_torch/csrc/continuity_train_step_wide.cu",
+    "k3": "pinn_depthestimation_tpu_torch/csrc/mlp_bwd_wide.cu",
+    "k4": "pinn_depthestimation_tpu_torch/csrc/mlp_bwd_wide.cu",  # -DWIDE_REBUILD=1
+}
+WIDE_KERNEL = {"k2": "fwd_kernel", "k1": "k1w_kernel", "k3": "cotangent_kernel",
+               "k4": "cotangent_kernel"}
+TIER_NAMES = ("f32", "bf16", "f32x3")
+
+
+def wide_build_report(repo: str) -> float:
+    """Phase 2's lines for the wide body's libraries (``cuda_build.WIDE``):
+    registers and spills per kernel and tier from ``build.log``; returns the
+    CPU seconds of their ``nvcc``."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build
+
+    cpu_s = 0.0
+    for name in cuda_build.WIDE:
+        built = cuda_build._ensure((name,))[name]
+        log = built.log_path.read_text() if built.log_path.exists() else ""
+        for block in log.split(f"== {name} variant ")[1:]:
+            head = re.match(r"(\d+) tier (\w+) \(exit -?\d+, ended at ([\d.]+) s, "
+                            r"([\d.]+) s of CPU\)", block)
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
+            spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", block)]
+            cpu_s += float(head.group(4))
+            print(f"  ptxas {name.upper()} (wide) {head.group(2)}: registers "
+                  f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
+                  f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
+                  f"{head.group(3)} s after {head.group(4)} s of CPU; log "
+                  f"{os.path.relpath(built.log_path, repo)}")
+    return cpu_s
+
+
+def tier_bounds(bound, bound_bf16):
+    """The bound of a kernel's work at each tier: f32 on the CUDA cores' FMA
+    rate, bf16 and f32x3 (three bf16 products) on the tensor cores' rate, or
+    the bytes (as phases 6, 14 and 18 state them)."""
+    return {"f32": lambda f, b: bound(f, b), "bf16": lambda f, b: bound_bf16(f, b),
+            "f32x3": lambda f, b: x3_bounds(bound, bound_bf16, f, b)[:2]}
+
+
+def held(name: str, tier: str, got, fn, params, x, *args) -> tuple[float, bool]:
+    """``got`` (a kernel's output at ``tier``) held to its plain version
+    ``fn(params, x, *args, tier)``: at f32 by :func:`compare`, at bf16 and
+    f32x3 by :func:`compare_tier` against the plain tier, plain f32 and the
+    plain tier with float64 sums. Returns the max abs error and whether the
+    tier's error showed (always True at f32)."""
+    want = fn(params, x, *args, tier)
+    if tier == "f32":
+        return compare(name, got, want), True
+    want32 = fn(params, x, *args, "f32")
+    want64 = fn(f64(params), x.double(), *args, tier)
+    if tier == "f32x3":
+        return compare_tier(name, got, want, want32, want64, tier=tier, rel_floor=X3_REL_FLOOR,
+                            distinct=X3_DISTINCT)
+    return compare_tier(name, got, want, want32, want64, tier=tier)
+
+
+def wide_cases():
+    """Phase 28's nets ``[(name, spec)]``: narrow widths the narrow body was
+    not compiled for (padded), the wide body's widths, the JAX kernel
+    tests' g = 1 shape and nets with d_out or d_in above 8."""
+    from pinn_depthestimation_tpu_torch.models import MLPSpec
+
+    return [
+        ("width 17 (narrow, padded to 20)", MLPSpec(sizes=(2,) + (17,) * 4 + (3,))),
+        ("width 24 (narrow, padded to 32)", MLPSpec(sizes=(3,) + (24,) * 4 + (3,),
+                                                   init_type="kaiming")),
+        ("width 33 (wide, padded to 36)", MLPSpec(sizes=(2,) + (33,) * 4 + (3,))),
+        ("width 64", MLPSpec(sizes=(2,) + (64,) * 4 + (3,))),
+        ("width 100", MLPSpec(sizes=(3,) + (100,) * 3 + (3,), init_type="kaiming")),
+        ("width 128, (d_in, d_out) = (2, 2)", MLPSpec(sizes=(2,) + (128,) * 3 + (2,))),
+        ("width 128, heads (U, V, h)", MLPSpec(sizes=(2,) + (128,) * 3 + (3,))),
+        ("d_out = 16", MLPSpec(sizes=(3,) + (20,) * 3 + (16,))),
+        ("d_in = 12", MLPSpec(sizes=(12,) + (24,) * 3 + (4,))),
+    ]
+
+
+def wide_phase(dev, repo: str, bound, bound_bf16) -> dict:
+    """Phase 28: K2, K1, K3 and K4 at every tier on the shapes the narrow
+    bodies were not compiled for (:func:`wide_cases`: padded narrow widths
+    and the wide body), each held to its plain version; then each kernel
+    and tier timed at widths 64 and 128 on the path's shapes (K1 and K2 on
+    the 2->[W]x100->3 flagship at 12,516 points, K3 and K4 on the
+    2->[W]x10->6 CMB net on the ~20,500-point CMB grid), CUDA events and the
+    profiler's device time, beside the plain version and the bound. Returns
+    per kernel and tier the numbers for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp, wide_plan, widths
+
+    print("== phase 28: K2, K1, K3 and K4 on the shapes the narrow bodies lack, every tier, "
+          "against their plain versions")
+    wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
+                kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
+                kernels_vjp.packed_mlp_bwd_rebuild)
+    for w in wrappers:
+        kernels.reset_launches(w)
+    rng = np.random.RandomState(28)
+    err = {(k, t): 0.0 for k in ("k1", "k2", "k3", "k4") for t in TIER_NAMES}
+    n = 3_001
+
+    def k1_batch(x, n_pts):
+        tr = torch.as_tensor((rng.randn(n_pts, 2) * 0.1).astype(np.float32)).to(dev)
+        ones = torch.ones(n_pts, device=dev)
+        return kernels_step.make_step_batch(x, tr, (x[:, 0] < 0.3).float(), ones, [1.0, 1.0], 2,
+                                            1.0, 1.0, anchor_depth=0.75, has_anchor=True)
+
+    def k1_plain(p, x, b, spec, tier):
+        bb = b if x.dtype == torch.float32 else kernels_step.make_step_batch(
+            x, b.trues.double(), b.sel.double(), b.mask.double(), [1.0, 1.0], 2, 1.0, 1.0,
+            anchor_depth=0.75, has_anchor=True)
+        (t, _), g = kernels_step.fused_loss_and_grad_plain(p, bb, spec, tier)
+        return torch.cat([t.reshape(1)] + [g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+
+    def bwd_plain(p, x, ybar, dybar, spec, kt, tier):
+        if x.dtype == torch.float64:
+            ybar, dybar = ybar.double(), dybar.double()
+        g = kernels_vjp.packed_mlp_bwd_plain(p, x, ybar, dybar, spec, kt, tier)
+        return torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+
+    with torch.no_grad():
+        for name, spec in wide_cases():
+            params = params_from_numpy(numpy_params(spec.sizes, spec.init_type, 28), dev)
+            x = torch.as_tensor(rng.uniform(-1, 1, (n, spec.d_in)).astype(np.float32)).to(dev)
+            kmax = min(3, spec.d_in)
+            ybar = torch.as_tensor(rng.randn(n, spec.d_out).astype(np.float32)).to(dev)
+            dybar = torch.as_tensor(rng.randn(kmax, n, spec.d_out).astype(np.float32)).to(dev)
+            route = widths.narrow_width(spec)
+            print(f" {name}: sizes {spec.sizes[0]}->[{spec.width}]x{spec.n_hidden}->"
+                  f"{spec.d_out} {spec.init_type}, N={n}, body "
+                  f"{'narrow at width %d' % route if route else 'wide'}")
+            for tier in TIER_NAMES:
+                real = []
+                for k in range(kmax + 1):
+                    y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision=tier)
+                    torch.cuda.synchronize()
+                    fy = lambda p, xx, kk, t: kernels.mlp_fwd_tangents_plain(p, xx, spec, kk, t)[0]  # noqa: E731
+                    fdy = lambda p, xx, kk, t: kernels.mlp_fwd_tangents_plain(p, xx, spec, kk, t)[1]  # noqa: E731
+                    e, r = held(f"K2-{tier} K={k} y", tier, y, fy, params, x, k)
+                    err["k2", tier] = max(err["k2", tier], e)
+                    real.append(r)
+                    if k:
+                        e, r = held(f"K2-{tier} K={k} dy", tier, dy, fdy, params, x, k)
+                        err["k2", tier] = max(err["k2", tier], e)
+                        real.append(r)
+                if spec.d_out == 3 and spec.d_in >= 2:  # heads (U, V, h), inputs (x, y)
+                    fc = kernels.fused_residual_continuity(params, x, spec, precision=tier)
+                    torch.cuda.synchronize()
+                    fres = lambda p, xx, t: kernels.residual_continuity_plain(p, xx, spec, t)  # noqa: E731
+                    e, r = held(f"K2-{tier} continuity epilogue", tier, fc, fres, params, x)
+                    err["k2", tier] = max(err["k2", tier], e)
+                    real.append(r)
+                for kern, impl in (("k3", "stream"), ("k4", "rebuild")):
+                    g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kmax,
+                                                   precision=tier, impl=impl)
+                    torch.cuda.synchronize()
+                    flat = torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+                    fb = lambda p, xx, t: bwd_plain(p, xx, ybar, dybar[:kmax], spec, kmax, t)  # noqa: E731
+                    e, r = held(f"{kern.upper()}-{tier} K={kmax} gradients", tier, flat, fb,
+                                params, x)
+                    err[kern, tier] = max(err[kern, tier], e)
+                    real.append(r)
+                if kernels_step.kernel_supports(spec):
+                    b = k1_batch(x[:, :spec.d_in], n)
+                    (t1, _), g1 = kernels_step.fused_loss_and_grad(params, b, spec, precision=tier)
+                    torch.cuda.synchronize()
+                    got = torch.cat([t1.reshape(1)] + [g1[k].reshape(-1)
+                                                       for k in kernels_step.FLAT_KEYS])
+                    f1 = lambda p, xx, t: k1_plain(p, xx, b, spec, t)  # noqa: E731
+                    e, r = held(f"K1-{tier} loss and gradients", tier, got, f1, params, x)
+                    err["k1", tier] = max(err["k1", tier], e)
+                    real.append(r)
+                if not any(real):
+                    fail(f"{name}: no output shows the {tier} tier's error above its floor")
+    checks = {w.__name__: (dict(w.launches_by_tier), dict(w.launches_by_body)) for w in wrappers}
+    print(f"  phase 28 launches (comparisons; by tier, by body): {checks}")
+    if not all(checks[w.__name__][1]["wide"] > 0 for w in wrappers):
+        fail("a kernel never ran its wide body in phase 28")
+
+    # the path's shapes at widths 64 and 128: every tier held to its plain
+    # version at the shapes phase 29 launches, then timed
+    bounds = tier_bounds(bound, bound_bf16)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, res_pts, fid_pts = cmb_bench_points(dev, tmp)
+    n_flag, n_grid = 12_516, 81 * 261
+    grid = torch.as_tensor(rng.uniform(-1, 1, (n_grid, 2)).astype(np.float32)).to(dev)
+    timed = {}
+    for W in (64, 128):
+        flag = MLPSpec(sizes=(2,) + (W,) * 100 + (3,))
+        cmb = MLPSpec(sizes=(2,) + (W,) * 10 + (6,))
+        fp = params_from_numpy(numpy_params(flag.sizes, "xavier", 29), dev)
+        cp = params_from_numpy(numpy_params(cmb.sizes, "xavier", 29), dev)
+        x = torch.as_tensor(rng.uniform(-1, 1, (n_flag, 2)).astype(np.float32)).to(dev)
+        b = k1_batch(x, n_flag)
+        n_res = res_pts.shape[0]
+        ybar = torch.as_tensor(rng.randn(n_res, 6).astype(np.float32)).to(dev)
+        dybar = torch.as_tensor(rng.randn(2, n_res, 6).astype(np.float32)).to(dev)
+        fbar = torch.as_tensor(rng.randn(fid_pts.shape[0], 6).astype(np.float32)).to(dev)
+        no_dy = torch.zeros(0, fid_pts.shape[0], 6, device=dev)
+        # the f32 kernels against their plain versions, gradient by gradient
+        with torch.no_grad():
+            (t1, _), g1 = kernels_step.fused_loss_and_grad(fp, b, flag)
+            (t2, _), g2 = kernels_step.fused_loss_and_grad_plain(fp, b, flag)
+            for key in ("total",) + kernels_step.FLAT_KEYS:
+                compare(f"K1 2->[{W}]x100->3, {n_flag} points: {key}",
+                        t1 if key == "total" else g1[key], t2 if key == "total" else g2[key])
+            for impl in ("stream", "rebuild"):
+                g1 = kernels_vjp.packed_mlp_bwd(cp, res_pts, ybar, dybar, cmb, 2, impl=impl)
+                g2 = kernels_vjp.packed_mlp_bwd_plain(cp, res_pts, ybar, dybar, cmb, 2)
+                for key in kernels_step.FLAT_KEYS:
+                    compare(f"{'K3' if impl == 'stream' else 'K4'} 2->[{W}]x10->6, {n_res} "
+                            f"points: d{key}", g1[key], g2[key])
+        # every tier: K1 and the K2 epilogue on the flagship's points, K2 at
+        # K = 0 on the 81x261 serving grid (flagship and CMB nets), K2 at K = 2
+        # and K3/K4 on the CMB grid, K2, K3 and K4 at K = 0 on its fidelity rows
+        for tier in TIER_NAMES:
+            tier_held = {"k1": [], "k2": [], "k3": [], "k4": []}
+            with torch.no_grad():
+                (t1, _), g1 = kernels_step.fused_loss_and_grad(fp, b, flag, precision=tier)
+                got = torch.cat([t1.reshape(1)] + [g1[k].reshape(-1)
+                                                   for k in kernels_step.FLAT_KEYS])
+                tier_held["k1"].append(held(f"K1-{tier} 2->[{W}]x100->3, {n_flag} points", tier,
+                                            got, lambda p, xx, t: k1_plain(p, xx, b, flag, t),
+                                            fp, x))
+                tier_held["k2"].append(held(
+                    f"K2-{tier} 2->[{W}]x100->3 continuity epilogue, {n_flag} points", tier,
+                    kernels.fused_residual_continuity(fp, x, flag, precision=tier),
+                    lambda p, xx, t: kernels.residual_continuity_plain(p, xx, flag, t), fp, x))
+                for spec, params, pts, k in ((flag, fp, grid, 0), (cmb, cp, grid, 0),
+                                             (cmb, cp, res_pts, 2), (cmb, cp, fid_pts, 0)):
+                    y, dy = kernels.mlp_fwd_tangents(params, pts, spec, k, precision=tier)
+                    sizes = f"{spec.sizes[0]}->[{W}]x{spec.n_hidden}->{spec.d_out}"
+                    for j, out in enumerate((y, dy)[:1 + bool(k)]):
+                        tier_held["k2"].append(held(
+                            f"K2-{tier} {sizes} K={k} {'y' if j == 0 else 'dy'}, {pts.shape[0]} "
+                            "points", tier, out,
+                            lambda p, xx, kk, t, s=spec, j=j: kernels.mlp_fwd_tangents_plain(
+                                p, xx, s, kk, t)[j], params, pts, k))
+                for kern, impl in (("k3", "stream"), ("k4", "rebuild")):
+                    for pts, yb, dyb, k in ((res_pts, ybar, dybar, 2), (fid_pts, fbar, no_dy, 0)):
+                        g = kernels_vjp.packed_mlp_bwd(cp, pts, yb, dyb, cmb, k, precision=tier,
+                                                       impl=impl)
+                        flat = torch.cat([g[key].reshape(-1) for key in kernels_step.FLAT_KEYS])
+                        tier_held[kern].append(held(
+                            f"{kern.upper()}-{tier} 2->[{W}]x10->6 K={k}, {pts.shape[0]} points",
+                            tier, flat,
+                            lambda p, xx, t, yb=yb, dyb=dyb, k=k: bwd_plain(p, xx, yb, dyb, cmb, k,
+                                                                          t), cp, pts))
+            for kern, held_out in tier_held.items():
+                err[kern, tier] = max([err[kern, tier]] + [e for e, _ in held_out])
+            if not any(r for held_out in tier_held.values() for _, r in held_out):
+                fail(f"width {W}, {tier}: no output shows the tier's error above its floor")
+            runs = {
+                "k1": (lambda: kernels_step.fused_loss_and_grad(fp, b, flag, precision=tier),
+                       lambda: kernels_step.fused_loss_and_grad_plain(fp, b, flag, tier),
+                       k1_flops(flag, n_flag), k1_bytes(fp, n_flag, 2, 2), n_flag, flag),
+                "k2": (lambda: kernels.fused_residual_continuity(fp, x, flag, precision=tier),
+                       lambda: kernels.residual_continuity_plain(fp, x, flag, tier),
+                       k2_flops(flag, n_flag, 2, True), k2_bytes(fp, n_flag, flag, 1), n_flag,
+                       flag),
+                "k3": (lambda: kernels_vjp.packed_mlp_bwd(cp, res_pts, ybar, dybar, cmb, 2,
+                                                          precision=tier, impl="stream"),
+                       lambda: kernels_vjp.packed_mlp_bwd_plain(cp, res_pts, ybar, dybar, cmb, 2,
+                                                                tier),
+                       k3_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb),
+                "k4": (lambda: kernels_vjp.packed_mlp_bwd_rebuild(cp, res_pts, ybar, dybar, cmb,
+                                                                  2, precision=tier),
+                       lambda: kernels_vjp.packed_mlp_bwd_plain(cp, res_pts, ybar, dybar, cmb, 2,
+                                                                tier),
+                       k4_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb),
+            }
+            for kern, (fn, plain, flops, nbytes, pts, spec) in runs.items():
+                with torch.no_grad():
+                    ms = cuda_ms(fn, 3, 2)
+                    dev_ms = device_ms(fn, 3, WIDE_KERNEL[kern])
+                    plain_ms = cuda_ms(plain, 3, 1)
+                b_ms, by = bounds[tier](flops, nbytes)
+                kt = 0 if kern in ("k3", "k4") else None
+                plan = wide_plan.card_plan(kern, pts, spec, 2, tier, dev)
+                share = b_ms / (dev_ms or ms)
+                print(f"  {kern.upper()}-{tier} wide, {spec.sizes[0]}->[{W}]x{spec.n_hidden}->"
+                      f"{spec.d_out}, {pts} points: {ms:.4f} ms (CUDA events), device time "
+                      f"{fmt_ms(dev_ms)}; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {by}, "
+                      f"{share:.1%} of it; {flops / pts:,.0f} FLOP per point; {plan.tiles} tiles "
+                      f"of {plan.tile} points on {plan.grid} blocks, {plan.smem} B of shared "
+                      f"memory{'' if kt is None else ', C = %d' % plan.ckpt_every}")
+                timed[kern, tier, W] = {f"ms_w{W}": ms, f"device_ms_w{W}": dev_ms,
+                                        f"plain_ms_w{W}": plain_ms, f"bound_ms_w{W}": b_ms,
+                                        f"bound_by_w{W}": by, f"points_w{W}": pts}
+    out = {(k, t): {"max_abs_err_wide": err[k, t]} for k, t in err}
+    for (kern, tier, _), nums in timed.items():
+        out[kern, tier].update(nums)
+    for key, nums in padded_or_wide(dev, rng, k1_batch).items():
+        out[key].update(nums)
+    return out
+
+
+def padded_or_wide(dev, rng, k1_batch) -> dict:
+    """Phase 28's last part: K1 and the K2 epilogue at widths 17 and 24 on
+    the 2->[W]x100->3 flagship's 12,516 points, on the route the port takes
+    (the narrow body at the next compiled width, the net padded) against the
+    wide body at the net's own width, each tier in turns (padded, wide,
+    wide, padded) by CUDA events; the wide launch held to the plain version
+    at f32 first. Returns per kernel and tier ``{"padded_ms_w17": ...,
+    "wide_ms_w17": ..., "padded_ms_w24": ..., "wide_ms_w24": ...}``."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, widths
+
+    n = 12_516
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32)).to(dev)
+    b = k1_batch(x, n)
+    fc = torch.empty(n, device=dev)
+    res = {(k, t): {} for k in ("k1", "k2") for t in TIER_NAMES}
+    for W in (17, 24):
+        spec = MLPSpec(sizes=(2,) + (W,) * 100 + (3,))
+        params = params_from_numpy(numpy_params(spec.sizes, "xavier", 30), dev)
+        launch = {
+            "k1": (lambda t: kernels_step._launch_k1(params, b, spec, precision=t),
+                   lambda t: kernels_step._launch_k1_wide(params, b, spec, t)),
+            "k2": (lambda t: kernels._launch_k2(params, x, spec, 2, t, epilogue=True, fc=fc),
+                   lambda t: kernels._launch_k2_wide(params, x, spec, 2, t, epilogue=True, fc=fc)),
+        }
+        with torch.no_grad():
+            _, _, _, stats, grads = kernels_step._plain_stats_and_grads(params, b, spec, "f32")
+            flat = launch["k1"][1]("f32")
+            n_g = kernels_step.n_flat(spec)
+            compare(f"K1 wide at width {W}: loss statistics", flat[n_g:], stats)
+            got = kernels_step.unflatten(flat[:n_g], spec)
+            for key in kernels_step.FLAT_KEYS:
+                compare(f"K1 wide at width {W}: d{key}", got[key], grads[key])
+            launch["k2"][1]("f32")
+            compare(f"K2 wide at width {W}: continuity epilogue", fc,
+                    kernels.residual_continuity_plain(params, x, spec))
+            for kern, (padded, wide) in launch.items():
+                for tier in TIER_NAMES:
+                    p1 = cuda_ms(lambda: padded(tier), 3, 2)
+                    w1 = cuda_ms(lambda: wide(tier), 3, 2)
+                    w2 = cuda_ms(lambda: wide(tier), 3, 2)
+                    p2 = cuda_ms(lambda: padded(tier), 3, 2)
+                    pm, wm = (p1 + p2) / 2, (w1 + w2) / 2
+                    res[kern, tier].update({f"padded_ms_w{W}": pm, f"wide_ms_w{W}": wm})
+                    print(f"  {kern.upper()}-{tier} 2->[{W}]x100->3, {n} points: narrow body at "
+                          f"width {widths.narrow_width(spec)} (padded) {p1:.4f}/{p2:.4f} ms, wide "
+                          f"body at width {W} {w1:.4f}/{w2:.4f} ms (CUDA events, in turns); "
+                          f"wide/padded {wm / pm:.2f}")
+    return res
+
+
+def run_cli(argv: list[str]) -> tuple[int, str]:
+    """``cli.main(argv)`` with its standard output captured (and echoed)."""
+    import contextlib
+    import io
+
+    from pinn_depthestimation_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print("\n".join(f"  | {line}" for line in out.strip().splitlines()[-6:]))
+    return rc, out
+
+
+def check_trained_run(run_dir: str, what: str, descent: bool = True) -> tuple[int, list]:
+    """The log of a CLI ``train`` run cut as phase 8 cuts it (300 Adam steps,
+    L-BFGS on): epochs 1..n, finite totals, ``model.npz`` written, and with
+    ``descent`` Adam and L-BFGS lowering the loss. Returns the loss
+    evaluations and totals."""
+    from pinn_depthestimation_tpu_torch.training.logging_utils import read_log
+
+    epochs, _, _, totals = read_log(run_dir)
+    n_evals = len(epochs)
+    if epochs != list(range(1, n_evals + 1)) or n_evals < 302:
+        fail(f"{what}: log.txt rows are not epochs 1..n with n >= 302")
+    if not all(math.isfinite(v) for v in totals):
+        fail(f"{what}: log.txt holds a non-finite total")
+    if descent and not totals[299] < totals[0]:
+        fail(f"{what}: Adam did not lower the loss: {totals[0]} -> {totals[299]}")
+    if descent and not min(totals[300:]) <= totals[299]:
+        fail(f"{what}: L-BFGS minimum {min(totals[300:])} above the last Adam total")
+    if not os.path.exists(os.path.join(run_dir, "model.npz")):
+        fail(f"{what}: the run wrote no model.npz")
+    return n_evals, totals
+
+
+# K2 + K3 against autograd on the CMB net at width 128: the largest relative
+# loss gap over the 20-step prefix (2.27e-7 on an H100 80GB HBM3 at 700 W;
+# 1e-5, the iteration-1 tolerance, leaves a 44x margin)
+PREFIX_W128_TOL = 1e-5
+
+
+def wide_path_phase(dev, repo: str) -> dict:
+    """Phase 29: the paths at full width through the wide body. CLI
+    ``train`` then CLI ``test`` on ``examples/newmethod.json`` with
+    ``hidden_width`` 128 and then 64 (100 hidden layers, phase 8's cuts: K1
+    launches == log rows, K2 serves the 81x261 grid), on
+    ``examples/cmb.json`` with ``hidden_width`` 128 at f32 (K3 == 2 x
+    evaluations) and at bf16 (K4-bf16 == 2 x evaluations), phase 12's cuts;
+    then, after the path's launches are read, a K2 + K3 Trainer against an
+    autograd one on the CMB config at width 128 (iteration 1 and a 20-step
+    prefix as phase 12b runs them, the prefix within
+    :data:`PREFIX_W128_TOL`), a K2 + K4 Trainer at bf16 against the plain
+    bf16 functions over the same prefix, and a K1 Trainer against an
+    autograd Trainer at width 128, iteration 1 as phase 9 checks it. The
+    CMB config's Adam (lr 1e-4) need not lower the loss at width 128 in 300
+    steps: the prefixes show the paths move alike. Every launch of the path
+    must be a wide one. Returns the path's launches per kernel and tier
+    (the CLI runs only) and the runs' times."""
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+
+    from pinn_depthestimation_tpu_torch.config import load_config, parse_config
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+
+    print("== phase 29: the flagship at widths 128 and 64 and the CMB net at width 128, "
+          "through CLI train and test on the wide body")
+    wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
+                kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
+                kernels_vjp.packed_mlp_bwd_rebuild)
+    for w in wrappers:
+        kernels.reset_launches(w)
+    out = {"train_s": {}}
+    lbfgs = {"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9, "tolerance_change": 1e-12}
+    with tempfile.TemporaryDirectory() as tmp:
+        for W in (128, 64):
+            cfg_path = newmethod_config(tmp, repo, layers={"hidden_width": W},
+                                        adam_optimizer={"max_it": 300}, snapshot_iteration=300,
+                                        lbfgs_optimizer=lbfgs)
+            k1_before = kernels_step.fused_loss_and_grad.launches_by_body["wide"]
+            k2_before = kernels.mlp_fwd_tangents.launches_by_body["wide"]
+            run = f"flagship_w{W}"
+            t0 = time.perf_counter()
+            rc, _ = run_cli(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run,
+                             "--device", "cuda", "--debug"])
+            out["train_s"][f"flagship_w{W}"] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"CLI train at width {W} exited {rc}")
+            run_dir = os.path.join(tmp, run)
+            pred = os.path.join(tmp, f"pred_w{W}.mat")
+            rc, _ = run_cli(["test", "--config", cfg_path, "--model",
+                             os.path.join(run_dir, "model.npz"), "--save", pred, "--device", "cuda",
+                             "--debug"])
+            if rc != 0:
+                fail(f"CLI test at width {W} exited {rc}")
+            n_evals, totals = check_trained_run(run_dir, f"flagship at width {W}")
+            k1 = kernels_step.fused_loss_and_grad.launches_by_body["wide"] - k1_before
+            k2 = kernels.mlp_fwd_tangents.launches_by_body["wide"] - k2_before
+            if k1 != n_evals:
+                fail(f"width {W}: K1 (wide) launched {k1} times for {n_evals} loss evaluations")
+            if k2 < 2:
+                fail(f"width {W}: the snapshot and CLI test did not both go through K2 (wide)")
+            served = loadmat(pred)
+            for key in ("U", "V", "h"):
+                arr = served[f"pred_{key}"]
+                if arr.shape != (261, 81) or not np.isfinite(arr).all():
+                    fail(f"width {W}: served pred_{key} of shape {arr.shape}, not finite")
+            print(f"  width {W}: {n_evals} loss evaluations, K1 (wide) {k1}, K2 (wide) {k2}; "
+                  f"total {totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} "
+                  f"(L-BFGS); CLI train wall time {out['train_s'][f'flagship_w{W}']:.2f} s")
+
+        synth = os.path.join(tmp, "synth")
+        if run_cli(["synth", "--out", synth])[0] != 0:
+            fail("synth failed")
+        csv, mat = (os.path.join(synth, f) for f in ("input_fid.csv", "input_res.mat"))
+        for tier, bwd in (("f32", kernels_vjp.packed_mlp_bwd),
+                          ("bf16", kernels_vjp.packed_mlp_bwd_rebuild)):
+            cfg_path = cmb_config(tmp, repo, csv, mat, layers={"hidden_width": 128},
+                                  adam_optimizer={"max_it": 300}, kernel_precision=tier,
+                                  data_residual={"interval_x": 1, "interval_y": 1},
+                                  lbfgs_optimizer=lbfgs)
+            k2_before = kernels.mlp_fwd_tangents.launches_by_tier[tier]
+            bwd_before = bwd.launches_by_body["wide"]
+            run = f"cmb_w128_{tier}"
+            t0 = time.perf_counter()
+            rc, _ = run_cli(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run,
+                             "--device", "cuda", "--debug"])
+            out["train_s"][run] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"CLI train on the CMB config at width 128, {tier}, exited {rc}")
+            k2_train = kernels.mlp_fwd_tangents.launches_by_tier[tier] - k2_before
+            run_dir = os.path.join(tmp, run)
+            rc, _ = run_cli(["test", "--config", cfg_path, "--model",
+                             os.path.join(run_dir, "model.npz"), "--save",
+                             os.path.join(tmp, f"pred_{run}.mat"), "--device", "cuda", "--debug"])
+            if rc != 0:
+                fail(f"CLI test on the CMB model at width 128, {tier}, exited {rc}")
+            n_evals, totals = check_trained_run(run_dir, f"CMB at width 128, {tier}",
+                                                descent=False)
+            nb = bwd.launches_by_body["wide"] - bwd_before
+            name = "K3" if tier == "f32" else "K4"
+            if nb != 2 * n_evals or bwd.launches_by_tier[tier] != bwd.launches:
+                fail(f"CMB at width 128, {tier}: {name} (wide) launched {nb} times for {n_evals} "
+                     "loss evaluations (2 per evaluation)")
+            if k2_train != 2 * n_evals:
+                fail(f"CMB at width 128, {tier}: K2 launched {k2_train} times in training for "
+                     f"{n_evals} evaluations")
+            print(f"  CMB net 2->[128]x10->6 at {tier}: {n_evals} loss evaluations, {name} "
+                  f"(wide) {nb}, K2 {k2_train} in training; total {totals[0]:.5e} -> "
+                  f"{totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} (L-BFGS); CLI train wall "
+                  f"time {out['train_s'][run]:.2f} s")
+
+        # the path's launches: the CLI runs above, and nothing of the checks below
+        wide = {w.__name__: dict(w.launches_by_tier) for w in wrappers}
+        print(f"  phase 29 path launches by tier {wide}; by body "
+              f"{ {w.__name__: dict(w.launches_by_body) for w in wrappers} }")
+        if any(w.launches_by_body["narrow"] for w in wrappers):
+            fail("a launch of phase 29's wide path went to a narrow body")
+        out["launches"] = {
+            ("k1", "f32"): kernels_step.fused_loss_and_grad.launches_by_tier["f32"],
+            ("k2", "f32"): kernels.mlp_fwd_tangents.launches_by_tier["f32"],
+            ("k2", "bf16"): kernels.mlp_fwd_tangents.launches_by_tier["bf16"],
+            ("k3", "f32"): kernels_vjp.packed_mlp_bwd.launches_by_tier["f32"],
+            ("k4", "bf16"): kernels_vjp.packed_mlp_bwd_rebuild.launches_by_tier["bf16"],
+        }
+
+        # iteration 1 and a 20-step prefix on the CMB net at width 128, from
+        # the same weights: K2 + K3 against autograd at f32, K2 + K4 at bf16
+        # against the plain bf16 functions (PlainFused)
+        init = numpy_params((2,) + (128,) * 10 + (6,), "xavier", 6)
+        init["b_out"][3] += 1.0  # the eta head shifted, as phase 12b does
+        prefix = {}
+        for run, mode, tier in (("kernels", "auto", "f32"), ("autograd", "off", "f32"),
+                                ("kernels bf16", "auto", "bf16"), ("plain bf16", "auto", "bf16")):
+            raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
+                       fused_kernel=mode, kernel_precision=tier)
+            raw["layers"] = {**raw["layers"], "hidden_width": 128}
+            run_dir = os.path.join(tmp, "cmb_prefix_" + run.replace(" ", "_"))
+            os.makedirs(run_dir)
+            with PlainFused() if run == "plain bf16" else contextlib.nullcontext():
+                tr = Trainer(parse_config(raw), run_dir=run_dir, echo_every=0, initial_params=init,
+                             device=dev)
+                if tr.kernel_plan.fused != (mode == "auto"):
+                    fail(f"fused_kernel={mode!r} on the CMB net at width 128 chose "
+                         f"{tr.kernel_plan}")
+                prefix[run] = tr._adam_steps(20).cpu().numpy()
+        rel = lambda a, b: np.abs(prefix[a] - prefix[b]) / np.abs(prefix[b])  # noqa: E731
+        rel1, gap = rel("kernels", "autograd")[0], float(rel("kernels", "autograd").max())
+        gap_bf16, tier_gap = float(rel("kernels bf16", "plain bf16").max()), float(
+            rel("plain bf16", "autograd").max())
+        for run in prefix:
+            print(f"  CMB net at width 128, {run}: iteration 1 (fid, res, total) {prefix[run][0]}; "
+                  f"total {prefix[run][0, 2]:.5e} -> {prefix[run][-1, 2]:.5e} over 20 Adam steps")
+        print(f"  iteration 1: K2+K3 against autograd rel {rel1} (tolerance 1e-5); over the 20 "
+              f"steps max relative gap {gap:.3e} (tolerance {PREFIX_W128_TOL:g}); at bf16 K2+K4 "
+              f"against the plain bf16 functions {gap_bf16:.3e}, the tier's own gap from f32 "
+              f"{tier_gap:.3e} (tolerance: half of it)")
+        if not (rel1 <= 1e-5).all():
+            fail("iteration-1 CMB losses of K2+K3 and autograd at width 128 differ by more than 1e-5")
+        if not gap <= PREFIX_W128_TOL:
+            fail("the 20-step Adam prefix of K2+K3 and autograd at width 128 diverged")
+        if not gap_bf16 <= 0.5 * tier_gap:
+            fail("the 20-step bf16 Adam prefix of K2+K4 strays from the plain bf16 functions' by "
+                 "half the tier's own gap or more")
+
+        # iteration 1: a K1 Trainer against an autograd Trainer at width 128
+        sizes = (2,) + (128,) * 100 + (3,)
+        init = numpy_params(sizes, "xavier", 6)
+        losses = {}
+        for mode in ("on", "off"):
+            path = newmethod_config(tmp, repo, fused_kernel=mode, layers={"hidden_width": 128})
+            os.makedirs(os.path.join(tmp, f"it1_{mode}"))
+            tr = Trainer(load_config(path), run_dir=os.path.join(tmp, f"it1_{mode}"), echo_every=0,
+                         initial_params=init, device=dev)
+            if tr.kernel_plan.k1 != (mode == "on"):
+                fail(f"fused_kernel={mode!r} at width 128 chose {tr.kernel_plan}")
+            losses[mode] = tr._adam_steps(1).cpu().numpy()[0]
+        rel1 = np.abs(losses["on"] - losses["off"]) / np.abs(losses["off"])
+        print(f"  iteration 1 at width 128 (fid, res, total): K1 {losses['on']} plain "
+              f"{losses['off']} rel {rel1}")
+        if not (rel1 <= 1e-5).all():
+            fail("iteration-1 losses of K1 and the plain path at width 128 differ by more than 1e-5")
+    return out
+
+
+def modules_phase(dev, repo: str) -> dict:
+    """Phase 30: the modules of the last slice on the card. CLI ``test``
+    serves the committed JAX ``.msgpack`` fixture through K2, bit for bit
+    as its ``.npz``; ``train --profile`` writes a trace that names K1's
+    kernel; ``Trainer(training_data=)`` runs an Adam step; ``test --plot``,
+    ``plot-log`` and ``video`` make their outputs, or give the named error
+    where the machine lacks ``matplotlib``/``cv2`` (nothing is installed)."""
+    import importlib.util
+
+    import numpy as np
+    from scipy.io import loadmat
+
+    from pinn_depthestimation_tpu_torch import data as data_mod
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+
+    print("== phase 30: .msgpack weights, train --profile, Trainer(training_data=), plots")
+    fixture = os.path.join(repo, "tests", "data", "jax_state_w20x3")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = newmethod_config(tmp, repo, layers={"hidden_layers": 3, "hidden_width": 20},
+                                    adam_optimizer={"max_it": 5}, snapshot_iteration=10_000,
+                                    lbfgs_optimizer={"max_it": 0})
+        kernels.reset_launches(kernels.mlp_fwd_tangents)
+        preds = {}
+        for ext in ("msgpack", "npz"):
+            path = os.path.join(tmp, f"pred_{ext}.mat")
+            rc, _ = run_cli(["test", "--config", cfg_path, "--model", f"{fixture}.{ext}", "--save",
+                             path, "--device", "cuda", "--debug"])
+            if rc != 0:
+                fail(f"CLI test --model {ext} exited {rc}")
+            preds[ext] = loadmat(path)
+        if kernels.mlp_fwd_tangents.launches != 2:
+            fail(f"K2 served the two grids in {kernels.mlp_fwd_tangents.launches} launches, not 2")
+        for key in ("pred_U", "pred_V", "pred_h"):
+            if preds["msgpack"][key].shape != (261, 81) or not np.array_equal(
+                    preds["msgpack"][key], preds["npz"][key]):
+                fail(f"the .msgpack fixture served {key} other than its .npz")
+        print("  CLI test on the JAX .msgpack fixture: K2 served the 81x261 grid, bit for bit "
+              "the .npz's")
+
+        prof = os.path.join(tmp, "profile")
+        kernels.reset_launches(kernels_step.fused_loss_and_grad)
+        rc, text = run_cli(["train", "--config", cfg_path, "--log-root", tmp, "--run-name",
+                            "profiled", "--device", "cuda", "--profile", prof, "--debug"])
+        if rc != 0 or f"Profiler trace -> {prof}" not in text:
+            fail(f"CLI train --profile exited {rc} or did not announce its trace")
+        with open(os.path.join(prof, "trace.json")) as f:
+            trace = f.read()
+        if "k1_train_step_kernel" not in trace or kernels_step.fused_loss_and_grad.launches < 5:
+            fail("the profiler's trace names no K1 kernel launch")
+        out["profile_trace_bytes"] = len(trace)
+        print(f"  train --profile: {len(trace)} bytes of Chrome trace naming k1_train_step_kernel "
+              f"({kernels_step.fused_loss_and_grad.launches} K1 launches)")
+
+        config = load_config(cfg_path)
+        td = data_mod.load_training_data(config)
+        os.makedirs(os.path.join(tmp, "given"))
+        tr = Trainer(config, run_dir=os.path.join(tmp, "given"), echo_every=0, device=dev,
+                     training_data=td)
+        before = kernels_step.fused_loss_and_grad.launches
+        row = tr._adam_steps(1).cpu().numpy()[0]
+        if tr.data is not td or not np.isfinite(row).all() or \
+                kernels_step.fused_loss_and_grad.launches != before + 1:
+            fail("Trainer(training_data=) did not take one K1 Adam step on the given data")
+        print(f"  Trainer(training_data=): one Adam step through K1, losses {row}")
+
+        have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "cv2")}
+        out["plot_modules"] = have
+        print(f"  plotting modules on this machine: {have} (the port installs neither)")
+        plots = os.path.join(tmp, "plots")
+        rc, text = run_cli(["test", "--config", cfg_path, "--model", f"{fixture}.npz",
+                            "--device", "cuda", "--plot", plots])
+        if have["matplotlib"]:
+            if rc != 0 or not os.listdir(plots):
+                fail("test --plot wrote no plot")
+        elif rc != 1 or "Error making plots:" not in text or "'matplotlib'" not in text:
+            fail("test --plot without matplotlib did not print the named error")
+        rc, text = run_cli(["plot-log", "--run-dir", os.path.join(tmp, "profiled")])
+        if have["matplotlib"]:
+            if rc != 0 or not os.path.exists(os.path.join(tmp, "profiled", "log.png")):
+                fail("plot-log wrote no log.png")
+        elif rc != 1 or "'matplotlib'" not in text:
+            fail("plot-log without matplotlib did not exit 1 naming it")
+        frames = os.path.join(tmp, "frames")
+        os.makedirs(frames)
+        avi = os.path.join(tmp, "v.avi")
+        if have["cv2"]:
+            import cv2
+
+            rng = np.random.RandomState(30)
+            for i in range(3):
+                cv2.imwrite(os.path.join(frames, f"f{i}.png"),
+                            (rng.rand(48, 64, 3) * 255).astype(np.uint8))
+            rc, text = run_cli(["video", "--dir", frames, "--out", avi])
+            cap, n = cv2.VideoCapture(avi), 0
+            while cap.read()[0]:
+                n += 1
+            cap.release()
+            if rc != 0 or n != 3:
+                fail(f"video exited {rc} with {n} frames of 3")
+            print(f"  video: {n} frames in {os.path.getsize(avi)} B of XVID AVI")
+        else:  # a frame the video tool lists before it needs cv2
+            open(os.path.join(frames, "frame.png"), "wb").close()
+            rc, text = run_cli(["video", "--dir", frames, "--out", avi])
+            if rc != 1 or "'cv2'" not in text:
+                fail("video without cv2 did not exit 1 naming it")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3080,11 +3814,12 @@ def main() -> None:
     # 2. build --------------------------------------------------------------
     print("== phase 2: build")
     t_build = time.perf_counter()
-    lib = cuda_build.k2_library()  # builds K1, K2, K3 and K4 together
+    cuda_build.build_all()  # K1, K2, K3 and K4, narrow and wide bodies, in one wave
+    lib = cuda_build.k2_library()
     lib_k1, lib_k3, lib_k4 = cuda_build.k1_library(), cuda_build.k3_library(), cuda_build.k4_library()
     build_s = time.perf_counter() - t_build
-    print(f"  K2, K1, K3 and K4 built in {build_s:.1f} s, one nvcc per (kernel, width, tier), "
-          "all at once")
+    print(f"  K2, K1, K3 and K4 built in {build_s:.1f} s, one nvcc per (kernel, width, tier) "
+          "and per (kernel, tier) of the wide body, all at once")
     cpu_s = 0.0
     for name, built in (("k2", lib), ("k1", lib_k1), ("k3", lib_k3), ("k4", lib_k4)):
         print(f"  {name.upper()}: {len(built.libs)} widths {sorted(built.libs)}; "
@@ -3100,7 +3835,9 @@ def main() -> None:
                   f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
                   f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
                   f"{head.group(3)} s after {head.group(4)} s of CPU")
-    print(f"  the sixty nvcc took {cpu_s:.1f} s of CPU on {os.cpu_count()} cores")
+    wide_cpu_s = wide_build_report(repo)
+    print(f"  the sixty narrow nvcc took {cpu_s:.1f} s of CPU, the twelve wide ones "
+          f"{wide_cpu_s:.1f} s, on {os.cpu_count()} cores")
     for tier in ("f32", "bf16", "f32x3"):  # the cheap tiers on the tensor cores, f32 not
         sass = sass_kernels(str(lib.log_path.parent / f"libk2_20_{tier}.so"))
         hmma = [n for n, _ in sass.values()]
@@ -3258,7 +3995,17 @@ def main() -> None:
     # 26. the f64 polish; 27. the mesh ------------------------------------------
     polish = polish_phase(dev, repo, f64_fma_peak)
     mesh = mesh_phase(dev, repo)
-    print(f"  total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
+    # 28.-30. every Pallas shape: the wide body and the padded widths, the
+    # paths at full width, the last modules ------------------------------------
+    t_wide = time.perf_counter()
+    wide = wide_phase(dev, repo, bound, bound_bf16)
+    t_path = time.perf_counter()
+    wide_path = wide_path_phase(dev, repo)
+    t_mod = time.perf_counter()
+    modules_phase(dev, repo)
+    t_end = time.perf_counter()
+    print(f"  phases 28-30: {t_path - t_wide:.1f} s, {t_mod - t_path:.1f} s, {t_end - t_mod:.1f} s")
+    print(f"  total {t_end - t_start:.1f} s (build {build_s:.1f} s)")
 
     # one entry per kernel and tier; K3-bf16 and K4-f32 launched on phase
     # 19's path, which picks the backward
@@ -3277,12 +4024,22 @@ def main() -> None:
     k3_bf16 = {**bf16_report["k3_bf16"], "launches": picked[("bf16", "stream")]}
     k4_f32 = {**bf16_report["k4_f32"], "launches": picked[("f32", "rebuild")],
               "plain_ms": k3_report["plain_ms"]}
+    entries = {
+        ("k2", "f32"): {**k2_f32, **legacy["k2"], **mesh["k2"]},
+        ("k2", "bf16"): {**bf16_report["k2_bf16"], **legacy["k2_bf16"]},
+        ("k2", "f32x3"): x3_report["k2"],
+        ("k1", "f32"): {**k1_report, **polish, **mesh["k1"]},
+        ("k1", "bf16"): bf16_report["k1_bf16"], ("k1", "f32x3"): x3_report["k1"],
+        ("k3", "f32"): {**k3_report, **legacy["k3"], **mesh["k3"]}, ("k3", "bf16"): k3_bf16,
+        ("k3", "f32x3"): x3_report["k3"],
+        ("k4", "f32"): k4_f32, ("k4", "bf16"): {**bf16_report["k4"], **legacy["k4_bf16"]},
+        ("k4", "f32x3"): x3_report["k4"],
+    }
+    # the wide body's numbers (phase 28) and its launches on phase 29's path
     report = {"kernels": [
-        {**k2_f32, **legacy["k2"], **mesh["k2"]}, {**bf16_report["k2_bf16"], **legacy["k2_bf16"]},
-        x3_report["k2"],
-        {**k1_report, **polish, **mesh["k1"]}, bf16_report["k1_bf16"], x3_report["k1"],
-        {**k3_report, **legacy["k3"], **mesh["k3"]}, k3_bf16, x3_report["k3"],
-        k4_f32, {**bf16_report["k4"], **legacy["k4_bf16"]}, x3_report["k4"],
+        {**entry, **wide[key], "source_wide": WIDE_SOURCES[key[0]],
+         "launches_wide": wide_path["launches"].get(key, 0)}
+        for key, entry in entries.items()
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

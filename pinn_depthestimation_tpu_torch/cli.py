@@ -5,11 +5,15 @@ slices:
 
     python -m pinn_depthestimation_tpu_torch.cli train --config CFG [--log-root DIR]
                                                        [--run-name NAME] [--resume CKPT.npz]
-                                                       [--init-from PTH|NPZ] [--device cuda|cpu]
+                                                       [--init-from PTH|NPZ|MSGPACK]
+                                                       [--device cuda|cpu]
                                                        [--precision-schedule PREFIX_ITERS[:TIER]]
                                                        [--mesh N] [--f64-polish MAX_IT]
-    python -m pinn_depthestimation_tpu_torch.cli test  --config CFG [--model PTH|NPZ]
+                                                       [--profile DIR]
+    python -m pinn_depthestimation_tpu_torch.cli test  --config CFG
+                                                       [--model PTH|NPZ|MSGPACK]
                                                        [--save OUT.mat] [--device cuda|cpu]
+                                                       [--plot [DIR]] [--cross-section ROW]
     python -m pinn_depthestimation_tpu_torch.cli parity [--iters 50000] [--lbfgs 500]
                                                        [--ref-cache REF.npz] [--fw-cache FW.npz]
                                                        [--out REPORT.md] [--device cuda|cpu]
@@ -18,6 +22,8 @@ slices:
     python -m pinn_depthestimation_tpu_torch.cli bench [--points 10000000] [--device cuda|cpu]
                                                        [--precision f32|f32x3|bf16]
                                                        [--suite | --step]
+    python -m pinn_depthestimation_tpu_torch.cli video --dir PNG_DIR --out OUT.avi [--fps 5]
+    python -m pinn_depthestimation_tpu_torch.cli plot-log --run-dir RUN [--out DIR]
 
 ``train`` takes newmethod, CMB and legacy configs, ``test`` newmethod and
 CMB ones; ``test`` on a config with ``perform_optimization: true`` first
@@ -42,8 +48,17 @@ onto the config's ``f64_polish`` block (its evaluation budget re-derived);
 ``0`` disables it. ``train --mesh N`` (or a config's ``parallel.data``)
 trains data-parallel over N shards: one per visible CUDA device, or N
 shards in the one CPU process with ``--device cpu``; too few devices exit 1
-with "Error building device mesh". ``plot-log``, ``video`` and ``test
---plot`` come with later slices.
+with "Error building device mesh". ``train --profile DIR`` writes a
+``torch.profiler`` trace of the training (CPU activity, and CUDA activity
+on the card) to ``DIR/trace.json`` (Chrome trace format). ``test --plot
+[DIR]`` writes the reference's plot products (``plotting.
+make_result_plots``; DIR overrides the config's ``plot.dir``), with the
+1-D profiles at ``--cross-section ROW``; ``video`` turns a folder of PNGs
+into an XVID AVI and ``plot-log`` draws a run's ``log.txt``. The plots need
+``matplotlib`` and the video ``cv2``, which the port does not install:
+where one is missing ``test --plot`` prints ``Error making plots: ...`` and
+``video``/``plot-log`` exit 1 naming the module. ``--model`` and
+``--init-from`` also read the JAX package's ``.msgpack`` checkpoints.
 """
 
 from __future__ import annotations
@@ -162,12 +177,27 @@ def cmd_train(args) -> int:
     if args.resume:
         trainer.restore(args.resume)
         print(f"Resumed from {args.resume} at iteration {trainer.state.iteration}")
+    import contextlib
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profile_ctx = profile(activities=activities)
+        print(f"Profiler trace -> {args.profile}")
     start = time.time()
-    trainer.train()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with profile_ctx as prof:
+        trainer.train()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     # the reference's only perf instrumentation (train.py:286)
     print("Training time: %.4f" % (time.time() - start))
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     return 0
 
 
@@ -209,7 +239,45 @@ def cmd_test(args) -> int:
     if args.save:
         savemat(args.save, {f"pred_{k}": v for k, v in result.pred.items()})
         print(f"Predictions saved to {args.save}")
+    if args.plot:
+        from pinn_depthestimation_tpu_torch.plotting import make_result_plots
+
+        plot_cfg = dict(config.raw)
+        plot_cfg.setdefault("plot", {})
+        if args.plot is not True:  # a directory was given
+            plot_cfg["plot"] = {**plot_cfg["plot"], "dir": args.plot}
+        try:
+            paths = make_result_plots(result, plot_cfg, cross_section=args.cross_section)
+        except (ValueError, ImportError) as e:
+            print(f"Error making plots: {e}")
+            return 1
+        for path in paths:
+            print(f"Wrote {path}")
     print("Prediction done!")
+    return 0
+
+
+def cmd_video(args) -> int:
+    from pinn_depthestimation_tpu_torch.plotting import images_to_video
+
+    try:
+        out = images_to_video(args.dir, args.out, frame_rate=args.fps)
+    except (ValueError, ImportError) as e:
+        print(f"Error making the video: {e}")
+        return 1
+    print(f"Video saved to {out}")
+    return 0
+
+
+def cmd_plot_log(args) -> int:
+    from pinn_depthestimation_tpu_torch.plotting import plot_log
+
+    try:
+        path = plot_log(args.run_dir, args.out or args.run_dir)
+    except ImportError as e:
+        print(f"Error plotting the log: {e}")
+        return 1
+    print(f"Wrote {path}")
     return 0
 
 
@@ -269,7 +337,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run directory name (default: YYYYmmdd_HHMM)")
     tr.add_argument("--resume", default=None, help="continue from a model_<iter>.npz")
     tr.add_argument("--init-from", default=None,
-                    help="start from these weights: reference .pth/.pt or exchange .npz")
+                    help="start from these weights: reference .pth/.pt, exchange .npz "
+                         "or the JAX package's .msgpack")
     tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     tr.add_argument("--debug", action="store_true",
                     help="re-raise errors with a full traceback")
@@ -284,18 +353,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "merged onto the config's f64_polish block (its backend, "
                          "tolerances and history kept; the evaluation budget "
                          "re-derived); 0 disables it")
+    tr.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace (CPU, and CUDA on the card) "
+                         "to DIR/trace.json")
     tr.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="predict the test grid")
     te.add_argument("--config", required=True, help="JSON config (reference schema)")
     te.add_argument("--model", default=None,
-                    help="weights: reference .pth/.pt or exchange .npz "
-                         "(default: data_test.model)")
+                    help="weights: reference .pth/.pt, exchange .npz or the JAX "
+                         "package's .msgpack (default: data_test.model)")
     te.add_argument("--save", default=None, help="write predictions to this .mat")
     te.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     te.add_argument("--debug", action="store_true",
                     help="re-raise errors with a full traceback instead of "
                          "the friendly exit-1 message")
+    te.add_argument("--plot", nargs="?", const=True, default=False, metavar="DIR",
+                    help="write the reference plot products (test.py:110-130); "
+                         "an optional DIR overrides the config's plot.dir")
+    te.add_argument("--cross-section", type=int, default=None,
+                    help="row index for the 1-D profiles (default: mid row; "
+                         "the reference hardcodes 131)")
     te.set_defaults(fn=cmd_test)
 
     from pinn_depthestimation_tpu_torch.parity import build_parser as parity_parser
@@ -331,6 +409,17 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--snapshots", type=int, default=21,
                    help="snapshot count for --legacy (reference uses 21: 200-220)")
     s.set_defaults(fn=cmd_synth)
+
+    v = sub.add_parser("video", help="PNG sequence -> AVI (utilities/imgtovid.py)")
+    v.add_argument("--dir", required=True)
+    v.add_argument("--out", required=True)
+    v.add_argument("--fps", type=int, default=5)
+    v.set_defaults(fn=cmd_video)
+
+    pl = sub.add_parser("plot-log", help="loss curves from a run dir's log.txt")
+    pl.add_argument("--run-dir", required=True)
+    pl.add_argument("--out", default=None)
+    pl.set_defaults(fn=cmd_plot_log)
     return p
 
 

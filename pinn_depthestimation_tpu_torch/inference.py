@@ -17,9 +17,10 @@ On a CUDA device prediction runs through the K2 kernel
 ``kernel_precision`` tier (``f32``, ``bf16`` or ``f32x3``) unless
 the caller asks for the plain ``models.mlp.mlp_apply`` with
 ``use_kernel=False``, the counterpart of the JAX package's
-``use_fused_kernel``. An architecture K2
-was not compiled for raises instead of serving quietly through the plain
-path (:func:`resolve_use_kernel`). The adaptation's physics loss then runs
+``use_fused_kernel``. K2, K3 and K4 take every net the Pallas kernels
+take (any width, ``d_in`` and ``d_out`` up to 128); any other raises
+instead of serving quietly through the plain path
+(:func:`resolve_use_kernel`). The adaptation's physics loss then runs
 through ``ops.kernels_vjp.fused_apply_with_tangents`` at the same tier: K2
 forward with a tangent per differentiated coordinate, and K3 (``f32``,
 ``f32x3``) or K4 (``bf16``) backward.
@@ -42,8 +43,7 @@ from pinn_depthestimation_tpu_torch.models import (
     mlp_apply,
     mlp_apply_with_tangents,
 )
-from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
-from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS
+from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp, widths
 from pinn_depthestimation_tpu_torch.optim.lbfgs import LBFGSOptions, LBFGSRunner
 from pinn_depthestimation_tpu_torch.training.checkpoint import restore_params_any
 
@@ -52,19 +52,21 @@ def resolve_use_kernel(spec: MLPSpec, device_type: str, use_kernel: bool | None)
     """Whether prediction goes through K2.
 
     ``None`` means K2 on a CUDA device and the plain path on the CPU. On a
-    CUDA device an architecture K2 does not take raises, naming
-    ``K2_WIDTHS`` and ``use_kernel=False``, the explicit request for the
-    plain path. On the CPU the K2 wrapper takes its plain version anyway."""
+    CUDA device K2 takes what the JAX package's Pallas kernel takes (the JAX
+    ``inference.py:81-86`` gate: >= 1 hidden layer and ``max(width, d_in,
+    d_out) <= 128``); any other net raises, naming that gate and
+    ``use_kernel=False``, the explicit request for the plain path. On the
+    CPU the K2 wrapper takes its plain version anyway."""
     if device_type != "cuda":
         return bool(use_kernel)
     if use_kernel is False:
         return False
     if not kernels.kernel_supports(spec):
         raise ValueError(
-            f"K2 does not take sizes {spec.sizes} (it needs >= 1 hidden layer, "
-            f"a width in K2_WIDTHS={K2_WIDTHS}, d_in <= {kernels.MAX_D_IN} and "
-            f"d_out <= {kernels.MAX_D_OUT}); pass use_kernel=False (in a "
-            "Trainer: fused_kernel='off') to predict through the plain mlp_apply"
+            f"K2 does not take sizes {spec.sizes}: like the JAX package's Pallas "
+            "kernel it needs >= 1 hidden layer and max(width, d_in, d_out) <= "
+            f"{widths.MAX_DIM}; pass use_kernel=False (in a Trainer: "
+            "fused_kernel='off') to predict through the plain mlp_apply"
         )
     return True
 
@@ -215,12 +217,6 @@ class Predictor:
                     "the kernels produce tangents for the leading input columns: "
                     f"{grad_coords} must lead data_test.inputs {input_names}, in order; "
                     "pass use_kernel=False to adapt through the plain path"
-                )
-            if self.device.type == "cuda" and not kernels_vjp.kernel_supports(spec):
-                raise ValueError(
-                    f"K3/K4 do not take sizes {spec.sizes} (a width in "
-                    f"K3_WIDTHS={kernels_vjp.K3_WIDTHS}); pass use_kernel=False to "
-                    "adapt through the plain path"
                 )
             precision = self.precision
 

@@ -6,16 +6,24 @@ runs at first use, from the sources in the package only, into
 ``_build/<name>-<hash>/`` beside ``csrc/`` (listed in ``.gitignore``); the
 hash covers the source, the headers of ``csrc/``, the flags and the
 variants, so a second process reuses the libraries and an edited source
-builds anew. Each source is compiled in several variants, one per hidden
-width and tier (``-DTIER_ONLY``, ``csrc/tier.cuh``): K1, K2, K3 and K4 x 5
-widths x 3 tiers, sixty ``nvcc`` at the first use of any kernel, as many at
-once as the machine has cores, the costliest first (the f32x3 tier's
-width-32 walks take most of the build's CPU time), so that none is left
-running alone at the end. The libraries of one width answer together
-(:class:`WidthLibrary`): the f32 entry ``<name>``, the bf16 entry
-``<name>_bf16`` and the f32x3 entry ``<name>_f32x3``, with the same
-arguments. ``build.log`` records each variant's compiler output, when it
-ended and the CPU time it took.
+builds anew. Two sets of libraries, each built in one wave at the first use
+of any of its kernels, as many ``nvcc`` at once as the machine has cores,
+the costliest first, so that none is left running alone at the end:
+
+* the narrow bodies, one variant per hidden width and tier (``-DTIER_ONLY``,
+  ``csrc/tier.cuh``): K1, K2, K3 and K4 x 5 widths x 3 tiers, sixty ``nvcc``
+  (the f32x3 tier's width-32 walks take most of the build's CPU time). The
+  libraries of one width answer together (:class:`WidthLibrary`): the f32
+  entry ``<name>``, the bf16 entry ``<name>_bf16`` and the f32x3 entry
+  ``<name>_f32x3``, with the same arguments;
+* the wide body (``csrc/mlp_wide.cuh``, the width at run time), one variant
+  per tier: K1, K2, K3 and K4 x 3 tiers, twelve ``nvcc``, built only when a
+  net the narrow bodies do not take first asks for them (``ops/widths.py``),
+  so a narrow run never pays for them. Their single :class:`WidthLibrary`
+  sits under the key 0. :func:`build_all` builds both sets in one wave.
+
+``build.log`` records each variant's compiler output, when it ended and the
+CPU time it took.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
@@ -24,7 +32,6 @@ Nothing here runs at import: this module is imported on machines without
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -47,6 +54,9 @@ K2_SOURCE = "mlp_fwd_tangents.cu"
 K1_SOURCE = "continuity_train_step.cu"
 K3_SOURCE = "mlp_bwd.cu"  # with K1 and K4, the walk of mlp_bwd_common.cuh
 K4_SOURCE = "mlp_bwd_rebuild.cu"
+K2_WIDE_SOURCE = "mlp_fwd_tangents_wide.cu"
+K1_WIDE_SOURCE = "continuity_train_step_wide.cu"
+K34_WIDE_SOURCE = "mlp_bwd_wide.cu"  # K3 with -DWIDE_REBUILD=0, K4 with 1
 # Hidden widths the kernels are compiled for: the repo's configs use 10
 # (CMB) and 20 (flagship); the rest cover the narrow test nets and a wider
 # option.
@@ -76,7 +86,7 @@ class KernelLibrary:
     """The loaded variants of one kernel source."""
 
     name: str
-    libs: dict[int, WidthLibrary]
+    libs: dict[int, WidthLibrary]  # by width; the wide body's under 0
     build_seconds: float   # wall time of this process's build; 0 if reused
     log_path: Path
 
@@ -101,6 +111,11 @@ def _variants(macro: str, widths) -> dict[tuple[int, str], tuple[str, ...]]:
     """One variant per (width, tier)."""
     return {(w, t): (f"-D{macro}={w}", f"-DTIER_ONLY={i}")
             for w in widths for i, t in enumerate(TIERS)}
+
+
+def _wide_variants(*flags: str) -> dict[tuple[int, str], tuple[str, ...]]:
+    """One variant per tier of the wide body, under the width key 0."""
+    return {(0, t): (*flags, f"-DTIER_ONLY={i}") for i, t in enumerate(TIERS)}
 
 
 def _plan(name: str, source: str, variants: dict[tuple, tuple[str, ...]]) -> dict:
@@ -133,14 +148,19 @@ def _plan(name: str, source: str, variants: dict[tuple, tuple[str, ...]]) -> dic
 # PERF.md).
 _KERNEL_COST = {"k4": 1.0, "k3": 0.7, "k2": 0.45, "k1": 0.27}
 _TIER_COST = {"f32": 1.0, "bf16": 1.2, "f32x3": 3.0}
+_WIDE_COST_WIDTH = 32  # the wide body (no unrolled W x W) ranks as a width-32 build
+
+
+def _cost(name: str, variant: tuple[int, str]) -> float:
+    width = variant[0] or _WIDE_COST_WIDTH
+    return _KERNEL_COST[name[:2]] * _TIER_COST[variant[1]] * width ** 2.5
 
 
 def _run(jobs: list[dict], t0: float) -> None:
     """Run every planned ``nvcc`` of ``jobs``, at most one per core at once,
     the costliest first; note when each ended and the CPU time it took."""
     queue = sorted(((job, v) for job in jobs for v in job["todo"]),
-                   key=lambda jv: _KERNEL_COST[jv[0]["name"]] * _TIER_COST[jv[1][1]]
-                   * jv[1][0] ** 2.5, reverse=True)
+                   key=lambda jv: _cost(jv[0]["name"], jv[1]), reverse=True)
     slots = os.cpu_count() or 8
     running: list = []
     while queue or running:
@@ -237,48 +257,92 @@ def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
                              "ckpt_every": [_I] * 4, "chunk_layers": [_I] * 4})
 
 
-@functools.cache
-def _libraries() -> dict[str, KernelLibrary]:
-    """Every kernel's libraries, built together on the first call in a
-    process: one ``nvcc`` per (kernel, width, tier), one per core at once."""
-    jobs = [
-        (_plan("k2", K2_SOURCE, _variants("K2_WIDTH", K2_WIDTHS)), _bind_k2),
-        (_plan("k1", K1_SOURCE, _variants("K1_WIDTH", K1_WIDTHS)), _bind_k1),
-        (_plan("k3", K3_SOURCE, _variants("K3_WIDTH", K3_WIDTHS)), _bind_k3),
-        (_plan("k4", K4_SOURCE, _variants("K4_WIDTH", K4_WIDTHS)), _bind_k4),
-    ]
-    t0 = time.perf_counter()
-    try:
-        _run([job for job, _ in jobs], t0)
-        seconds = time.perf_counter() - t0 if any(job["procs"] for job, _ in jobs) else 0.0
-        return {job["name"]: _finish(job, bind, seconds) for job, bind in jobs}
-    finally:  # a failed build leaves no compiler running behind it
-        for job, _ in jobs:
-            for _, proc, _, _ in job["procs"].values():
-                if proc.returncode is None:
-                    proc.kill()
-                    proc.wait()
+def _bind_k2w(lib: ctypes.CDLL) -> ctypes.CDLL:
+    return _bind(lib, "k2w", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 10 + [_P],
+                              "smem": [_I] * 5, "threads": []})
+
+
+def _bind_k1w(lib: ctypes.CDLL) -> ctypes.CDLL:
+    return _bind(lib, "k1w", {"train_step": [_P] * 14 + [_I] * 9 + [_P],
+                              "smem": [_I] * 3, "threads": []})
+
+
+def _bind_k34w(name: str):
+    def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+        return _bind(lib, name, {"mlp_bwd": [_P] * 12 + [_I] * 10 + [_P],
+                                 "smem": [_I] * 5, "threads": [], "state_slots": [_I, _I]})
+    return bind
+
+
+# name -> (source, variants, binder); the narrow bodies, then the wide one
+_SPECS = {
+    "k2": (K2_SOURCE, lambda: _variants("K2_WIDTH", K2_WIDTHS), _bind_k2),
+    "k1": (K1_SOURCE, lambda: _variants("K1_WIDTH", K1_WIDTHS), _bind_k1),
+    "k3": (K3_SOURCE, lambda: _variants("K3_WIDTH", K3_WIDTHS), _bind_k3),
+    "k4": (K4_SOURCE, lambda: _variants("K4_WIDTH", K4_WIDTHS), _bind_k4),
+    "k2w": (K2_WIDE_SOURCE, _wide_variants, _bind_k2w),
+    "k1w": (K1_WIDE_SOURCE, _wide_variants, _bind_k1w),
+    "k3w": (K34_WIDE_SOURCE, lambda: _wide_variants("-DWIDE_REBUILD=0"), _bind_k34w("k3w")),
+    "k4w": (K34_WIDE_SOURCE, lambda: _wide_variants("-DWIDE_REBUILD=1"), _bind_k34w("k4w")),
+}
+NARROW = ("k2", "k1", "k3", "k4")
+WIDE = ("k2w", "k1w", "k3w", "k4w")
+_BUILT: dict[str, KernelLibrary] = {}
+
+
+def _ensure(names) -> dict[str, KernelLibrary]:
+    """The libraries of ``names``, building those not yet loaded in this
+    process together: one ``nvcc`` per (kernel, width, tier), one per core
+    at once."""
+    missing = [n for n in names if n not in _BUILT]
+    if missing:
+        jobs = [(_plan(n, _SPECS[n][0], _SPECS[n][1]()), _SPECS[n][2]) for n in missing]
+        t0 = time.perf_counter()
+        try:
+            _run([job for job, _ in jobs], t0)
+            seconds = time.perf_counter() - t0 if any(job["procs"] for job, _ in jobs) else 0.0
+            for job, bind in jobs:
+                _BUILT[job["name"]] = _finish(job, bind, seconds)
+        finally:  # a failed build leaves no compiler running behind it
+            for job, _ in jobs:
+                for _, proc, _, _ in job["procs"].values():
+                    if proc.returncode is None:
+                        proc.kill()
+                        proc.wait()
+    return {n: _BUILT[n] for n in names}
+
+
+def build_all() -> dict[str, KernelLibrary]:
+    """Both sets of libraries, built in one wave (``chip_smoke.py``)."""
+    return _ensure(NARROW + WIDE)
 
 
 def k2_library() -> KernelLibrary:
     """K2 (``csrc/mlp_fwd_tangents.cu``), one library per width in
     :data:`K2_WIDTHS`."""
-    return _libraries()["k2"]
+    return _ensure(NARROW)["k2"]
 
 
 def k1_library() -> KernelLibrary:
     """K1 (``csrc/continuity_train_step.cu``), one library per width in
     :data:`K1_WIDTHS`."""
-    return _libraries()["k1"]
+    return _ensure(NARROW)["k1"]
 
 
 def k3_library() -> KernelLibrary:
     """K3 (``csrc/mlp_bwd.cu``), one library per width in
     :data:`K3_WIDTHS`, each holding K = 0..3."""
-    return _libraries()["k3"]
+    return _ensure(NARROW)["k3"]
 
 
 def k4_library() -> KernelLibrary:
     """K4 (``csrc/mlp_bwd_rebuild.cu``), one library per width in
     :data:`K4_WIDTHS`, each holding K = 0..3."""
-    return _libraries()["k4"]
+    return _ensure(NARROW)["k4"]
+
+
+def wide_library(kernel: str) -> WidthLibrary:
+    """The wide body of ``kernel`` (``'k1'``, ``'k2'``, ``'k3'`` or
+    ``'k4'``; ``csrc/mlp_wide.cuh``), its three tiers' entries
+    ``<kernel>w_*``."""
+    return _ensure(WIDE)[kernel + "w"].libs[0]

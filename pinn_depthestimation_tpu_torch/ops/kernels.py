@@ -26,6 +26,13 @@ Its launch plan (a persistent grid, the stack's chunks) is
 what binds is the CUDA cores' issue of everything around the products
 (accurate tanhf, act', the conversions; ``PERF.md``).
 
+Shapes: every net the Pallas kernel takes (``ops/widths.py``): the narrow
+body above for width <= 32 and ``d_in, d_out <= 8`` (at the next compiled
+width, padded exactly, where the width was not compiled), the wide body
+(``csrc/mlp_fwd_tangents_wide.cu`` on ``csrc/mlp_wide.cuh``, the width at
+run time, plan :mod:`ops.wide_plan`) for width 33-128 or ``d_in``/``d_out``
+above 8.
+
 Beside the kernel, per the port's rules:
 
 * the plain PyTorch version (:func:`mlp_fwd_tangents_plain`,
@@ -36,7 +43,8 @@ Beside the kernel, per the port's rules:
   version, for a CUDA tensor they launch the kernel or raise — no fallback;
 * a launch count on each wrapper (``mlp_fwd_tangents.launches``,
   ``fused_residual_continuity.launches``), raised by one per launch, and
-  the same count per tier (``.launches_by_tier``).
+  the same count per tier (``.launches_by_tier``) and per body
+  (``.launches_by_body``: ``narrow`` or ``wide``).
 """
 
 from __future__ import annotations
@@ -46,38 +54,35 @@ from typing import Mapping
 import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import MLPSpec, mlp_apply_with_tangents
-from pinn_depthestimation_tpu_torch.ops.cuda_build import K2_WIDTHS, k2_library
-from pinn_depthestimation_tpu_torch.ops import k2_plan, tiers
+from pinn_depthestimation_tpu_torch.ops.cuda_build import k2_library, wide_library
+from pinn_depthestimation_tpu_torch.ops import k2_plan, tiers, wide_plan, widths
 from pinn_depthestimation_tpu_torch.ops.tiers import check_precision
 from pinn_depthestimation_tpu_torch.physics import continuity_only_residuals
 
-MAX_D_IN = 8
-MAX_D_OUT = 8
-MAX_TANGENTS = 3
+MAX_TANGENTS = widths.MAX_TANGENTS
 _MAX_POINTS = 2**31 - 256  # the kernel indexes blocks and points with int
 _ACT = {"xavier": 0, "kaiming": 1}  # tanh, LeakyReLU(0.01)
 
 
 def kernel_supports(spec: MLPSpec) -> bool:
-    """Whether K2 takes this architecture: at least one hidden layer, a
-    compiled width, ``d_in <= 8`` and ``d_out <= 8``."""
-    return (
-        spec.n_hidden >= 1
-        and spec.width in K2_WIDTHS
-        and spec.d_in <= MAX_D_IN
-        and spec.d_out <= MAX_D_OUT
-    )
+    """Whether K2 takes this architecture: the Pallas kernel's shapes, at
+    least one hidden layer and ``max(width, d_in, d_out) <= 128``
+    (:func:`ops.widths.structurally_ok`)."""
+    return widths.structurally_ok(spec)
 
 
-def count_launch(wrapper, precision: str) -> None:
-    """One more launch of ``wrapper``'s kernel at ``precision``."""
+def count_launch(wrapper, precision: str, spec: MLPSpec) -> None:
+    """One more launch of ``wrapper``'s kernel at ``precision``, by the body
+    that runs ``spec`` (:func:`ops.widths.body`)."""
     wrapper.launches += 1
     wrapper.launches_by_tier[precision] += 1
+    wrapper.launches_by_body[widths.body(spec)] += 1
 
 
 def reset_launches(wrapper) -> None:
     wrapper.launches = 0
     wrapper.launches_by_tier = {t: 0 for t in tiers.TIERS}
+    wrapper.launches_by_body = {b: 0 for b in widths.BODIES}
 
 
 def _coordinate_tangents(coords: torch.Tensor, n_tangents: int) -> torch.Tensor:
@@ -120,8 +125,8 @@ def _check_launch(params: Mapping[str, torch.Tensor], coords: torch.Tensor,
                   spec: MLPSpec, n_tangents: int) -> None:
     if not kernel_supports(spec):
         raise ValueError(
-            f"K2 takes >= 1 hidden layer, width in {K2_WIDTHS}, "
-            f"d_in <= {MAX_D_IN} and d_out <= {MAX_D_OUT}; got sizes {spec.sizes}"
+            "K2 takes the Pallas kernel's shapes, >= 1 hidden layer and "
+            f"max(width, d_in, d_out) <= {widths.MAX_DIM}; got sizes {spec.sizes}"
         )
     if not 0 <= n_tangents <= min(MAX_TANGENTS, spec.d_in):
         raise ValueError(f"K2 takes 0 <= n_tangents <= min(3, d_in), got {n_tangents}")
@@ -151,9 +156,25 @@ def entry(lib, name: str, precision: str):
 
 def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
                epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
-    """One K2 launch into ``y``/``dy`` or ``fc``; at bf16 and f32x3 with the
-    grid and chunk of :func:`ops.k2_plan.card_plan`. ``lib``: another build
-    of K2 for this width (a check of a rebuilt source)."""
+    """One K2 launch into ``y``/``dy`` or ``fc`` on the body
+    :func:`ops.widths.route` picks: the narrow one (:func:`_launch_k2_narrow`)
+    or the wide one (:func:`_launch_k2_wide`). ``lib``: another build of the
+    narrow K2 for this width (a check of a rebuilt source)."""
+    out = dict(epilogue=epilogue, y=y, dy=dy, fc=fc)
+    if lib is not None:
+        _launch_k2_narrow(params, coords, spec, n_tangents, precision, lib=lib, **out)
+        return
+    widths.route(
+        spec, params,
+        lambda p, s: _launch_k2_narrow(p, coords, s, n_tangents, precision, **out),
+        lambda p, s: _launch_k2_wide(p, coords, s, n_tangents, precision, **out))
+
+
+def _launch_k2_narrow(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
+                      epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
+    """One launch of K2's narrow body at ``spec``'s (compiled) width; at
+    bf16 and f32x3 with the grid and chunk of :func:`ops.k2_plan.
+    card_plan`."""
     lib = lib or k2_library().libs[spec.width]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     n, n_stack = coords.shape[0], spec.n_hidden - 1
@@ -177,6 +198,33 @@ def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *
             f"K2 launch failed: CUDA error {err} "
             f"({lib.k2_error_string(err).decode()}) at sizes {spec.sizes}, "
             f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}, precision={precision}"
+        )
+
+
+def _launch_k2_wide(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
+                    epilogue: bool, y=None, dy=None, fc=None) -> None:
+    """One launch of K2's wide body on the plan of :func:`ops.wide_plan.
+    card_plan`."""
+    lib = wide_library("k2")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    n = coords.shape[0]
+    plan = wide_plan.card_plan("k2", n, spec, n_tangents, precision, coords.device)
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream(coords.device).cuda_stream
+        err = entry(lib, "k2w_mlp_fwd_tangents", precision)(
+            ptr(coords), ptr(params["w_in"]), ptr(params["b_in"]),
+            ptr(params["w_hidden"]), ptr(params["b_hidden"]),
+            ptr(params["w_out"]), ptr(params["b_out"]),
+            ptr(y), ptr(dy), ptr(fc),
+            n, spec.d_in, spec.d_out, spec.n_hidden - 1,
+            n_tangents, _ACT[spec.init_type], int(epilogue),
+            spec.width, plan.grid, plan.tile, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"K2 (wide) launch failed: CUDA error {err} ({lib.k2w_error_string(err).decode()}) "
+            f"at sizes {spec.sizes}, N={n}, K={n_tangents}, epilogue={epilogue}, "
+            f"precision={precision}, tile={plan.tile}, grid={plan.grid}, smem={plan.smem}"
         )
 
 
@@ -209,7 +257,7 @@ def mlp_fwd_tangents(params, coords: torch.Tensor, spec: MLPSpec, n_tangents: in
     if n:
         _launch_k2(params, coords, spec, n_tangents, precision, epilogue=False,
                    y=y, dy=dy if n_tangents else None)
-        count_launch(mlp_fwd_tangents, precision)
+        count_launch(mlp_fwd_tangents, precision, spec)
     return y, dy
 
 
@@ -236,7 +284,7 @@ def fused_residual_continuity(params, coords: torch.Tensor, spec: MLPSpec,
     fc = torch.empty((coords.shape[0],), dtype=torch.float32, device=coords.device)
     if coords.shape[0]:
         _launch_k2(params, coords, spec, 2, precision, epilogue=True, fc=fc)
-        count_launch(fused_residual_continuity, precision)
+        count_launch(fused_residual_continuity, precision, spec)
     return fc
 
 

@@ -31,6 +31,13 @@ Beside the kernel, per the port's rules:
   and its fixed-order reduction), and per tier
   (``fused_loss_and_grad.launches_by_tier``).
 
+Shapes: every net the Pallas kernel takes with heads ``(U, V, h)`` and
+``d_in >= 2`` (``ops/widths.py``): the narrow body for width <= 32 and
+``d_in <= 8`` (at the next compiled width, padded exactly, where the width
+was not compiled; the padded gradients are sliced away), the wide body
+(``csrc/continuity_train_step_wide.cu`` on ``csrc/mlp_wide.cuh``; plan
+:mod:`ops.wide_plan`) for width 33-128 or ``d_in`` above 8.
+
 The per-batch constants (``sel``, ``mask``, the trues, the denominators
 and the cotangent scales) are built once by :func:`make_step_batch`; an
 evaluation is then the kernel, the reduction and the combination of three
@@ -58,13 +65,12 @@ from dataclasses import dataclass
 import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec, mlp_apply_with_tangents
-from pinn_depthestimation_tpu_torch.ops import tiers
-from pinn_depthestimation_tpu_torch.ops.cuda_build import K1_WIDTHS, k1_library
+from pinn_depthestimation_tpu_torch.ops import tiers, wide_plan, widths
+from pinn_depthestimation_tpu_torch.ops.cuda_build import k1_library, wide_library
 from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
 from pinn_depthestimation_tpu_torch.ops.kernels import (
     _ACT,
     _MAX_POINTS,
-    MAX_D_IN,
     _coordinate_tangents,
     _on_cuda,
     check_precision,
@@ -94,14 +100,11 @@ def _check_step_spec(spec: MLPSpec, n_true: int, has_anchor: bool) -> None:
 
 
 def kernel_supports(spec: MLPSpec) -> bool:
-    """Whether K1 takes this architecture: at least one hidden layer, a
-    compiled width, ``2 <= d_in <= 8``, heads ``(U, V, h)`` only."""
-    return (
-        spec.n_hidden >= 1
-        and spec.width in K1_WIDTHS
-        and 2 <= spec.d_in <= MAX_D_IN
-        and spec.d_out == 3
-    )
+    """Whether K1 takes this architecture: the Pallas kernels' shapes (at
+    least one hidden layer, ``max(width, d_in, d_out) <= 128``,
+    :func:`ops.widths.structurally_ok`) with heads ``(U, V, h)`` only and
+    ``d_in >= 2``."""
+    return widths.structurally_ok(spec) and spec.d_in >= 2 and spec.d_out == 3
 
 
 def _scales_from_counts(n_res, n_sel, fid_weights, n_true, w_fid, w_res, anchor_depth,
@@ -309,8 +312,9 @@ def fused_loss_and_grad_plain(params, b: StepBatch, spec: MLPSpec, precision: st
 def _check_launch(params, b: StepBatch, spec: MLPSpec) -> None:
     if not kernel_supports(spec):
         raise ValueError(
-            f"K1 takes >= 1 hidden layer, width in {K1_WIDTHS}, 2 <= d_in <= "
-            f"{MAX_D_IN} and heads (U, V, h) (d_out = 3); got sizes {spec.sizes}"
+            "K1 takes the Pallas kernels' shapes (>= 1 hidden layer, max(width, d_in, "
+            f"d_out) <= {widths.MAX_DIM}), d_in >= 2 and heads (U, V, h) (d_out = 3); "
+            f"got sizes {spec.sizes}"
         )
     n = b.coords.shape[0]
     if b.coords.dim() != 2 or b.coords.shape[1] != spec.d_in or n > _MAX_POINTS:
@@ -356,10 +360,32 @@ def unflatten(flat: torch.Tensor, spec: MLPSpec) -> dict[str, torch.Tensor]:
     return out
 
 
+def unpad_flat(flat: torch.Tensor, padded: MLPSpec, spec: MLPSpec) -> torch.Tensor:
+    """A flat result of the padded net ``padded`` (gradients in
+    :data:`FLAT_KEYS` order, then any statistics) as ``spec``'s: the added
+    neurons' gradient entries dropped (:func:`ops.widths.slice_grads`)."""
+    n = n_flat(padded)
+    grads = widths.slice_grads(unflatten(flat[:n], padded), spec)
+    return torch.cat([grads[k].reshape(-1) for k in FLAT_KEYS] + [flat[n:]])
+
+
 def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
                precision: str = "f32") -> torch.Tensor:
-    """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result. ``lib``:
-    another build of K1 for this width (a check of a rebuilt source)."""
+    """K1 + its reduction; returns the flat ``(n_flat + 8,)`` result, on the
+    body :func:`ops.widths.route` picks: the narrow one
+    (:func:`_launch_k1_narrow`) or the wide one (:func:`_launch_k1_wide`).
+    ``lib``: another build of the narrow K1 for this width (a check of a
+    rebuilt source)."""
+    if lib is not None:
+        return _launch_k1_narrow(params, b, spec, lib, precision)
+    return widths.route(spec, params,
+                        lambda p, s: _launch_k1_narrow(p, b, s, precision=precision),
+                        lambda p, s: _launch_k1_wide(p, b, s, precision), unpad_flat)
+
+
+def _launch_k1_narrow(params, b: StepBatch, spec: MLPSpec, lib=None,
+                      precision: str = "f32") -> torch.Tensor:
+    """K1's narrow body + its reduction at ``spec``'s (compiled) width."""
     lib = lib or k1_library().libs[spec.width]
     dev = b.coords.device
     n, W, n_stack = b.coords.shape[0], spec.width, spec.n_hidden - 1
@@ -380,6 +406,33 @@ def _launch_k1(params, b: StepBatch, spec: MLPSpec, lib=None,
             f"K1 launch failed: CUDA error {err} ({lib.k1_error_string(err).decode()}) "
             f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}, "
             f"precision={precision}, tile={plan.tile}, grid={plan.grid}"
+        )
+    return out
+
+
+def _launch_k1_wide(params, b: StepBatch, spec: MLPSpec, precision: str) -> torch.Tensor:
+    """K1's wide body + its reduction on the plan of :func:`ops.wide_plan.
+    card_plan`; the flat ``(n_flat + 8,)`` result."""
+    lib = wide_library("k1")
+    dev = b.coords.device
+    n = b.coords.shape[0]
+    plan = wide_plan.card_plan("k1", n, spec, KT, precision, dev)
+    partial, states, out = plan.scratch(n_flat(spec) + N_STATS, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(lib, "k1w_train_step", precision)(
+            b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
+            b.scal.data_ptr(),
+            *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
+            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            n, spec.d_in, spec.n_hidden - 1, b.n_true, int(b.has_anchor), _ACT[spec.init_type],
+            spec.width, plan.grid, plan.tile, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"K1 (wide) launch failed: CUDA error {err} ({lib.k1w_error_string(err).decode()}) "
+            f"at sizes {spec.sizes}, N={n}, n_true={b.n_true}, anchor={b.has_anchor}, "
+            f"precision={precision}, tile={plan.tile}, grid={plan.grid}, smem={plan.smem}"
         )
     return out
 
@@ -414,7 +467,7 @@ def fused_loss_and_grad(params, b, spec: MLPSpec, *, precision: str = "f32"):
             if s.coords.shape[0] == 0:
                 raise ValueError("K1 needs at least one point")
             out = _launch_k1(p, s, spec, precision=precision)
-            count_launch(fused_loss_and_grad, precision)
+            count_launch(fused_loss_and_grad, precision, spec)
         else:
             _, _, _, stats, grads = _plain_stats_and_grads(p, s, spec, precision)
             out = torch.cat([grads[k].reshape(-1) for k in FLAT_KEYS] + [stats])

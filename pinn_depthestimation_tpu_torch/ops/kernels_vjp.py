@@ -14,6 +14,13 @@ the walk of ``csrc/mlp_bwd_common.cuh``, which K1 shares (design and bound
 in their headers), built by ``ops.cuda_build``. Tiers ``f32``, ``bf16``
 and ``f32x3`` (``ops.tiers``).
 
+Shapes: every net the Pallas kernels take (``ops/widths.py``): the narrow
+bodies for width <= 32 and ``d_in, d_out <= 8`` (at the next compiled
+width, padded exactly, where the width was not compiled; the padded
+gradients are sliced away), the wide body (``csrc/mlp_bwd_wide.cu`` on
+``csrc/mlp_wide.cuh``, K3 and K4 by ``-DWIDE_REBUILD``; plan
+:mod:`ops.wide_plan`) for width 33-128 or ``d_in``/``d_out`` above 8.
+
 ``impl='auto'`` resolves per tier through ``ops.tiers.BWD_IMPL_DEFAULT``,
 the JAX package's default: ``f32`` and ``f32x3`` -> ``'stream'`` (K3),
 ``bf16`` -> ``'rebuild'`` (K4).
@@ -41,13 +48,11 @@ from __future__ import annotations
 import torch
 
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec
-from pinn_depthestimation_tpu_torch.ops import kernels, tiers
-from pinn_depthestimation_tpu_torch.ops.cuda_build import K3_WIDTHS, K4_WIDTHS, k3_library, k4_library
+from pinn_depthestimation_tpu_torch.ops import kernels, tiers, wide_plan, widths
+from pinn_depthestimation_tpu_torch.ops.cuda_build import k3_library, k4_library, wide_library
 from pinn_depthestimation_tpu_torch.ops.kernels import (
     _ACT,
     _MAX_POINTS,
-    MAX_D_IN,
-    MAX_D_OUT,
     MAX_TANGENTS,
     _on_cuda,
     check_precision,
@@ -55,21 +60,16 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
     entry,
     reset_launches,
 )
-from pinn_depthestimation_tpu_torch.ops.kernels_step import n_flat, unflatten
+from pinn_depthestimation_tpu_torch.ops.kernels_step import n_flat, unflatten, unpad_flat
 from pinn_depthestimation_tpu_torch.ops.tiers import BWD_IMPL_DEFAULT
 from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
 
 
 def kernel_supports(spec: MLPSpec) -> bool:
-    """Whether K3 and K4 take this architecture: at least one hidden layer,
-    a compiled width, ``d_in <= 8`` and ``d_out <= 8``."""
-    return (
-        spec.n_hidden >= 1
-        and spec.width in K3_WIDTHS
-        and spec.width in K4_WIDTHS
-        and spec.d_in <= MAX_D_IN
-        and spec.d_out <= MAX_D_OUT
-    )
+    """Whether K3 and K4 take this architecture: the Pallas kernels'
+    shapes, at least one hidden layer and ``max(width, d_in, d_out) <= 128``
+    (:func:`ops.widths.structurally_ok`)."""
+    return widths.structurally_ok(spec)
 
 
 def resolve_impl(impl: str, precision: str) -> str:
@@ -117,8 +117,8 @@ def _check_launch(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
         raise ValueError(f"{kernel} does not support dropout")
     if not kernel_supports(spec):
         raise ValueError(
-            f"{kernel} takes >= 1 hidden layer, width in {K3_WIDTHS}, d_in <= {MAX_D_IN} "
-            f"and d_out <= {MAX_D_OUT}; got sizes {spec.sizes}"
+            f"{kernel} takes the Pallas kernels' shapes, >= 1 hidden layer and "
+            f"max(width, d_in, d_out) <= {widths.MAX_DIM}; got sizes {spec.sizes}"
         )
     if not 0 <= n_tangents <= min(MAX_TANGENTS, spec.d_in):
         raise ValueError(f"{kernel} takes 0 <= n_tangents <= min(3, d_in), got {n_tangents}")
@@ -149,8 +149,22 @@ _WEIGHT_ORDER = ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")
 def _launch_k3(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
                precision: str = "f32", lib=None) -> torch.Tensor:
     """K3 + its reduction; returns the flat ``(n_flat,)`` gradients in
-    ``kernels_step.FLAT_KEYS`` order. ``lib``: another build of K3 for this
+    ``kernels_step.FLAT_KEYS`` order, on the body :func:`ops.widths.route`
+    picks: the narrow one (:func:`_launch_k3_narrow`) or the wide one
+    (:func:`_launch_wide`). ``lib``: another build of the narrow K3 for this
     width (a check of a rebuilt source)."""
+    if lib is not None:
+        return _launch_k3_narrow(params, coords, ybar, dybar, spec, n_tangents, precision, lib)
+    return widths.route(
+        spec, params,
+        lambda p, s: _launch_k3_narrow(p, coords, ybar, dybar, s, n_tangents, precision),
+        lambda p, s: _launch_wide("k3", p, coords, ybar, dybar, s, n_tangents, precision),
+        unpad_flat)
+
+
+def _launch_k3_narrow(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                      precision: str = "f32", lib=None) -> torch.Tensor:
+    """K3's narrow body + its reduction at ``spec``'s (compiled) width."""
     lib = lib or k3_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
@@ -182,7 +196,12 @@ def rebuild_ckpt_every(spec: MLPSpec, n_tangents: int, precision: str,
     with 0 the largest C <= 8 that leaves the whole stack in one
     shared-memory chunk, else half of it (``mlp_bwd::rebuild_plan``). Raises
     when the segment buffer does not fit. ``lib``: another build of K4."""
-    lib = lib or k4_library().libs[spec.width]
+    if lib is None:
+        width = widths.narrow_width(spec)
+        if width is None:
+            return wide_plan.ckpt_every(spec.n_hidden - 1, ckpt_every)
+        spec = widths.padded_spec(spec, width)
+        lib = k4_library().libs[width]
     plan = card_plan(lib, "k4", precision, n_points, torch.cuda.current_device())
     return _ckpt_every(lib, spec, n_tangents, precision, ckpt_every, plan.tile)
 
@@ -202,8 +221,24 @@ def _ckpt_every(lib, spec: MLPSpec, n_tangents: int, precision: str, ckpt_every:
 def _launch_k4(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
                precision: str, ckpt_every: int = 0, lib=None) -> torch.Tensor:
     """K4 + its reduction; returns the flat ``(n_flat,)`` gradients in
-    ``kernels_step.FLAT_KEYS`` order. ``lib``: another build of K4 for this
-    width (a check of a rebuilt source)."""
+    ``kernels_step.FLAT_KEYS`` order, routed as :func:`_launch_k3`.
+    ``lib``: another build of the narrow K4 for this width (a check of a
+    rebuilt source)."""
+    if lib is not None:
+        return _launch_k4_narrow(params, coords, ybar, dybar, spec, n_tangents, precision,
+                                 ckpt_every, lib)
+    return widths.route(
+        spec, params,
+        lambda p, s: _launch_k4_narrow(p, coords, ybar, dybar, s, n_tangents, precision,
+                                       ckpt_every),
+        lambda p, s: _launch_wide("k4", p, coords, ybar, dybar, s, n_tangents, precision,
+                                  ckpt_every),
+        unpad_flat)
+
+
+def _launch_k4_narrow(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                      precision: str, ckpt_every: int = 0, lib=None) -> torch.Tensor:
+    """K4's narrow body + its reduction at ``spec``'s (compiled) width."""
     lib = lib or k4_library().libs[spec.width]
     dev = coords.device
     n, W, n_stack = coords.shape[0], spec.width, spec.n_hidden - 1
@@ -229,6 +264,35 @@ def _launch_k4(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
     return out
 
 
+def _launch_wide(kernel: str, params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
+                 precision: str, ckpt_every: int = 0) -> torch.Tensor:
+    """K3's or K4's wide body (``kernel`` ``'k3'`` or ``'k4'``) + its
+    reduction on the plan of :func:`ops.wide_plan.card_plan`; the flat
+    ``(n_flat,)`` gradients in ``kernels_step.FLAT_KEYS`` order."""
+    lib = wide_library(kernel)
+    dev = coords.device
+    n = coords.shape[0]
+    plan = wide_plan.card_plan(kernel, n, spec, n_tangents, precision, dev, ckpt_every)
+    partial, states, out = plan.scratch(n_flat(spec), dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(lib, f"{kernel}w_mlp_bwd", precision)(
+            coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
+            *(params[k].data_ptr() for k in _WEIGHT_ORDER),
+            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            n, spec.d_in, spec.d_out, spec.n_hidden - 1, n_tangents, _ACT[spec.init_type],
+            plan.ckpt_every, spec.width, plan.grid, plan.tile, stream,
+        )
+    if err != 0:
+        msg = getattr(lib, f"{kernel}w_error_string")(err).decode()
+        raise RuntimeError(
+            f"{kernel.upper()} (wide) launch failed: CUDA error {err} ({msg}) at sizes "
+            f"{spec.sizes}, N={n}, K={n_tangents}, precision={precision}, tile={plan.tile}, "
+            f"grid={plan.grid}, smem={plan.smem}, C={plan.ckpt_every}"
+        )
+    return out
+
+
 # ----------------------------------------------------------------- wrappers
 
 def packed_mlp_bwd(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
@@ -249,7 +313,7 @@ def packed_mlp_bwd(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
     if coords.shape[0] == 0:
         return {k: torch.zeros_like(params[k]) for k in PARAM_KEYS}
     out = _launch_k3(params, coords, ybar, dybar, spec, n_tangents, precision)
-    count_launch(packed_mlp_bwd, precision)
+    count_launch(packed_mlp_bwd, precision, spec)
     return unflatten(out, spec)
 
 
@@ -271,7 +335,7 @@ def packed_mlp_bwd_rebuild(params, coords, ybar, dybar, spec: MLPSpec, n_tangent
     if coords.shape[0] == 0:
         return {k: torch.zeros_like(params[k]) for k in PARAM_KEYS}
     out = _launch_k4(params, coords, ybar, dybar, spec, n_tangents, precision, ckpt_every)
-    count_launch(packed_mlp_bwd_rebuild, precision)
+    count_launch(packed_mlp_bwd_rebuild, precision, spec)
     return unflatten(out, spec)
 
 

@@ -15,7 +15,7 @@ orbax), written to a temporary file and moved into place with
 
 The reference keeps the ``model_<iter>`` naming and cadence
 (:func:`checkpoint_due`, :func:`checkpoint_points`). Weights files read by
-:func:`restore_params_any`, two formats:
+:func:`restore_params_any`, three formats:
 
 * a reference torch ``.pth``/``.pt`` — a whole pickled ``dnn.DNN`` module
   or a ``state_dict`` (``utils.torch_interop``);
@@ -24,10 +24,15 @@ The reference keeps the ``model_<iter>`` naming and cadence
   here, ``np.savez(path, **jax.tree.map(np.asarray, params))`` from the
   JAX package.
 
-The JAX package's own ``.msgpack``/``.orbax`` checkpoints need ``flax`` /
-``orbax``, which the port does not use; export them once with the JAX
-package's ``utils.torch_interop.torch_state_dict_from_params`` and
-``torch.save``. Reading msgpack directly is queued in ``ROADMAP.md``.
+* the JAX package's ``.msgpack`` checkpoint (``flax.serialization.to_bytes``
+  of a full training state ``{'params', 'opt_state', 'iteration'}`` or of
+  a bare parameter tree), read by the port's own decoder
+  (``utils.msgpack_lite``: the card's machine has no ``msgpack`` or
+  ``flax``), as the JAX ``restore_params`` reads it.
+
+The JAX package's ``.orbax`` checkpoints need ``orbax``, which the port does
+not use; export them once with the JAX package's
+``utils.torch_interop.torch_state_dict_from_params`` and ``torch.save``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from pinn_depthestimation_tpu_torch.models.mlp import (
     PARAM_KEYS,
     params_from_numpy,
 )
+from pinn_depthestimation_tpu_torch.utils import msgpack_lite
 from pinn_depthestimation_tpu_torch.utils.torch_interop import (
     check_architecture,
     params_from_torch_file,
@@ -51,30 +57,45 @@ from pinn_depthestimation_tpu_torch.utils.torch_interop import (
 def restore_params_any(
     path: str, spec=None, *, device: str | torch.device
 ) -> dict[str, torch.Tensor]:
-    """Load model parameters from a ``.pth``/``.pt`` or ``.npz`` file onto
-    ``device``. ``spec`` (``models.MLPSpec``) checks the architecture."""
+    """Load model parameters from a ``.pth``/``.pt``, ``.npz`` or JAX
+    ``.msgpack`` file onto ``device``. ``spec`` (``models.MLPSpec``) checks
+    the architecture."""
     if path.endswith((".pth", ".pt")):
         arrays = params_from_torch_file(path, spec=spec)
-    elif path.endswith(".npz"):
-        with np.load(path) as f:
-            arrays = {k: f[k] for k in PARAM_KEYS if k in f.files}
+    elif path.endswith((".npz", ".msgpack")):
+        if path.endswith(".npz"):
+            with np.load(path) as f:
+                arrays = {k: f[k] for k in PARAM_KEYS if k in f.files}
+        else:
+            arrays = _msgpack_params(path)
         missing = [k for k in PARAM_KEYS if k not in arrays]
         if missing:
             raise KeyError(f"{path!r} lacks parameter arrays {missing}")
         if spec is not None:
             check_architecture(arrays, spec, path)
-    elif path.endswith((".msgpack", ".orbax")):
+    elif path.endswith(".orbax"):
         raise ValueError(
-            f"{path!r}: the port reads no flax/orbax checkpoint. Export it "
+            f"{path!r}: the port reads no orbax checkpoint. Export it "
             "with the JAX package's "
             "utils.torch_interop.torch_state_dict_from_params and torch.save "
-            "to a .pth (direct msgpack reading is queued in ROADMAP.md)"
+            "to a .pth, or save it with the msgpack backend"
         )
     else:
         raise ValueError(
-            f"{path!r}: unknown weights format (expected .pth, .pt or .npz)"
+            f"{path!r}: unknown weights format (expected .pth, .pt, .npz or .msgpack)"
         )
     return params_from_numpy(arrays, device)
+
+
+def _msgpack_params(path: str) -> dict[str, np.ndarray]:
+    """The parameter arrays of a JAX ``.msgpack`` checkpoint: the
+    ``params`` of a full training state, or the bare tree (JAX
+    ``training/checkpoint.py::restore_params``)."""
+    raw = msgpack_lite.read(path)
+    tree = raw["params"] if isinstance(raw, dict) and "params" in raw else raw
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path!r} holds no parameter tree")
+    return {k: np.array(tree[k]) for k in PARAM_KEYS if k in tree}  # writable copies
 
 
 def save_checkpoint(path: str, state: dict) -> str:

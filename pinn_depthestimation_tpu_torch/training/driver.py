@@ -147,31 +147,24 @@ def decide_kernels(config: Config, spec: MLPSpec, fidelity_is_residual: bool,
     card the CMB net (10 hidden layers) trains through K2 + K3 and its 200
     fidelity rows go through K2 (K=0) + K3 (K=0).
 
-    Where a gate holds on the card but its kernel was not compiled for the
-    width, this raises, naming ``K1_WIDTHS`` or ``K3_WIDTHS`` and
-    ``fused_kernel='off'``; K2-predict likewise
+    The kernels take every net the Pallas kernels take (``ops/widths.py``:
+    any width, ``d_in`` and ``d_out`` up to 128), so a gate that holds on
+    the card never raises for the net's shape; K1 also needs heads ``(U, V,
+    h)`` and ``d_in >= 2``, which its gate implies. K2-predict likewise
     (:func:`inference.resolve_use_kernel`)."""
     mode = config.fused_kernel
     on_card = device_type == "cuda"
     use_k1 = use_fused = False
     if mode != "off":
-        if one_kernel_step_applicable(config, spec, fidelity_is_residual):
-            if on_card and not kernels_step.kernel_supports(spec):
-                raise ValueError(
-                    f"K1 was not compiled for sizes {spec.sizes}: it takes >= 1 hidden "
-                    f"layer and a width in K1_WIDTHS={kernels_step.K1_WIDTHS}; set "
-                    "fused_kernel='off' to train through plain autograd"
-                )
+        if (one_kernel_step_applicable(config, spec, fidelity_is_residual)
+                and kernels_step.kernel_supports(spec)):
             use_k1 = mode == "on" or on_card
         elif fused_structurally_ok(config, spec):
             n_tangents = len(physics.required_grad_coords(config.physics))
-            if on_card and not (kernels_vjp.kernel_supports(spec)
-                                and n_tangents <= min(kernels.MAX_TANGENTS, spec.d_in)):
+            if on_card and n_tangents > min(kernels.MAX_TANGENTS, spec.d_in):
                 raise ValueError(
-                    f"K2 and K3 were not compiled for sizes {spec.sizes} with "
-                    f"{n_tangents} tangents: they take a width in "
-                    f"K3_WIDTHS={kernels_vjp.K3_WIDTHS}, d_in <= {kernels.MAX_D_IN}, "
-                    f"d_out <= {kernels.MAX_D_OUT} and <= 3 tangents; set "
+                    f"the kernels take at most min(3, d_in) tangents; the physics "
+                    f"{config.physics!r} needs {n_tangents} at sizes {spec.sizes}; set "
                     "fused_kernel='off' to train through plain autograd"
                 )
             use_fused = mode == "on" or on_card
@@ -199,11 +192,16 @@ class Trainer:
         lbfgs_record_capacity: int | None = None,
         device: str | torch.device | None = None,
         mesh: Mesh | None = None,
+        training_data: data_mod.TrainingData | None = None,
     ):
         """``initial_params``: the parameter exchange dict (numpy arrays or
         tensors); without it, :func:`init_mlp_params` from a CPU
         ``torch.Generator`` seeded with ``config.seed``. ``device``: the
-        card by default; ``"cpu"`` runs the plain versions. ``mesh``
+        card by default; ``"cpu"`` runs the plain versions.
+        ``training_data``: a dataset already loaded
+        (``data.load_training_data``'s ``TrainingData``), taken as it is, as
+        the JAX ``Trainer(training_data=)`` takes it; without it the
+        Trainer loads the config's. ``mesh``
         (``parallel.make_mesh``): train data-parallel over its shards, the
         parameters and the optimizers on its first device (``device``, if
         given, must be that one)."""
@@ -219,7 +217,8 @@ class Trainer:
         self.echo_every = echo_every
         self._lbfgs_record_capacity = lbfgs_record_capacity
 
-        self.data = data_mod.load_training_data(config)
+        self.data = (training_data if training_data is not None
+                     else data_mod.load_training_data(config))
         for name, arr in (("fidelity", self.data.fidelity_input),
                           ("residual", self.data.residual_input)):
             if arr.shape[0] == 0:

@@ -285,6 +285,39 @@ def test_cmb_trainer_matches_jax_trainer(cmb_pair, tmp_path, fused):
     np.testing.assert_allclose(got, want, rtol=1e-4)        # the 5-step prefix
 
 
+def test_cmb_adam_raises_the_loss_at_width_128_in_both_packages(tmp_path):
+    """``examples/cmb.json`` (uniform weights, Adam at lr 1e-4) at
+    ``hidden_width`` 128 on the synthetic CMB pair at 81x261, every 4th
+    point: from the JAX package's own seeded weights its Adam raises the
+    loss at step 2, and the port, from the same weights, tracks it over a
+    5-step prefix. So the card's CMB runs at width 128 need not lower the
+    loss under Adam, on either package."""
+    csv, mat = str(tmp_path / "input_fid.csv"), str(tmp_path / "input_res.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, seed=0)
+    with open(os.path.join(os.path.dirname(__file__), "..", "examples", "cmb.json")) as f:
+        raw = json.load(f)
+    for block in ("data_fidelity", "data_residual", "data_test"):
+        raw[block]["file"] = mat if block != "data_fidelity" else csv
+    raw["layers"]["hidden_width"] = 128
+    raw["adam_optimizer"]["max_it"], raw["lbfgs_optimizer"]["max_it"] = 5, 0
+    raw["data_residual"]["interval_x"] = raw["data_residual"]["interval_y"] = 4
+    raw["fused_kernel"] = "off"
+    os.makedirs(tmp_path / "jax")
+    ref = JTrainer(jparse(raw), run_dir=str(tmp_path / "jax"), echo_every=0)
+    init = {k: np.array(v) for k, v in ref.state.params.items()}
+    ref.train_adam()
+    os.makedirs(tmp_path / "port")
+    port = Trainer(parse_config(raw), run_dir=str(tmp_path / "port"), echo_every=0,
+                   initial_params=init, device="cpu")
+    port.train_adam()
+    got = np.array(read_log(port.run_dir)[1:]).T
+    want = np.array(read_log(ref.run_dir)[1:]).T
+    assert got.shape == want.shape == (5, 3)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)  # iteration 1
+    np.testing.assert_allclose(got, want, rtol=1e-4)        # the 5-step prefix
+    assert want[1, 2] > 1.2 * want[0, 2] and got[1, 2] > 1.2 * got[0, 2]
+
+
 def test_cli_trains_and_tests_a_cmb_config(tmp_path, capsys):
     """synth writes the CMB pair; train and test run on a CMB config with
     those files, on the CPU."""
@@ -335,9 +368,12 @@ def test_cmb_step_bench_runs_on_the_cpu():
     (10, 0.0, "off", "cuda", (False, False, False)),  # the explicit plain request
     (10, 0.0, "auto", "cpu", (False, False, False)),
     (10, 0.0, "on", "cpu", (False, True, False)),     # the kernels' plain versions
-    (24, 0.0, "auto", "cuda", "K3_WIDTHS"),           # uncompiled width: raise
-    (24, 0.0, "on", "cuda", "K3_WIDTHS"),
+    (24, 0.0, "auto", "cuda", (False, True, True)),   # uncompiled width: padded
+    (24, 0.0, "on", "cuda", (False, True, True)),
     (24, 0.0, "off", "cuda", (False, False, False)),
+    (128, 0.0, "auto", "cuda", (False, True, True)),  # the wide body
+    (130, 0.0, "auto", "cuda", "use_kernel=False"),   # beyond the Pallas gate: no K2
+    (130, 0.0, "on", "cuda", "fused_kernel='on' needs"),
     (10, 0.1, "auto", "cuda", (False, False, True)),  # structurally unfit: autograd
     (10, 0.1, "on", "cuda", "K3"),
 ])
@@ -351,7 +387,7 @@ def test_cmb_kernel_decision(cmb_pair, width, dropout, mode, device_type, want):
         return
     with pytest.raises(ValueError, match=want) as err:
         decide_kernels(cfg, spec, False, device_type)
-    if want == "K3_WIDTHS":
+    if want == "use_kernel=False":
         assert "fused_kernel='off'" in str(err.value)
 
 

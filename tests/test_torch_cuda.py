@@ -89,7 +89,7 @@ def test_cuda_kernel_matches_plain_on_card(cuda_device, sizes, init_type):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    spec = MLPSpec(sizes=(2, 64, 64, 3))  # width not compiled
+    spec = MLPSpec(sizes=(2, 130, 130, 3))  # beyond the Pallas kernels' 128 lanes
     params = params_from_numpy(numpy_params(spec.sizes), cuda_device)
     x = torch.zeros(8, 2, device=cuda_device)
     with pytest.raises(ValueError, match="width"):
@@ -1051,3 +1051,122 @@ def test_cuda_sharded_cmb_loss_matches_unsharded(cuda_device, tmp_path):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
     for k in g0:
         assert_close_to_plain(g1[k], g0[k])
+
+
+# ------------------------------------------------ every Pallas shape (PR 12)
+
+WIDE_CASES = [
+    ((2,) + (17,) * 4 + (3,), "xavier"),    # narrow, padded to 20
+    ((2,) + (64,) * 4 + (3,), "kaiming"),   # the wide body
+    ((2,) + (128,) * 3 + (3,), "xavier"),   # the wide body at the JAX gate's limit
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f32x3"])
+@pytest.mark.parametrize("sizes,init_type", WIDE_CASES)
+def test_cuda_kernels_at_every_pallas_width(cuda_device, sizes, init_type, precision):
+    """K2 (K = 0-2, the epilogue), K3, K4 and K1 (loss and gradients) at
+    widths 17, 64 and 128 against their plain versions at each tier (bf16
+    and f32x3 by ``assert_tier_close``); width 17 runs the narrow body at
+    width 20, the others the wide body."""
+    from pinn_depthestimation_tpu_torch.ops import widths
+
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=12), cuda_device)
+    rs = np.random.RandomState(12)
+    n = 2_003
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, 3).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(2, n, 3).astype(np.float32)).to(cuda_device)
+    floor, distinct = (2e-6, 2.0) if precision == "f32x3" else (1e-4, 0.0)
+
+    def check(got, fn, *args):
+        if precision == "f32":
+            assert_close_to_plain(got, fn(params, x, *args, "f32"))
+            return True
+        return assert_tier_close(got, fn(params, x, *args, precision),
+                                 fn(params, x, *args, "f32"),
+                                 fn(f64(params), x.double(), *args, precision), floor, distinct)
+
+    def bwd_flat(p, xx, impl_args, tier):
+        yb, db = (ybar, dybar) if xx.dtype == torch.float32 else (ybar.double(), dybar.double())
+        g = kernels_vjp.packed_mlp_bwd_plain(p, xx, yb, db, spec, 2, tier)
+        return torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+
+    body = widths.body(spec)
+    before = {w: dict(w.launches_by_body) for w in (kernels.mlp_fwd_tangents,
+                                                    kernels_vjp.packed_mlp_bwd,
+                                                    kernels_step.fused_loss_and_grad)}
+    real = []
+    with torch.no_grad():
+        for k in range(3):
+            y, dy = kernels.mlp_fwd_tangents(params, x, spec, k, precision=precision)
+            torch.cuda.synchronize()
+            real.append(check(y, lambda p, xx, kk, t: kernels.mlp_fwd_tangents_plain(
+                p, xx, spec, kk, t)[0], k))
+            if k:
+                real.append(check(dy, lambda p, xx, kk, t: kernels.mlp_fwd_tangents_plain(
+                    p, xx, spec, kk, t)[1], k))
+        fc = kernels.fused_residual_continuity(params, x, spec, precision=precision)
+        real.append(check(fc, lambda p, xx, t: kernels.residual_continuity_plain(p, xx, spec, t)))
+        for impl in ("stream", "rebuild"):
+            g = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision=precision,
+                                           impl=impl)
+            real.append(check(torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS]),
+                              bwd_flat, None))
+    trues = torch.from_numpy((rs.randn(n, 2) * 0.1).astype(np.float32)).to(cuda_device)
+    ones = torch.ones(n, device=cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float(), ones, [1.0, 1.0], 2,
+                                     1.0, 1.0, anchor_depth=0.75, has_anchor=True)
+
+    def k1_flat(p, xx, tier):
+        bb = b if xx.dtype == torch.float32 else kernels_step.make_step_batch(
+            xx, trues.double(), b.sel.double(), ones.double(), [1.0, 1.0], 2, 1.0, 1.0,
+            anchor_depth=0.75, has_anchor=True)
+        (t, _), g = kernels_step.fused_loss_and_grad_plain(p, bb, spec, tier)
+        return torch.cat([t.reshape(1)] + [g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+
+    (t1, _), g1 = kernels_step.fused_loss_and_grad(params, b, spec, precision=precision)
+    if precision == "f32":
+        (t2, _), g2 = kernels_step.fused_loss_and_grad_plain(params, b, spec)
+        assert_close_to_plain(t1, t2)
+        for k in g1:
+            assert_close_to_plain(g1[k], g2[k])
+    else:
+        with torch.no_grad():
+            real.append(check(torch.cat([t1.reshape(1)] + [g1[k].reshape(-1)
+                                                           for k in kernels_step.FLAT_KEYS]),
+                              k1_flat))
+    assert any(real)
+    for w, counts in before.items():
+        assert w.launches_by_body[body] > counts[body], w.__name__
+
+
+@pytest.mark.cuda
+def test_cuda_wide_libraries_report_their_variants(cuda_device):
+    """The wide build holds one library per kernel and tier (under the width
+    key 0), each answering its threads and, for a plan, the shared-memory
+    bytes and state slots that ops/wide_plan.py computes."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build, wide_plan
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+
+    built = cuda_build._ensure(cuda_build.WIDE)
+    for name in cuda_build.WIDE:
+        assert list(built[name].libs) == [0]
+        lib = built[name].libs[0]
+        kernel = name[:2]
+        assert getattr(lib, f"{name}_threads")() == wide_plan.THREADS
+        for precision in cuda_build.TIERS:
+            for W, d_in, d_out, kt, tile in ((128, 2, 3, 2, 28), (64, 12, 16, 3, 40), (33, 2, 2, 0, 8)):
+                if kernel == "k1":
+                    got = entry(lib, "k1w_smem", precision)(W, d_in, tile)
+                    want = wide_plan.smem_bytes("k1", W, d_in, 3, 2, tile, precision)
+                else:
+                    got = entry(lib, f"{name}_smem", precision)(W, d_in, d_out, kt, tile)
+                    want = wide_plan.smem_bytes(kernel, W, d_in, d_out, kt, tile, precision)
+                assert got == want, (name, precision, W)
+        if kernel in ("k3", "k4"):
+            for n_stack, c in ((99, 8), (9, 3), (0, 1)):
+                assert getattr(lib, f"{name}_state_slots")(n_stack, c) == \
+                    wide_plan.state_slots(kernel, n_stack, c)

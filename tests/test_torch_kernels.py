@@ -110,9 +110,13 @@ def test_kernel_limits():
     assert kernels.kernel_supports(MLPSpec(sizes=(2,) + (10,) * 10 + (6,)))
     assert kernels.kernel_supports(MLPSpec(sizes=(2, 20, 3)))          # no stacked layer
     assert not kernels.kernel_supports(MLPSpec(sizes=(2, 3)))           # no hidden layer
-    assert not kernels.kernel_supports(MLPSpec(sizes=(2, 64, 64, 3)))   # width not compiled
-    assert not kernels.kernel_supports(MLPSpec(sizes=(9, 20, 20, 3)))   # d_in > 8
-    assert not kernels.kernel_supports(MLPSpec(sizes=(2, 20, 20, 9)))   # d_out > 8
+    assert kernels.kernel_supports(MLPSpec(sizes=(2, 64, 64, 3)))       # the wide body
+    assert kernels.kernel_supports(MLPSpec(sizes=(9, 20, 20, 3)))       # d_in > 8: wide
+    assert kernels.kernel_supports(MLPSpec(sizes=(2, 20, 20, 9)))       # d_out > 8: wide
+    assert kernels.kernel_supports(MLPSpec(sizes=(2, 17, 17, 3)))       # padded to 20
+    assert not kernels.kernel_supports(MLPSpec(sizes=(2, 129, 129, 3))) # beyond 128 lanes
+    assert not kernels.kernel_supports(MLPSpec(sizes=(129, 20, 20, 3)))
+    assert not kernels.kernel_supports(MLPSpec(sizes=(2, 20, 20, 129)))
     with pytest.raises(ValueError, match="d_out=3"):
         kernels.fused_residual_continuity({}, torch.zeros(4, 2), MLPSpec(sizes=(2, 20, 4)))
 
@@ -135,4 +139,4 @@ def test_launch_checks_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="w_out"):
         kernels._check_launch(bad, x, spec, 0)
     with pytest.raises(ValueError, match="width"):
-        kernels._check_launch(params, x, MLPSpec(sizes=(2, 64, 3)), 0)
+        kernels._check_launch(params, x, MLPSpec(sizes=(2, 130, 3)), 0)

@@ -130,11 +130,14 @@ def test_wrappers_refuse_what_k3_does_not_take():
     with pytest.raises(ValueError, match="dropout"):
         kernels_vjp.fused_apply_with_tangents(
             params, x, MLPSpec(sizes=(2, 8, 8, 3), dropout_rate=0.1), 2)
-    # the launch checks, reached on the CPU directly
-    wide = MLPSpec(sizes=(2, 24, 24, 3))
-    with pytest.raises(ValueError, match="width in"):
-        kernels_vjp._check_launch(params_from_numpy(numpy_params(wide.sizes), "cpu"),
-                                  x, ybar, dybar, wide, 2)
+    # the launch checks, reached on the CPU directly: beyond the Pallas gate
+    beyond = MLPSpec(sizes=(2, 130, 130, 3))
+    with pytest.raises(ValueError, match=r"max\(width, d_in, d_out\) <= 128"):
+        kernels_vjp._check_launch(params_from_numpy(numpy_params(beyond.sizes), "cpu"),
+                                  x, ybar, dybar, beyond, 2)
+    padded = MLPSpec(sizes=(2, 24, 24, 3))  # an uncompiled width: taken (padded)
+    kernels_vjp._check_launch(params_from_numpy(numpy_params(padded.sizes), "cpu"),
+                              x, ybar, dybar, padded, 2)
     with pytest.raises(ValueError, match="n_tangents"):
         kernels_vjp._check_launch(params, x, ybar, torch.zeros((3, 4, 3)), spec, 3)
     with pytest.raises(ValueError, match="dybar has shape"):
@@ -145,7 +148,10 @@ def test_wrappers_refuse_what_k3_does_not_take():
 def test_kernel_supports():
     assert kernels_vjp.kernel_supports(MLPSpec(sizes=(2,) + (10,) * 10 + (6,)))
     assert kernels_vjp.kernel_supports(MLPSpec(sizes=(2,) + (20,) * 100 + (3,)))
-    assert not kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 24, 3)))
-    assert not kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 10, 9)))
+    assert kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 24, 3)))      # padded to 32
+    assert kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 10, 9)))      # the wide body
+    assert kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 128, 128, 128)))
+    assert not kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 129, 3)))  # beyond 128 lanes
+    assert not kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 10, 129)))
     assert not kernels_vjp.kernel_supports(MLPSpec(sizes=(2, 3)))
     assert 10 in K3_WIDTHS and 20 in K3_WIDTHS

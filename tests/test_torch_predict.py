@@ -149,6 +149,8 @@ def test_weights_files_npz_and_refusals(served, tmp_path):
     with pytest.raises(ValueError, match="does not match"):
         restore_params_any(npz, MLPSpec(sizes=(2, 12, 12, 3)), device="cpu")
     with pytest.raises(ValueError, match="torch_state_dict_from_params"):
+        restore_params_any(str(tmp_path / "model_5.orbax"), spec, device="cpu")
+    with pytest.raises(FileNotFoundError):  # .msgpack is read (tests/test_torch_msgpack.py)
         restore_params_any(str(tmp_path / "model_5.msgpack"), spec, device="cpu")
     with pytest.raises(ValueError, match="unknown weights format"):
         restore_params_any(str(tmp_path / "w.bin"), spec, device="cpu")
@@ -294,7 +296,9 @@ def test_port_never_names_the_jax_package_or_imports_jax():
 
 def test_importing_the_port_loads_no_jax_flax_or_pandas():
     """A fresh interpreter (this one has JAX loaded by conftest.py) imports
-    every module of the port and chip_smoke.py."""
+    every module of the port (``plotting`` and ``utils.msgpack_lite``
+    among them) and chip_smoke.py, and loads no JAX, flax or pandas, nor
+    matplotlib, cv2 or msgpack: the plots import theirs when they run."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import pinn_depthestimation_tpu_torch as pkg\n"
@@ -302,8 +306,11 @@ def test_importing_the_port_loads_no_jax_flax_or_pandas():
         "for name in names: importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pandas', 'optax', 'orbax', 'pinn_depthestimation_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'pandas', 'optax', 'orbax', 'pinn_depthestimation_tpu', "
+        "'matplotlib', 'cv2', 'msgpack'))\n"
         "assert not bad, bad\n"
+        "assert 'pinn_depthestimation_tpu_torch.plotting' in names, names\n"
+        "assert 'pinn_depthestimation_tpu_torch.utils.msgpack_lite' in names, names\n"
         "assert len(names) >= 15, names\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"

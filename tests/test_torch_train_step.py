@@ -148,7 +148,10 @@ def test_flat_order_is_ravel_pytree_order():
 def test_kernel_limits_and_launch_checks():
     assert kernels_step.kernel_supports(MLPSpec(sizes=(2,) + (20,) * 100 + (3,)))
     assert kernels_step.kernel_supports(MLPSpec(sizes=(2, 10, 3), init_type="kaiming"))
-    assert not kernels_step.kernel_supports(MLPSpec(sizes=(2, 24, 24, 3)))   # width not compiled
+    assert kernels_step.kernel_supports(MLPSpec(sizes=(2, 24, 24, 3)))       # padded to 32
+    assert kernels_step.kernel_supports(MLPSpec(sizes=(2, 128, 128, 3)))     # the wide body
+    assert kernels_step.kernel_supports(MLPSpec(sizes=(12, 20, 20, 3)))      # d_in > 8: wide
+    assert not kernels_step.kernel_supports(MLPSpec(sizes=(2, 129, 129, 3))) # beyond 128 lanes
     assert not kernels_step.kernel_supports(MLPSpec(sizes=(2, 20, 20, 4)))   # heads != (U, V, h)
     assert not kernels_step.kernel_supports(MLPSpec(sizes=(1, 20, 20, 3)))   # no y input
     assert not kernels_step.kernel_supports(MLPSpec(sizes=(2, 3)))           # no hidden layer
@@ -158,7 +161,7 @@ def test_kernel_limits_and_launch_checks():
     b = port_batch(coords, trues, sel, mask, fidw, 2, True)
     kernels_step._check_launch(params, b, spec)  # accepted
     with pytest.raises(ValueError, match="width"):
-        kernels_step._check_launch(params, b, MLPSpec(sizes=(2, 24, 3)))
+        kernels_step._check_launch(params, b, MLPSpec(sizes=(2, 130, 3)))
     with pytest.raises(ValueError, match="w_out"):
         kernels_step._check_launch(dict(params, w_out=torch.zeros(20, 4)), b, spec)
     with pytest.raises(ValueError, match="float32"):

@@ -283,18 +283,24 @@ def test_trainer_refuses_what_is_not_ported(mat, tmp_path):
 
 
 def test_predictor_use_kernel_decision():
-    """On CUDA an architecture K2 lacks raises instead of serving quietly
-    through the plain path; use_kernel=False asks for the plain path."""
+    """On CUDA K2 takes every net the Pallas kernel takes (uncompiled and
+    wide widths too); one beyond that gate raises instead of serving
+    quietly through the plain path; use_kernel=False asks for the plain
+    path."""
     flagship = MLPSpec(sizes=(2,) + (20,) * 100 + (3,))
-    wide = MLPSpec(sizes=(2, 24, 24, 3))
-    assert resolve_use_kernel(flagship, "cuda", None) is True
-    assert resolve_use_kernel(wide, "cuda", False) is False
-    with pytest.raises(ValueError, match="K2_WIDTHS") as err:
-        resolve_use_kernel(wide, "cuda", None)
-    assert "use_kernel=False" in str(err.value) and str(K2_WIDTHS) in str(err.value)
+    padded = MLPSpec(sizes=(2, 24, 24, 3))
+    assert 24 not in K2_WIDTHS
+    wide = MLPSpec(sizes=(2, 128, 128, 3))
+    beyond = MLPSpec(sizes=(2, 130, 130, 3))
+    for spec in (flagship, padded, wide):
+        assert resolve_use_kernel(spec, "cuda", None) is True
+    assert resolve_use_kernel(beyond, "cuda", False) is False
+    with pytest.raises(ValueError, match=r"max\(width, d_in, d_out\) <= 128") as err:
+        resolve_use_kernel(beyond, "cuda", None)
+    assert "use_kernel=False" in str(err.value)
     with pytest.raises(ValueError, match="use_kernel=False"):
-        resolve_use_kernel(wide, "cuda", True)
-    assert resolve_use_kernel(wide, "cpu", None) is False
+        resolve_use_kernel(beyond, "cuda", True)
+    assert resolve_use_kernel(padded, "cpu", None) is False
     assert resolve_use_kernel(flagship, "cpu", None) is False
 
 
@@ -305,18 +311,22 @@ def test_predictor_use_kernel_decision():
     (20, 0.0, "auto", "cpu", (False, False, False)),
     (20, 0.0, "on", "cpu", (True, False, False)),
     (20, 0.2, "auto", "cuda", (False, False, True)),   # outside the gate: autograd, K2
-    (24, 0.0, "auto", "cuda", "K1_WIDTHS"),
-    (24, 0.0, "on", "cuda", "K1_WIDTHS"),
+    (24, 0.0, "auto", "cuda", (True, False, True)),    # uncompiled width: padded
+    (24, 0.0, "on", "cuda", (True, False, True)),
     (24, 0.0, "off", "cuda", (False, False, False)),
     (24, 0.0, "auto", "cpu", (False, False, False)),
     (24, 0.0, "on", "cpu", (True, False, False)),
-    (24, 0.2, "auto", "cuda", "K2_WIDTHS"),     # autograd training, but no K2
+    (24, 0.2, "auto", "cuda", (False, False, True)),   # autograd training, K2 serves
     (24, 0.2, "on", "cpu", "K3"),
+    (128, 0.0, "auto", "cuda", (True, False, True)),   # the wide body
+    (130, 0.0, "auto", "cuda", "use_kernel=False"),    # beyond the Pallas gate
+    (130, 0.0, "on", "cuda", "K3"),
 ])
 def test_trainer_kernel_decision(mat, width, dropout, mode, device_type, want):
-    """On the card a width K1 or K2 was not compiled for raises, naming the
-    compiled widths and fused_kernel='off', instead of training or
-    predicting quietly through the plain path."""
+    """On the card K1 and K2 take every net the Pallas kernels take; a net
+    beyond that gate raises, naming fused_kernel='off', instead of
+    predicting quietly through the plain path, and fused_kernel='on'
+    raises there."""
     from pinn_depthestimation_tpu_torch.training.driver import decide_kernels
 
     raw = newmethod_raw(mat, width=width, fused_kernel=mode)
@@ -346,3 +356,23 @@ def test_dropout_training_is_repeatable(mat, tmp_path):
         tr.train_adam()
         logs.append(read_log(tr.run_dir))
     assert logs[0] == logs[1] and all(np.isfinite(logs[0][3]))
+
+
+def test_trainer_takes_training_data(mat, tmp_path):
+    """``Trainer(training_data=)`` (JAX ``training/driver.py:84``, ``:101``)
+    trains on the dataset it is given as it is: the same log as a Trainer
+    that loads the config's data itself."""
+    from pinn_depthestimation_tpu_torch import data as port_data
+
+    cfg = parse_config(newmethod_raw(mat, adam_it=6, lbfgs_it=3))
+    td = port_data.load_training_data(cfg)
+    logs = []
+    for name, kw in (("loaded", {}), ("given", {"training_data": td})):
+        os.makedirs(tmp_path / name)
+        tr = Trainer(cfg, run_dir=str(tmp_path / name), echo_every=0,
+                     initial_params=initial_params(), device="cpu", **kw)
+        assert (tr.data is td) == bool(kw)
+        tr.train()
+        with open(tmp_path / name / "log.txt") as f:
+            logs.append(f.read())
+    assert logs[0] == logs[1] and len(logs[0].splitlines()) > 7
