@@ -401,7 +401,8 @@ def cuda_ms(fn, reps: int, inner: int) -> float:
 def device_ms(fn, calls: int, kernel: str):
     """Device time per call of ``fn``: the own times of the launches of
     ``kernel`` (a substring of the walk kernel's name) and of the walk's
-    fixed-order reduction that ``torch.profiler`` records over ``calls``
+    fixed-order reduction (and of the wide body's weight images) that
+    ``torch.profiler`` records over ``calls``
     calls, after one warm-up call; None, said so, unless it recorded
     exactly one ``kernel`` launch per call (a profiler that drops events
     would undercount). CUDA events around back-to-back calls measure the
@@ -418,7 +419,7 @@ def device_ms(fn, calls: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and ("reduce_kernel" in e.name or kernel in e.name)]
+              and ("reduce_kernel" in e.name or "images_kernel" in e.name or kernel in e.name)]
     walks = sum(kernel in e.name for e in events)
     if walks != calls:
         print(f"  (torch.profiler recorded {walks} of {calls} {kernel} launches: no device time)")
@@ -515,6 +516,27 @@ def k1_flops(spec, n_points: int) -> float:
     fwd = 2 * (d_in * W + n_stack * W * W + W * d_out) * 3
     bwd = 2 * 2 * 3 * (n_stack * W * W + W * d_out) + 2 * d_in * W
     return float(n_points) * (fwd + bwd)
+
+
+def wg_flops(spec, n_points: int, n_tangents: int) -> float:
+    """The weight-gradient products among the operations of K1, K3 and K4
+    (:func:`k1_flops`, :func:`k3_flops`, :func:`k4_flops`): 2*(1+K)*((L-1)*W^2 +
+    W*d_out) + 2*d_in*W per point. The bf16 tier keeps them f32 (ops/tiers.py
+    mm_tn, the JAX ops/kernels_vjp.py:257-259), on the CUDA cores."""
+    W, d_in, d_out, n_stack = spec.width, spec.d_in, spec.d_out, spec.n_hidden - 1
+    return float(n_points) * (2 * (1 + n_tangents) * (n_stack * W * W + W * d_out)
+                              + 2 * d_in * W)
+
+
+def bf16_bound(bound, bound_bf16, flops: float, nbytes: float, wg: float = 0.0):
+    """The bf16 tier's bound: its tier-typed products (``flops - wg``) over
+    the tensor cores' rate, its f32 weight-gradient products (``wg``) over
+    the CUDA cores' FMA rate, or the bytes, whichever takes longest."""
+    t_tc, by_tc = bound_bf16(flops - wg, nbytes)
+    if not wg:
+        return t_tc, by_tc
+    t_cc, by_cc = bound(wg, nbytes)
+    return (t_tc, by_tc) if t_tc >= t_cc else (t_cc, by_cc)
 
 
 def k1_bytes(params, n_points: int, d_in: int, n_true: int) -> float:
@@ -1552,9 +1574,10 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
         print("== phase 17: times of the bf16 tier and K4 (CUDA events; median of reps)")
         times = {}
 
-        def timed(key, fn, reps, inner, flops, nbytes, bf16):
+        def timed(key, fn, reps, inner, flops, nbytes, bf16, wg=0.0):
             ms = cuda_ms(fn, reps, inner)
-            b, by = (bound_bf16 if bf16 else bound)(flops, nbytes)
+            b, by = (bf16_bound(bound, bound_bf16, flops, nbytes, wg) if bf16
+                     else bound(flops, nbytes))
             times[key] = (ms, b, by)
             return ms, b, by
 
@@ -1591,7 +1614,8 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
             for tier in ("f32", "bf16"):
                 timed(f"k1 {tier}",
                       lambda t=tier: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship, precision=t),
-                      7, 20, k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2), tier == "bf16")
+                      7, 20, k1_flops(flagship, n_grid), k1_bytes(flag_params, n_grid, 2, 2), tier == "bf16",
+                      wg_flops(flagship, n_grid, 2))
             plain_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad_plain(flag_params, flag_batch, flagship, "bf16"), 5, 3)
             plain_bwd = {}
             for name in ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid"):
@@ -1600,10 +1624,12 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
                 for tier in ("f32", "bf16"):
                     timed(f"k3 {name} {tier}",
                           lambda t=tier: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt, precision=t, impl="stream"),
-                          7, 20, k3_flops(spec, x.shape[0], kt), nb, tier == "bf16")
+                          7, 20, k3_flops(spec, x.shape[0], kt), nb, tier == "bf16",
+                          wg_flops(spec, x.shape[0], kt))
                     timed(f"k4 {name} {tier}",
                           lambda t=tier: kernels_vjp.packed_mlp_bwd_rebuild(params, x, ybar, dybar, spec, kt, precision=t),
-                          7, 20, k4_flops(spec, x.shape[0], kt), nb, tier == "bf16")
+                          7, 20, k4_flops(spec, x.shape[0], kt), nb, tier == "bf16",
+                          wg_flops(spec, x.shape[0], kt))
                 plain_bwd[name] = cuda_ms(lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16"), 5, 3)
                 # the segment length C, on the card
                 c_auto = kernels_vjp.rebuild_ckpt_every(spec, kt, "bf16", n_points=x.shape[0])
@@ -2704,7 +2730,7 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
                                                                     kt, precision="bf16"),
              lambda: kernels_vjp.packed_mlp_bwd_plain(params, x, ybar, dybar, spec, kt, "bf16"),
              k4_flops(spec, x.shape[0], kt), k3_bytes(params, spec, x.shape[0], kt),
-             bound_bf16),
+             lambda f, b: bf16_bound(bound, bound_bf16, f, b, wg_flops(spec, x.shape[0], kt))),
         ):
             with torch.no_grad() if label.startswith("K2") else contextlib.nullcontext():
                 ms = cuda_ms(fn, 7, 10)
@@ -3090,34 +3116,60 @@ TIER_NAMES = ("f32", "bf16", "f32x3")
 
 def wide_build_report(repo: str) -> float:
     """Phase 2's lines for the wide body's libraries (``cuda_build.WIDE``):
-    registers and spills per kernel and tier from ``build.log``; returns the
-    CPU seconds of their ``nvcc``."""
+    per kernel and tier the HMMA of its kernels and of their innermost HMMA
+    loops (``cuobjdump -sass``, the twelve libraries read at once: an HMMA in
+    every bf16 and f32x3 walk or forward, none at f32, or the phase fails),
+    and the registers and spills from ``build.log``; returns the CPU seconds
+    of their ``nvcc``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pinn_depthestimation_tpu_torch.ops import cuda_build
 
+    built = cuda_build._ensure(cuda_build.WIDE)
+    libs = [(name, tier) for name in cuda_build.WIDE for tier in cuda_build.TIERS]
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        sass = dict(zip(libs, pool.map(
+            lambda nt: sass_kernels(str(built[nt[0]].log_path.parent / f"lib{nt[0]}_0_{nt[1]}.so")),
+            libs)))
     cpu_s = 0.0
     for name in cuda_build.WIDE:
-        built = cuda_build._ensure((name,))[name]
-        log = built.log_path.read_text() if built.log_path.exists() else ""
+        log = built[name].log_path.read_text() if built[name].log_path.exists() else ""
         for block in log.split(f"== {name} variant ")[1:]:
             head = re.match(r"(\d+) tier (\w+) \(exit -?\d+, ended at ([\d.]+) s, "
                             r"([\d.]+) s of CPU\)", block)
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
             spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", block)]
             cpu_s += float(head.group(4))
-            print(f"  ptxas {name.upper()} (wide) {head.group(2)}: registers "
+            tier = head.group(2)
+            walks = {fn: n for fn, (n, _) in sass[name, tier].items()
+                     if "reduce_kernel" not in fn and "images_kernel" not in fn}
+            loops = [lp for _, lp in sass[name, tier].values() if lp]
+            print(f"  SASS of {name.upper()} (wide) {tier}: {len(walks)} kernels, HMMA per kernel "
+                  f"{min(walks.values(), default=0)}..{max(walks.values(), default=0)}"
+                  + (f"; innermost HMMA loops {min(loops)[0]}..{max(loops)[0]} instructions, "
+                     f"{min(lp[1] for lp in loops)}..{max(lp[1] for lp in loops)} HMMA"
+                     if loops else ""))
+            if not walks or not all((n == 0) == (tier == "f32") for n in walks.values()):
+                fail(f"{name.upper()} (wide) {tier}: expected {'no' if tier == 'f32' else 'an'} "
+                     "HMMA in every kernel")
+            print(f"  ptxas {name.upper()} (wide) {tier}: registers "
                   f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
                   f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
                   f"{head.group(3)} s after {head.group(4)} s of CPU; log "
-                  f"{os.path.relpath(built.log_path, repo)}")
+                  f"{os.path.relpath(built[name].log_path, repo)}")
     return cpu_s
 
 
 def tier_bounds(bound, bound_bf16):
-    """The bound of a kernel's work at each tier: f32 on the CUDA cores' FMA
-    rate, bf16 and f32x3 (three bf16 products) on the tensor cores' rate, or
-    the bytes (as phases 6, 14 and 18 state them)."""
-    return {"f32": lambda f, b: bound(f, b), "bf16": lambda f, b: bound_bf16(f, b),
-            "f32x3": lambda f, b: x3_bounds(bound, bound_bf16, f, b)[:2]}
+    """The bound of a kernel's work (``f`` operations, ``b`` bytes, of which
+    ``wg`` weight-gradient operations) at each tier: f32 on the CUDA cores'
+    FMA rate; bf16 its tier-typed products on the tensor cores' rate and its
+    f32 weight gradients on the CUDA cores' (:func:`bf16_bound`); f32x3
+    (three bf16 products) on the tensor cores' rate; or the bytes (as phases
+    6, 14 and 18 state them)."""
+    return {"f32": lambda f, b, wg=0.0: bound(f, b),
+            "bf16": lambda f, b, wg=0.0: bf16_bound(bound, bound_bf16, f, b, wg),
+            "f32x3": lambda f, b, wg=0.0: x3_bounds(bound, bound_bf16, f, b)[:2]}
 
 
 def held(name: str, tier: str, got, fn, params, x, *args) -> tuple[float, bool]:
@@ -3337,40 +3389,46 @@ def wide_phase(dev, repo: str, bound, bound_bf16) -> dict:
             runs = {
                 "k1": (lambda: kernels_step.fused_loss_and_grad(fp, b, flag, precision=tier),
                        lambda: kernels_step.fused_loss_and_grad_plain(fp, b, flag, tier),
-                       k1_flops(flag, n_flag), k1_bytes(fp, n_flag, 2, 2), n_flag, flag),
+                       k1_flops(flag, n_flag), k1_bytes(fp, n_flag, 2, 2), n_flag, flag,
+                       wg_flops(flag, n_flag, 2)),
                 "k2": (lambda: kernels.fused_residual_continuity(fp, x, flag, precision=tier),
                        lambda: kernels.residual_continuity_plain(fp, x, flag, tier),
                        k2_flops(flag, n_flag, 2, True), k2_bytes(fp, n_flag, flag, 1), n_flag,
-                       flag),
+                       flag, 0.0),
                 "k3": (lambda: kernels_vjp.packed_mlp_bwd(cp, res_pts, ybar, dybar, cmb, 2,
                                                           precision=tier, impl="stream"),
                        lambda: kernels_vjp.packed_mlp_bwd_plain(cp, res_pts, ybar, dybar, cmb, 2,
                                                                 tier),
-                       k3_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb),
+                       k3_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb,
+                       wg_flops(cmb, n_res, 2)),
                 "k4": (lambda: kernels_vjp.packed_mlp_bwd_rebuild(cp, res_pts, ybar, dybar, cmb,
                                                                   2, precision=tier),
                        lambda: kernels_vjp.packed_mlp_bwd_plain(cp, res_pts, ybar, dybar, cmb, 2,
                                                                 tier),
-                       k4_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb),
+                       k4_flops(cmb, n_res, 2), k3_bytes(cp, cmb, n_res, 2), n_res, cmb,
+                       wg_flops(cmb, n_res, 2)),
             }
-            for kern, (fn, plain, flops, nbytes, pts, spec) in runs.items():
+            for kern, (fn, plain, flops, nbytes, pts, spec, wg) in runs.items():
                 with torch.no_grad():
                     ms = cuda_ms(fn, 3, 2)
                     dev_ms = device_ms(fn, 3, WIDE_KERNEL[kern])
                     plain_ms = cuda_ms(plain, 3, 1)
-                b_ms, by = bounds[tier](flops, nbytes)
+                b_ms, by = bounds[tier](flops, nbytes, wg)
                 kt = 0 if kern in ("k3", "k4") else None
                 plan = wide_plan.card_plan(kern, pts, spec, 2, tier, dev)
                 share = b_ms / (dev_ms or ms)
                 print(f"  {kern.upper()}-{tier} wide, {spec.sizes[0]}->[{W}]x{spec.n_hidden}->"
                       f"{spec.d_out}, {pts} points: {ms:.4f} ms (CUDA events), device time "
                       f"{fmt_ms(dev_ms)}; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {by}, "
-                      f"{share:.1%} of it; {flops / pts:,.0f} FLOP per point; {plan.tiles} tiles "
-                      f"of {plan.tile} points on {plan.grid} blocks, {plan.smem} B of shared "
-                      f"memory{'' if kt is None else ', C = %d' % plan.ckpt_every}")
+                      f"{share:.1%} of it; {flops / pts:,.0f} FLOP per point; plan: {plan.tiles} "
+                      f"tiles of {plan.tile} points on {plan.grid} blocks, {plan.rounds} rounds, "
+                      f"{wide_plan.BLOCKS_PER_SM} block per SM, {plan.smem} B of shared memory, "
+                      f"{plan.image} B of weight images"
+                      f"{'' if kt is None else ', C = %d' % plan.ckpt_every}")
                 timed[kern, tier, W] = {f"ms_w{W}": ms, f"device_ms_w{W}": dev_ms,
                                         f"plain_ms_w{W}": plain_ms, f"bound_ms_w{W}": b_ms,
-                                        f"bound_by_w{W}": by, f"points_w{W}": pts}
+                                        f"bound_by_w{W}": by, f"points_w{W}": pts,
+                                        f"tile_w{W}": plan.tile, f"rounds_w{W}": plan.rounds}
     out = {(k, t): {"max_abs_err_wide": err[k, t]} for k, t in err}
     for (kern, tier, _), nums in timed.items():
         out[kern, tier].update(nums)
@@ -3470,6 +3528,14 @@ def check_trained_run(run_dir: str, what: str, descent: bool = True) -> tuple[in
     return n_evals, totals
 
 
+def cmb_w128_init() -> dict:
+    """Phase 29's weights for the CMB net at width 128: phase 12b's recipe
+    (seeded xavier, the eta head's bias shifted by 1)."""
+    init = numpy_params((2,) + (128,) * 10 + (6,), "xavier", 6)
+    init["b_out"][3] += 1.0
+    return init
+
+
 # K2 + K3 against autograd on the CMB net at width 128: the largest relative
 # loss gap over the 20-step prefix (2.27e-7 on an H100 80GB HBM3 at 700 W;
 # 1e-5, the iteration-1 tolerance, leaves a 44x margin)
@@ -3482,7 +3548,15 @@ def wide_path_phase(dev, repo: str) -> dict:
     ``hidden_width`` 128 and then 64 (100 hidden layers, phase 8's cuts: K1
     launches == log rows, K2 serves the 81x261 grid), on
     ``examples/cmb.json`` with ``hidden_width`` 128 at f32 (K3 == 2 x
-    evaluations) and at bf16 (K4-bf16 == 2 x evaluations), phase 12's cuts;
+    evaluations) and at bf16 (K4-bf16 == 2 x evaluations), phase 12's cuts,
+    from :func:`cmb_w128_init`'s weights (``--init-from``): from the
+    example's seeded weights at this width cmb.json's Adam amplifies f32
+    roundoff some 600 times a step (autograd on the CPU and on the card
+    part by 3.2e-3 at the second evaluation and 49 % at the tenth, with no
+    kernel in either; ``tools/wide_cmb_trajectory.py``), so a 300-step run
+    from them is one sample of a chaotic path that may or may not stay
+    finite, on any implementation; from these, kernels and autograd stay
+    within 1e-3 over the whole run (PERF.md, section 6);
     then, after the path's launches are read, a K2 + K3 Trainer against an
     autograd one on the CMB config at width 128 (iteration 1 and a 20-step
     prefix as phase 12b runs them, the prefix within
@@ -3552,6 +3626,8 @@ def wide_path_phase(dev, repo: str) -> dict:
         if run_cli(["synth", "--out", synth])[0] != 0:
             fail("synth failed")
         csv, mat = (os.path.join(synth, f) for f in ("input_fid.csv", "input_res.mat"))
+        init_npz = os.path.join(tmp, "cmb_w128_init.npz")
+        np.savez(init_npz, **cmb_w128_init())
         for tier, bwd in (("f32", kernels_vjp.packed_mlp_bwd),
                           ("bf16", kernels_vjp.packed_mlp_bwd_rebuild)):
             cfg_path = cmb_config(tmp, repo, csv, mat, layers={"hidden_width": 128},
@@ -3563,7 +3639,7 @@ def wide_path_phase(dev, repo: str) -> dict:
             run = f"cmb_w128_{tier}"
             t0 = time.perf_counter()
             rc, _ = run_cli(["train", "--config", cfg_path, "--log-root", tmp, "--run-name", run,
-                             "--device", "cuda", "--debug"])
+                             "--init-from", init_npz, "--device", "cuda", "--debug"])
             out["train_s"][run] = time.perf_counter() - t0
             if rc != 0:
                 fail(f"CLI train on the CMB config at width 128, {tier}, exited {rc}")
@@ -3606,8 +3682,7 @@ def wide_path_phase(dev, repo: str) -> dict:
         # iteration 1 and a 20-step prefix on the CMB net at width 128, from
         # the same weights: K2 + K3 against autograd at f32, K2 + K4 at bf16
         # against the plain bf16 functions (PlainFused)
-        init = numpy_params((2,) + (128,) * 10 + (6,), "xavier", 6)
-        init["b_out"][3] += 1.0  # the eta head shifted, as phase 12b does
+        init = cmb_w128_init()
         prefix = {}
         for run, mode, tier in (("kernels", "auto", "f32"), ("autograd", "off", "f32"),
                                 ("kernels bf16", "auto", "bf16"), ("plain bf16", "auto", "bf16")):

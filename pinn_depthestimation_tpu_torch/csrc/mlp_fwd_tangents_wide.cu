@@ -8,9 +8,10 @@
 // max(W, d_in, d_out) <= 128. Computes what the narrow body computes, in the
 // same three modes (K = 0; K = 1 .. 3; K = 2 with the continuity epilogue
 // fc). Design and bound: mlp_wide.cuh (two stream buffers; no state
-// scratch). The launch plan (tile, grid, shared memory) is
-// ops/wide_plan.py's; k2w_smem gives the bytes this library computes for a
-// plan, which a card test holds to the plan's.
+// scratch; the forward images only, the next tile's input layer staged
+// while the last tile's output layer runs). The launch plan (tile, grid,
+// shared memory) is ops/wide_plan.py's; k2w_smem gives the bytes this
+// library computes for a plan, which a card test holds to the plan's.
 //
 // Limits (the wrapper checks them first and raises): 1 <= W, d_in, d_out <=
 // 128; 0 <= K <= min(3, d_in); the epilogue needs K = 2, d_in >= 2 and
@@ -25,7 +26,8 @@ namespace {
 template <class Tier, int ACT, int K, bool EPI>
 cudaError_t go(const wide::FwdArgs& a, size_t smem, int grid, cudaStream_t s) {
   auto kern = wide::fwd_kernel<Tier, ACT, K, EPI>;
-  return wide::launch(kern, smem, grid, s, nullptr, nullptr, 0, a);
+  return wide::launch<Tier>(kern, a.g, wide::dims_of(a.g, K), smem, grid, s, nullptr, nullptr, 0,
+                            a);
 }
 
 template <class Tier, int ACT>
@@ -41,13 +43,20 @@ cudaError_t by_k(const wide::FwdArgs& a, int K, int epi, size_t smem, int grid, 
 
 template <class Tier>
 int smem(int width, int d_in, int d_out, int n_tangents, int tile) {
-  return static_cast<int>(wide::smem_bytes(wide::make_dims(width, d_in, d_out, 0, n_tangents, tile),
-                                           2, wide::wt_bytes<Tier>()));
+  return static_cast<int>(
+      wide::smem_bytes<Tier>(wide::make_dims(width, d_in, d_out, 0, n_tangents, tile), 2));
+}
+
+template <class Tier>
+int image_bytes(int width, int d_in, int d_out, int n_stack) {
+  return static_cast<int>(
+      wide::image_bytes<Tier>(wide::make_dims(width, d_in, d_out, n_stack, 0, 16), false));
 }
 
 template <class Tier>
 int run(const float* x, const float* w_in, const float* b_in, const float* w_h, const float* b_h,
-        const float* w_out, const float* b_out, float* y, float* dy, float* fc, int n, int d_in,
+        const float* w_out, const float* b_out, unsigned char* image, float* y, float* dy,
+        float* fc, int n, int d_in,
         int d_out, int n_stack, int n_tangents, int act, int epilogue, int width, int grid,
         int tile, void* stream) {
   const wide::Dims d = wide::make_dims(width, d_in, d_out, n_stack, n_tangents, tile);
@@ -55,10 +64,10 @@ int run(const float* x, const float* w_in, const float* b_in, const float* w_h, 
       (epilogue && (n_tangents != 2 || d_in < 2 || d_out < 3 || fc == nullptr)) ||
       (!epilogue && (y == nullptr || (n_tangents > 0 && dy == nullptr))))
     return cudaErrorInvalidValue;
-  const wide::FwdArgs a{{x, w_in, b_in, w_h, b_h, w_out, b_out, nullptr, nullptr, n, width, d_in,
-                         d_out, n_stack, tile, 1},
+  const wide::FwdArgs a{{x, w_in, b_in, w_h, b_h, w_out, b_out, image, nullptr, nullptr, n, width,
+                         d_in, d_out, n_stack, tile, 1},
                         y, dy, fc};
-  const size_t bytes = wide::smem_bytes(d, 2, wide::wt_bytes<Tier>());
+  const size_t bytes = wide::smem_bytes<Tier>(d, 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return act == 0 ? by_k<Tier, 0>(a, n_tangents, epilogue, bytes, grid, s)
                   : by_k<Tier, 1>(a, n_tangents, epilogue, bytes, grid, s);
@@ -70,12 +79,16 @@ int run(const float* x, const float* w_in, const float* b_in, const float* w_h, 
   int k2w_smem##SUFFIX(int width, int d_in, int d_out, int n_tangents, int tile) {              \
     return smem<TIER>(width, d_in, d_out, n_tangents, tile);                                    \
   }                                                                                             \
+  int k2w_image_bytes##SUFFIX(int width, int d_in, int d_out, int n_stack) {                    \
+    return image_bytes<TIER>(width, d_in, d_out, n_stack);                                      \
+  }                                                                                             \
   int k2w_mlp_fwd_tangents##SUFFIX(const float* x, const float* w_in, const float* b_in,        \
                                    const float* w_h, const float* b_h, const float* w_out,      \
-                                   const float* b_out, float* y, float* dy, float* fc, int n,   \
-                                   int d_in, int d_out, int n_stack, int n_tangents, int act,   \
-                                   int epilogue, int width, int grid, int tile, void* stream) { \
-    return run<TIER>(x, w_in, b_in, w_h, b_h, w_out, b_out, y, dy, fc, n, d_in, d_out,          \
+                                   const float* b_out, unsigned char* image, float* y,          \
+                                   float* dy, float* fc, int n, int d_in, int d_out,            \
+                                   int n_stack, int n_tangents, int act, int epilogue,          \
+                                   int width, int grid, int tile, void* stream) {               \
+    return run<TIER>(x, w_in, b_in, w_h, b_h, w_out, b_out, image, y, dy, fc, n, d_in, d_out,   \
                      n_stack, n_tangents, act, epilogue, width, grid, tile, stream);            \
   }
 
@@ -85,9 +98,10 @@ int k2w_threads() { return wide::kThreads; }
 
 const char* k2w_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Per tier: the shared-memory bytes of a tile of `tile` points, and one
-// launch on `grid` blocks of tiles of `tile` points (ops/wide_plan.py).
-// Returns a cudaError_t; nothing synchronises.
+// Per tier: the shared-memory bytes of a tile of `tile` points, the bytes of
+// the forward weight images, and one launch: the images into `image`, then
+// `grid` blocks of tiles of `tile` points (ops/wide_plan.py). Returns a
+// cudaError_t; nothing synchronises.
 #if WITH_TIER(0)
 K2W_ENTRIES(, tier::TierF32)
 #endif

@@ -258,19 +258,20 @@ def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_k2w(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k2w", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 10 + [_P],
-                              "smem": [_I] * 5, "threads": []})
+    return _bind(lib, "k2w", {"mlp_fwd_tangents": [_P] * 11 + [_I] * 10 + [_P],
+                              "smem": [_I] * 5, "image_bytes": [_I] * 4, "threads": []})
 
 
 def _bind_k1w(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind(lib, "k1w", {"train_step": [_P] * 14 + [_I] * 9 + [_P],
-                              "smem": [_I] * 3, "threads": []})
+    return _bind(lib, "k1w", {"train_step": [_P] * 15 + [_I] * 9 + [_P],
+                              "smem": [_I] * 3, "image_bytes": [_I] * 3, "threads": []})
 
 
 def _bind_k34w(name: str):
     def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-        return _bind(lib, name, {"mlp_bwd": [_P] * 12 + [_I] * 10 + [_P],
-                                 "smem": [_I] * 5, "threads": [], "state_slots": [_I, _I]})
+        return _bind(lib, name, {"mlp_bwd": [_P] * 13 + [_I] * 10 + [_P],
+                                 "smem": [_I] * 5, "image_bytes": [_I] * 4, "threads": [],
+                                 "state_slots": [_I, _I]})
     return bind
 
 

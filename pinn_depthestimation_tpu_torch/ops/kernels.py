@@ -202,19 +202,21 @@ def _launch_k2_narrow(params, coords, spec: MLPSpec, n_tangents: int, precision:
 
 
 def _launch_k2_wide(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
-                    epilogue: bool, y=None, dy=None, fc=None) -> None:
+                    epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
     """One launch of K2's wide body on the plan of :func:`ops.wide_plan.
-    card_plan`."""
-    lib = wide_library("k2")
+    card_plan`, its weight images in a scratch of the plan's bytes. ``lib``:
+    another build of the wide K2 (a check of a rebuilt source)."""
+    lib = lib or wide_library("k2")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     n = coords.shape[0]
     plan = wide_plan.card_plan("k2", n, spec, n_tangents, precision, coords.device)
+    image = plan.scratch(0, coords.device)
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream(coords.device).cuda_stream
         err = entry(lib, "k2w_mlp_fwd_tangents", precision)(
             ptr(coords), ptr(params["w_in"]), ptr(params["b_in"]),
             ptr(params["w_hidden"]), ptr(params["b_hidden"]),
-            ptr(params["w_out"]), ptr(params["b_out"]),
+            ptr(params["w_out"]), ptr(params["b_out"]), ptr(image),
             ptr(y), ptr(dy), ptr(fc),
             n, spec.d_in, spec.d_out, spec.n_hidden - 1,
             n_tangents, _ACT[spec.init_type], int(epilogue),

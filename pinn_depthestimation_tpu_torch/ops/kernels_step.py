@@ -410,21 +410,22 @@ def _launch_k1_narrow(params, b: StepBatch, spec: MLPSpec, lib=None,
     return out
 
 
-def _launch_k1_wide(params, b: StepBatch, spec: MLPSpec, precision: str) -> torch.Tensor:
+def _launch_k1_wide(params, b: StepBatch, spec: MLPSpec, precision: str, lib=None) -> torch.Tensor:
     """K1's wide body + its reduction on the plan of :func:`ops.wide_plan.
-    card_plan`; the flat ``(n_flat + 8,)`` result."""
-    lib = wide_library("k1")
+    card_plan`; the flat ``(n_flat + 8,)`` result. ``lib``: another build of
+    the wide K1 (a check of a rebuilt source)."""
+    lib = lib or wide_library("k1")
     dev = b.coords.device
     n = b.coords.shape[0]
     plan = wide_plan.card_plan("k1", n, spec, KT, precision, dev)
-    partial, states, out = plan.scratch(n_flat(spec) + N_STATS, dev)
+    image, partial, states, out = plan.scratch(n_flat(spec) + N_STATS, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(lib, "k1w_train_step", precision)(
             b.coords.data_ptr(), b.trues.data_ptr(), b.sel.data_ptr(), b.mask.data_ptr(),
             b.scal.data_ptr(),
             *(params[k].data_ptr() for k in ("w_in", "b_in", "w_hidden", "b_hidden", "w_out", "b_out")),
-            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            image.data_ptr(), partial.data_ptr(), states.data_ptr(), out.data_ptr(),
             n, spec.d_in, spec.n_hidden - 1, b.n_true, int(b.has_anchor), _ACT[spec.init_type],
             spec.width, plan.grid, plan.tile, stream,
         )

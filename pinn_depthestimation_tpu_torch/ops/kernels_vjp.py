@@ -265,21 +265,22 @@ def _launch_k4_narrow(params, coords, ybar, dybar, spec: MLPSpec, n_tangents: in
 
 
 def _launch_wide(kernel: str, params, coords, ybar, dybar, spec: MLPSpec, n_tangents: int,
-                 precision: str, ckpt_every: int = 0) -> torch.Tensor:
+                 precision: str, ckpt_every: int = 0, lib=None) -> torch.Tensor:
     """K3's or K4's wide body (``kernel`` ``'k3'`` or ``'k4'``) + its
     reduction on the plan of :func:`ops.wide_plan.card_plan`; the flat
-    ``(n_flat,)`` gradients in ``kernels_step.FLAT_KEYS`` order."""
-    lib = wide_library(kernel)
+    ``(n_flat,)`` gradients in ``kernels_step.FLAT_KEYS`` order. ``lib``:
+    another build of that wide body (a check of a rebuilt source)."""
+    lib = lib or wide_library(kernel)
     dev = coords.device
     n = coords.shape[0]
     plan = wide_plan.card_plan(kernel, n, spec, n_tangents, precision, dev, ckpt_every)
-    partial, states, out = plan.scratch(n_flat(spec), dev)
+    image, partial, states, out = plan.scratch(n_flat(spec), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(lib, f"{kernel}w_mlp_bwd", precision)(
             coords.data_ptr(), ybar.data_ptr(), dybar.data_ptr() if n_tangents else None,
             *(params[k].data_ptr() for k in _WEIGHT_ORDER),
-            partial.data_ptr(), states.data_ptr(), out.data_ptr(),
+            image.data_ptr(), partial.data_ptr(), states.data_ptr(), out.data_ptr(),
             n, spec.d_in, spec.d_out, spec.n_hidden - 1, n_tangents, _ACT[spec.init_type],
             plan.ckpt_every, spec.width, plan.grid, plan.tile, stream,
         )

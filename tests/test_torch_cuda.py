@@ -1147,7 +1147,8 @@ def test_cuda_kernels_at_every_pallas_width(cuda_device, sizes, init_type, preci
 def test_cuda_wide_libraries_report_their_variants(cuda_device):
     """The wide build holds one library per kernel and tier (under the width
     key 0), each answering its threads and, for a plan, the shared-memory
-    bytes and state slots that ops/wide_plan.py computes."""
+    bytes, the weight images' bytes and the state slots that
+    ops/wide_plan.py computes."""
     from pinn_depthestimation_tpu_torch.ops import cuda_build, wide_plan
     from pinn_depthestimation_tpu_torch.ops.kernels import entry
 
@@ -1158,15 +1159,93 @@ def test_cuda_wide_libraries_report_their_variants(cuda_device):
         kernel = name[:2]
         assert getattr(lib, f"{name}_threads")() == wide_plan.THREADS
         for precision in cuda_build.TIERS:
-            for W, d_in, d_out, kt, tile in ((128, 2, 3, 2, 28), (64, 12, 16, 3, 40), (33, 2, 2, 0, 8)):
+            for W, d_in, d_out, kt, tile in ((128, 2, 3, 2, 32), (64, 12, 16, 3, 48), (33, 2, 2, 0, 16)):
                 if kernel == "k1":
                     got = entry(lib, "k1w_smem", precision)(W, d_in, tile)
                     want = wide_plan.smem_bytes("k1", W, d_in, 3, 2, tile, precision)
+                    img = entry(lib, "k1w_image_bytes", precision)(W, d_in, 99)
+                    want_img = wide_plan.image_bytes("k1", W, d_in, 3, 99, precision)
                 else:
                     got = entry(lib, f"{name}_smem", precision)(W, d_in, d_out, kt, tile)
                     want = wide_plan.smem_bytes(kernel, W, d_in, d_out, kt, tile, precision)
+                    img = entry(lib, f"{name}_image_bytes", precision)(W, d_in, d_out, 9)
+                    want_img = wide_plan.image_bytes(kernel, W, d_in, d_out, 9, precision)
                 assert got == want, (name, precision, W)
+                assert img == want_img, (name, precision, W)
         if kernel in ("k3", "k4"):
             for n_stack, c in ((99, 8), (9, 3), (0, 1)):
                 assert getattr(lib, f"{name}_state_slots")(n_stack, c) == \
                     wide_plan.state_slots(kernel, n_stack, c)
+
+
+# -------------------------------------------------- the wide walk at W = 128
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f32x3"])
+def test_cuda_wide_walk_at_width_128_matches_plain_and_repeats_its_bits(cuda_device, precision):
+    """K1, K3 and K4 (segments of C = 2 layers, so that the backward re-runs
+    several) on 2->[128]x6->3 at every tier, on three tiles a block (the
+    plan's 32-point tiles at W = 128 over three times the SMs): held to
+    their plain versions (bf16 and f32x3 by ``assert_tier_close``), and two
+    launches of each give the same bits (per-block partial rows summed in
+    block order, no atomics)."""
+    from pinn_depthestimation_tpu_torch.ops import wide_plan
+
+    sizes = (2,) + (128,) * 6 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, "xavier", seed=13), cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n = 3 * sms * 32 - 5
+    rs = np.random.RandomState(13)
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+    ybar = torch.from_numpy(rs.randn(n, 3).astype(np.float32)).to(cuda_device)
+    dybar = torch.from_numpy(rs.randn(2, n, 3).astype(np.float32)).to(cuda_device)
+    trues = torch.from_numpy((rs.randn(n, 2) * 0.1).astype(np.float32)).to(cuda_device)
+    ones = torch.ones(n, device=cuda_device)
+    b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float(), ones, [1.0, 1.0], 2,
+                                     1.0, 1.0, anchor_depth=0.75, has_anchor=True)
+    for kernel in ("k1", "k3", "k4"):
+        plan = wide_plan.card_plan(kernel, n, spec, 2, precision, cuda_device,
+                                   2 if kernel == "k4" else 0)
+        assert plan.tile == 32 and plan.rounds == 3, plan
+    floor, distinct = (2e-6, 2.0) if precision == "f32x3" else (1e-4, 0.0)
+
+    def k1_flat(p, xx, tier):
+        bb = b if xx.dtype == torch.float32 else kernels_step.make_step_batch(
+            xx, trues.double(), b.sel.double(), ones.double(), [1.0, 1.0], 2, 1.0, 1.0,
+            anchor_depth=0.75, has_anchor=True)
+        _, _, _, stats, g = kernels_step._plain_stats_and_grads(p, bb, spec, tier)
+        return torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS]
+                         + [stats.reshape(-1)[:5]])
+
+    def bwd_flat(p, xx, tier):
+        yb, db = (ybar, dybar) if xx.dtype == torch.float32 else (ybar.double(), dybar.double())
+        g = kernels_vjp.packed_mlp_bwd_plain(p, xx, yb, db, spec, 2, tier)
+        return torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])
+
+    n_p = kernels_step.n_flat(spec)
+    launches = {
+        "k1": (lambda: kernels_step._launch_k1_wide(params, b, spec, precision)[:n_p + 5],
+               k1_flat),
+        "k3": (lambda: kernels_vjp._launch_wide("k3", params, x, ybar, dybar, spec, 2,
+                                                precision),
+               bwd_flat),
+        "k4": (lambda: kernels_vjp._launch_wide("k4", params, x, ybar, dybar, spec, 2,
+                                                precision, 2),
+               bwd_flat),
+    }
+    real = []
+    with torch.no_grad():
+        for kernel, (launch, plain) in launches.items():
+            got, again = launch(), launch()
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), kernel
+            if precision == "f32":
+                assert_close_to_plain(got, plain(params, x, "f32"))
+                real.append(True)
+            else:
+                real.append(assert_tier_close(got, plain(params, x, precision),
+                                              plain(params, x, "f32"),
+                                              plain(f64(params), x.double(), precision), floor,
+                                              distinct))
+    assert any(real)

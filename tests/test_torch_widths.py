@@ -278,17 +278,20 @@ def test_wrappers_route_pad_and_slice(monkeypatch, sizes, body, width):
 
 def test_every_gated_shape_fits_the_shared_memory():
     """W <= 128, d_in, d_out <= 128, K <= 3, every kernel and tier: a tile
-    of at least 4 points fits 232,448 B (the worst case, d_in = d_out = 128
-    and K = 3, at every width; the bytes grow with each size)."""
+    of at least 16 points fits 232,448 B (the worst case, d_in = d_out = 128
+    and K = 3, at every width; the bytes grow with each size), and the
+    largest tile is the last multiple of 16 that fits and takes one round
+    of the block's products."""
     for kernel in wide_plan.KERNELS:
         for tier in TIERS:
             for W in range(1, 129):
                 top = wide_plan.max_tile(kernel, W, 128, 128, 3, tier)
-                assert top >= 4 and top % 4 == 0
+                assert top >= 16 and top % 16 == 0
                 assert wide_plan.smem_bytes(kernel, W, 128, 128, 3, top, tier) <= 232_448
-                assert wide_plan.smem_bytes(kernel, W, 128, 128, 3, top + 4, tier) > 232_448 \
-                    or top == wide_plan.MAX_TILE
-    assert wide_plan.max_tile("k1", 128, 2, 3, 2, "f32") == 28  # the flagship at W = 128
+                assert (wide_plan.smem_bytes(kernel, W, 128, 128, 3, top + 16, tier) > 232_448
+                        or not wide_plan.one_round(W, 128, 128, top + 16)
+                        or top == wide_plan.MAX_TILE)
+    assert wide_plan.max_tile("k1", 128, 2, 3, 2, "f32") == 32  # the flagship at W = 128
 
 
 @settings(max_examples=200, deadline=None)
@@ -299,23 +302,25 @@ def test_every_gated_shape_fits_the_shared_memory():
 def test_wide_plan_covers_the_points(kernel, tier, width, d_in, d_out, k, n, sms, n_stack, ckpt):
     k = min(k, d_in)
     p = wide_plan.wide_plan(kernel, n, width, d_in, d_out, n_stack, k, tier, sms, ckpt=ckpt)
-    assert p.tile % 4 == 0 and 4 <= p.tile <= wide_plan.MAX_TILE
+    assert p.tile % 16 == 0 and 16 <= p.tile <= wide_plan.MAX_TILE
     assert p.tiles * p.tile >= n > (p.tiles - 1) * p.tile
     assert p.grid == min(p.tiles, sms) and p.smem <= wide_plan.SMEM_LIMIT
+    assert p.rounds * p.grid >= p.tiles > (p.rounds - 1) * p.grid
     if kernel == "k4":
         c = p.ckpt_every
         assert 1 <= c <= max(1, n_stack) and (ckpt == 0 or c == min(ckpt, max(1, n_stack)))
         assert p.slots == -(-n_stack // c) + c
     else:
         assert p.slots == (0 if kernel == "k2" else n_stack + 1)
-    assert p.state_numel() == p.grid * p.slots * (1 + k) * wide_plan.round4(width) * p.tile
+    assert p.state_numel() == p.grid * p.slots * (1 + k) * wide_plan.round16(width) * p.tile
+    assert p.image == wide_plan.image_bytes(kernel, width, d_in, d_out, n_stack, tier)
 
 
 def test_wide_wrappers_pass_what_the_plan_says(monkeypatch):
     """The wide launches reached on the CPU: a fake library records the C
     entry's arguments; they must be the plan's tile, grid, C, sizes and the
-    buffers it sizes."""
-    seen = {}
+    buffers it sizes, the weight images' scratch among them."""
+    seen, made = {}, []
 
     class FakeLib:
         def __getattr__(self, name):
@@ -324,6 +329,14 @@ def test_wide_wrappers_pass_what_the_plan_says(monkeypatch):
                 return 0
             return entry
 
+    scratch = wide_plan.WidePlan.scratch
+
+    def recorded(plan, n_ent, device):
+        out = scratch(plan, n_ent, device)
+        made.append((plan, out))
+        return out
+
+    monkeypatch.setattr(wide_plan.WidePlan, "scratch", recorded)
     monkeypatch.setattr(kernels, "wide_library", lambda k: FakeLib())
     monkeypatch.setattr(kernels_vjp, "wide_library", lambda k: FakeLib())
     monkeypatch.setattr(kernels_step, "wide_library", lambda k: FakeLib())
@@ -342,17 +355,25 @@ def test_wide_wrappers_pass_what_the_plan_says(monkeypatch):
     kernels._launch_k2(params, x, spec, 2, "bf16", epilogue=False, y=y, dy=dy)
     plan = wide_plan.card_plan("k2", n, spec, 2, "bf16", x.device)
     args = seen["k2w_mlp_fwd_tangents_bf16"]
-    assert args[10:] == (n, 2, 3, 4, 2, 0, 0, 64, plan.grid, plan.tile, 7)
+    assert args[11:] == (n, 2, 3, 4, 2, 0, 0, 64, plan.grid, plan.tile, 7)
+    assert made[-1][0] == plan and args[7] == made[-1][1].data_ptr()
+    assert made[-1][1].numel() == plan.image == wide_plan.image_bytes("k2", 64, 2, 3, 4, "bf16")
     ybar, dybar = torch.zeros(n, 3), torch.zeros(2, n, 3)
     kernels_vjp._launch_wide("k4", params, x, ybar, dybar, spec, 2, "f32", 3)
     plan = wide_plan.card_plan("k4", n, spec, 2, "f32", x.device, 3)
     args = seen["k4w_mlp_bwd"]
-    assert args[12:] == (n, 2, 3, 4, 2, 0, 3, 64, plan.grid, plan.tile, 7)
+    assert args[13:] == (n, 2, 3, 4, 2, 0, 3, 64, plan.grid, plan.tile, 7)
     assert plan.ckpt_every == 3 and plan.slots == 2 + 3
+    image, partial, states, _ = made[-1][1]
+    assert args[9:12] == (image.data_ptr(), partial.data_ptr(), states.data_ptr())
+    assert (image.numel(), states.numel()) == (plan.image, plan.state_numel())
+    assert tuple(partial.shape) == (plan.grid, kernels_step.n_flat(spec))
     b = port_batch(*step_inputs(n, 2), 2, True)
     kernels_step._launch_k1_wide(params, b, spec, "f32x3")
     plan = wide_plan.card_plan("k1", n, spec, 2, "f32x3", x.device)
-    assert seen["k1w_train_step_f32x3"][14:] == (n, 2, 4, 2, 1, 0, 64, plan.grid, plan.tile, 7)
+    assert seen["k1w_train_step_f32x3"][15:] == (n, 2, 4, 2, 1, 0, 64, plan.grid, plan.tile, 7)
+    assert seen["k1w_train_step_f32x3"][11] == made[-1][1][0].data_ptr()
+    assert made[-1][1][0].numel() == plan.image
     assert kernels_vjp.rebuild_ckpt_every(spec, 2, "f32", 0, n_points=n) == 4  # C cut to L
     wide_plan._card_plan.cache_clear()
 

@@ -4,6 +4,8 @@ time both builds.
 
     python3 tools/k1_refactor_check.py --other-dir OLD_CSRC [--tiers f32,bf16,f32x3]
                                        [--kernels k2,k1,k3,k4] [--exact k2:f32] [--time]
+    python3 tools/k1_refactor_check.py --wide --other-dir OLD_CSRC [--tiers ...]
+                                       [--kernels k1,k3,k4,k2] [--time] [--widths 64,128]
 
 Needs one CUDA card and nvcc. ``OLD_CSRC`` holds another version of the
 kernels' sources (for example those of a parent commit:
@@ -35,6 +37,17 @@ continuity residual at 10M points, the 21,141-point serving grid (K=0) and
 the CMB grid (K=2). It prints each time with the card's name and power
 limit, then a table of the means with the ratio. Exits 1 if a check fails
 or a build fails.
+
+``--wide`` does the same for the wide body (``csrc/mlp_wide.cuh`` and its
+three sources; ``tools/wide_check.py`` builds the other sources, launches
+either interface, the first wide walk's too, and makes the cases): K1, K3,
+K4 and K2 at phase 28's path shapes of ``chip_smoke.py`` for each W of
+``--widths`` (K1 and the K2 epilogue on the 2->[W]x100->3 flagship at
+12,516 points, K2 at K = 0 on the 81x261 grid, K3, K4 and K2 at K = 2 on
+the 2->[W]x10->6 CMB net and the 20,507-point CMB grid), each held to the
+other build by the tolerances above, and with ``--time`` timed in turns
+(other, ours, ours, other) beside the plain version, each with its plan
+(tile, tiles, rounds, blocks per SM).
 """
 
 from __future__ import annotations
@@ -125,6 +138,133 @@ def launch_k4(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"
     return kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, precision, lib=lib)
 
 
+def main_wide(args) -> int:
+    """The ``--wide`` check (module docstring)."""
+    import torch
+
+    import chip_smoke
+    from pinn_depthestimation_tpu_torch.ops import cuda_build, kernels, kernels_step, kernels_vjp
+    from tools import wide_check
+
+    if not torch.cuda.is_available():
+        print("k1_refactor_check: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.nvidia_smi("name,power.limit"))
+    tiers = args.tiers.split(",")
+    wanted = [k for k in ("k1", "k3", "k4", "k2") if k in args.kernels.split(",")]
+    widths = tuple(int(w) for w in args.widths.split(","))
+    failed, rows = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = wide_check.start_builds(args.other_dir, tmp, wanted, tiers, "other")
+        built = cuda_build._ensure(cuda_build.WIDE)
+        libs = {("ours", k, t): built[k + "w"].libs[0] for k in wanted for t in tiers}
+        libs.update(wide_check.finish_builds(procs))
+        for label, kind, kt, spec, params, kw in wide_check.path_cases(dev, widths):
+            if kind not in wanted:
+                continue
+            x = kw["x"]
+
+            def outputs(lib, tier, kind=kind, kt=kt, spec=spec, params=params, kw=kw):
+                if kind != "k2":
+                    flat = wide_check.launch(lib, kind, tier, params, spec, kt=kt, **kw)
+                    if kind == "k1":
+                        n_p = kernels_step.n_flat(spec)
+                        flat = torch.cat([flat[:n_p], flat[n_p:n_p + 5]])
+                    return {"": flat}
+                fresh = {k: torch.empty_like(v) for k, v in kw.items() if k in ("y", "dy", "fc")}
+                wide_check.launch(lib, kind, tier, params, spec, kt=kt, x=x, **fresh)
+                return fresh
+
+            def plain(p, xx, tier, kind=kind, kt=kt, spec=spec, kw=kw):
+                if kind == "k1":
+                    b = kw["batch"]
+                    if xx.dtype == torch.float64:
+                        b = kernels_step.make_step_batch(
+                            xx, b.trues.double(), b.sel.double(), b.mask.double(), [1.0, 1.0], 2,
+                            1.0, 1.0, anchor_depth=0.75, has_anchor=True)
+                    _, _, _, stats, g = kernels_step._plain_stats_and_grads(p, b, spec, tier)
+                    return {"": torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS]
+                                          + [stats.reshape(-1)[:5]])}
+                if kind in ("k3", "k4"):
+                    yb, db = kw["ybar"], kw["dybar"]
+                    if xx.dtype == torch.float64:
+                        yb, db = yb.double(), db.double()
+                    g = kernels_vjp.packed_mlp_bwd_plain(p, xx, yb, db, spec, kt, tier)
+                    return {"": torch.cat([g[k].reshape(-1) for k in kernels_step.FLAT_KEYS])}
+                if "fc" in kw:
+                    return {"fc": kernels.residual_continuity_plain(p, xx, spec, tier)}
+                y, dy = kernels.mlp_fwd_tangents_plain(p, xx, spec, kt, tier)
+                return {"y": y, "dy": dy} if "dy" in kw else {"y": y}
+
+            for tier in tiers:
+                name = f"{kind.upper()}-{tier} wide {label}"
+                with torch.no_grad():
+                    ours = outputs(libs[("ours", kind, tier)], tier)
+                    again = outputs(libs[("ours", kind, tier)], tier)
+                    theirs = outputs(libs[("other", kind, tier)], tier)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(ours[k], again[k]) for k in ours)
+                    print(f"{name}: two launches bit-identical {same}")
+                    if not same:
+                        failed.append(f"{name} (two launches differ)")
+                    refs = None
+                    if tier != "f32":
+                        refs = {"f32": plain(params, x, "f32"),
+                                "f64": plain(chip_smoke.f64(params), x.double(), tier)}
+                    for k in ours:
+                        try:
+                            if tier == "f32":
+                                chip_smoke.compare(f"{name} {k} against the other build", ours[k],
+                                                   theirs[k])
+                            else:
+                                x3 = tier == "f32x3"
+                                chip_smoke.compare_tier(
+                                    f"{name} {k} against the other build", ours[k], theirs[k],
+                                    refs["f32"][k], refs["f64"][k], tier,
+                                    rel_floor=chip_smoke.X3_REL_FLOOR if x3 else chip_smoke.REL_TOL,
+                                    distinct=chip_smoke.X3_DISTINCT if x3 else 0.0)
+                        except SystemExit:
+                            failed.append(f"{name} {k}")
+                if not args.time:
+                    continue
+                calls = {who: (lambda lib=libs[(who, kind, tier)], tier=tier, kind=kind, kt=kt,
+                               spec=spec, params=params, kw=kw: wide_check.launch(
+                                   lib, kind, tier, params, spec, kt=kt, **kw))
+                         for who in ("other", "ours")}
+                reps, inner = (3, 3) if kind == "k1" else (5, 5)
+                with torch.no_grad():
+                    t = wide_check.time_in_turns(calls, ("other", "ours", "ours", "other"), reps,
+                                                 inner, wide_check.KERNEL_NAME[kind])
+                    plain_ms = chip_smoke.cuda_ms(lambda: plain(params, x, tier), 3, 1)
+                plans = {who: wide_check.plan_of(libs[(who, kind, tier)], kind, tier,
+                                                 x.shape[0], spec, kt, dev)
+                         for who in ("other", "ours")}
+                print(f"time {name}: other build {t['other'][0]} ms, this build {t['ours'][0]} "
+                      f"ms (CUDA events, median of {reps} x {inner} calls); device time other "
+                      f"{t['other'][1]} ms, this {t['ours'][1]} ms (torch.profiler, {inner} "
+                      f"calls); plain version {plain_ms:.4f} ms; order other, ours, ours, other; "
+                      f"plans {plans}")
+                rows.append((name, *(wide_check.mean(t[w][i]) for i in (0, 1)
+                                     for w in ("other", "ours")), plain_ms, plans))
+    if rows:
+        print("| kernel, tier, shape | other (events ms) | this (events ms) | other (device ms) "
+              "| this (device ms) | this / other (device) | plain (ms) | this plan: tile, "
+              "tiles, rounds, blocks/SM |")
+        print("| --- | --- | --- | --- | --- | --- | --- | --- |")
+        for name, e_o, e_t, d_o, d_t, plain_ms, plans in rows:
+            p = plans["ours"]
+            print(f"| {name} | {e_o:.4f} | {e_t:.4f} | {d_o:.4f} | {d_t:.4f} | "
+                  f"{d_t / d_o:.3f} | {plain_ms:.4f} | {p['tile']}, {p['tiles']}, "
+                  f"{-(-p['tiles'] // p['grid'])}, {p['blocks_per_sm']} |")
+    if failed:
+        print(f"wide ({'/'.join(tiers)}): {len(failed)} outputs FAIL: {failed}")
+        return 1
+    print(f"wide {', '.join(k.upper() for k in wanted)} ({'/'.join(tiers)}) agree with the "
+          "other build")
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other-dir", required=True,
@@ -136,7 +276,12 @@ def main() -> int:
                              "the other build")
     parser.add_argument("--time", action="store_true",
                         help="time K2, K1, K3 and K4 of both builds in turns")
+    parser.add_argument("--wide", action="store_true",
+                        help="check and time the wide body (mlp_wide.cuh) instead")
+    parser.add_argument("--widths", default="64,128", help="--wide: hidden widths")
     args = parser.parse_args()
+    if args.wide:
+        return main_wide(args)
     tiers = args.tiers.split(",")
     wanted = set(args.kernels.split(","))
     exact = set(args.exact.split(",")) if args.exact else set()

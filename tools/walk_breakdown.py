@@ -2,6 +2,7 @@
 """Split the time of K1 and K3 between the parts of their shared backward walk.
 
     python3 tools/walk_breakdown.py [--csrc DIR] [--reps 7] [--inner 20]
+    python3 tools/walk_breakdown.py --wide [--csrc DIR] [--tiers f32,bf16] [--widths 64,128]
 
 Needs one CUDA card and nvcc. The tool copies the kernels' sources (the
 package's ``csrc/``, or ``--csrc DIR``, for example another commit's files
@@ -34,6 +35,25 @@ must apply, or the tool stops.
 It first asks whether ``ncu`` exists and may read the card's counters, and
 prints the answer. Prints the card's name and power limit, every time, and
 a table of the split.
+
+``--wide`` splits the wide body instead (``csrc/mlp_wide.cuh``, K1, K3 and
+K4 at the tiers of ``--tiers``; ``tools/wide_check.py`` builds and
+launches it at phase 28's path shapes: K1 on the 2->[W]x100->3 flagship at
+12,516 points, K3 and K4 on the 2->[W]x10->6 CMB net on the 20,507-point
+CMB grid at K = 2, for each W of ``--widths``). Its variants, one part of
+the walk dropped each (the patches are :data:`WIDE_PATCHES`, one table per
+version of the walk, picked by the source):
+
+  wgrad      the weight-gradient products return at once;
+  staging    the layer weights are not staged into shared memory (the
+             copies of the weight images are not issued);
+  states     the layer states are neither written to nor read from the
+             device scratch;
+  partials   the walk's partial rows are written without reading them back
+             (each tile stores instead of adding);
+  barriers   every ``__syncthreads()`` of the walk is removed;
+  cotangent  the hidden layers' cotangent product is dropped;
+  all        every one of them at once.
 """
 
 from __future__ import annotations
@@ -136,13 +156,133 @@ def ncu_status() -> str:
     return f"ncu: {ncu} found; counters {'readable' if ok else 'NOT readable'} (rc {run.returncode}: {tail})"
 
 
+# Patches of mlp_wide.cuh, per version of the wide walk: variant ->
+# [(regex, replacement)]. The first wide walk stages each layer with
+# `stage`, keeps the states with store_state/load_state and adds to its
+# partial rows with `accumulate`.
+WIDE_PATCHES = {
+    "first": {
+        "wgrad": [(r"(__device__ void weight_grad\([^{]*\{)", r"\1\n  return;")],
+        "staging": [(r"(__device__ void stage\([^{]*\{)", r"\1\n  return;")],
+        "states": [(r"(__device__ void store_state\([^{]*\{)", r"\1\n  return;"),
+                   (r"(__device__ void load_state\([^{]*\{)", r"\1\n  return;")],
+        "partials": [(r"return first \? v : \*dst \+ v;", "return v;")],
+        "barriers": [(r"__syncthreads\(\);", "(void)0;")],
+        "cotangent": [(r"product<Tier, S>\(BAR, d\.Wp, sm\.w, d\.Wp, CUR, nullptr, d\);",
+                       "(void)0;")],
+    },
+    # The redesigned walk: images staged by Pipe::issue, states kept
+    # through kept_state and read back by load_state and backward_pass.
+    "current": {
+        "wgrad": [(r"(__device__ void weight_grad_cc\([^{]*\{)", r"\1\n  return;"),
+                  (r"(__device__ void weight_grad_mma\([^{]*\{)", r"\1\n  return;")],
+        "staging": [(r"(__device__ void issue\(int idx, int chunk\) \{)", r"\1\n    idx = -1;")],
+        "states": [(r"(__device__ __forceinline__ float\* kept_state\([^{]*\{)",
+                    r"\1\n  return nullptr;"),
+                   (r"(__device__ void load_state\([^{]*\{)", r"\1\n  return;"),
+                   (r"backward_pass<ACT, K>\(BAR, CUR, PRV, state_ptr\([^;]*;",
+                    "backward_pass<ACT, K>(BAR, CUR, PRV, nullptr, d);")],
+        "partials": [(r"\*dst = first \? v : \*dst \+ v;", "*dst = v;")],
+        "barriers": [(r"__syncthreads\(\);", "(void)0;")],
+        "cotangent": [(r"layer<Tier, S>\(pipe, img_bwd\(d, j\),[^;]*;", "(void)0;")],
+    },
+}
+WIDE_VARIANTS = ("wgrad", "staging", "states", "partials", "barriers", "cotangent")
+
+
+def wide_version(text: str) -> str:
+    """Which table of :data:`WIDE_PATCHES` a ``mlp_wide.cuh`` takes."""
+    return "current" if "images_kernel" in text else "first"
+
+
+def wide_patch(text: str, variant: str) -> str:
+    table = WIDE_PATCHES[wide_version(text)]
+    for v in (WIDE_VARIANTS if variant == "all" else (variant,)):
+        for pattern, repl in table[v]:
+            text, n = re.subn(pattern, repl, text)
+            if n == 0:
+                raise RuntimeError(f"patch {v!r} found no {pattern!r} in mlp_wide.cuh")
+    return text
+
+
+def main_wide(args) -> int:
+    """The ``--wide`` split (module docstring)."""
+    import torch
+
+    import chip_smoke
+    from tools import wide_check
+
+    if not torch.cuda.is_available():
+        print("walk_breakdown: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.nvidia_smi("name,power.limit"))
+    print(ncu_status())
+    tiers = args.tiers.split(",")
+    widths = tuple(int(w) for w in args.widths.split(","))
+    with open(os.path.join(args.csrc, "mlp_wide.cuh")) as f:
+        text = f.read()
+    print(f"sources {args.csrc} (wide walk: {wide_version(text)})")
+    variants = ("untouched",) + WIDE_VARIANTS + ("all",)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for variant in variants:
+            d = os.path.join(tmp, variant)
+            wide_check.copy_sources(args.csrc, d)
+            if variant != "untouched":
+                with open(os.path.join(d, "mlp_wide.cuh"), "w") as f:
+                    f.write(wide_patch(text, variant))
+            procs.update(wide_check.start_builds(d, d, ("k1", "k3", "k4"), tiers, variant))
+        libs = {}
+        for key, value in procs.items():  # the untouched build's registers first
+            libs.update(wide_check.finish_builds({key: value}, key[0] == "untouched"))
+        cases = [c for c in wide_check.path_cases(dev, widths) if c[1] != "k2"]
+        rows = []
+        for label, kind, kt, spec, params, kw in cases:
+            for tier in tiers:
+                plan = wide_check.plan_of(libs[("untouched", kind, tier)], kind, tier,
+                                          kw["x"].shape[0], spec, kt, dev)
+                for variant in WIDE_VARIANTS + ("all",):
+                    calls = {who: (lambda lib=libs[(who, kind, tier)]: wide_check.launch(
+                        lib, kind, tier, params, spec, kt=kt, **kw))
+                        for who in ("untouched", variant)}
+                    with torch.no_grad():
+                        t = wide_check.time_in_turns(
+                            calls, ("untouched", variant, variant, "untouched"), args.reps,
+                            args.inner, wide_check.KERNEL_NAME[kind])
+                    print(f"time {label} {tier} (tile {plan['tile']}, {plan['tiles']} tiles on "
+                          f"{plan['grid']} blocks): untouched {t['untouched'][0]} ms, without "
+                          f"{variant} {t[variant][0]} ms (CUDA events, median of {args.reps} x "
+                          f"{args.inner} calls); device time untouched {t['untouched'][1]} ms, "
+                          f"without {variant} {t[variant][1]} ms (torch.profiler, {args.inner} "
+                          "calls); order untouched, variant, variant, untouched")
+                    rows.append((f"{label} {tier}", variant,
+                                 *(wide_check.mean(t[w][i]) for i in (0, 1)
+                                   for w in ("untouched", variant))))
+        print("split (ms; untouched is the mean of the two runs beside each variant; the "
+              "cost and its share are of the device time):")
+        print("| kernel | part dropped | untouched (events) | without it (events) | untouched "
+              "(device) | without it (device) | its cost | share |")
+        print("| --- | --- | --- | --- | --- | --- | --- | --- |")
+        for label, variant, ref, ms, dref, dms in rows:
+            print(f"| {label} | {variant} | {ref:.4f} | {ms:.4f} | {dref:.4f} | {dms:.4f} | "
+                  f"{dref - dms:.4f} | {(dref - dms) / dref:.1%} |")
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--csrc", default=os.path.join(REPO, "pinn_depthestimation_tpu_torch", "csrc"),
                         help="the kernels' sources to split (default: the package's)")
     parser.add_argument("--reps", type=int, default=7, help="CUDA-event repetitions per timing")
     parser.add_argument("--inner", type=int, default=20, help="calls per repetition")
+    parser.add_argument("--wide", action="store_true",
+                        help="split the wide body (mlp_wide.cuh) instead of the narrow walk")
+    parser.add_argument("--tiers", default="f32,bf16", help="--wide: tiers to split")
+    parser.add_argument("--widths", default="64,128", help="--wide: hidden widths")
     args = parser.parse_args()
+    if args.wide:
+        return main_wide(args)
 
     import torch
 
