@@ -11,8 +11,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (``csrc/mlp_bwd_rebuild.cu``) from the checkout's sources, each library
    holding the f32, bf16 and f32x3 tiers, every ``nvcc`` started together;
    registers and spills per width; the HMMA instructions of K2's kernels
-   at width 20 (``cuobjdump -sass``): in every bf16 and f32x3 kernel (the
-   tensor-core body), in no f32 one;
+   at width 20 and of K1's, K3's and K4's walk kernels at every width
+   (``cuobjdump -sass``): in every bf16 and f32x3 kernel (the tensor-core
+   bodies, ``csrc/mlp_fwd_tangents_mma.cuh``, ``csrc/mlp_bwd_mma.cuh``),
+   in no f32 one;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -500,6 +502,38 @@ def sass_kernels(so_path: str) -> dict:
                     loops.append((len(body), sum("HMMA" in ln for ln in body)))
         out[fn.split("\n")[0].strip()] = (fn.count("HMMA"), min(loops) if loops else None)
     return out
+
+
+def walk_sass_report(libs: dict) -> None:
+    """Phase 2's lines for the narrow walk's libraries (K1, K3, K4 at every
+    width and tier, ``cuobjdump -sass``, read at once): the HMMA of each
+    walk kernel (the reduction kernel aside) and of its innermost HMMA
+    loop; an HMMA in every bf16 and f32x3 walk kernel (the tensor-core body,
+    ``csrc/mlp_bwd_mma.cuh``) and none at f32, or the phase fails."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pinn_depthestimation_tpu_torch.ops import cuda_build
+
+    keys = [(name, w, tier) for name, built in libs.items() for w in sorted(built.libs)
+            for tier in cuda_build.TIERS]
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        sass = dict(zip(keys, pool.map(lambda k: sass_kernels(
+            str(libs[k[0]].log_path.parent / f"lib{k[0]}_{k[1]}_{k[2]}.so")), keys)))
+    for name in libs:
+        for tier in cuda_build.TIERS:
+            walks = [n for (nm, _, t), fns in sass.items() if nm == name and t == tier
+                     for fn, (n, _) in fns.items() if "reduce_kernel" not in fn]
+            loops = [lp for (nm, _, t), fns in sass.items() if nm == name and t == tier
+                     for _, lp in fns.values() if lp]
+            print(f"  SASS of {name.upper()} {tier}, widths {sorted(libs[name].libs)}: "
+                  f"{len(walks)} walk kernels, HMMA per kernel "
+                  f"{min(walks, default=0)}..{max(walks, default=0)}"
+                  + (f"; innermost HMMA loops {min(loops)[0]}..{max(loops)[0]} instructions, "
+                     f"{min(lp[1] for lp in loops)}..{max(lp[1] for lp in loops)} HMMA"
+                     if loops else ""))
+            if not walks or not all((n == 0) == (tier == "f32") for n in walks):
+                fail(f"{name.upper()}-{tier}: expected {'no' if tier == 'f32' else 'an'} HMMA "
+                     "in every walk kernel")
 
 
 def k2_bytes(params, n_points: int, spec, out_floats_per_point: int) -> float:
@@ -3924,6 +3958,7 @@ def main() -> None:
                  f"{loop[1]} HMMA" if loop else ""))
         if not sass or not all((n == 0) == (tier == "f32") for n in hmma):
             fail(f"K2-{tier}: expected {'no' if tier == 'f32' else 'an'} HMMA in every kernel")
+    walk_sass_report({"k1": lib_k1, "k3": lib_k3, "k4": lib_k4})
 
     # 3. kernel vs plain ----------------------------------------------------
     print("== phase 3: K2 against its plain version on the card")

@@ -32,7 +32,8 @@
 // walk rounds as tier.cuh says, and the epilogue rounds the last state
 // before w_out (JAX ops/kernels_vjp.py:569); at the f32x3 tier
 // (k1_train_step_f32x3) the walk and the epilogue split those operands
-// instead; the statistics and the cotangents stay f32.
+// instead; the statistics and the cotangents stay f32. Those two tiers run
+// the tensor-core walk (mlp_bwd_mma.cuh, ContinuityEpilogueMma below).
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // forward (238,200 for the 2->[20]x100->3 flagship at K=2) and about twice
@@ -41,8 +42,8 @@
 // it. What the design spends beyond that: the layer states go to device
 // memory and back once (24,240 B per point at the flagship, ~0.6 GB of
 // traffic at 12,516 points), the lane pairs' shuffles and the block
-// products' shared-memory loads (mlp_bwd_common.cuh). Tensor cores are
-// left for later work (ROADMAP.md).
+// products' shared-memory loads (mlp_bwd_common.cuh). The bf16 and f32x3
+// tiers' products run on the tensor cores (mlp_bwd_mma.cuh).
 //
 // Limits (the wrapper checks them first and raises): W in the compiled
 // widths; 1 <= d_in <= 8 with the tangents on inputs 0 and 1; d_out = 3;
@@ -51,7 +52,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "mlp_bwd_common.cuh"
+#include "mlp_bwd_mma.cuh"
 
 #ifndef K1_WIDTH
 #error "compile with -DK1_WIDTH=<hidden width>"
@@ -71,6 +75,17 @@ struct Args {
   const float *trues, *sel, *mask, *scal;
   int n_true, has_anchor;
 };
+
+// The statistics of the tile's points from the staged rows, into g_stats.
+__device__ __forceinline__ void reduce_stats(const float* __restrict__ s_B, int ld, int P,
+                                             float* __restrict__ g_stats, bool first) {
+  for (int s = threadIdx.x; s < 5; s += blockDim.x) {
+    float acc = 0.f;
+    for (int q = 0; q < P; ++q) acc += s_B[(kStatRow + s) * ld + q];
+    g_stats[s] = accumulate(g_stats + s, acc, first);
+  }
+  for (int s = 5 + threadIdx.x; s < kStats; s += blockDim.x) g_stats[s] = 0.f;
+}
 
 // Steps 2-4 of the header: from the last state, the loss terms of one point
 // and the output cotangents (both lanes of a pair); the statistics are
@@ -158,12 +173,92 @@ struct ContinuityEpilogue {
 
   __device__ __forceinline__ void reduce(const float* __restrict__ s_B, int ld, int P,
                                          float* __restrict__ g_stats, bool first) const {
-    for (int s = threadIdx.x; s < 5; s += blockDim.x) {
-      float acc = 0.f;
-      for (int q = 0; q < P; ++q) acc += s_B[(kStatRow + s) * ld + q];
-      g_stats[s] = accumulate(g_stats + s, acc, first);
+    reduce_stats(s_B, ld, P, g_stats, first);
+  }
+};
+
+
+// Steps 2-4 on the tensor-core walk of the bf16 and f32x3 tiers
+// (mlp_bwd_mma.cuh): the output layer's MMA leaves (U, V) on lane q = 0 and
+// h on lane q = 1 of each quad (rows g and g + 8, outputs 2q and 2q + 1);
+// one shuffle per value gives every lane of the quad its two points' heads
+// and tangents, and each lane keeps the cotangents of its own outputs (0
+// past the three heads, so the A fragment of the cotangent product is
+// ready). Lane q = 0 stages the statistics of both points. The loss terms
+// are ContinuityEpilogue::output's, per point.
+struct ContinuityEpilogueMma {
+  static constexpr int kMaxOut = kOut;
+  static constexpr int kExtra = kStats;
+  static constexpr bool kForward = true;
+
+  const float *trues, *sel, *mask;
+  float res_scale, anchor_scale, depth, fid_scale[3];
+  int n, n_true, has_anchor;
+  float fc[2], anch[2], err[2][3];  // this lane's two points, for the statistics
+
+  __device__ explicit ContinuityEpilogueMma(const Args& args)
+      : trues(args.trues), sel(args.sel), mask(args.mask),
+        res_scale(args.scal[0]), anchor_scale(args.scal[1]), depth(args.scal[2]),
+        fid_scale{args.scal[3], args.scal[4], args.scal[5]},
+        n(args.walk.n), n_true(args.n_true), has_anchor(args.has_anchor) {}
+
+  template <class Tier, int K>
+  __device__ __forceinline__ void output(const long long (&p)[2], int lane, int,
+                                         const float (&y)[4],
+                                         const float (&dy)[mlp_bwd::tdim(K)][4],
+                                         float (&yb)[4], float (&ybt)[mlp_bwd::tdim(K)][4]) {
+    static_assert(K == 2, "the continuity losses differentiate w.r.t. (x, y)");
+    const unsigned full = 0xffffffffu;
+    const int q = lane & 3, q0 = lane & ~3, q1 = q0 | 1;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float U = __shfl_sync(full, y[2 * rr], q0), V = __shfl_sync(full, y[2 * rr + 1], q0);
+      const float h = __shfl_sync(full, y[2 * rr], q1);
+      const float Ux = __shfl_sync(full, dy[0][2 * rr], q0), hx = __shfl_sync(full, dy[0][2 * rr], q1);
+      const float Vy = __shfl_sync(full, dy[1][2 * rr + 1], q0);
+      const float hy = __shfl_sync(full, dy[1][2 * rr], q1);
+      const bool active = p[rr] < n;
+      const float m = active ? mask[p[rr]] : 0.f;
+      const float s = active ? sel[p[rr]] : 0.f;
+      fc[rr] = (hx * U + h * Ux + hy * V + h * Vy) * m;
+      anch[rr] = has_anchor ? s * (h - depth) : 0.f;
+      const float yv[3] = {U, V, h};
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        err[rr][j] = active && j < n_true ? m * (yv[j] - trues[p[rr] * n_true + j]) : 0.f;
+      }
+      const float fbar = res_scale * fc[rr];
+      float b[3] = {fbar * hx, fbar * hy, anchor_scale * anch[rr] + fbar * (Ux + Vy)};
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j < n_true) b[j] += fid_scale[j] * err[rr][j];
+      }
+      const float bx[3] = {fbar * h, 0.f, fbar * U}, by[3] = {0.f, fbar * h, fbar * V};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // output o = 2q + e of this lane
+        const int o = 2 * q + e;
+        yb[2 * rr + e] = o == 0 ? b[0] : (o == 1 ? b[1] : (o == 2 ? b[2] : 0.f));
+        ybt[0][2 * rr + e] = o == 0 ? bx[0] : (o == 1 ? bx[1] : (o == 2 ? bx[2] : 0.f));
+        ybt[1][2 * rr + e] = o == 0 ? by[0] : (o == 1 ? by[1] : (o == 2 ? by[2] : 0.f));
+      }
     }
-    for (int s = 5 + threadIdx.x; s < kStats; s += blockDim.x) g_stats[s] = 0.f;
+  }
+
+  __device__ __forceinline__ void stage(float* __restrict__ sB, int ld, int col, int lane) const {
+    if ((lane & 3) != 0) return;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int c = col + (lane >> 2) + 8 * rr;
+      sB[kStatRow * ld + c] = fc[rr] * fc[rr];
+      sB[(kStatRow + 1) * ld + c] = anch[rr] * anch[rr];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) sB[(kStatRow + 2 + j) * ld + c] = err[rr][j] * err[rr][j];
+    }
+  }
+
+  __device__ __forceinline__ void reduce(const float* __restrict__ s_B, int ld, int P,
+                                         float* __restrict__ g_stats, bool first) const {
+    reduce_stats(s_B, ld, P, g_stats, first);
   }
 };
 
@@ -175,12 +270,36 @@ k1_train_step_kernel(const Args args) {
   mlp_bwd::walk<Tier, mlp_bwd::StoreAll, W, ACT, 2>(args.walk, epi, smem);
 }
 
+// The bf16 and f32x3 tiers on the tensor cores.
+template <class Tier, int W, int ACT>
+__global__ void __launch_bounds__(mlp_bwd::kMaxThreads<Tier, W>)
+k1_train_step_kernel_mma(const Args args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ContinuityEpilogueMma epi(args);
+  mlp_bwd::mma::walk<Tier, mlp_bwd::StoreAll, W, ACT, 2>(args.walk, epi, smem);
+}
+
 constexpr int kStreams = 3;  // the primal and two tangent streams
+
+// Whether a tier runs on the tensor-core walk (bf16, f32x3).
+template <class Tier>
+constexpr bool kMma = !std::is_same<Tier, tier::TierF32>::value;
+
+template <class Tier>
+bool mma_plan(int n_stack, int tile, mlp_bwd::mma::Plan* pl) {
+  return mlp_bwd::mma::plan(K1_WIDTH, kStreams, kOut, n_stack, Tier::kSplit, false, 0, tile,
+                            mlp_bwd::mma::device_smem(), pl);
+}
 
 template <class Tier>
 int chunk_layers(int n_stack, int tile) {
-  return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack, sizeof(typename Tier::WT), 0,
-                               tile);
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    return mma_plan<Tier>(n_stack, tile, &pl) ? pl.chunk : 0;
+  } else {
+    return mlp_bwd::chunk_layers(K1_WIDTH, kStreams, kOut, n_stack, sizeof(typename Tier::WT), 0,
+                                 tile);
+  }
 }
 
 template <class Tier>
@@ -194,23 +313,56 @@ int run(const float* coords, const float* trues, const float* sel, const float* 
       (has_anchor && n_true > 2) || (act != 0 && act != 1) ||
       !mlp_bwd::plan_ok<Tier, W>(n, tile, grid))
     return cudaErrorInvalidValue;
-  int chunk = 0;
-  if (n_stack > 0) {
-    chunk = chunk_layers<Tier>(n_stack, tile);
-    if (chunk < 1) return cudaErrorInvalidValue;
+  int chunk = 0, regions = 0;
+  size_t smem = 0;
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    if (!mma_plan<Tier>(n_stack, tile, &pl)) return cudaErrorInvalidValue;
+    chunk = pl.chunk;
+    regions = pl.regions;
+    smem = mlp_bwd::mma::smem_bytes(W, kStreams, kOut, chunk, regions, Tier::kSplit, 0, tile);
+  } else {
+    if (n_stack > 0) {
+      chunk = chunk_layers<Tier>(n_stack, tile);
+      if (chunk < 1) return cudaErrorInvalidValue;
+    }
+    smem = mlp_bwd::smem_bytes(W, kStreams, kOut, chunk, sizeof(typename Tier::WT), 0, tile);
   }
   const long long n_ent = mlp_bwd::n_params(W, d_in, kOut, n_stack) + kStats;
   const Args a{{coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, kOut,
-                n_stack, chunk, 0, tile},
+                n_stack, chunk, 0, tile, regions},
                trues, sel, mask, scal, n_true, has_anchor};
-  const size_t smem =
-      mlp_bwd::smem_bytes(W, kStreams, kOut, chunk, sizeof(typename Tier::WT), 0, tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return act == 0
-             ? mlp_bwd::launch(k1_train_step_kernel<Tier, W, 0>, a, smem, grid, tile, partial,
-                               out, static_cast<int>(n_ent), s)
-             : mlp_bwd::launch(k1_train_step_kernel<Tier, W, 1>, a, smem, grid, tile, partial,
-                               out, static_cast<int>(n_ent), s);
+  if constexpr (kMma<Tier>) {
+    return act == 0
+               ? mlp_bwd::launch(k1_train_step_kernel_mma<Tier, W, 0>, a, smem, grid, tile,
+                                 partial, out, static_cast<int>(n_ent), s)
+               : mlp_bwd::launch(k1_train_step_kernel_mma<Tier, W, 1>, a, smem, grid, tile,
+                                 partial, out, static_cast<int>(n_ent), s);
+  } else {
+    return act == 0
+               ? mlp_bwd::launch(k1_train_step_kernel<Tier, W, 0>, a, smem, grid, tile, partial,
+                                 out, static_cast<int>(n_ent), s)
+               : mlp_bwd::launch(k1_train_step_kernel<Tier, W, 1>, a, smem, grid, tile, partial,
+                                 out, static_cast<int>(n_ent), s);
+  }
+}
+
+// The tensor-core walk's plan for tiles of `tile` points: its image regions
+// (2: both directions resident) and its shared-memory bytes; 0 when
+// nothing fits.
+template <class Tier>
+int mma_regions(int n_stack, int tile) {
+  mlp_bwd::mma::Plan pl;
+  return mma_plan<Tier>(n_stack, tile, &pl) ? pl.regions : 0;
+}
+
+template <class Tier>
+int mma_smem(int n_stack, int tile) {
+  mlp_bwd::mma::Plan pl;
+  if (!mma_plan<Tier>(n_stack, tile, &pl)) return 0;
+  return static_cast<int>(mlp_bwd::mma::smem_bytes(K1_WIDTH, kStreams, kOut, pl.chunk, pl.regions,
+                                                   Tier::kSplit, 0, tile));
 }
 
 }  // namespace
@@ -257,6 +409,20 @@ int k1_chunk_layers_bf16(int n_stack, int tile) {
 int k1_chunk_layers_f32x3(int n_stack, int tile) {
   return chunk_layers<tier::TierF32x3>(n_stack, tile);
 }
+#endif
+
+// The tensor-core walk's image regions and shared-memory bytes at the bf16
+// and f32x3 tiers (ops/walk_mma_plan.py computes the same).
+#if WITH_TIER(1)
+int k1_mma_regions_bf16(int n_stack, int tile) { return mma_regions<tier::TierBf16>(n_stack, tile); }
+int k1_mma_smem_bf16(int n_stack, int tile) { return mma_smem<tier::TierBf16>(n_stack, tile); }
+#endif
+
+#if WITH_TIER(2)
+int k1_mma_regions_f32x3(int n_stack, int tile) {
+  return mma_regions<tier::TierF32x3>(n_stack, tile);
+}
+int k1_mma_smem_f32x3(int n_stack, int tile) { return mma_smem<tier::TierF32x3>(n_stack, tile); }
 #endif
 
 // One training-step evaluation: K1 on a grid of `grid` blocks of tiles of

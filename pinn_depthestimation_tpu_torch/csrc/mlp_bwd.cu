@@ -20,8 +20,9 @@
 // only loads ybar and dybar of the tile's points. One library per hidden width
 // (-DK3_WIDTH=W), holding the K = 0..3, tanh/LeakyReLU and f32/bf16/f32x3
 // instantiations; the bf16 and f32x3 entries are k3_mlp_bwd_bf16 and
-// k3_mlp_bwd_f32x3. At the bf16 tier the JAX package runs K4 by default;
-// K3-bf16 is its impl='stream'. At f32x3 K3 is the default, as at f32.
+// k3_mlp_bwd_f32x3, on the tensor-core walk of mlp_bwd_mma.cuh. At the bf16
+// tier the JAX package runs K4 by default; K3-bf16 is its impl='stream'. At
+// f32x3 K3 is the default, as at f32.
 //
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // of replay and 2*2*(1+K)*((L-1)*W^2 + W*d_out) + 2*d_in*W of backward
@@ -37,7 +38,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "mlp_bwd_common.cuh"
+#include "mlp_bwd_mma.cuh"
 
 #ifndef K3_WIDTH
 #error "compile with -DK3_WIDTH=<hidden width>"
@@ -45,10 +49,43 @@
 
 namespace {
 
+constexpr int kMaxOut = mlp_bwd::LoadedCotangents::kMaxOut;
+
+// Whether a tier runs on the tensor-core walk (bf16, f32x3).
+template <class Tier>
+constexpr bool kMma = !std::is_same<Tier, tier::TierF32>::value;
+
+template <class Tier>
+bool mma_plan(int n_stack, int n_tangents, int tile, mlp_bwd::mma::Plan* pl) {
+  return mlp_bwd::mma::plan(K3_WIDTH, 1 + n_tangents, kMaxOut, n_stack, Tier::kSplit, false, 0,
+                            tile, mlp_bwd::mma::device_smem(), pl);
+}
+
 template <class Tier>
 int chunk_layers(int n_stack, int n_tangents, int tile) {
-  return mlp_bwd::chunk_layers(K3_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
-                               n_stack, sizeof(typename Tier::WT), 0, tile);
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    return mma_plan<Tier>(n_stack, n_tangents, tile, &pl) ? pl.chunk : 0;
+  } else {
+    return mlp_bwd::chunk_layers(K3_WIDTH, 1 + n_tangents, kMaxOut, n_stack,
+                                 sizeof(typename Tier::WT), 0, tile);
+  }
+}
+
+// The tensor-core walk's image regions and shared-memory bytes (0 when
+// nothing fits).
+template <class Tier>
+int mma_regions(int n_stack, int n_tangents, int tile) {
+  mlp_bwd::mma::Plan pl;
+  return mma_plan<Tier>(n_stack, n_tangents, tile, &pl) ? pl.regions : 0;
+}
+
+template <class Tier>
+int mma_smem(int n_stack, int n_tangents, int tile) {
+  mlp_bwd::mma::Plan pl;
+  if (!mma_plan<Tier>(n_stack, n_tangents, tile, &pl)) return 0;
+  return static_cast<int>(mlp_bwd::mma::smem_bytes(K3_WIDTH, 1 + n_tangents, kMaxOut, pl.chunk,
+                                                   pl.regions, Tier::kSplit, 0, tile));
 }
 
 template <class Tier>
@@ -60,21 +97,36 @@ int run(const float* coords, const float* ybar, const float* dybar, const float*
   if (!mlp_bwd::cotangent_args_ok<Tier, W>(dybar, n, d_in, d_out, n_stack, n_tangents, act, grid,
                                            tile))
     return cudaErrorInvalidValue;
-  int chunk = 0;
-  if (n_stack > 0) {
-    chunk = chunk_layers<Tier>(n_stack, n_tangents, tile);
-    if (chunk < 1) return cudaErrorInvalidValue;
+  int chunk = 0, regions = 0;
+  size_t smem = 0;
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    if (!mma_plan<Tier>(n_stack, n_tangents, tile, &pl)) return cudaErrorInvalidValue;
+    chunk = pl.chunk;
+    regions = pl.regions;
+    smem = mlp_bwd::mma::smem_bytes(W, 1 + n_tangents, kMaxOut, chunk, regions, Tier::kSplit, 0,
+                                    tile);
+  } else {
+    if (n_stack > 0) {
+      chunk = chunk_layers<Tier>(n_stack, n_tangents, tile);
+      if (chunk < 1) return cudaErrorInvalidValue;
+    }
+    smem = mlp_bwd::smem_bytes(W, 1 + n_tangents, kMaxOut, chunk, sizeof(typename Tier::WT), 0,
+                               tile);
   }
   const long long n_ent = mlp_bwd::n_params(W, d_in, d_out, n_stack);
   const mlp_bwd::CotangentArgs a{
       {coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, d_out, n_stack,
-       chunk, 0, tile},
+       chunk, 0, tile, regions},
       ybar, dybar};
-  const size_t smem = mlp_bwd::smem_bytes(W, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
-                                          chunk, sizeof(typename Tier::WT), 0, tile);
-  return mlp_bwd::launch_cotangents<Tier, mlp_bwd::StoreAll, W>(
-      a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent),
-      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kMma<Tier>) {
+    return mlp_bwd::mma::launch_walk<Tier, mlp_bwd::StoreAll, W>(
+        a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent), s);
+  } else {
+    return mlp_bwd::launch_cotangents<Tier, mlp_bwd::StoreAll, W>(
+        a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent), s);
+  }
 }
 
 }  // namespace
@@ -122,6 +174,26 @@ int k3_chunk_layers_bf16(int n_stack, int n_tangents, int tile) {
 #if WITH_TIER(2)
 int k3_chunk_layers_f32x3(int n_stack, int n_tangents, int tile) {
   return chunk_layers<tier::TierF32x3>(n_stack, n_tangents, tile);
+}
+#endif
+
+// The tensor-core walk's image regions and shared-memory bytes at the bf16
+// and f32x3 tiers (ops/walk_mma_plan.py computes the same).
+#if WITH_TIER(1)
+int k3_mma_regions_bf16(int n_stack, int n_tangents, int tile) {
+  return mma_regions<tier::TierBf16>(n_stack, n_tangents, tile);
+}
+int k3_mma_smem_bf16(int n_stack, int n_tangents, int tile) {
+  return mma_smem<tier::TierBf16>(n_stack, n_tangents, tile);
+}
+#endif
+
+#if WITH_TIER(2)
+int k3_mma_regions_f32x3(int n_stack, int n_tangents, int tile) {
+  return mma_regions<tier::TierF32x3>(n_stack, n_tangents, tile);
+}
+int k3_mma_smem_f32x3(int n_stack, int n_tangents, int tile) {
+  return mma_smem<tier::TierF32x3>(n_stack, n_tangents, tile);
 }
 #endif
 

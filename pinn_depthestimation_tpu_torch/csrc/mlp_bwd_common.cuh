@@ -27,17 +27,18 @@
 //             the JAX 'rebuild' body). One more forward replay, in exchange
 //             for n_stack/C states of device memory instead of n_stack + 1.
 //
-// Tiers (tier.cuh, ops/tiers.py): at bf16 the weights sit in shared memory
-// as bf16, each forward operand and each stacked cotangent is rounded to
-// bf16 before it meets a weight, and the weight-gradient products, the sums
-// and the staging rows stay f32. At f32x3 the weights sit in shared memory
-// as bf16 (hi, lo) pairs (the bytes of f32, so every plan below comes out as
-// at f32), the same operands are split before they meet a weight, and the
-// weight-gradient products split both staged operands as they read them
-// (the staging rows stay f32, so the bias sums see the unsplit values),
-// except the input layer's tangent-seed rows, whose sums stay f32. At f32
-// every rounding is the identity: true f32 FMAs on the CUDA cores, no TF32
-// and no tensor-core product.
+// Tiers (tier.cuh, ops/tiers.py): at bf16 each forward operand and each
+// stacked cotangent is rounded to bf16 before it meets a bf16 weight, and
+// the weight-gradient products, the sums and the staging rows stay f32. At
+// f32x3 the same operands are split (hi, lo) before they meet a split
+// weight, and the weight-gradient products split both operands, except the
+// input layer's tangent-seed rows, whose sums stay f32. This file's walk
+// runs the f32 tier, where every rounding is the identity: true f32 FMAs on
+// the CUDA cores, no TF32 and no tensor-core product. The bf16 and f32x3
+// tiers run the tensor-core walk of mlp_bwd_mma.cuh, which shares this
+// file's state policies, epilogues, partial rows and the bf16 tier's
+// weight-gradient products (accum_square, accum_rect); the Tier template
+// parameter of the functions here also takes those tiers.
 //
 // Design. A tile of P points (P a multiple of 16, chosen per launch by
 // ops/walk_plan.py so that the tiles of one call fill the SMs in one wave
@@ -94,12 +95,12 @@
 // Bound on the H100: per point 2*(d_in*W + (L-1)*W^2 + W*d_out)*(1+K) FLOPs
 // of forward replay (twice for Rebuild, less the output layer) and
 // 2*2*(1+K)*((L-1)*W^2 + W*d_out) + 2*d_in*W of backward, plus L*W tanhf,
-// against a few bytes of inputs and the weights: the CUDA cores' f32 FMA
-// rate bounds it (the bf16 tier runs the same FMAs). What the design spends
-// beyond that: StoreAll's layer states go to device memory and back once,
-// the pair's shuffles (W*(1+K)/2 per layer and direction), and the shared-
-// memory operand loads of the block products. Tensor cores are left for
-// later work (ROADMAP.md).
+// against a few bytes of inputs and the weights: at f32 the CUDA cores' f32
+// FMA rate bounds it (at bf16 the weight gradient's third of the FLOPs,
+// which the tier keeps f32, on the same rate; mlp_bwd_mma.cuh). What the
+// design spends beyond that: StoreAll's layer states go to device memory and
+// back once, the pair's shuffles (W*(1+K)/2 per layer and direction), and
+// the shared-memory operand loads of the block products.
 
 #pragma once
 
@@ -431,102 +432,108 @@ __host__ __device__ inline int square_splits(int W, int S, int P, int T) {
 // range s at red[s * (W*W + W)] (dw row-major, then db). Thread item =
 // (range s, tile t); tile (it, jt) holds rows i = it + (W/RI)*a (a < RI)
 // and j = jt + (W/RJ)*b (b < RJ), the range s the steps [s*q, (s+1)*q)
-// of (stream block c, four-point chunk). f32 products at f32 and bf16; at f32x3 both operands
-// split as they are read, the products of a range summed as (cross) + main
-// over every c and p (JAX mm_tn over the stack). Returns the number of
-// ranges.
-template <class Tier, int W, int S>
+// of (stream block c, four-point chunk). f32 products (the f32 and bf16
+// tiers; the f32x3 one runs mlp_bwd_mma.cuh's wgrad_mma). Returns the number of
+// ranges. With kFold (where the tiles divide a warp, NT | 32: widths 8, 10
+// and 16), every thread takes an item (min(steps, T / NT) ranges, so no
+// warp idles), the lanes of a warp that hold one tile add their ranges with
+// xor shuffles and the warp's sums go to red[warp * (W*W + W)]: the flush
+// then adds one partial a warp (at most T / 32, within red_floats) instead
+// of one a range; returns the number of warps with items.
+template <class Tier, int W, int S, bool kFold = false>
 __device__ __forceinline__ int accum_square(const float* __restrict__ sA,
                                             const float* __restrict__ sB, int ld, int P,
                                             float* __restrict__ red) {
   static_assert(W % 2 == 0, "a lane pair needs an even width");
+  static_assert(!Tier::kSplit, "f32 products only");
   constexpr int RI = square_ri(W), RJ = square_rj(W), NI = W / RI, NJ = W / RJ, NT = NI * NJ;
   const int T = blockDim.x, n_split = square_splits(W, S, P, T), chunks = P / 4;
   const int steps = S * chunks, q = (steps + n_split - 1) / n_split;
-  for (int item = threadIdx.x; item < NT * n_split; item += T) {
+  // the sums of one item: out (its tile), bsum (the bias rows, it == 0)
+  auto sums = [&](int item, int q, float (&out)[RI][RJ], float (&bsum)[RJ]) {
     const int s = item / NT, t = item % NT, it = t / NJ, jt = t % NJ;
     const int k0 = s * q, k1 = min(steps, k0 + q);
-    float out[RI][RJ], bsum[RJ];
 #pragma unroll
     for (int b = 0; b < RJ; ++b) bsum[b] = 0.f;
-    if constexpr (!Tier::kSplit) {
-      float acc[RI][RJ];
-#pragma unroll
-      for (int a = 0; a < RI; ++a)
-#pragma unroll
-        for (int b = 0; b < RJ; ++b) acc[a][b] = 0.f;
-#pragma unroll 1
-      for (int k = k0; k < k1; ++k) {
-        const int c = k / chunks, p = 4 * (k - c * chunks);
-        const float* ra = sA + (c * W + it) * ld + p;
-        const float* rb = sB + (c * W + jt) * ld + p;
-        float4 x[RI], y[RJ];
-#pragma unroll
-        for (int a = 0; a < RI; ++a) x[a] = *reinterpret_cast<const float4*>(ra + a * NI * ld);
-#pragma unroll
-        for (int b = 0; b < RJ; ++b) y[b] = *reinterpret_cast<const float4*>(rb + b * NJ * ld);
-#pragma unroll
-        for (int a = 0; a < RI; ++a)
-#pragma unroll
-          for (int b = 0; b < RJ; ++b) {
-            acc[a][b] = fmaf(x[a].x, y[b].x, acc[a][b]);
-            acc[a][b] = fmaf(x[a].y, y[b].y, acc[a][b]);
-            acc[a][b] = fmaf(x[a].z, y[b].z, acc[a][b]);
-            acc[a][b] = fmaf(x[a].w, y[b].w, acc[a][b]);
-          }
-        if (c == 0 && it == 0) {
-#pragma unroll
-          for (int b = 0; b < RJ; ++b) bsum[b] = bsum[b] + y[b].x + y[b].y + y[b].z + y[b].w;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < RI; ++a)
-#pragma unroll
-        for (int b = 0; b < RJ; ++b) out[a][b] = acc[a][b];
-    } else {
-      tier::Acc3 acc[RI][RJ];
-#pragma unroll
-      for (int a = 0; a < RI; ++a)
-#pragma unroll
-        for (int b = 0; b < RJ; ++b) acc[a][b] = {0.f, 0.f};
-#pragma unroll 1
-      for (int k = k0; k < k1; ++k) {
-        const int c = k / chunks, p0 = 4 * (k - c * chunks);
-        const float* ra = sA + (c * W + it) * ld;
-        const float* rb = sB + (c * W + jt) * ld;
-#pragma unroll
-        for (int p = p0; p < p0 + 4; ++p) {
-          tier::Pair x[RI], y[RJ];
-#pragma unroll
-          for (int a = 0; a < RI; ++a) x[a] = tier::split(ra[a * NI * ld + p]);
-#pragma unroll
-          for (int b = 0; b < RJ; ++b) {
-            const float yv = rb[b * NJ * ld + p];
-            y[b] = tier::split(yv);
-            if (c == 0 && it == 0) bsum[b] = bsum[b] + yv;
-          }
-#pragma unroll
-          for (int a = 0; a < RI; ++a)
-#pragma unroll
-            for (int b = 0; b < RJ; ++b) tier::TierF32x3::mac(acc[a][b], x[a], y[b]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < RI; ++a)
-#pragma unroll
-        for (int b = 0; b < RJ; ++b) out[a][b] = tier::TierF32x3::fin(acc[a][b]);
-    }
-    float* r = red + s * (W * W + W);
+    float acc[RI][RJ];
 #pragma unroll
     for (int a = 0; a < RI; ++a)
 #pragma unroll
-      for (int b = 0; b < RJ; ++b) r[(it + NI * a) * W + jt + NJ * b] = out[a][b];
-    if (it == 0) {
+      for (int b = 0; b < RJ; ++b) acc[a][b] = 0.f;
+#pragma unroll 1
+    for (int k = k0; k < k1; ++k) {
+      const int c = k / chunks, p = 4 * (k - c * chunks);
+      const float* ra = sA + (c * W + it) * ld + p;
+      const float* rb = sB + (c * W + jt) * ld + p;
+      float4 x[RI], y[RJ];
 #pragma unroll
-      for (int b = 0; b < RJ; ++b) r[W * W + jt + NJ * b] = bsum[b];
+      for (int a = 0; a < RI; ++a) x[a] = *reinterpret_cast<const float4*>(ra + a * NI * ld);
+#pragma unroll
+      for (int b = 0; b < RJ; ++b) y[b] = *reinterpret_cast<const float4*>(rb + b * NJ * ld);
+#pragma unroll
+      for (int a = 0; a < RI; ++a)
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) {
+          acc[a][b] = fmaf(x[a].x, y[b].x, acc[a][b]);
+          acc[a][b] = fmaf(x[a].y, y[b].y, acc[a][b]);
+          acc[a][b] = fmaf(x[a].z, y[b].z, acc[a][b]);
+          acc[a][b] = fmaf(x[a].w, y[b].w, acc[a][b]);
+        }
+      if (c == 0 && it == 0) {
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) bsum[b] = bsum[b] + y[b].x + y[b].y + y[b].z + y[b].w;
+      }
     }
+#pragma unroll
+    for (int a = 0; a < RI; ++a)
+#pragma unroll
+      for (int b = 0; b < RJ; ++b) out[a][b] = acc[a][b];
+  };
+  if constexpr (kFold && 32 % NT == 0) {
+    const int n_fold = min(steps, T / NT), qf = (steps + n_fold - 1) / n_fold;
+    const int items = NT * ((steps + qf - 1) / qf);
+    float out[RI][RJ], bsum[RJ];
+    sums(threadIdx.x, qf, out, bsum);  // items <= T: an item a thread at most
+#pragma unroll
+    for (int m = NT; m < 32; m <<= 1) {
+#pragma unroll
+      for (int a = 0; a < RI; ++a)
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) out[a][b] += __shfl_xor_sync(0xffffffffu, out[a][b], m);
+#pragma unroll
+      for (int b = 0; b < RJ; ++b) bsum[b] += __shfl_xor_sync(0xffffffffu, bsum[b], m);
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane < NT && warp * 32 < items) {
+      const int it = lane / NJ, jt = lane % NJ;
+      float* r = red + warp * (W * W + W);
+#pragma unroll
+      for (int a = 0; a < RI; ++a)
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) r[(it + NI * a) * W + jt + NJ * b] = out[a][b];
+      if (it == 0) {
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) r[W * W + jt + NJ * b] = bsum[b];
+      }
+    }
+    return (items + 31) / 32;
+  } else {
+    for (int item = threadIdx.x; item < NT * n_split; item += T) {
+      const int s = item / NT, t = item % NT, it = t / NJ, jt = t % NJ;
+      float out[RI][RJ], bsum[RJ];
+      sums(item, q, out, bsum);
+      float* r = red + s * (W * W + W);
+#pragma unroll
+      for (int a = 0; a < RI; ++a)
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) r[(it + NI * a) * W + jt + NJ * b] = out[a][b];
+      if (it == 0) {
+#pragma unroll
+        for (int b = 0; b < RJ; ++b) r[W * W + jt + NJ * b] = bsum[b];
+      }
+    }
+    return n_split;
   }
-  return n_split;
 }
 
 // The same product for the input and output layers (rows_a x rows_b, scalar
@@ -598,11 +605,12 @@ __device__ __forceinline__ void flush(const float* __restrict__ red, const Pendi
 
 // The pointers and sizes every walk takes. `tile` is the points per tile
 // (P; the block has kLanes * P threads); `ckpt` is Rebuild's segment length
-// C (0 for StoreAll).
+// C (0 for StoreAll); `regions` the image regions of the tensor-core walk
+// (mlp_bwd_mma.cuh; unused here).
 struct WalkArgs {
   const float *coords, *w_in, *b_in, *w_h, *b_h, *w_out, *b_out;
   float *partial, *states;
-  int n, d_in, d_out, n_stack, chunk, ckpt, tile;
+  int n, d_in, d_out, n_stack, chunk, ckpt, tile, regions;
 };
 
 // Floats of one block's partial-sum row: every gradient, then kExtra.
@@ -1018,13 +1026,24 @@ __global__ void __launch_bounds__(kMaxThreads<Tier, W>)
 namespace {
 
 // out[e] = sum over blocks b, in order, of partial[b][e]: the fixed order
-// keeps the gradients deterministic.
+// keeps the gradients deterministic. kReduceBatch rows are loaded before
+// they are added, so their loads are in flight together.
+constexpr int kReduceBatch = 16;
+
 __global__ void reduce_kernel(const float* __restrict__ partial, int blocks, int n_ent,
                               float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_ent) return;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * n_ent + e];
+  int b = 0;
+  for (; b + kReduceBatch <= blocks; b += kReduceBatch) {
+    float v[kReduceBatch];
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) v[u] = partial[static_cast<size_t>(b + u) * n_ent + e];
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) s += v[u];
+  }
+  for (; b < blocks; ++b) s += partial[static_cast<size_t>(b) * n_ent + e];
   out[e] = s;
 }
 

@@ -20,13 +20,15 @@
 // ordered second-pass sum as K3 (no atomics: bit-identical from run to
 // run). The segment buffer takes C*(1+K)*W*P*4 B (P points per tile)
 // beside the weights and the staging rows, so C is what fits: the wrapper
-// asks for a C (ckpt_every) or takes mlp_bwd::rebuild_plan's (the largest
-// C <= 8 that leaves the whole stack in one chunk, else half of it; at
-// f32x3 the weights take the bytes of f32, so the plan is f32's). One
+// asks for a C (ckpt_every) or takes the plan's: the largest C <= 8 that
+// leaves the whole stack in shared memory, else half of it
+// (mlp_bwd::rebuild_plan at f32, mlp_bwd::mma::plan at bf16 and f32x3). One
 // library per hidden width (-DK4_WIDTH=W), holding the K = 0..3,
 // tanh/LeakyReLU and f32/bf16/f32x3 instantiations; the bf16 and f32x3
-// entries are k4_mlp_bwd_bf16 and k4_mlp_bwd_f32x3. At f32x3 the
-// JAX package reaches K4 only through impl='rebuild'.
+// entries are k4_mlp_bwd_bf16 and k4_mlp_bwd_f32x3, on the tensor-core walk
+// of mlp_bwd_mma.cuh, whose plan keeps a forward and a backward image region
+// of a multiple of C layers. At f32x3 the JAX package reaches K4 only
+// through impl='rebuild'.
 //
 // Bound on the H100: K3's operations plus one more forward replay of the
 // hidden stack, 2*(L-1)*W^2*(1+K) per point; the CUDA cores' f32 FMA rate
@@ -39,7 +41,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "mlp_bwd_common.cuh"
+#include "mlp_bwd_mma.cuh"
 
 #ifndef K4_WIDTH
 #error "compile with -DK4_WIDTH=<hidden width>"
@@ -47,10 +52,46 @@
 
 namespace {
 
+constexpr int kMaxOut = mlp_bwd::LoadedCotangents::kMaxOut;
+
+// Whether a tier runs on the tensor-core walk (bf16, f32x3).
+template <class Tier>
+constexpr bool kMma = !std::is_same<Tier, tier::TierF32>::value;
+
+template <class Tier>
+bool mma_plan(int n_stack, int n_tangents, int ckpt, int tile, mlp_bwd::mma::Plan* pl) {
+  return mlp_bwd::mma::plan(K4_WIDTH, 1 + n_tangents, kMaxOut, n_stack, Tier::kSplit, true, ckpt,
+                            tile, mlp_bwd::mma::device_smem(), pl);
+}
+
 template <class Tier>
 bool plan(int n_stack, int n_tangents, int ckpt, int tile, int* c, int* chunk) {
-  return mlp_bwd::rebuild_plan(K4_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
-                               n_stack, sizeof(typename Tier::WT), ckpt, tile, c, chunk);
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    if (!mma_plan<Tier>(n_stack, n_tangents, ckpt, tile, &pl)) return false;
+    *c = pl.ckpt;
+    *chunk = pl.chunk;
+    return true;
+  } else {
+    return mlp_bwd::rebuild_plan(K4_WIDTH, 1 + n_tangents, kMaxOut, n_stack,
+                                 sizeof(typename Tier::WT), ckpt, tile, c, chunk);
+  }
+}
+
+// The tensor-core walk's image regions and shared-memory bytes for segments
+// of `ckpt` layers (0: the planned C); 0 when nothing fits.
+template <class Tier>
+int mma_regions(int n_stack, int n_tangents, int ckpt, int tile) {
+  mlp_bwd::mma::Plan pl;
+  return mma_plan<Tier>(n_stack, n_tangents, ckpt, tile, &pl) ? pl.regions : 0;
+}
+
+template <class Tier>
+int mma_smem(int n_stack, int n_tangents, int ckpt, int tile) {
+  mlp_bwd::mma::Plan pl;
+  if (!mma_plan<Tier>(n_stack, n_tangents, ckpt, tile, &pl)) return 0;
+  return static_cast<int>(mlp_bwd::mma::smem_bytes(K4_WIDTH, 1 + n_tangents, kMaxOut, pl.chunk,
+                                                   pl.regions, Tier::kSplit, pl.ckpt, tile));
 }
 
 template <class Tier>
@@ -64,19 +105,36 @@ int run(const float* coords, const float* ybar, const float* dybar, const float*
                                            tile) ||
       ckpt < 1)
     return cudaErrorInvalidValue;
-  int c = 0, chunk = 0;
-  if (!plan<Tier>(n_stack, n_tangents, ckpt, tile, &c, &chunk) || (n_stack > 0 && c != ckpt))
-    return cudaErrorInvalidValue;
+  int c = 0, chunk = 0, regions = 0;
+  size_t smem = 0;
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    if (!mma_plan<Tier>(n_stack, n_tangents, ckpt, tile, &pl) || (n_stack > 0 && pl.ckpt != ckpt))
+      return cudaErrorInvalidValue;
+    c = pl.ckpt;
+    chunk = pl.chunk;
+    regions = pl.regions;
+    smem = mlp_bwd::mma::smem_bytes(W, 1 + n_tangents, kMaxOut, chunk, regions, Tier::kSplit, c,
+                                    tile);
+  } else {
+    if (!plan<Tier>(n_stack, n_tangents, ckpt, tile, &c, &chunk) || (n_stack > 0 && c != ckpt))
+      return cudaErrorInvalidValue;
+    smem = mlp_bwd::smem_bytes(W, 1 + n_tangents, kMaxOut, chunk, sizeof(typename Tier::WT), c,
+                               tile);
+  }
   const long long n_ent = mlp_bwd::n_params(W, d_in, d_out, n_stack);
   const mlp_bwd::CotangentArgs a{
       {coords, w_in, b_in, w_h, b_h, w_out, b_out, partial, states, n, d_in, d_out, n_stack,
-       chunk, c, tile},
+       chunk, c, tile, regions},
       ybar, dybar};
-  const size_t smem = mlp_bwd::smem_bytes(W, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
-                                          chunk, sizeof(typename Tier::WT), c, tile);
-  return mlp_bwd::launch_cotangents<Tier, mlp_bwd::Rebuild, W>(
-      a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent),
-      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kMma<Tier>) {
+    return mlp_bwd::mma::launch_walk<Tier, mlp_bwd::Rebuild, W>(
+        a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent), s);
+  } else {
+    return mlp_bwd::launch_cotangents<Tier, mlp_bwd::Rebuild, W>(
+        a, n_tangents, act, smem, grid, out, static_cast<int>(n_ent), s);
+  }
 }
 
 template <class Tier>
@@ -87,8 +145,13 @@ int ckpt_every(int n_stack, int n_tangents, int ckpt, int tile) {
 
 template <class Tier>
 int chunk_layers(int n_stack, int n_tangents, int ckpt, int tile) {
-  return mlp_bwd::chunk_layers(K4_WIDTH, 1 + n_tangents, mlp_bwd::LoadedCotangents::kMaxOut,
-                               n_stack, sizeof(typename Tier::WT), ckpt, tile);
+  if constexpr (kMma<Tier>) {
+    mlp_bwd::mma::Plan pl;
+    return mma_plan<Tier>(n_stack, n_tangents, ckpt, tile, &pl) ? pl.chunk : 0;
+  } else {
+    return mlp_bwd::chunk_layers(K4_WIDTH, 1 + n_tangents, kMaxOut, n_stack,
+                                 sizeof(typename Tier::WT), ckpt, tile);
+  }
 }
 
 }  // namespace
@@ -157,6 +220,27 @@ int k4_chunk_layers_bf16(int n_stack, int n_tangents, int ckpt, int tile) {
 #if WITH_TIER(2)
 int k4_chunk_layers_f32x3(int n_stack, int n_tangents, int ckpt, int tile) {
   return chunk_layers<tier::TierF32x3>(n_stack, n_tangents, ckpt, tile);
+}
+#endif
+
+// The tensor-core walk's image regions and shared-memory bytes at the bf16
+// and f32x3 tiers for segments of `ckpt` layers (0: the planned C;
+// ops/walk_mma_plan.py computes the same).
+#if WITH_TIER(1)
+int k4_mma_regions_bf16(int n_stack, int n_tangents, int ckpt, int tile) {
+  return mma_regions<tier::TierBf16>(n_stack, n_tangents, ckpt, tile);
+}
+int k4_mma_smem_bf16(int n_stack, int n_tangents, int ckpt, int tile) {
+  return mma_smem<tier::TierBf16>(n_stack, n_tangents, ckpt, tile);
+}
+#endif
+
+#if WITH_TIER(2)
+int k4_mma_regions_f32x3(int n_stack, int n_tangents, int ckpt, int tile) {
+  return mma_regions<tier::TierF32x3>(n_stack, n_tangents, ckpt, tile);
+}
+int k4_mma_smem_f32x3(int n_stack, int n_tangents, int ckpt, int tile) {
+  return mma_smem<tier::TierF32x3>(n_stack, n_tangents, ckpt, tile);
 }
 #endif
 

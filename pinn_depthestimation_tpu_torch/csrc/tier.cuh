@@ -27,7 +27,13 @@
 // f32 and bf16 Op, WV and Acc are float, op is the identity (f32) or the
 // rounding (bf16), mac is one fmaf and fin the identity, so those
 // instantiations compile to the instructions they did before the product
-// abstraction existed, bit for bit. All three run on the CUDA cores.
+// abstraction existed, bit for bit. These products run on the CUDA cores:
+// every product of the f32 tier, and the cheap tiers' products that stay
+// scalar (the input layer's, the bf16 and f32x3 weight gradients of the
+// input and output layers, the bf16 hidden ones). The cheap tiers' other
+// products run on the tensor cores (mma_frag.cuh: K2's
+// mlp_fwd_tangents_mma.cuh and the walk's mlp_bwd_mma.cuh), with the same
+// semantics.
 
 #pragma once
 

@@ -12,7 +12,8 @@ the costliest first, so that none is left running alone at the end:
 
 * the narrow bodies, one variant per hidden width and tier (``-DTIER_ONLY``,
   ``csrc/tier.cuh``): K1, K2, K3 and K4 x 5 widths x 3 tiers, sixty ``nvcc``
-  (the f32x3 tier's width-32 walks take most of the build's CPU time). The
+  (the bf16 and f32x3 variants of K2 and of the walk run on the tensor
+  cores: ``csrc/mlp_fwd_tangents_mma.cuh``, ``csrc/mlp_bwd_mma.cuh``). The
   libraries of one width answer together (:class:`WidthLibrary`): the f32
   entry ``<name>``, the bf16 entry ``<name>_bf16`` and the f32x3 entry
   ``<name>_f32x3``, with the same arguments;
@@ -240,21 +241,27 @@ def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """K1's entries; the bf16 and f32x3 libraries (the tensor-core walk,
+    ``csrc/mlp_bwd_mma.cuh``) also answer their plan's image regions and
+    shared-memory bytes (``ops/walk_mma_plan.py``)."""
     return _bind(lib, "k1", {"train_step": [_P] * 14 + [_I] * 8 + [_P],
                              "width": [], "lanes": [], "max_tile": [],
-                             "chunk_layers": [_I, _I]})
+                             "chunk_layers": [_I, _I], "mma_regions": [_I, _I],
+                             "mma_smem": [_I, _I]})
 
 
 def _bind_k3(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _bind(lib, "k3", {"mlp_bwd": [_P] * 12 + [_I] * 8 + [_P],
                              "width": [], "lanes": [], "max_tile": [],
-                             "chunk_layers": [_I] * 3})
+                             "chunk_layers": [_I] * 3, "mma_regions": [_I] * 3,
+                             "mma_smem": [_I] * 3})
 
 
 def _bind_k4(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _bind(lib, "k4", {"mlp_bwd": [_P] * 12 + [_I] * 9 + [_P],
                              "width": [], "lanes": [], "max_tile": [],
-                             "ckpt_every": [_I] * 4, "chunk_layers": [_I] * 4})
+                             "ckpt_every": [_I] * 4, "chunk_layers": [_I] * 4,
+                             "mma_regions": [_I] * 4, "mma_smem": [_I] * 4})
 
 
 def _bind_k2w(lib: ctypes.CDLL) -> ctypes.CDLL:

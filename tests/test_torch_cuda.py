@@ -22,6 +22,7 @@ its own error is ~1e-5 of the output, below f32's 1e-4.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -214,6 +215,26 @@ def test_cuda_libraries_report_the_walk_layout(cuda_device, kernel):
         for precision in TIERS:
             want = 160 if width <= 10 and precision != "f32x3" else 128
             assert entry(lib, f"{kernel}_max_tile", precision)() == want, (width, precision)
+    # the bf16 and f32x3 tiers' tensor-core walk answers the plan of
+    # ops/walk_mma_plan.py (its chunk, regions, bytes and K4's segment length)
+    from pinn_depthestimation_tpu_torch.ops import walk_mma_plan as mp
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    kts = (2,) if kernel == "k1" else (0, 2, 3)
+    for width, lib in library.libs.items():
+        for precision, kt, n_stack, tile in itertools.product(
+                mp.TIERS, kts, (0, 9, 19, 99), (16, 96, 128)):
+            want = mp.plan(kernel, width, n_stack, kt, precision, tile, limit=optin)
+            args = (n_stack, tile) if kernel == "k1" else (n_stack, kt, tile)
+            if kernel == "k4":
+                assert entry(lib, "k4_ckpt_every", precision)(*args[:2], 0, tile) == (
+                    want.ckpt if want else 0)
+                args = (n_stack, kt, want.ckpt if want else 0, tile)
+            got = (entry(lib, f"{kernel}_chunk_layers", precision)(*args),
+                   entry(lib, f"{kernel}_mma_regions", precision)(*args),
+                   entry(lib, f"{kernel}_mma_smem", precision)(*args))
+            assert got == ((want.chunk, want.regions, want.smem) if want else (0, 0, 0)), (
+                width, precision, kt, n_stack, tile, want)
 
 
 @pytest.mark.cuda
@@ -418,7 +439,8 @@ def test_cuda_k3_bf16_and_k4_match_plain_tier(cuda_device, impl, precision, size
 @pytest.mark.cuda
 def test_cuda_k4_segment_lengths_agree(cuda_device):
     """K4 at every segment length that fits, against K3 at the same tier:
-    one function, replayed from other checkpoints."""
+    one function, replayed from other checkpoints (at bf16 and f32x3 on the
+    tensor-core walk, where the replay repeats the forward's operations)."""
     sizes = (2,) + (20,) * 23 + (3,)
     spec = MLPSpec(sizes=sizes)
     params = params_from_numpy(numpy_params(sizes, seed=5), cuda_device)
@@ -426,7 +448,7 @@ def test_cuda_k4_segment_lengths_agree(cuda_device):
     x = torch.from_numpy(rs.uniform(-1, 1, (517, 2)).astype(np.float32)).to(cuda_device)
     ybar = torch.from_numpy(rs.randn(517, 3).astype(np.float32)).to(cuda_device)
     dybar = torch.from_numpy(rs.randn(2, 517, 3).astype(np.float32)).to(cuda_device)
-    for precision in ("f32", "bf16"):
+    for precision in ("f32", "bf16", "f32x3"):
         g3 = kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, 2, precision=precision,
                                         impl="stream")
         for c in (1, 2, 3, 5):
@@ -506,6 +528,82 @@ def test_cuda_bf16_cmb_training_runs_on_k2_and_k4(cuda_device, tmp_path):
     assert kernels_vjp.packed_mlp_bwd_rebuild.launches_by_tier["bf16"] - k4["bf16"] == 2 * n
     assert kernels.mlp_fwd_tangents.launches_by_tier["bf16"] - k2["bf16"] == 2 * n
     assert kernels_vjp.packed_mlp_bwd.launches == k3
+
+
+# ------------------------------------- the walk's tensor-core body (both tiers)
+
+WALK_RAGGED = ("1", "15", "17", "wave+1")
+
+
+def walk_ragged_n(which: str, lib, kernel: str, precision: str) -> int:
+    """One point, one either side of a warp's 16, and a count past one wave
+    of the width's largest tiles (a block then walks a second tile)."""
+    from pinn_depthestimation_tpu_torch.ops.kernels import entry
+
+    wave = (torch.cuda.get_device_properties(0).multi_processor_count
+            * entry(lib, f"{kernel}_max_tile", precision)())
+    return {"1": 1, "15": 15, "17": 17, "wave+1": wave + 1}[which]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
+@pytest.mark.parametrize("precision", ["bf16", "f32x3"])
+@pytest.mark.parametrize("width", [8, 10, 16, 20, 32])
+@pytest.mark.parametrize("which", WALK_RAGGED)
+def test_cuda_walk_cheap_tiers_ragged_tiles(cuda_device, kernel, precision, width, which):
+    """K1, K3 and K4 at bf16 and f32x3 (csrc/mlp_bwd_mma.cuh) at every
+    compiled width and at point counts around the warp's 16 points and the
+    tiles, against the plain tier versions (``assert_tier_close``); two
+    launches give the same bits."""
+    tol = X3 if precision == "f32x3" else {}
+    if kernel == "k1":
+        sizes = (2,) + (width,) * 5 + (3,)
+        spec = MLPSpec(sizes=sizes)
+        params = params_from_numpy(numpy_params(sizes, seed=21), cuda_device)
+        n = walk_ragged_n(which, kernels_step.k1_library().libs[width], "k1", precision)
+        rs = np.random.RandomState(22)
+        x = torch.from_numpy(rs.uniform(-1, 1, (n, 2)).astype(np.float32)).to(cuda_device)
+        x[0, 0] = -0.5  # at least one anchored point
+        trues = torch.from_numpy((rs.randn(n, 2) * 0.1).astype(np.float32)).to(cuda_device)
+        mask = torch.ones(n, device=cuda_device)
+        b = kernels_step.make_step_batch(x, trues, (x[:, 0] < 0.3).float(), mask, [1.0, 0.7],
+                                         2, 0.7, 1.3, anchor_depth=0.6, has_anchor=True)
+        b64 = dataclasses.replace(b, **{k: getattr(b, k).double() for k in (
+            "coords", "trues", "sel", "mask", "fid_weights", "n_res", "n_sel", "scal")})
+        run = lambda: kernels_step.fused_loss_and_grad(params, b, spec, precision=precision)  # noqa: E731
+        (t, _), g = run()
+        outs = dict(g, total=t)
+        refs = {}
+        for key, p, bb, tier in (("tier", params, b, precision), ("f32", params, b, "f32"),
+                                 ("f64", f64(params), b64, precision)):
+            (tt, _), gg = kernels_step.fused_loss_and_grad_plain(p, bb, spec, tier)
+            refs[key] = dict(gg, total=tt)
+        (t2, _), g2 = run()
+        again = dict(g2, total=t2)
+    else:
+        sizes = (3,) + (width,) * 5 + (5,)
+        kt = 3 if kernel == "k4" else 2
+        spec = MLPSpec(sizes=sizes)
+        params = params_from_numpy(numpy_params(sizes, seed=23), cuda_device)
+        lib = (kernels_vjp.k3_library if kernel == "k3" else kernels_vjp.k4_library)()
+        n = walk_ragged_n(which, lib.libs[width], kernel, precision)
+        rs = np.random.RandomState(24)
+        x = torch.from_numpy(rs.uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda_device)
+        ybar = torch.from_numpy(rs.randn(n, 5).astype(np.float32)).to(cuda_device)
+        dybar = torch.from_numpy(rs.randn(kt, n, 5).astype(np.float32)).to(cuda_device)
+        impl = "stream" if kernel == "k3" else "rebuild"
+        run = lambda: kernels_vjp.packed_mlp_bwd(params, x, ybar, dybar, spec, kt,  # noqa: E731
+                                                 precision=precision, impl=impl)
+        outs = run()
+        refs = {key: kernels_vjp.packed_mlp_bwd_plain(p, xx, yb, db, spec, kt, tier)
+                for key, p, xx, yb, db, tier in (
+                    ("tier", params, x, ybar, dybar, precision),
+                    ("f32", params, x, ybar, dybar, "f32"),
+                    ("f64", f64(params), x.double(), ybar.double(), dybar.double(), precision))}
+        again = run()
+    for k in outs:
+        assert_tier_close(outs[k], refs["tier"][k], refs["f32"][k], refs["f64"][k], **tol)
+        assert torch.equal(outs[k], again[k]), k  # deterministic
 
 
 # ---------------------------------------------------------- the f32x3 tier

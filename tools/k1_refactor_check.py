@@ -5,7 +5,8 @@ time both builds.
     python3 tools/k1_refactor_check.py --other-dir OLD_CSRC [--tiers f32,bf16,f32x3]
                                        [--kernels k2,k1,k3,k4] [--exact k2:f32] [--time]
     python3 tools/k1_refactor_check.py --wide --other-dir OLD_CSRC [--tiers ...]
-                                       [--kernels k1,k3,k4,k2] [--time] [--widths 64,128]
+                                       [--kernels k1,k3,k4,k2] [--exact k1,k2:f32]
+                                       [--time] [--widths 64,128]
 
 Needs one CUDA card and nvcc. ``OLD_CSRC`` holds another version of the
 kernels' sources (for example those of a parent commit:
@@ -31,8 +32,11 @@ entries their launch plan (``k2_mma_rows``: the tensor-core body).
 ``--time`` also times both builds in turns (other, ours, ours, other), with
 CUDA events and with the device time ``torch.profiler`` records
 (``chip_smoke.device_ms``): K1 on the flagship's 12,516 grid points and K3
-on the 20,507-point CMB grid at K=2, at each tier of ``--tiers``; K4 at the
-flagship (K=2) and on the CMB grid, at each tier; K2 at each tier: the
+on the 20,507-point CMB grid at K=2, at each tier of ``--tiers``; K3 and K4
+at the flagship (K=2) and on the CMB grid, at each tier; K3 and K4 at the legacy
+shape (``examples/legacy.json``'s 5->[20]x20->4 net at K=3 on the 26,691
+points of ``cli synth --legacy --nx 41 --ny 31``, :func:`legacy_case`), at
+each tier; K2 at each tier: the
 continuity residual at 10M points, the 21,141-point serving grid (K=0) and
 the CMB grid (K=2). It prints each time with the card's name and power
 limit, then a table of the means with the ratio. Exits 1 if a check fails
@@ -45,7 +49,8 @@ K4 and K2 at phase 28's path shapes of ``chip_smoke.py`` for each W of
 ``--widths`` (K1 and the K2 epilogue on the 2->[W]x100->3 flagship at
 12,516 points, K2 at K = 0 on the 81x261 grid, K3, K4 and K2 at K = 2 on
 the 2->[W]x10->6 CMB net and the 20,507-point CMB grid), each held to the
-other build by the tolerances above, and with ``--time`` timed in turns
+other build by the tolerances above (``--exact`` kernels or ``kernel:tier``
+pairs bit for bit), and with ``--time`` timed in turns
 (other, ours, ours, other) beside the plain version, each with its plan
 (tile, tiles, rounds, blocks per SM).
 """
@@ -138,6 +143,35 @@ def launch_k4(lib, params, x, ybar, dybar, spec, kt: int, precision: str = "f32"
     return kernels_vjp._launch_k4(params, x, ybar, dybar, spec, kt, precision, lib=lib)
 
 
+def legacy_case(dev, tmp: str):
+    """The legacy shape of ``chip_smoke.py`` phase 25 as a K3/K4 case
+    ``(name, spec, params, x, ybar, dybar, K)``: ``examples/legacy.json``'s
+    5->[20]x20->4 net at K=3 on the 26,691 residual points of ``cli synth
+    --legacy --nx 41 --ny 31`` (written under ``tmp``), seeded weights and
+    cotangents."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from pinn_depthestimation_tpu_torch import cli
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    out = os.path.join(tmp, "legacy")
+    if cli.main(["synth", "--out", out, "--legacy", "--nx", "41", "--ny", "31"]) != 0:
+        raise RuntimeError("synth --legacy failed")
+    cfg = chip_smoke.legacy_config_file(out, REPO, os.path.join(out, "beach2d"))
+    x = torch.as_tensor(load_training_data(load_config(cfg)).residual_input).to(dev)
+    spec = MLPSpec(sizes=(5,) + (20,) * 20 + (4,), init_type="xavier")
+    params = params_from_numpy(chip_smoke.numpy_params(spec.sizes, "xavier", 25), dev)
+    rng = np.random.RandomState(25)
+    n, kt = x.shape[0], 3
+    ybar = torch.as_tensor(rng.randn(n, 4).astype(np.float32)).to(dev)
+    dybar = torch.as_tensor(rng.randn(kt, n, 4).astype(np.float32)).to(dev)
+    return ("legacy net, residual points", spec, params, x, ybar, dybar, kt)
+
+
 def main_wide(args) -> int:
     """The ``--wide`` check (module docstring)."""
     import torch
@@ -154,6 +188,7 @@ def main_wide(args) -> int:
     tiers = args.tiers.split(",")
     wanted = [k for k in ("k1", "k3", "k4", "k2") if k in args.kernels.split(",")]
     widths = tuple(int(w) for w in args.widths.split(","))
+    exact = set(args.exact.split(",")) if args.exact else set()  # none by default
     failed, rows = [], []
     with tempfile.TemporaryDirectory() as tmp:
         procs = wide_check.start_builds(args.other_dir, tmp, wanted, tiers, "other")
@@ -213,6 +248,12 @@ def main_wide(args) -> int:
                         refs = {"f32": plain(params, x, "f32"),
                                 "f64": plain(chip_smoke.f64(params), x.double(), tier)}
                     for k in ours:
+                        if kind in exact or f"{kind}:{tier}" in exact:
+                            equal = torch.equal(ours[k], theirs[k])
+                            print(f"{name} {k}: bit-identical to the other build {equal}")
+                            if not equal:
+                                failed.append(f"{name} {k} (bits)")
+                            continue
                         try:
                             if tier == "f32":
                                 chip_smoke.compare(f"{name} {k} against the other build", ours[k],
@@ -271,9 +312,9 @@ def main() -> int:
                         help="a directory with the other version of the kernels' sources")
     parser.add_argument("--tiers", default="f32,bf16,f32x3", help="tiers to compare")
     parser.add_argument("--kernels", default="k2,k1,k3,k4", help="kernels to compare")
-    parser.add_argument("--exact", default="k2:f32",
+    parser.add_argument("--exact", default=None,
                         help="kernels, or kernel:tier pairs, that must give the same bits as "
-                             "the other build")
+                             "the other build (default k2:f32; with --wide none)")
     parser.add_argument("--time", action="store_true",
                         help="time K2, K1, K3 and K4 of both builds in turns")
     parser.add_argument("--wide", action="store_true",
@@ -284,7 +325,8 @@ def main() -> int:
         return main_wide(args)
     tiers = args.tiers.split(",")
     wanted = set(args.kernels.split(","))
-    exact = set(args.exact.split(",")) if args.exact else set()
+    exact_arg = "k2:f32" if args.exact is None else args.exact
+    exact = set(exact_arg.split(",")) if exact_arg else set()
 
     def is_exact(kind: str, tier: str) -> bool:
         return kind in exact or f"{kind}:{tier}" in exact
@@ -342,7 +384,7 @@ def main() -> int:
         _, _, res_pts, fid_pts = chip_smoke.cmb_bench_points(dev, tmp)
         k3 = chip_smoke.k3_cases(dev, REPO, tmp, res_pts, fid_pts)
         widths = {"k2": {c[0].width for c in k2}, "k1": {c[1].width for c in k1},
-                  "k3": {c[1].width for c in k3}, "k4": {c[1].width for c in k3}}
+                  "k3": {c[1].width for c in k3} | {20}, "k4": {c[1].width for c in k3} | {20}}
         widths = {k: v for k, v in widths.items() if k in wanted}
         procs = start_build(args.other_dir, tmp, widths, tiers)
         cuda_build.k2_library()  # the port's own build, beside the other's
@@ -428,6 +470,7 @@ def main() -> int:
             flag_name, flag, flag_params, flag_batch = k1[0]
             cmb = next(c for c in k3 if c[0] == "CMB net, residual grid")
             fl3 = next(c for c in k3 if c[0] == "flagship, train grid")
+            legacy = legacy_case(dev, tmp)
             spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
             fc = torch.empty((c10.shape[0],), device=dev)
             # the 81x261 serving grid (phase 17's), and the CMB grid at K=2
@@ -445,7 +488,7 @@ def main() -> int:
                                   lambda lib, t=tier: launch_k1(lib, flag_params, flag_batch, flag, t),
                                   7, 20))
                 for kind, launch in (("k3", launch_k3), ("k4", launch_k4)):
-                    shapes = [cmb] if kind == "k3" else [fl3, cmb]
+                    shapes = [fl3, cmb, legacy]
                     for name, spec, params, x, ybar, dybar, kt in shapes:
                         if kind in wanted:
                             cases.append((f"{kind.upper()}-{tier} {name} ({x.shape[0]} points, K={kt})",

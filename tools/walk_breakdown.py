@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Split the time of K1 and K3 between the parts of their shared backward walk.
+"""Split the time of K1, K3 and K4 between the parts of their shared backward walk.
 
-    python3 tools/walk_breakdown.py [--csrc DIR] [--reps 7] [--inner 20]
+    python3 tools/walk_breakdown.py [--csrc DIR] [--tiers f32,bf16,f32x3] [--reps 7] [--inner 20]
     python3 tools/walk_breakdown.py --wide [--csrc DIR] [--tiers f32,bf16] [--widths 64,128]
 
 Needs one CUDA card and nvcc. The tool copies the kernels' sources (the
 package's ``csrc/``, or ``--csrc DIR``, for example another commit's files
 from ``git show <commit>:pinn_depthestimation_tpu_torch/csrc/<file>``) to a
 temporary directory and patches the copies there into variants that each
-drop one part of the walk in ``mlp_bwd_common.cuh``:
+drop one part of the walk: in ``mlp_bwd_common.cuh`` (:data:`PATCHES`), or
+in ``mlp_bwd_mma.cuh`` (:data:`MMA_PATCHES`) for the bf16 and f32x3 tiers of
+sources that run those on the tensor cores:
 
   states     every layer state goes to one slot of the scratch and is read
              back from it: the same instructions, with the state traffic
@@ -18,17 +20,21 @@ drop one part of the walk in ``mlp_bwd_common.cuh``:
   barriers   the backward's per-layer ``__syncthreads()`` are removed;
   cotangent  the cotangent product ``[zbar; ubar^k] @ w^T`` of the hidden
              layers is dropped (its accumulators stay at zero);
-  all        every one of the four dropped at once.
+  staging    (the tensor-core walk only) the hidden layers' weight images
+             are not staged into shared memory;
+  all        every one of them dropped at once.
 
-Each variant is built at the f32 tier (K1 at width 20, K3 at width 10, one
-``nvcc`` each, all started together) and timed against the untouched build
-in turns (untouched, variant, variant, untouched), with CUDA events and with
-the device time ``torch.profiler`` records (``chip_smoke.device_ms``; the
-events measure the host's launch rate where a call enqueues slower than it
-runs): K1 on the flagship's 12,516 grid points (``chip_smoke.py`` phase 7's
-first case) and K3 on the 20,507-point CMB grid at K=2 (phase 11's first
-case). A dropped part's cost is the untouched device time less the
-variant's. The dropped
+Each variant is built at each tier of ``--tiers`` (f32 by default; K1 and
+K4 at width 20, K3 at width 10, one ``nvcc`` each, all started together)
+and timed against the untouched build in turns (untouched, variant,
+variant, untouched), with CUDA events and with the device time
+``torch.profiler`` records (``chip_smoke.device_ms``; the events measure the
+host's launch rate where a call enqueues slower than it runs): K1 on the
+flagship's 12,516 grid points (``chip_smoke.py`` phase 7's first case), K3
+on the 20,507-point CMB grid at K=2 (phase 11's first case) and K4 at the
+legacy shape (5->[20]x20->4 at K=3 on 26,691 points,
+``tools/k1_refactor_check.py::legacy_case``). A dropped part's cost is the
+untouched device time less the variant's. The dropped
 variants compute wrong gradients; only their times are read. Every patch
 must apply, or the tool stops.
 
@@ -71,6 +77,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 COMMON = "mlp_bwd_common.cuh"
+MMA = "mlp_bwd_mma.cuh"  # the tensor-core walk of the bf16 and f32x3 tiers
 
 # Patches of mlp_bwd_common.cuh (the walk with lane pairs and a tile sized
 # per launch): variant -> [(regex, replacement)]. Each regex must match at
@@ -87,53 +94,95 @@ PATCHES = {
     "cotangent": [(r"Tier::mac\(acc, zo\[q \+ v\], wv\[v\]\);", "(void)0;"),
                   (r"Tier::mac\(acct\[k\], zto\[k\]\[q \+ v\], wv\[v\]\);", "(void)0;")],
 }
-VARIANTS = ("states", "wgrad", "barriers", "cotangent")
+
+# The same variants of the tensor-core walk (mlp_bwd_mma.cuh): wgrad drops
+# the bf16 tier's CUDA-core products (accum_square, accum_rect) and the
+# f32x3 tier's MMA one (wgrad_mma); barriers also the f32x3 tier's barrier
+# between the flush and the slots.
+MMA_PATCHES = {
+    "states": PATCHES["states"],
+    "wgrad": [(r"accum_square<Tier, W, S, true>\(s_A, s_B, ld, P, s_red\)", "1"),
+              (r"accum_rect<Tier, S>\([^)]*\)", "1"),
+              (r"wgrad_mma<W, ACT, K>\([^;]*\);", "(void)0;")],
+    "barriers": PATCHES["barriers"] + [(r"__syncthreads\(\);  // the flush has read the slots",
+                                        "(void)0;")],
+    "cotangent": [(r"cotangent<SP, T>\(ca, zh, bw\);", "(void)0;"),
+                  (r"cotangent<SP, T>\(ct\[k\], uh\[k\], bw\);", "(void)0;")],
+    "staging": [(r"stage_hidden<SP, W, (false|true)>\(base, src, nl\);", "(void)0;")],
+}
 
 
-def patch(text: str, variant: str) -> str:
-    for v in (VARIANTS if variant == "all" else (variant,)):
-        for pattern, repl in PATCHES[v]:
+def patch(text: str, variant: str, table: dict, target: str) -> str:
+    for v in (tuple(table) if variant == "all" else (variant,)):
+        for pattern, repl in table[v]:
             text, n = re.subn(pattern, repl, text)
             if n == 0:
-                raise RuntimeError(f"patch {v!r} found no {pattern!r} in {COMMON}")
+                raise RuntimeError(f"patch {v!r} found no {pattern!r} in {target}")
     return text
 
 
-def build(src: str, tmp: str, variants) -> dict:
-    """``{variant: {"k1": library, "k3": library}}``, each built from a
-    patched copy of ``src``, every nvcc started together."""
+# The narrow cases: kernel -> (source, width macro, width).
+NARROW = {"k1": ("K1_SOURCE", "K1_WIDTH", 20), "k3": ("K3_SOURCE", "K3_WIDTH", 10),
+          "k4": ("K4_SOURCE", "K4_WIDTH", 20)}
+
+
+def patch_target(src: str, tier: str) -> tuple[str, dict]:
+    """The file a variant patches and its table: the tensor-core walk's
+    header (:data:`MMA_PATCHES`) for the bf16 and f32x3 tiers of sources
+    that have one, else ``mlp_bwd_common.cuh`` (:data:`PATCHES`; the
+    lane-pair walk runs every tier there)."""
+    if tier != "f32" and os.path.exists(os.path.join(src, MMA)):
+        return MMA, MMA_PATCHES
+    return COMMON, PATCHES
+
+
+def variants_of(src: str, tier: str) -> tuple:
+    """The variants a tier's walk is split into: its patch table's, then
+    ``all``."""
+    return tuple(patch_target(src, tier)[1]) + ("all",)
+
+
+def build(src: str, tmp: str, tiers) -> dict:
+    """``{(variant, tier): {kernel: library}}`` for the kernels of
+    :data:`NARROW`, the untouched build and one patched copy of ``src`` per
+    variant of :func:`variants_of`, every nvcc started together."""
     from pinn_depthestimation_tpu_torch.ops import cuda_build
-    from tools.k1_refactor_check import bind
+    from tools.k1_refactor_check import TIER_INDEX
+
+    binders = {"k1": cuda_build._bind_k1, "k3": cuda_build._bind_k3, "k4": cuda_build._bind_k4}
 
     procs = {}
-    for variant in variants:
-        d = os.path.join(tmp, variant)
-        shutil.copytree(src, d)
-        if variant != "untouched":
-            path = os.path.join(d, COMMON)
-            with open(path) as f:
-                text = f.read()
-            with open(path, "w") as f:
-                f.write(patch(text, variant))
-        for kind, source, macro, width in (("k1", cuda_build.K1_SOURCE, "K1_WIDTH", 20),
-                                           ("k3", cuda_build.K3_SOURCE, "K3_WIDTH", 10)):
-            out = os.path.join(d, f"lib{kind}.so")
-            cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{macro}={width}",
-                   "-DTIER_ONLY=0", "-o", out, os.path.join(d, source)]
-            procs[(variant, kind)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                       stderr=subprocess.STDOUT, text=True), out)
+    for tier in tiers:
+        for variant in ("untouched",) + variants_of(src, tier):
+            d = os.path.join(tmp, f"{variant}_{tier}")
+            shutil.copytree(src, d)
+            if variant != "untouched":
+                target, table = patch_target(src, tier)
+                path = os.path.join(d, target)
+                with open(path) as f:
+                    text = f.read()
+                with open(path, "w") as f:
+                    f.write(patch(text, variant, table, target))
+            for kind, (source, macro, width) in NARROW.items():
+                out = os.path.join(d, f"lib{kind}.so")
+                cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, f"-D{macro}={width}",
+                       f"-DTIER_ONLY={TIER_INDEX[tier]}", "-o", out,
+                       os.path.join(d, getattr(cuda_build, source))]
+                procs[(variant, tier, kind)] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     libs = {}
-    for (variant, kind), (proc, out) in procs.items():
+    for (variant, tier, kind), (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {kind} ({variant}):\n{log[-3000:]}")
+            raise RuntimeError(f"nvcc failed for {kind} {tier} ({variant}):\n{log[-3000:]}")
         if variant == "untouched":  # registers and spills of each kernel (ptxas -v)
             lines = log.splitlines()
             for i, line in enumerate(lines):
                 if "Compiling entry function" in line and "reduce_kernel" not in line:
                     usage = [x.strip() for x in lines[i + 1:i + 4] if "spill" in x or "Used" in x]
-                    print(f"ptxas {kind}: {line.split(chr(39))[1][:60]}...: {'; '.join(usage)}")
-        libs.setdefault(variant, {})[kind] = bind(kind, ctypes.CDLL(out))
+                    print(f"ptxas {kind} {tier}: {line.split(chr(39))[1][:60]}...: "
+                          f"{'; '.join(usage)}")
+        libs.setdefault((variant, tier), {})[kind] = binders[kind](ctypes.CDLL(out))
     return libs
 
 
@@ -278,16 +327,19 @@ def main() -> int:
     parser.add_argument("--inner", type=int, default=20, help="calls per repetition")
     parser.add_argument("--wide", action="store_true",
                         help="split the wide body (mlp_wide.cuh) instead of the narrow walk")
-    parser.add_argument("--tiers", default="f32,bf16", help="--wide: tiers to split")
+    parser.add_argument("--tiers", default=None,
+                        help="tiers to split (default: f32 for the narrow walk, f32,bf16 with "
+                             "--wide)")
     parser.add_argument("--widths", default="64,128", help="--wide: hidden widths")
     args = parser.parse_args()
     if args.wide:
+        args.tiers = args.tiers or "f32,bf16"
         return main_wide(args)
 
     import torch
 
     import chip_smoke
-    from tools.k1_refactor_check import launch_k1, launch_k3
+    from tools.k1_refactor_check import launch_k1, launch_k3, launch_k4, legacy_case
 
     if not torch.cuda.is_available():
         print("walk_breakdown: needs a CUDA card", file=sys.stderr)
@@ -295,50 +347,56 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi("name,power.limit"))
     print(ncu_status())
-    print(f"sources {args.csrc}")
+    tiers = (args.tiers or "f32").split(",")
+    print(f"sources {args.csrc}; tiers {tiers}; patched: "
+          f"{ {t: patch_target(args.csrc, t)[0] for t in tiers} }")
 
-    variants = ("untouched",) + VARIANTS + ("all",)
     with tempfile.TemporaryDirectory() as tmp:
         cases, n_grid, _ = chip_smoke.k1_cases(dev, REPO, tmp)
         _, k1_spec, k1_params, k1_batch = cases[0]
         _, _, res_pts, fid_pts = chip_smoke.cmb_bench_points(dev, tmp)
         _, k3_spec, k3_params, x, ybar, dybar, kt = chip_smoke.k3_cases(
             dev, REPO, tmp, res_pts, fid_pts)[0]
-        libs = build(args.csrc, tmp, variants)
+        _, k4_spec, k4_params, x4, ybar4, dybar4, kt4 = legacy_case(dev, tmp)
+        libs = build(args.csrc, tmp, tiers)
         calls = {
-            "k1": lambda lib: (lambda: launch_k1(lib, k1_params, k1_batch, k1_spec)),
-            "k3": lambda lib: (lambda: launch_k3(lib, k3_params, x, ybar, dybar, k3_spec, kt)),
+            "k1": lambda lib, t: (lambda: launch_k1(lib, k1_params, k1_batch, k1_spec, t)),
+            "k3": lambda lib, t: (lambda: launch_k3(lib, k3_params, x, ybar, dybar, k3_spec, kt,
+                                                    t)),
+            "k4": lambda lib, t: (lambda: launch_k4(lib, k4_params, x4, ybar4, dybar4, k4_spec,
+                                                    kt4, t)),
         }
-        labels = {"k1": f"K1-f32 flagship, {n_grid} points",
-                  "k3": f"K3-f32 CMB net, {x.shape[0]} points, K={kt}"}
+        labels = {"k1": f"K1-{{}} flagship, {n_grid} points",
+                  "k3": f"K3-{{}} CMB net, {x.shape[0]} points, K={kt}",
+                  "k4": f"K4-{{}} legacy net, {x4.shape[0]} points, K={kt4}"}
         rows = {}
-        for kind in ("k1", "k3"):
-            for variant in VARIANTS + ("all",):
-                times = {"untouched": [], variant: []}
-                device = {"untouched": [], variant: []}
-                for who in ("untouched", variant, variant, "untouched"):
-                    fn = calls[kind](libs[who][kind])
-                    times[who].append(chip_smoke.cuda_ms(fn, args.reps, args.inner))
-                    d = chip_smoke.device_ms(fn, args.inner, chip_smoke.WALK_KERNEL[kind])
-                    device[who].append(float("nan") if d is None else d)
-                mean = lambda v: sum(v) / len(v)  # noqa: E731
-                rows[(kind, variant)] = (mean(times["untouched"]), mean(times[variant]),
-                                         mean(device["untouched"]), mean(device[variant]))
-                print(f"time {labels[kind]}: untouched {times['untouched']} ms, without "
-                      f"{variant} {times[variant]} ms (CUDA events, median of {args.reps} x "
-                      f"{args.inner} calls); device time untouched {device['untouched']} ms, "
-                      f"without {variant} {device[variant]} ms (torch.profiler, {args.inner} "
-                      f"calls); order untouched, variant, variant, untouched")
+        for tier in tiers:
+            for kind in NARROW:
+                label = labels[kind].format(tier)
+                for variant in variants_of(args.csrc, tier):
+                    times = {"untouched": [], variant: []}
+                    device = {"untouched": [], variant: []}
+                    for who in ("untouched", variant, variant, "untouched"):
+                        fn = calls[kind](libs[(who, tier)][kind], tier)
+                        times[who].append(chip_smoke.cuda_ms(fn, args.reps, args.inner))
+                        d = chip_smoke.device_ms(fn, args.inner, chip_smoke.WALK_KERNEL[kind])
+                        device[who].append(float("nan") if d is None else d)
+                    mean = lambda v: sum(v) / len(v)  # noqa: E731
+                    rows[(label, variant)] = (mean(times["untouched"]), mean(times[variant]),
+                                              mean(device["untouched"]), mean(device[variant]))
+                    print(f"time {label}: untouched {times['untouched']} ms, without "
+                          f"{variant} {times[variant]} ms (CUDA events, median of {args.reps} x "
+                          f"{args.inner} calls); device time untouched {device['untouched']} ms, "
+                          f"without {variant} {device[variant]} ms (torch.profiler, "
+                          f"{args.inner} calls); order untouched, variant, variant, untouched")
         print("split (ms; untouched is the mean of the two runs beside each variant; the "
               "cost and its share are of the device time):")
         print("| kernel | part dropped | untouched (events) | without it (events) | untouched "
               "(device) | without it (device) | its cost | share |")
         print("| --- | --- | --- | --- | --- | --- | --- | --- |")
-        for kind in ("k1", "k3"):
-            for variant in VARIANTS + ("all",):
-                ref, ms, dref, dms = rows[(kind, variant)]
-                print(f"| {labels[kind]} | {variant} | {ref:.4f} | {ms:.4f} | {dref:.4f} | "
-                      f"{dms:.4f} | {dref - dms:.4f} | {(dref - dms) / dref:.1%} |")
+        for (label, variant), (ref, ms, dref, dms) in rows.items():
+            print(f"| {label} | {variant} | {ref:.4f} | {ms:.4f} | {dref:.4f} | "
+                  f"{dms:.4f} | {dref - dms:.4f} | {(dref - dms) / dref:.1%} |")
     return 0
 
 
