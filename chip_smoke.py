@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (``csrc/continuity_train_step.cu``), K3 (``csrc/mlp_bwd.cu``) and K4
    (``csrc/mlp_bwd_rebuild.cu``) from the checkout's sources, each library
    holding the f32, bf16 and f32x3 tiers, every ``nvcc`` started together;
-   registers and spills per width; the HMMA instructions of K2's kernels
+   registers and spills per width, and K2-f32's per width and lanes a
+   point; the HMMA instructions of K2's kernels
    at width 20 and of K1's, K3's and K4's walk kernels at every width
    (``cuobjdump -sass``): in every bf16 and f32x3 kernel (the tensor-core
    bodies, ``csrc/mlp_fwd_tangents_mma.cuh``, ``csrc/mlp_bwd_mma.cuh``),
@@ -18,7 +19,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
-   stack deeper than one shared-memory chunk holds;
+   stack deeper than one shared-memory chunk holds; then the ragged point
+   counts 1, 17, 255 and 257, the serving grid's 21,141 and the legacy
+   shape's 26,691 points, and the 2->[32]x100->3 stack (several chunks at
+   f32), each with its f32 plan (``ops/k2_plan.py::f32_plan``);
 4. the serving path through its entry point: ``synth`` writes the 81x261
    newmethod grid, seeded flagship weights go to a reference-layout .pth,
    and the CLI ``test`` verb predicts the grid (``--save``); predictions
@@ -26,7 +30,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 5. residual evaluation: ``run_residual_bench`` at 10M points, checked
    against the plain version at the same inputs;
 6. times (CUDA events, median of reps) of each kernel beside its plain
-   version and its bound;
+   version and its bound; K2-f32's device time (``torch.profiler``),
+   bound, share of the bound and plan at the serving grid, 10M points,
+   the CMB grid at K=2, the CMB net's 200 fidelity rows (K=0) and the
+   legacy shape at K=3;
 7. K1 against its plain version on the card: the flagship on the 12,516
    points of the 81x261 grid with 40.8 % NaN rows, anchored with two
    observed heads, under parity (every point selected) and parity=false
@@ -606,6 +613,63 @@ def k2_cases(dev):
         x = torch.as_tensor(rng.uniform(-1, 1, (n, spec.d_in)).astype(np.float32)).to(dev)
         out.append((spec, params_from_numpy(arrays, dev), x, tangent_counts))
     return out
+
+
+def k2_ragged_cases(dev):
+    """Phase 3's cases around K2-f32's launch plan, as :func:`k2_cases`: a
+    2->[20]x6->3 net at 1, 17, 255 and 257 points, the flagship at the
+    serving grid's 21,141, the legacy net (5->[20]x20->4) at its 26,691
+    residual points (K=3, K=0), and the 2->[32]x100->3 stack, which takes
+    several shared-memory chunks at f32; seeded numpy weights, uniform
+    points."""
+    import numpy as np
+    import torch
+
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    rng = np.random.RandomState(9)
+    short = MLPSpec(sizes=(2,) + (20,) * 6 + (3,), init_type="xavier")
+    cases = [(short, n, (0, 2)) for n in (1, 17, 255, 257)] + [
+        (MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier"), 21_141, (0,)),
+        (MLPSpec(sizes=(5,) + (20,) * 20 + (4,), init_type="xavier"), 26_691, (3, 0)),
+        (MLPSpec(sizes=(2,) + (32,) * 100 + (3,), init_type="xavier"), 5_003, (0, 2)),
+    ]
+    out = []
+    for spec, n, tangent_counts in cases:
+        x = torch.as_tensor(rng.uniform(-1, 1, (n, spec.d_in)).astype(np.float32)).to(dev)
+        params = params_from_numpy(numpy_params(spec.sizes, spec.init_type, 4), dev)
+        out.append((spec, params, x, tangent_counts))
+    return out
+
+
+def f32_plan_text(spec, n: int, n_tangents: int, dev) -> str:
+    """K2-f32's plan of one launch (``ops/k2_plan.py::f32_plan``), for the log."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build, k2_plan
+
+    p = k2_plan.card_f32_plan(cuda_build.k2_library().libs[spec.width], n, spec.width,
+                              spec.n_hidden - 1, n_tangents, dev)
+    return (f"{p.lanes} lane(s) a point, {p.grid} blocks x {p.warps} warps, {p.rounds} rounds, "
+            f"{p.chunk} hidden layers a chunk in {p.slots} slot(s), {p.smem} B")
+
+
+def k2_f32_ptxas(log: str, lib) -> None:
+    """Phase 2's lines for K2-f32 from one width's ptxas report: per lanes a
+    point, the registers and spill stores of its kernels beside the
+    registers a thread its largest block allows (``k2_f32_threads``)."""
+    per = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.match(r"_ZN5k2f3213k2_f32_kernelILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs:
+            per.setdefault(int(m.group(2)), []).append(
+                (int(m.group(4)), int(regs.group(1)), int(spill.group(1)) if spill else 0))
+    for lanes, kernels in sorted(per.items()):
+        caps = {k: 65536 // lib.k2_f32_threads(lanes, k) for k, _, _ in kernels}
+        print(f"    K2-f32 {lanes} lane(s) a point: registers by K "
+              + ", ".join(f"K={k} {r} (cap {caps[k]})" for k, r, _ in sorted(set(kernels)))
+              + f"; max spill stores {max(s for _, _, s in kernels)} B over {len(kernels)} kernels")
 
 
 def newmethod_config(tmp: str, repo: str, **overrides) -> str:
@@ -2574,6 +2638,82 @@ def legacy_config_file(tmp: str, repo: str, snap_dir: str, **overrides) -> str:
     return write_config(tmp, "legacy", raw, overrides)
 
 
+def legacy_points(dev, tmp: str, repo: str):
+    """The legacy shape's 26,691 residual points on the card (``cli synth
+    --legacy --nx 41 --ny 31`` under ``tmp``, read through
+    ``examples/legacy.json``'s loader)."""
+    import torch
+
+    from pinn_depthestimation_tpu_torch import cli
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_training_data
+
+    out = os.path.join(tmp, "legacy")
+    if cli.main(["synth", "--out", out, "--legacy", "--nx", "41", "--ny", "31"]) != 0:
+        fail("synth --legacy failed")
+    cfg = legacy_config_file(out, repo, os.path.join(out, "beach2d"))
+    return torch.as_tensor(load_training_data(load_config(cfg)).residual_input).to(dev)
+
+
+def k2_path_shapes(dev, repo: str, serve, residual) -> dict:
+    """K2-f32's five path shapes ``{name: (spec, params, x, K, epilogue)}``:
+    the serving grid (K=0) and the 10M-point residual (``serve``,
+    ``residual``: ``(spec, params, x)``), the CMB grid at K=2 and the CMB
+    net's 200 fidelity rows at K=0 (``cmb_bench_points``), the legacy shape
+    at K=3 (:func:`legacy_points`); seeded numpy weights."""
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    cmb_net = MLPSpec(sizes=(2,) + (10,) * 10 + (6,), init_type="xavier")
+    legacy = MLPSpec(sizes=(5,) + (20,) * 20 + (4,), init_type="xavier")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, res_pts, fid_pts = cmb_bench_points(dev, tmp)
+        leg_pts = legacy_points(dev, tmp, repo)
+    cmb_params = params_from_numpy(numpy_params(cmb_net.sizes, "xavier", 8), dev)
+    return {
+        "serve": (*serve, 0, False),
+        "10m": (*residual, 2, True),
+        "cmb": (cmb_net, cmb_params, res_pts, 2, False),
+        "fid": (cmb_net, cmb_params, fid_pts, 0, False),
+        "legacy": (legacy, params_from_numpy(numpy_params(legacy.sizes, "xavier", 25), dev),
+                   leg_pts, 3, False),
+    }
+
+
+def k2_f32_shapes(dev, repo: str, bound, serve, residual) -> dict:
+    """Phase 6's K2-f32 at its five path shapes (:func:`k2_path_shapes`):
+    the device time (``device_ms``), the bound, the share of it, the plan
+    and (but at 10M, phase 6's own) the plain version's time. Returns the
+    ``kernels`` line's keys."""
+    from pinn_depthestimation_tpu_torch.ops import cuda_build, k2_plan, kernels
+
+    out = {}
+    for key, (spec, params, x, kt, epi) in k2_path_shapes(dev, repo, serve, residual).items():
+        n = x.shape[0]
+        def call(p=params, x=x, s=spec, k=kt, epi=epi):
+            if epi:
+                return kernels.fused_residual_continuity(p, x, s)
+            return kernels.mlp_fwd_tangents(p, x, s, k)
+
+        ms = device_ms(call, 3 if key == "10m" else 20, "k2_f32_kernel")
+        if key != "10m":  # the plain version at 10M is phase 6's plain_ms
+            out[f"plain_ms_{key}"] = cuda_ms(
+                lambda p=params, x=x, s=spec, k=kt: kernels.mlp_fwd_tangents_plain(p, x, s, k),
+                3, 1)
+        b, by = bound(k2_flops(spec, n, kt, epi), k2_bytes(params, n, spec, 1 if epi else
+                                                             spec.d_out * (1 + kt)))
+        plan = k2_plan.card_f32_plan(cuda_build.k2_library().libs[spec.width], n, spec.width,
+                                     spec.n_hidden - 1, kt, dev)
+        print(f"  K2-f32 {key} ({spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out}, {n} "
+              f"points, K={kt}{', epilogue' if epi else ''}): device {fmt_ms(ms)}, bound "
+              f"{b:.5f} ms by {by}" + (f", {b / ms:.1%} of bound" if ms else "")
+              + (f", plain {out[f'plain_ms_{key}']:.4f} ms" if key != "10m" else "")
+              + f"; plan {f32_plan_text(spec, n, kt, dev)}")
+        out.update({f"device_ms_{key}": ms, f"bound_ms_{key}": b, f"points_{key}": n,
+                    f"lanes_{key}": plan.lanes, f"grid_{key}": plan.grid,
+                    f"warps_{key}": plan.warps})
+    return out
+
+
 def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
     """Phase 25: the legacy pipeline at ``examples/legacy.json``'s full
     width. Returns the legacy numbers of the ``kernels`` line's K2-f32,
@@ -3944,6 +4084,8 @@ def main() -> None:
                   f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
                   f"{max(spills, default=0)} B over {len(regs)} kernels; nvcc ended at "
                   f"{head.group(3)} s after {head.group(4)} s of CPU")
+            if name == "k2" and head.group(2) == "f32":
+                k2_f32_ptxas(block, built.libs[int(head.group(1))])
     wide_cpu_s = wide_build_report(repo)
     print(f"  the sixty narrow nvcc took {cpu_s:.1f} s of CPU, the twelve wide ones "
           f"{wide_cpu_s:.1f} s, on {os.cpu_count()} cores")
@@ -3964,10 +4106,11 @@ def main() -> None:
     print("== phase 3: K2 against its plain version on the card")
     flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
     with torch.no_grad():
-        for spec, params, x, tangent_counts in k2_cases(dev):
-            chunk = lib.libs[spec.width].k2_chunk_layers(spec.n_hidden - 1)
+        for spec, params, x, tangent_counts in k2_cases(dev) + k2_ragged_cases(dev):
+            kt = max(tangent_counts)
             print(f" sizes {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out} "
-                  f"{spec.init_type}, N={x.shape[0]}, {chunk} hidden layers per smem chunk")
+                  f"{spec.init_type}, N={x.shape[0]}; f32 plan at K={kt}: "
+                  f"{f32_plan_text(spec, x.shape[0], kt, dev)}")
             for k in tangent_counts:
                 y, dy = kernels.mlp_fwd_tangents(params, x, spec, k)
                 torch.cuda.synchronize()
@@ -4080,6 +4223,9 @@ def main() -> None:
           f"{n_res / ms_res * 1e3:.4g} evals/s)")
     print(f"  K2 residual, 1M points: {ms_res_1m:.3f} ms (plain {plain_res_1m:.3f} ms, "
           f"bound {b_1m:.3f} ms, {b_1m / ms_res_1m:.1%} of bound)")
+    with torch.no_grad():
+        k2_shapes = k2_f32_shapes(dev, repo, bound, (flagship, serve_params, x_grid),
+                                  (spec, params, coords))
     # phases 8 and 12 leave their trained models here for phase 24
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     # 7.-10. the training slice ------------------------------------------
@@ -4128,7 +4274,7 @@ def main() -> None:
               "plain_ms_1m": plain_res_1m, "launches_predict": launches["mlp_fwd_tangents"],
               "launches_continuity": launches["fused_residual_continuity"],
               "ms_predict": ms_pred, "plain_ms_predict": plain_pred, "bound_ms_predict": b_pred,
-              "points_predict": n_grid, "build_s": build_s}
+              "points_predict": n_grid, "build_s": build_s, **k2_shapes}
     k1_report["name"] = "k1_continuity_train_step[f32]"
     k3_report["name"] = "k3_mlp_bwd[f32]"
     k3_bf16 = {**bf16_report["k3_bf16"], "launches": picked[("bf16", "stream")]}

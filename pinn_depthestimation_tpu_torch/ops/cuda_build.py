@@ -230,13 +230,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _bind_k2(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """K2's entries. The bf16 and f32x3 launches (the tensor-core body) take
-    the f32 launch's arguments and then the plan's grid and chunk
-    (``ops/k2_plan.py``)."""
+    """K2's entries. Each launch takes the pointers, the shapes and mode
+    (n, d_in, d_out, n_stack, K, act, epilogue) and then its plan
+    (``ops/k2_plan.py``): the f32 body its grid, threads, lanes and chunk,
+    the bf16 and f32x3 launches (the tensor-core body) their grid and
+    chunk."""
     _bind(lib, "k2", {"mlp_fwd_tangents": [_P] * 10 + [_I] * 9 + [_P], "width": [],
-                      "chunk_layers": [_I], "mma_rows": [], "mma_warps": [], "mma_smem": [_I]})
+                      "f32_threads": [_I, _I], "f32_smem": [_I] * 3,
+                      "mma_rows": [], "mma_warps": [], "mma_smem": [_I]})
     if hasattr(lib, "k2_mlp_fwd_tangents"):
-        lib.k2_mlp_fwd_tangents.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+        lib.k2_mlp_fwd_tangents.argtypes = [_P] * 10 + [_I] * 11 + [_P]
     return lib
 
 

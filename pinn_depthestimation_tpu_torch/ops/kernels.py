@@ -7,9 +7,12 @@ is CUDA C++ in ``csrc/mlp_fwd_tangents.cu``, built by ``ops.cuda_build``.
 It computes what ``models.mlp.mlp_apply_with_tangents`` computes for the
 coordinate-basis tangents, and none of the TPU's lane packing carries over.
 
-f32: one thread per point keeps the primal and K tangent streams in
-registers, with the hidden weights broadcast from shared memory. What bounds
-it on the H100: FLOPs, not bytes. Per point it does ``2*(d_in*W + (L-1)*W^2
+f32: a point takes one or two lanes, each keeping its share of the primal's
+and the K tangent streams' neurons in registers and taking a layer's inputs
+from its partner by shuffles, on a persistent grid that stages the hidden
+stack once per block (the plan: :func:`ops.k2_plan.f32_plan`); every output
+keeps the bits of one thread a point. What bounds it on the H100: FLOPs,
+not bytes. Per point it does ``2*(d_in*W + (L-1)*W^2
 + W*d_out)*(1+K)`` FLOPs (about 238,000 for the 2->[20]x100->3 flagship at
 K=2, plus 100*W tanh) against about 12 B of device memory, so it is bound by
 the CUDA cores' FMA rate (``SMs x 128 lanes x 2 x SM clock``); f32 stays
@@ -171,15 +174,20 @@ def _launch_k2(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *
 
 
 def _launch_k2_narrow(params, coords, spec: MLPSpec, n_tangents: int, precision: str, *,
-                      epilogue: bool, y=None, dy=None, fc=None, lib=None) -> None:
-    """One launch of K2's narrow body at ``spec``'s (compiled) width; at
-    bf16 and f32x3 with the grid and chunk of :func:`ops.k2_plan.
-    card_plan`."""
+                      epilogue: bool, y=None, dy=None, fc=None, lib=None,
+                      lanes: int | None = None) -> None:
+    """One launch of K2's narrow body at ``spec``'s (compiled) width, on the
+    plan of :func:`ops.k2_plan.card_f32_plan` at f32 (grid, threads, lanes
+    a point, chunk; ``lanes`` forces the lanes) or of
+    :func:`ops.k2_plan.card_plan` at bf16 and f32x3 (grid, chunk)."""
     lib = lib or k2_library().libs[spec.width]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     n, n_stack = coords.shape[0], spec.n_hidden - 1
-    extra = ()  # the f32 entry takes no plan
-    if precision != "f32":
+    if precision == "f32":
+        plan = k2_plan.card_f32_plan(lib, n, spec.width, n_stack, n_tangents, coords.device,
+                                     lanes)
+        extra = (plan.grid, plan.threads, plan.lanes, plan.chunk)
+    else:
         plan = k2_plan.card_plan(lib, n, spec.width, n_stack, precision, coords.device)
         extra = (plan.grid, plan.chunk)
     with torch.cuda.device(coords.device):
@@ -197,7 +205,8 @@ def _launch_k2_narrow(params, coords, spec: MLPSpec, n_tangents: int, precision:
         raise RuntimeError(
             f"K2 launch failed: CUDA error {err} "
             f"({lib.k2_error_string(err).decode()}) at sizes {spec.sizes}, "
-            f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}, precision={precision}"
+            f"N={coords.shape[0]}, K={n_tangents}, epilogue={epilogue}, precision={precision}, "
+            f"plan {plan}"
         )
 
 

@@ -644,6 +644,129 @@ def test_cuda_k2_f32x3_matches_plain_tier(cuda_device, sizes, init_type, kt, n):
     assert torch.equal(y, y2) and torch.equal(dy, dy2)
 
 
+# ------------------------------------------------ K2's f32 body and its plan
+
+K2_F32_RAGGED = (1, 17, 255, 257, 21_141, 26_691, 10_000_000)
+
+
+def k2_f32_outputs(params, x, spec, kt, lanes, epilogue=False):
+    """One K2-f32 launch on its plan with ``lanes`` forced through it (None:
+    the plan's own), through the port's launcher."""
+    n = x.shape[0]
+    if epilogue:
+        fc = torch.empty(n, device=x.device)
+        kernels._launch_k2_narrow(params, x, spec, 2, "f32", epilogue=True, fc=fc, lanes=lanes)
+        return {"fc": fc}
+    y = torch.empty((n, spec.d_out), device=x.device)
+    dy = torch.empty((kt, n, spec.d_out), device=x.device)
+    kernels._launch_k2_narrow(params, x, spec, kt, "f32", epilogue=False, y=y,
+                              dy=dy if kt else None, lanes=lanes)
+    return {"y": y, "dy": dy}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init_type", ["xavier", "kaiming"])
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("width", [8, 10, 16, 20, 32])
+def test_cuda_k2_f32_every_width_and_lane_count(cuda_device, width, lanes, init_type):
+    """K2-f32 at each compiled width, each lane count forced through the
+    plan, K = 0..3 and the epilogue, both activations, against its plain
+    version; and one lane a point against two bit for bit (every output's
+    sum keeps its order whoever computes it)."""
+    sizes = (3,) + (width,) * 7 + (3,)
+    spec = MLPSpec(sizes=sizes, init_type=init_type)
+    params = params_from_numpy(numpy_params(sizes, init_type, seed=31), cuda_device)
+    x = torch.from_numpy(np.random.RandomState(32).uniform(-1, 1, (2_051, 3))
+                         .astype(np.float32)).to(cuda_device)
+    other = 3 - lanes
+    for kt in range(4):
+        got = k2_f32_outputs(params, x, spec, kt, lanes)
+        y_p, dy_p = kernels.mlp_fwd_tangents_plain(params, x, spec, kt)
+        assert_close_to_plain(got["y"], y_p)
+        assert_close_to_plain(got["dy"], dy_p)
+        again = k2_f32_outputs(params, x, spec, kt, other)
+        assert torch.equal(got["y"], again["y"]) and torch.equal(got["dy"], again["dy"])
+    if init_type == "xavier":
+        fc = k2_f32_outputs(params, x, spec, 2, lanes, epilogue=True)["fc"]
+        assert_close_to_plain(fc, kernels.residual_continuity_plain(params, x, spec))
+        assert torch.equal(fc, k2_f32_outputs(params, x, spec, 2, other, epilogue=True)["fc"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 1, 2])
+@pytest.mark.parametrize("n", K2_F32_RAGGED)
+def test_cuda_k2_f32_ragged_points(cuda_device, n, lanes):
+    """K2-f32 at point counts around its warp tiles and the path's sizes, at
+    the plan's lanes and each forced: against the plain version, and the
+    first n points of a launch on more points give the same bits (a point's
+    outputs do not depend on its tile)."""
+    sizes = (2,) + (20,) * 6 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=33), cuda_device)
+    x = torch.from_numpy(np.random.RandomState(34).uniform(-1, 1, (n + 37, 2))
+                         .astype(np.float32)).to(cuda_device)
+    for kt in (0, 2):
+        got = k2_f32_outputs(params, x[:n], spec, kt, lanes)
+        y_p, dy_p = kernels.mlp_fwd_tangents_plain(params, x[:n], spec, kt)
+        assert_close_to_plain(got["y"], y_p)
+        assert_close_to_plain(got["dy"], dy_p)
+        longer = k2_f32_outputs(params, x, spec, kt, lanes)
+        assert torch.equal(got["y"], longer["y"][:n]) and torch.equal(got["dy"], longer["dy"][:, :n])
+    fc = k2_f32_outputs(params, x[:n], spec, 2, lanes, epilogue=True)["fc"]
+    assert_close_to_plain(fc, kernels.residual_continuity_plain(params, x[:n], spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_cuda_k2_f32_stack_in_several_chunks(cuda_device, lanes):
+    """2->[32]x100->3: its 99 stacked layers take two shared-memory slots
+    of 27 layers, staged chunk after chunk while the last one computes, for
+    several rounds of tiles; K = 0..2 and the epilogue against the plain
+    version."""
+    from pinn_depthestimation_tpu_torch.ops import k2_plan
+
+    sizes = (2,) + (32,) * 100 + (3,)
+    spec = MLPSpec(sizes=sizes)
+    params = params_from_numpy(numpy_params(sizes, seed=35), cuda_device)
+    lib = kernels.k2_library().libs[32]
+    n = 40_003
+    plan = k2_plan.card_f32_plan(lib, n, 32, 99, 2, cuda_device, lanes)
+    assert plan.slots == 2 and plan.chunks >= 3 and plan.rounds >= 2
+    x = torch.from_numpy(np.random.RandomState(36).uniform(-1, 1, (n, 2))
+                         .astype(np.float32)).to(cuda_device)
+    for kt in range(3):
+        got = k2_f32_outputs(params, x, spec, kt, lanes)
+        y_p, dy_p = kernels.mlp_fwd_tangents_plain(params, x, spec, kt)
+        assert_close_to_plain(got["y"], y_p)
+        assert_close_to_plain(got["dy"], dy_p)
+    fc = k2_f32_outputs(params, x, spec, 2, lanes, epilogue=True)["fc"]
+    assert_close_to_plain(fc, kernels.residual_continuity_plain(params, x, spec))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_f32_library_reports_the_plan(cuda_device):
+    """Every width's K2 library answers, at f32, the most threads a block
+    takes and the shared-memory bytes of a chunk that the CPU tests of the
+    plan (tests/test_torch_k2_f32_plan.py) take from ops/k2_plan.py, none
+    for a lane count the body does not take; the chunks the plan picks fit
+    the card."""
+    from pinn_depthestimation_tpu_torch.ops import k2_plan
+
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    k2_plan.SMEM_LIMIT)
+    for width, lib in kernels.k2_library().libs.items():
+        for lanes in k2_plan.F32_LANES:
+            for kt in range(4):
+                assert lib.k2_f32_threads(lanes, kt) == k2_plan.f32_max_threads(width, lanes, kt)
+            for chunk, slots in ((0, 1), (1, 1), (9, 1), (27, 2), (99, 1)):
+                assert (lib.k2_f32_smem(lanes, chunk, slots)
+                        == k2_plan.f32_smem_bytes(width, lanes, chunk, slots)), (width, lanes)
+            for n_stack in (9, 99, 119):
+                chunk, slots = k2_plan.f32_chunk(width, lanes, n_stack, optin)
+                assert 1 <= chunk <= n_stack and lib.k2_f32_smem(lanes, chunk, slots) <= optin
+        assert lib.k2_f32_threads(4, 0) == 0 and lib.k2_f32_smem(3, 1, 1) == 0
+
+
 # ------------------------------------------- K2's tensor-core body (both tiers)
 
 K2_RAGGED = ("1", "15", "17", "wave-1", "wave+1")

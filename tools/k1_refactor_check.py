@@ -26,8 +26,16 @@ max|ours - theirs| <= 1e-4 x max|theirs| + 1e-7, at bf16 and f32x3
 ``compare_tier`` with the other build in the plain tier version's place
 (two valid summation orders of one function). The other build's walk must
 take its tile per launch (the lane-pair walk), and its K2's bf16 and f32x3
-entries their launch plan (``k2_mma_rows``: the tensor-core body).
-``--kernels`` limits the check to kernels the other sources have.
+entries their launch plan (``k2_mma_rows``: the tensor-core body). A K2
+whose f32 entry takes no plan (no ``k2_f32_threads``: sources before the
+f32 body took lanes a point) is launched with that entry's own arguments.
+K2's cases are phase 3's (``chip_smoke.k2_cases`` and
+``chip_smoke.k2_ragged_cases``: ragged point counts, the serving grid, the
+legacy shape, a stack in several chunks) and the 10M-point residual; at
+f32 each is also launched at every lane count the f32 body takes (one and
+two lanes a point, ``ops/k2_plan.py::F32_LANES``, forced through the plan)
+and held to the other build the same way. ``--kernels`` limits the check to kernels the other sources have,
+and only those kernels of this tree are built.
 
 ``--time`` also times both builds in turns (other, ours, ours, other), with
 CUDA events and with the device time ``torch.profiler`` records
@@ -37,8 +45,9 @@ at the flagship (K=2) and on the CMB grid, at each tier; K3 and K4 at the legacy
 shape (``examples/legacy.json``'s 5->[20]x20->4 net at K=3 on the 26,691
 points of ``cli synth --legacy --nx 41 --ny 31``, :func:`legacy_case`), at
 each tier; K2 at each tier: the
-continuity residual at 10M points, the 21,141-point serving grid (K=0) and
-the CMB grid (K=2). It prints each time with the card's name and power
+continuity residual at 10M points, the 21,141-point serving grid (K=0), the
+CMB grid (K=2), the CMB net's 200 fidelity rows (K=0) and the legacy shape
+(K=3), with this build's plan (at f32 the lanes a point, blocks and warps). It prints each time with the card's name and power
 limit, then a table of the means with the ratio. Exits 1 if a check fails
 or a build fails.
 
@@ -110,16 +119,46 @@ def finish_build(procs: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the other {kind} at width {w}, {tier}:\n"
                                f"{log[-3000:]}")
-        per.setdefault((kind, w), []).append(binders[kind](ctypes.CDLL(out)))
+        lib = binders[kind](ctypes.CDLL(out))
+        if kind == "k2" and tier == "f32" and not hasattr(lib, "k2_f32_threads"):
+            # an f32 entry without a launch plan: pointers, shapes, mode, stream
+            lib.k2_mlp_fwd_tangents.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+        per.setdefault((kind, w), []).append(lib)
     return {key: cuda_build.WidthLibrary(libs) for key, libs in per.items()}
 
 
-def launch_k2(lib, params, x, spec, kt: int, precision: str, *, epilogue: bool, **out):
+def launch_k2(lib, params, x, spec, kt: int, precision: str, *, epilogue: bool,
+              lanes: int | None = None, **out):
     """One K2 launch from ``lib`` into ``out`` (``y``/``dy`` or ``fc``),
-    through the port's launcher."""
+    through the port's launcher (``lanes``: forced into the f32 plan), or
+    with the f32 entry's own arguments where it takes no plan."""
+    import torch
+
     from pinn_depthestimation_tpu_torch.ops import kernels
 
-    kernels._launch_k2(params, x, spec, kt, precision, epilogue=epilogue, lib=lib, **out)
+    if precision == "f32" and not hasattr(lib, "k2_f32_threads"):
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = lib.k2_mlp_fwd_tangents(
+            ptr(x), *(ptr(params[k]) for k in ("w_in", "b_in", "w_hidden", "b_hidden",
+                                                "w_out", "b_out")),
+            ptr(out.get("y")), ptr(out.get("dy")), ptr(out.get("fc")), x.shape[0], spec.d_in,
+            spec.d_out, spec.n_hidden - 1, kt, kernels._ACT[spec.init_type], int(epilogue),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"the other K2-f32 launch failed: CUDA error {err}")
+        return
+    kernels._launch_k2_narrow(params, x, spec, kt, precision, epilogue=epilogue, lib=lib,
+                              lanes=lanes, **out)
+
+
+def f32_plan_of(lib, x, spec, kt: int) -> str:
+    """This build's K2-f32 plan of one launch, for the log."""
+    from pinn_depthestimation_tpu_torch.ops import k2_plan
+
+    p = k2_plan.card_f32_plan(lib, x.shape[0], spec.width, spec.n_hidden - 1, kt, x.device)
+    return (f"lanes {p.lanes}, {p.grid} blocks x {p.warps} warps, {p.rounds} rounds, "
+            f"chunk {p.chunk} x {p.slots} slots")
 
 
 def launch_k1(lib, params, b, spec, precision: str = "f32"):
@@ -153,16 +192,9 @@ def legacy_case(dev, tmp: str):
     import torch
 
     import chip_smoke
-    from pinn_depthestimation_tpu_torch import cli
-    from pinn_depthestimation_tpu_torch.config import load_config
-    from pinn_depthestimation_tpu_torch.data import load_training_data
     from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
 
-    out = os.path.join(tmp, "legacy")
-    if cli.main(["synth", "--out", out, "--legacy", "--nx", "41", "--ny", "31"]) != 0:
-        raise RuntimeError("synth --legacy failed")
-    cfg = chip_smoke.legacy_config_file(out, REPO, os.path.join(out, "beach2d"))
-    x = torch.as_tensor(load_training_data(load_config(cfg)).residual_input).to(dev)
+    x = chip_smoke.legacy_points(dev, tmp, REPO)
     spec = MLPSpec(sizes=(5,) + (20,) * 20 + (4,), init_type="xavier")
     params = params_from_numpy(chip_smoke.numpy_params(spec.sizes, "xavier", 25), dev)
     rng = np.random.RandomState(25)
@@ -338,7 +370,8 @@ def main() -> int:
     from pinn_depthestimation_tpu_torch.config import load_config
     from pinn_depthestimation_tpu_torch.data import load_test_data
     from pinn_depthestimation_tpu_torch.models import params_from_numpy
-    from pinn_depthestimation_tpu_torch.ops import cuda_build, kernels, kernels_step, kernels_vjp
+    from pinn_depthestimation_tpu_torch.ops import (cuda_build, k2_plan, kernels, kernels_step,
+                                                    kernels_vjp)
 
     if not torch.cuda.is_available():
         print("k1_refactor_check: needs a CUDA card", file=sys.stderr)
@@ -379,7 +412,10 @@ def main() -> int:
                 failed.append(f"{label} {k}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        k2 = chip_smoke.k2_cases(dev)
+        k2 = chip_smoke.k2_cases(dev) + chip_smoke.k2_ragged_cases(dev)
+        if "k2" in wanted:  # the 10M-point residual, with the continuity epilogue
+            spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
+            k2.append((spec10, p10, c10, ()))
         k1, n_grid, _ = chip_smoke.k1_cases(dev, REPO, tmp)
         _, _, res_pts, fid_pts = chip_smoke.cmb_bench_points(dev, tmp)
         k3 = chip_smoke.k3_cases(dev, REPO, tmp, res_pts, fid_pts)
@@ -387,7 +423,8 @@ def main() -> int:
                   "k3": {c[1].width for c in k3} | {20}, "k4": {c[1].width for c in k3} | {20}}
         widths = {k: v for k, v in widths.items() if k in wanted}
         procs = start_build(args.other_dir, tmp, widths, tiers)
-        cuda_build.k2_library()  # the port's own build, beside the other's
+        # the port's own build of the wanted kernels, beside the other's
+        ours_libs = cuda_build._ensure(tuple(k for k in cuda_build.NARROW if k in wanted))
         other = finish_build(procs)
 
         for tier in tiers:
@@ -395,35 +432,48 @@ def main() -> int:
                 for spec, params, x, tangent_counts in (k2 if "k2" in wanted else []):
                     name = f"K2-{tier} {spec.d_in}->[{spec.width}]x{spec.n_hidden}->{spec.d_out}"
                     n, lib = x.shape[0], other[("k2", spec.width)]
-                    ours_lib = kernels.k2_library().libs[spec.width]
+                    ours_lib = ours_libs["k2"].libs[spec.width]
+                    name = f"{name}, N={n}"
                     with_refs = not is_exact("k2", tier) and tier != "f32"
-                    p64, x64 = chip_smoke.f64(params), x.double()
+                    # at f32 also every lane count the body takes, forced
+                    lane_counts = (None,) + (k2_plan.F32_LANES if tier == "f32" else ())
+                    p64, x64 = (chip_smoke.f64(params), x.double()) if with_refs else (None, None)
                     for k in tangent_counts:
-                        outs = []
-                        for which in (ours_lib, lib):
-                            y = torch.empty((n, spec.d_out), device=dev)
-                            dy = torch.empty((k, n, spec.d_out), device=dev)
-                            launch_k2(which, params, x, spec, k, tier, epilogue=False, y=y,
-                                      dy=dy if k else None)
-                            outs.append({"y": y, "dy": dy})
+                        theirs = {"y": torch.empty((n, spec.d_out), device=dev),
+                                  "dy": torch.empty((k, n, spec.d_out), device=dev)}
+                        launch_k2(lib, params, x, spec, k, tier, epilogue=False, y=theirs["y"],
+                                  dy=theirs["dy"] if k else None)
                         refs = None
                         if with_refs:
                             refs = {key: dict(zip(("y", "dy"), kernels.mlp_fwd_tangents_plain(
                                 pp, xx, spec, k, t))) for key, pp, xx, t in (
                                 ("f32", params, x, "f32"), ("f64", p64, x64, tier))}
-                        check("k2", tier, f"{name} K={k}", *outs, refs)
+                        for lanes in lane_counts:
+                            ours = {"y": torch.empty((n, spec.d_out), device=dev),
+                                    "dy": torch.empty((k, n, spec.d_out), device=dev)}
+                            launch_k2(ours_lib, params, x, spec, k, tier, epilogue=False,
+                                      lanes=lanes, y=ours["y"], dy=ours["dy"] if k else None)
+                            check("k2", tier, f"{name} K={k}" + (f", {lanes} lane(s) a point"
+                                                                 if lanes else ""),
+                                  ours, theirs, refs)
                     if spec.d_out == 3 and spec.init_type == "xavier":
-                        outs = []
-                        for which in (ours_lib, lib):
-                            fc = torch.empty((n,), device=dev)
-                            launch_k2(which, params, x, spec, 2, tier, epilogue=True, fc=fc)
-                            outs.append({"fc": fc})
+                        theirs = {"fc": torch.empty((n,), device=dev)}
+                        launch_k2(lib, params, x, spec, 2, tier, epilogue=True, fc=theirs["fc"])
                         refs = None
                         if with_refs:
                             refs = {key: {"fc": kernels.residual_continuity_plain(pp, xx, spec, t)}
                                     for key, pp, xx, t in (("f32", params, x, "f32"),
                                                            ("f64", p64, x64, tier))}
-                        check("k2", tier, f"{name} continuity epilogue", *outs, refs)
+                        for lanes in lane_counts:
+                            ours = {"fc": torch.empty((n,), device=dev)}
+                            launch_k2(ours_lib, params, x, spec, 2, tier, epilogue=True,
+                                      lanes=lanes, fc=ours["fc"])
+                            check("k2", tier, f"{name} continuity epilogue"
+                                  + (f", {lanes} lane(s) a point" if lanes else ""),
+                                  ours, theirs, refs)
+                    if tier == "f32":
+                        print(f"{name}: this build's f32 plan at K={max(tangent_counts, default=2)}: "
+                              f"{f32_plan_of(ours_lib, x, spec, max(tangent_counts, default=2))}")
             for name, spec, params, b in (k1 if "k1" in wanted else []):
                 n_p = kernels_step.n_flat(spec)
 
@@ -444,11 +494,11 @@ def main() -> int:
                         (tot, _), g = kernels_step.fused_loss_and_grad_plain(p, batch, spec, t)
                         plain[key] = {"total": tot.reshape(1), **{f"d{k}": v for k, v in g.items()}}
                 check("k1", tier, f"K1-{tier} {name}",
-                      k1_outputs(launch_k1(kernels_step.k1_library().libs[spec.width], params, b,
+                      k1_outputs(launch_k1(ours_libs["k1"].libs[spec.width], params, b,
                                            spec, tier)),
                       k1_outputs(launch_k1(other[("k1", spec.width)], params, b, spec, tier)),
                       plain)
-            for name, spec, params, x, ybar, dybar, kt in k3:
+            for name, spec, params, x, ybar, dybar, kt in (k3 if wanted & {"k3", "k4"} else []):
                 plain = None
                 if tier != "f32":
                     plain = {key: {f"d{k}": v for k, v in kernels_vjp.packed_mlp_bwd_plain(
@@ -457,19 +507,19 @@ def main() -> int:
                             ("f32", params, x, ybar, dybar, "f32"),
                             ("f64", chip_smoke.f64(params), x.double(), ybar.double(),
                              dybar.double(), tier))}
-                for kind, launch, libs in (("k3", launch_k3, kernels_vjp.k3_library()),
-                                           ("k4", launch_k4, kernels_vjp.k4_library())):
+                for kind, launch in (("k3", launch_k3), ("k4", launch_k4)):
                     if kind in wanted:
                         ours, theirs = (
                             {f"d{k}": v for k, v in kernels_step.unflatten(
                                 launch(lib, params, x, ybar, dybar, spec, kt, tier), spec).items()}
-                            for lib in (libs.libs[spec.width], other[(kind, spec.width)]))
+                            for lib in (ours_libs[kind].libs[spec.width], other[(kind, spec.width)]))
                         check(kind, tier, f"{kind.upper()}-{tier} {name}", ours, theirs, plain)
 
         if args.time:
             flag_name, flag, flag_params, flag_batch = k1[0]
             cmb = next(c for c in k3 if c[0] == "CMB net, residual grid")
             fl3 = next(c for c in k3 if c[0] == "flagship, train grid")
+            fid = next(c for c in k3 if c[0] == "CMB net, fidelity rows")
             legacy = legacy_case(dev, tmp)
             spec10, p10, c10 = benchmarks.flagship_bench_inputs(10_000_000, dev)
             fc = torch.empty((c10.shape[0],), device=dev)
@@ -481,12 +531,15 @@ def main() -> int:
             y_serve = torch.empty((n_serve, flag.d_out), device=dev)
             y_cmb = torch.empty((cmb[3].shape[0], cmb[1].d_out), device=dev)
             dy_cmb = torch.empty((2, cmb[3].shape[0], cmb[1].d_out), device=dev)
-            cases = []  # (label, kind, width, call(lib), reps, inner)
+            y_fid = torch.empty((fid[3].shape[0], fid[1].d_out), device=dev)
+            y_leg = torch.empty((legacy[3].shape[0], legacy[1].d_out), device=dev)
+            dy_leg = torch.empty((3, legacy[3].shape[0], legacy[1].d_out), device=dev)
+            cases = []  # (label, kind, width, call(lib), reps, inner, plan args)
             for tier in tiers:
                 if "k1" in wanted:
                     cases.append((f"K1-{tier} {flag_name} ({n_grid} points)", "k1", flag.width,
                                   lambda lib, t=tier: launch_k1(lib, flag_params, flag_batch, flag, t),
-                                  7, 20))
+                                  7, 20, None))
                 for kind, launch in (("k3", launch_k3), ("k4", launch_k4)):
                     shapes = [fl3, cmb, legacy]
                     for name, spec, params, x, ybar, dybar, kt in shapes:
@@ -494,24 +547,35 @@ def main() -> int:
                             cases.append((f"{kind.upper()}-{tier} {name} ({x.shape[0]} points, K={kt})",
                                           kind, spec.width,
                                           lambda lib, a=(params, x, ybar, dybar, spec, kt), t=tier,
-                                          fn=launch: fn(lib, *a, t), 7, 20))
+                                          fn=launch: fn(lib, *a, t), 7, 20, None))
                 if "k2" in wanted:
+                    f32 = tier == "f32"
                     cases += [
                         (f"K2-{tier} continuity residual at 10M points", "k2", 20,
                          lambda lib, t=tier: launch_k2(lib, p10, c10, spec10, 2, t,
-                                                       epilogue=True, fc=fc), 5, 1),
+                                                       epilogue=True, fc=fc), 5, 1,
+                         (c10, spec10, 2) if f32 else None),
                         (f"K2-{tier} serving grid ({n_serve} points, K=0)", "k2", flag.width,
                          lambda lib, t=tier: launch_k2(lib, serve_params, x_serve, flag, 0, t,
-                                                       epilogue=False, y=y_serve), 7, 20),
+                                                       epilogue=False, y=y_serve), 7, 20,
+                         (x_serve, flag, 0) if f32 else None),
                         (f"K2-{tier} CMB grid ({cmb[3].shape[0]} points, K=2)", "k2",
                          cmb[1].width,
                          lambda lib, t=tier: launch_k2(lib, cmb[2], cmb[3], cmb[1], 2, t,
                                                        epilogue=False, y=y_cmb, dy=dy_cmb),
-                         7, 20)]
-            ours_libs = {"k1": kernels_step.k1_library(), "k3": kernels_vjp.k3_library(),
-                         "k4": kernels_vjp.k4_library(), "k2": kernels.k2_library()}
+                         7, 20, (cmb[3], cmb[1], 2) if f32 else None),
+                        (f"K2-{tier} CMB fidelity rows ({fid[3].shape[0]} points, K=0)", "k2",
+                         fid[1].width,
+                         lambda lib, t=tier: launch_k2(lib, fid[2], fid[3], fid[1], 0, t,
+                                                       epilogue=False, y=y_fid), 7, 20,
+                         (fid[3], fid[1], 0) if f32 else None),
+                        (f"K2-{tier} legacy shape ({legacy[3].shape[0]} points, K=3)", "k2",
+                         legacy[1].width,
+                         lambda lib, t=tier: launch_k2(lib, legacy[2], legacy[3], legacy[1], 3, t,
+                                                       epilogue=False, y=y_leg, dy=dy_leg),
+                         7, 20, (legacy[3], legacy[1], 3) if f32 else None)]
             rows = []
-            for label, kind, width, call, reps, inner in cases:
+            for label, kind, width, call, reps, inner, plan_args in cases:
                 times = {"other": [], "ours": []}
                 device = {"other": [], "ours": []}
                 for who in ("other", "ours", "ours", "other"):
@@ -520,18 +584,22 @@ def main() -> int:
                     d = chip_smoke.device_ms(lambda: call(lib), inner,
                                              chip_smoke.WALK_KERNEL.get(kind, "k2_"))
                     device[who].append(float("nan") if d is None else d)
+                plan = "" if plan_args is None else f32_plan_of(
+                    ours_libs["k2"].libs[width], *plan_args)
                 print(f"time {label}: other build {times['other']} ms, this build "
                       f"{times['ours']} ms (CUDA events, median of {reps} x {inner} calls); "
                       f"device time other {device['other']} ms, this {device['ours']} ms "
-                      f"(torch.profiler, {inner} calls); order other, ours, ours, other")
+                      f"(torch.profiler, {inner} calls); order other, ours, ours, other"
+                      + (f"; this build's plan: {plan}" if plan else ""))
                 rows.append((label, *(sum(v) / 2 for v in (times["other"], times["ours"],
-                                                           device["other"], device["ours"]))))
+                                                           device["other"], device["ours"])),
+                             plan))
             print("| kernel and shape | other (events ms) | this (events ms) | other (device ms) "
-                  "| this (device ms) | this / other (device) |")
-            print("| --- | --- | --- | --- | --- | --- |")
-            for label, t_other, t_ours, d_other, d_ours in rows:
+                  "| this (device ms) | this / other (device) | this build's f32 plan |")
+            print("| --- | --- | --- | --- | --- | --- | --- |")
+            for label, t_other, t_ours, d_other, d_ours, plan in rows:
                 print(f"| {label} | {t_other:.4f} | {t_ours:.4f} | {d_other:.4f} | {d_ours:.4f} | "
-                      f"{d_ours / d_other:.3f} |")
+                      f"{d_ours / d_other:.3f} | {plan or '-'} |")
     what = ", ".join(k.upper() for k in ("k2", "k1", "k3", "k4") if k in wanted)
     if failed:
         print(f"{what} ({'/'.join(tiers)}): {len(failed)} outputs FAIL against the other build: "

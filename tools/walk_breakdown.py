@@ -3,6 +3,7 @@
 
     python3 tools/walk_breakdown.py [--csrc DIR] [--tiers f32,bf16,f32x3] [--reps 7] [--inner 20]
     python3 tools/walk_breakdown.py --wide [--csrc DIR] [--tiers f32,bf16] [--widths 64,128]
+    python3 tools/walk_breakdown.py --k2 [--csrc DIR] [--reps 5] [--inner 10]
 
 Needs one CUDA card and nvcc. The tool copies the kernels' sources (the
 package's ``csrc/``, or ``--csrc DIR``, for example another commit's files
@@ -60,6 +61,25 @@ version of the walk, picked by the source):
   barriers   every ``__syncthreads()`` of the walk is removed;
   cotangent  the hidden layers' cotangent product is dropped;
   all        every one of them at once.
+
+``--k2`` splits K2 at f32 (``csrc/mlp_fwd_tangents.cu``, widths 20 and 10)
+instead, with one part dropped at a time (:data:`K2_PATCHES`, one table per
+version of the f32 body, picked by the source: the redesigned body with
+lanes a point, or the one thread a point before it):
+
+  staging    the hidden stack is not copied into shared memory;
+  tanh       the activation is the identity (``tanhf`` not called; act'
+             stays);
+  exchange   (two lanes a point only) a lane takes its own values where it
+             would take its partner's by ``__shfl_xor_sync``;
+  all        every one of them at once.
+
+Each variant is timed against the untouched build in turns, device time,
+at K2-f32's path shapes: the 81x261 serving grid (K=0), the 10M-point
+residual (the epilogue), the CMB grid (K=2), the CMB net's 200 fidelity
+rows (K=0) and the legacy shape (K=3), on the plan the untouched build's
+library gives (``ops/k2_plan.py::f32_plan``). The variants compute wrong
+outputs; only their times are read.
 """
 
 from __future__ import annotations
@@ -319,6 +339,112 @@ def main_wide(args) -> int:
     return 0
 
 
+# Patches of mlp_fwd_tangents.cu's f32 body, per version: variant ->
+# [(regex, replacement)]. The first body stages the stack with `stage` and
+# a bias loop per chunk; the redesigned one with `issue_chunk`.
+K2_PATCHES = {
+    "first": {
+        "staging": [(r"stage\(s_wh, src_w, nl \* W \* W\);", "(void)0;"),
+                    (r"for \(int i = tid; i < nl \* W; i \+= kThreads\) s_bh\[i\] = src_b\[i\];",
+                     "(void)0;")],
+        "tanh": [(r"return tanhf\(z\);", "return z;")],
+    },
+    "current": {
+        "staging": [(r"(__device__ void issue_chunk\([^{]*\{)", r"\1\n  return;")],
+        "tanh": [(r"return tanhf\(z\);", "return z;")],
+        "exchange": [(r"other\[m\] = __shfl_xor_sync\(kFullMask, own\[m\], 1\);",
+                      "other[m] = own[m];")],
+    },
+}
+
+
+def k2_version(text: str) -> str:
+    """Which table of :data:`K2_PATCHES` a ``mlp_fwd_tangents.cu`` takes."""
+    return "current" if "namespace k2f32" in text else "first"
+
+
+def k2_shapes(dev, tmp: str) -> dict:
+    """K2-f32's path shapes (``chip_smoke.k2_path_shapes``), the serving
+    grid's points from ``cli synth`` under ``tmp``."""
+    import torch
+
+    import chip_smoke
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.config import load_config
+    from pinn_depthestimation_tpu_torch.data import load_test_data
+    from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
+
+    flag = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
+    x_serve = torch.as_tensor(load_test_data(load_config(
+        chip_smoke.newmethod_config(tmp, REPO))).inputs).to(dev)
+    serve = (flag, params_from_numpy(chip_smoke.numpy_params(flag.sizes, "xavier", 3), dev), x_serve)
+    return chip_smoke.k2_path_shapes(dev, REPO, serve,
+                                     benchmarks.flagship_bench_inputs(10_000_000, dev))
+
+
+def main_k2(args) -> int:
+    """The ``--k2`` split (module docstring)."""
+    import torch
+
+    import chip_smoke
+    from tools.k1_refactor_check import f32_plan_of, finish_build, launch_k2, start_build
+
+    if not torch.cuda.is_available():
+        print("walk_breakdown: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.nvidia_smi("name,power.limit"))
+    with open(os.path.join(args.csrc, "mlp_fwd_tangents.cu")) as f:
+        text = f.read()
+    table = K2_PATCHES[k2_version(text)]
+    variants = tuple(table) + ("all",)
+    print(f"sources {args.csrc} (K2-f32 body: {k2_version(text)}); variants {variants}")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for variant in ("untouched",) + variants:
+            d = os.path.join(tmp, variant)
+            shutil.copytree(args.csrc, d)
+            if variant != "untouched":
+                with open(os.path.join(d, "mlp_fwd_tangents.cu"), "w") as f:
+                    f.write(patch(text, variant, table, "mlp_fwd_tangents.cu"))
+            procs[variant] = start_build(d, os.path.join(tmp, "build_" + variant),
+                                         {"k2": {20, 10}}, ["f32"])
+        libs = {v: finish_build(p) for v, p in procs.items()}
+        rows = []
+        for label, (spec, params, x, kt, epi) in k2_shapes(dev, tmp).items():
+            n = x.shape[0]
+            out = ({"fc": torch.empty(n, device=dev)} if epi else
+                   {"y": torch.empty((n, spec.d_out), device=dev),
+                    "dy": torch.empty((kt, n, spec.d_out), device=dev) if kt else None})
+            inner = 2 if n > 1_000_000 else args.inner
+            base = libs["untouched"][("k2", spec.width)]
+            plan = (f32_plan_of(base, x, spec, kt) if hasattr(base, "k2_f32_threads")
+                    else f"one thread a point, {-(-n // 256)} blocks of 256")
+            for variant in variants:
+                fns = {who: (lambda lib=libs[who][("k2", spec.width)]: launch_k2(
+                    lib, params, x, spec, kt, "f32", epilogue=epi, **out))
+                    for who in ("untouched", variant)}
+                device = {"untouched": [], variant: []}
+                with torch.no_grad():
+                    for who in ("untouched", variant, variant, "untouched"):
+                        d = chip_smoke.device_ms(fns[who], inner, "k2_")
+                        device[who].append(float("nan") if d is None else d)
+                print(f"time K2-f32 {label} ({n} points, K={kt}{', epilogue' if epi else ''}; "
+                      f"{plan}): device time untouched {device['untouched']} ms, without "
+                      f"{variant} {device[variant]} ms (torch.profiler, {inner} calls); order "
+                      "untouched, variant, variant, untouched")
+                rows.append((label, variant, sum(device["untouched"]) / 2,
+                             sum(device[variant]) / 2))
+        print("split (device ms; untouched is the mean of the two runs beside each variant; the "
+              "cost and its share are of the untouched device time):")
+        print("| shape | part dropped | untouched | without it | its cost | share |")
+        print("| --- | --- | --- | --- | --- | --- |")
+        for label, variant, ref, ms in rows:
+            print(f"| {label} | {variant} | {ref:.4f} | {ms:.4f} | {ref - ms:.4f} | "
+                  f"{(ref - ms) / ref:.1%} |")
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--csrc", default=os.path.join(REPO, "pinn_depthestimation_tpu_torch", "csrc"),
@@ -331,7 +457,11 @@ def main() -> int:
                         help="tiers to split (default: f32 for the narrow walk, f32,bf16 with "
                              "--wide)")
     parser.add_argument("--widths", default="64,128", help="--wide: hidden widths")
+    parser.add_argument("--k2", action="store_true",
+                        help="split K2 at f32 (mlp_fwd_tangents.cu) instead of the walk")
     args = parser.parse_args()
+    if args.k2:
+        return main_k2(args)
     if args.wide:
         args.tiers = args.tiers or "f32,bf16"
         return main_wide(args)
