@@ -50,7 +50,11 @@ trains data-parallel over N shards: one per visible CUDA device, or N
 shards in the one CPU process with ``--device cpu``; too few devices exit 1
 with "Error building device mesh". ``train --profile DIR`` writes a
 ``torch.profiler`` trace of the training (CPU activity, and CUDA activity
-on the card) to ``DIR/trace.json`` (Chrome trace format). ``test --plot
+on the card) to ``DIR/trace.json`` (Chrome trace format), the program's
+spans among its ranges, and the spans themselves to ``DIR/spans.json``
+(``tracing.summary()`` under ``summary``, the raw spans under ``spans``):
+the Trainer's construction and blocks, the Adam step, the K1 and K2 calls,
+the kernel libraries' build and load. ``test --plot
 [DIR]`` writes the reference's plot products (``plotting.
 make_result_plots``; DIR overrides the config's ``plot.dir``), with the
 1-D profiles at ``--cross-section ROW``; ``video`` turns a folder of PNGs
@@ -74,6 +78,7 @@ def cmd_train(args) -> int:
 
     import torch
 
+    from pinn_depthestimation_tpu_torch import tracing
     from pinn_depthestimation_tpu_torch.config import load_config
     from pinn_depthestimation_tpu_torch.device import resolve_device
     from pinn_depthestimation_tpu_torch.models import MLPSpec
@@ -168,6 +173,9 @@ def cmd_train(args) -> int:
             print(f"Error loading --init-from weights: {e}")
             return 1
 
+    if args.profile:
+        tracing.reset()
+        tracing.enable()
     run_dir = make_run_dir(args.log_root, args.run_name)
     print(f"Run directory: {run_dir}")
     trainer = Trainer(config, run_dir=run_dir, initial_params=initial_params, device=device,
@@ -196,8 +204,12 @@ def cmd_train(args) -> int:
     # the reference's only perf instrumentation (train.py:286)
     print("Training time: %.4f" % (time.time() - start))
     if args.profile:
+        tracing.disable()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump({"summary": tracing.summary(),
+                       "spans": [s._asdict() for s in tracing.spans()]}, f, indent=1)
     return 0
 
 
@@ -355,7 +367,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "re-derived); 0 disables it")
     tr.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace (CPU, and CUDA on the card) "
-                         "to DIR/trace.json")
+                         "to DIR/trace.json and the program's spans (the Trainer's "
+                         "construction and blocks, the Adam step, the K1 and K2 calls, "
+                         "the kernel build and load) to DIR/spans.json")
     tr.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="predict the test grid")

@@ -304,22 +304,31 @@ _BUILT: dict[str, KernelLibrary] = {}
 def _ensure(names) -> dict[str, KernelLibrary]:
     """The libraries of ``names``, building those not yet loaded in this
     process together: one ``nvcc`` per (kernel, width, tier), one per core
-    at once."""
+    at once. Set-up spans (:mod:`tracing`): ``library#load`` over the
+    whole, its self time the hashing, loading and binding; its child
+    ``library#build`` the ``nvcc`` wave, about nothing when every variant
+    was built before."""
     missing = [n for n in names if n not in _BUILT]
     if missing:
-        jobs = [(_plan(n, _SPECS[n][0], _SPECS[n][1]()), _SPECS[n][2]) for n in missing]
-        t0 = time.perf_counter()
-        try:
-            _run([job for job, _ in jobs], t0)
-            seconds = time.perf_counter() - t0 if any(job["procs"] for job, _ in jobs) else 0.0
-            for job, bind in jobs:
-                _BUILT[job["name"]] = _finish(job, bind, seconds)
-        finally:  # a failed build leaves no compiler running behind it
-            for job, _ in jobs:
-                for _, proc, _, _ in job["procs"].values():
-                    if proc.returncode is None:
-                        proc.kill()
-                        proc.wait()
+        # imported here: tracing imports ops.widths, which imports this module
+        from pinn_depthestimation_tpu_torch import tracing
+
+        with tracing.setup_span("library#load"):
+            jobs = [(_plan(n, _SPECS[n][0], _SPECS[n][1]()), _SPECS[n][2]) for n in missing]
+            t0 = time.perf_counter()
+            try:
+                with tracing.setup_span("library#build"):
+                    _run([job for job, _ in jobs], t0)
+                seconds = (time.perf_counter() - t0 if any(job["procs"] for job, _ in jobs)
+                           else 0.0)
+                for job, bind in jobs:
+                    _BUILT[job["name"]] = _finish(job, bind, seconds)
+            finally:  # a failed build leaves no compiler running behind it
+                for job, _ in jobs:
+                    for _, proc, _, _ in job["procs"].values():
+                        if proc.returncode is None:
+                            proc.kill()
+                            proc.wait()
     return {n: _BUILT[n] for n in names}
 
 

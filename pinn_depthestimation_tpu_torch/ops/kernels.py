@@ -47,7 +47,10 @@ Beside the kernel, per the port's rules:
 * a launch count on each wrapper (``mlp_fwd_tangents.launches``,
   ``fused_residual_continuity.launches``), raised by one per launch, and
   the same count per tier (``.launches_by_tier``) and per body
-  (``.launches_by_body``: ``narrow`` or ``wide``).
+  (``.launches_by_body``: ``narrow`` or ``wide``), by
+  :func:`tracing.count_launch`;
+* the span ``residual#k2`` over each :func:`fused_residual_continuity`
+  call (:mod:`tracing`).
 """
 
 from __future__ import annotations
@@ -56,11 +59,13 @@ from typing import Mapping
 
 import torch
 
+from pinn_depthestimation_tpu_torch import tracing
 from pinn_depthestimation_tpu_torch.models.mlp import MLPSpec, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.ops.cuda_build import k2_library, wide_library
 from pinn_depthestimation_tpu_torch.ops import k2_plan, tiers, wide_plan, widths
 from pinn_depthestimation_tpu_torch.ops.tiers import check_precision
 from pinn_depthestimation_tpu_torch.physics import continuity_only_residuals
+from pinn_depthestimation_tpu_torch.tracing import count_launch, reset_launches
 
 MAX_TANGENTS = widths.MAX_TANGENTS
 _MAX_POINTS = 2**31 - 256  # the kernel indexes blocks and points with int
@@ -72,20 +77,6 @@ def kernel_supports(spec: MLPSpec) -> bool:
     least one hidden layer and ``max(width, d_in, d_out) <= 128``
     (:func:`ops.widths.structurally_ok`)."""
     return widths.structurally_ok(spec)
-
-
-def count_launch(wrapper, precision: str, spec: MLPSpec) -> None:
-    """One more launch of ``wrapper``'s kernel at ``precision``, by the body
-    that runs ``spec`` (:func:`ops.widths.body`)."""
-    wrapper.launches += 1
-    wrapper.launches_by_tier[precision] += 1
-    wrapper.launches_by_body[widths.body(spec)] += 1
-
-
-def reset_launches(wrapper) -> None:
-    wrapper.launches = 0
-    wrapper.launches_by_tier = {t: 0 for t in tiers.TIERS}
-    wrapper.launches_by_body = {b: 0 for b in widths.BODIES}
 
 
 def _coordinate_tangents(coords: torch.Tensor, n_tangents: int) -> torch.Tensor:
@@ -281,22 +272,24 @@ def fused_residual_continuity(params, coords: torch.Tensor, spec: MLPSpec,
     bench's hot path), computed inside K2: one ``(N,)`` output.
 
     Needs heads ``(U, V, h)`` (``d_out == 3``) and inputs ``(x, y, ...)``.
-    Counterpart of the JAX ``ops.kernels.fused_residual_continuity``.
+    Counterpart of the JAX ``ops.kernels.fused_residual_continuity``. The
+    whole call is the span ``residual#k2``.
     """
-    check_precision(precision)
-    if spec.d_out != 3 or spec.d_in < 2:
-        raise ValueError(
-            "the continuity epilogue needs d_out=3 heads (U, V, h) and "
-            f"inputs (x, y, ...); got sizes {spec.sizes}"
-        )
-    if not _on_cuda(coords):
-        return residual_continuity_plain(params, coords, spec, precision)
-    _check_launch(params, coords, spec, 2)
-    fc = torch.empty((coords.shape[0],), dtype=torch.float32, device=coords.device)
-    if coords.shape[0]:
-        _launch_k2(params, coords, spec, 2, precision, epilogue=True, fc=fc)
-        count_launch(fused_residual_continuity, precision, spec)
-    return fc
+    with tracing.span("residual#k2"):
+        check_precision(precision)
+        if spec.d_out != 3 or spec.d_in < 2:
+            raise ValueError(
+                "the continuity epilogue needs d_out=3 heads (U, V, h) and "
+                f"inputs (x, y, ...); got sizes {spec.sizes}"
+            )
+        if not _on_cuda(coords):
+            return residual_continuity_plain(params, coords, spec, precision)
+        _check_launch(params, coords, spec, 2)
+        fc = torch.empty((coords.shape[0],), dtype=torch.float32, device=coords.device)
+        if coords.shape[0]:
+            _launch_k2(params, coords, spec, 2, precision, epilogue=True, fc=fc)
+            count_launch(fused_residual_continuity, precision, spec)
+        return fc
 
 
 reset_launches(fused_residual_continuity)

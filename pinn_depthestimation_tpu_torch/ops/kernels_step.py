@@ -29,7 +29,9 @@ Beside the kernel, per the port's rules:
   version, a CUDA batch launches K1 or raises — no fallback;
 * the launch count ``fused_loss_and_grad.launches``, one per evaluation (K1
   and its fixed-order reduction), and per tier
-  (``fused_loss_and_grad.launches_by_tier``).
+  (``fused_loss_and_grad.launches_by_tier``);
+* the span ``step#k1`` over each :func:`fused_loss_and_grad` call
+  (:mod:`tracing`).
 
 Shapes: every net the Pallas kernel takes with heads ``(U, V, h)`` and
 ``d_in >= 2`` (``ops/widths.py``): the narrow body for width <= 32 and
@@ -64,6 +66,7 @@ from dataclasses import dataclass
 
 import torch
 
+from pinn_depthestimation_tpu_torch import tracing
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS, MLPSpec, mlp_apply_with_tangents
 from pinn_depthestimation_tpu_torch.ops import tiers, wide_plan, widths
 from pinn_depthestimation_tpu_torch.ops.cuda_build import k1_library, wide_library
@@ -74,10 +77,9 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
     _coordinate_tangents,
     _on_cuda,
     check_precision,
-    count_launch,
     entry,
-    reset_launches,
 )
+from pinn_depthestimation_tpu_torch.tracing import count_launch, reset_launches
 
 KT = 2  # the continuity losses differentiate w.r.t. (x, y) only
 N_STATS = 8  # [sum fc^2, sum anch^2, sum err_j^2 (j < 3), unused]
@@ -454,29 +456,31 @@ def fused_loss_and_grad(params, b, spec: MLPSpec, *, precision: str = "f32"):
     the flat ``(n_flat + 8,)`` outputs are summed in shard order on the
     first device and the statistics combined once. Every K1 launch counts
     one in ``fused_loss_and_grad.launches``. An empty anchor selection gives
-    NaN, as the reference's ``torch.mean`` of an empty tensor does."""
-    check_precision(precision, "K1")
-    shards = _shards(b)
-    first = shards[0]
-    _check_step_spec(spec, first.n_true, first.has_anchor)
-    n = n_flat(spec)
-    outs = []
-    for s in shards:
-        p = _shard_params(params, s, first)
-        if _on_cuda(s.coords, "K1"):
-            _check_launch(p, s, spec)
-            if s.coords.shape[0] == 0:
-                raise ValueError("K1 needs at least one point")
-            out = _launch_k1(p, s, spec, precision=precision)
-            count_launch(fused_loss_and_grad, precision, spec)
-        else:
-            _, _, _, stats, grads = _plain_stats_and_grads(p, s, spec, precision)
-            out = torch.cat([grads[k].reshape(-1) for k in FLAT_KEYS] + [stats])
-        outs.append(out.to(first.coords.device))
-    flat = _sum_in_order(outs)
-    total, fid, res = _combine_stats(flat[n:], first.fid_weights, first.n_res, first.n_sel,
-                                     first.n_true, first.w_fid, first.w_res, first.has_anchor)
-    return (total, (fid, res)), unflatten(flat[:n], spec)
+    NaN, as the reference's ``torch.mean`` of an empty tensor does. The
+    whole call is the span ``step#k1``."""
+    with tracing.span("step#k1"):
+        check_precision(precision, "K1")
+        shards = _shards(b)
+        first = shards[0]
+        _check_step_spec(spec, first.n_true, first.has_anchor)
+        n = n_flat(spec)
+        outs = []
+        for s in shards:
+            p = _shard_params(params, s, first)
+            if _on_cuda(s.coords, "K1"):
+                _check_launch(p, s, spec)
+                if s.coords.shape[0] == 0:
+                    raise ValueError("K1 needs at least one point")
+                out = _launch_k1(p, s, spec, precision=precision)
+                count_launch(fused_loss_and_grad, precision, spec)
+            else:
+                _, _, _, stats, grads = _plain_stats_and_grads(p, s, spec, precision)
+                out = torch.cat([grads[k].reshape(-1) for k in FLAT_KEYS] + [stats])
+            outs.append(out.to(first.coords.device))
+        flat = _sum_in_order(outs)
+        total, fid, res = _combine_stats(flat[n:], first.fid_weights, first.n_res, first.n_sel,
+                                         first.n_true, first.w_fid, first.w_res, first.has_anchor)
+        return (total, (fid, res)), unflatten(flat[:n], spec)
 
 
 reset_launches(fused_loss_and_grad)

@@ -56,13 +56,12 @@ from pinn_depthestimation_tpu_torch.ops.kernels import (
     MAX_TANGENTS,
     _on_cuda,
     check_precision,
-    count_launch,
     entry,
-    reset_launches,
 )
 from pinn_depthestimation_tpu_torch.ops.kernels_step import n_flat, unflatten, unpad_flat
 from pinn_depthestimation_tpu_torch.ops.tiers import BWD_IMPL_DEFAULT
 from pinn_depthestimation_tpu_torch.ops.walk_plan import card_plan
+from pinn_depthestimation_tpu_torch.tracing import count_launch, reset_launches
 
 
 def kernel_supports(spec: MLPSpec) -> bool:

@@ -49,6 +49,14 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
 
 The iteration counter counts loss evaluations, as the reference's
 ``self.iter`` does (reference ``train.py:160``).
+
+Spans (:mod:`tracing`): ``trainer#init`` over the construction, with
+``trainer#init.data``, ``trainer#init.loss`` and ``trainer#init.optimizer``
+(always recorded); while tracing is on, ``trainer#block`` over each Adam
+chunk, with ``trainer#dispatch`` (issuing its steps), ``trainer#sync`` (the
+loss rows' copy to the host) and ``trainer#record`` (the flush, each save
+under it a ``trainer#checkpoint``), and ``step#adam`` over each
+optimizer and scheduler step.
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ import torch
 from scipy.io import savemat
 
 from pinn_depthestimation_tpu_torch import data as data_mod
-from pinn_depthestimation_tpu_torch import physics
+from pinn_depthestimation_tpu_torch import physics, tracing
 from pinn_depthestimation_tpu_torch.config import Config
 from pinn_depthestimation_tpu_torch.device import resolve_device
 from pinn_depthestimation_tpu_torch.inference import resolve_use_kernel
@@ -205,92 +213,98 @@ class Trainer:
         (``parallel.make_mesh``): train data-parallel over its shards, the
         parameters and the optimizers on its first device (``device``, if
         given, must be that one)."""
-        self.config = config
-        self.mesh = mesh
-        if mesh is not None:
-            if device is not None and torch.device(device) != mesh.first_device:
-                raise ValueError(f"device {str(device)!r} is not the mesh's first device "
-                                 f"{str(mesh.first_device)!r}")
-            device = mesh.first_device
-        self.device = resolve_device(device)
-        self.spec = MLPSpec.from_layers(config.layers)
-        self.echo_every = echo_every
-        self._lbfgs_record_capacity = lbfgs_record_capacity
+        with tracing.setup_span("trainer#init"):
+            self.config = config
+            self.mesh = mesh
+            if mesh is not None:
+                if device is not None and torch.device(device) != mesh.first_device:
+                    raise ValueError(f"device {str(device)!r} is not the mesh's first device "
+                                     f"{str(mesh.first_device)!r}")
+                device = mesh.first_device
+            self.device = resolve_device(device)
+            self.spec = MLPSpec.from_layers(config.layers)
+            self.echo_every = echo_every
+            self._lbfgs_record_capacity = lbfgs_record_capacity
 
-        self.data = (training_data if training_data is not None
-                     else data_mod.load_training_data(config))
-        for name, arr in (("fidelity", self.data.fidelity_input),
-                          ("residual", self.data.residual_input)):
-            if arr.shape[0] == 0:
-                raise ValueError(
-                    f"{name} batch is empty after loading/NaN-masking — refusing to train"
+            with tracing.setup_span("trainer#init.data"):
+                self.data = (training_data if training_data is not None
+                             else data_mod.load_training_data(config))
+                for name, arr in (("fidelity", self.data.fidelity_input),
+                                  ("residual", self.data.residual_input)):
+                    if arr.shape[0] == 0:
+                        raise ValueError(
+                            f"{name} batch is empty after loading/NaN-masking — refusing to train"
+                        )
+                self.run_dir = run_dir or make_run_dir(log_root)
+                self.log = LossLog(self.run_dir)
+
+                if mesh is not None:
+                    self.batch = shard_batch(self._host_batch(np.float32), mesh)
+                else:
+                    self.batch = {k: torch.as_tensor(v).to(self.device)
+                                  for k, v in self._host_batch(np.float32).items()}
+            with tracing.setup_span("trainer#init.loss"):
+                fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
+                self.kernel_plan = decide_kernels(config, self.spec, fidelity_is_residual,
+                                                  self.device.type)
+                # one decision reaches both builders, as the JAX Trainer's
+                # use_fused_kernel does: the loss runs through the kernels (K1, or
+                # K2 with K3/K4), which also drops residual_chunk_size
+                self.uses_kernels = self.kernel_plan.k1 or self.kernel_plan.fused
+                self.loss_fn = build_loss_fn(
+                    config, self.spec, residual_chunk_size=config.residual_chunk_size,
+                    input_min_max=self.data.input_min_max, fused_kernel=self.uses_kernels,
+                    fused_precision=config.resolved_kernel_precision(),
+                    fidelity_is_residual=fidelity_is_residual, mesh=mesh,
                 )
-        self.run_dir = run_dir or make_run_dir(log_root)
-        self.log = LossLog(self.run_dir)
+                self.fused_step_fn = build_value_and_grad_fn(
+                    config, self.spec, input_min_max=self.data.input_min_max,
+                    fused_kernel=self.uses_kernels,
+                    fused_precision=config.resolved_kernel_precision(),
+                    fidelity_is_residual=fidelity_is_residual,
+                )
+                self.value_and_grad_fn = self.fused_step_fn or value_and_grad(self.loss_fn)
+                tier = config.resolved_kernel_precision()
+                where = " (CUDA)" if self.device.type == "cuda" else " (plain versions on the CPU)"
+                if self.fused_step_fn:
+                    step = f"K1, the one-kernel training step, at {tier}" + where
+                elif self.kernel_plan.fused:
+                    bwd = "K4" if kernels_vjp.resolve_impl("auto", tier) == "rebuild" else "K3"
+                    step = (f"autograd of the loss through K2 forward + {bwd} backward, "
+                            f"at {tier}" + where)
+                else:
+                    step = "autograd of the loss (plain PyTorch)"
+                predict = f"K2 at {tier}" if self.kernel_plan.predict else "plain mlp_apply"
+                where = (f"mesh {mesh.shape['data']}x{mesh.shape['model']} over "
+                         f"{[str(d) for d in mesh.data_devices]}" if mesh is not None
+                         else f"device {self.device}")
+                print(f"Training step: {step}; snapshot/predict: {predict}; {where}")
+                self._prefix_iters, self._prefix_value_and_grad = self._build_schedule(
+                    fidelity_is_residual)
 
-        if mesh is not None:
-            self.batch = shard_batch(self._host_batch(np.float32), mesh)
-        else:
-            self.batch = {k: torch.as_tensor(v).to(self.device)
-                          for k, v in self._host_batch(np.float32).items()}
-        fidelity_is_residual = getattr(self.data, "fidelity_is_residual", False)
-        self.kernel_plan = decide_kernels(config, self.spec, fidelity_is_residual,
-                                          self.device.type)
-        # one decision reaches both builders, as the JAX Trainer's
-        # use_fused_kernel does: the loss runs through the kernels (K1, or
-        # K2 with K3/K4), which also drops residual_chunk_size
-        self.uses_kernels = self.kernel_plan.k1 or self.kernel_plan.fused
-        self.loss_fn = build_loss_fn(
-            config, self.spec, residual_chunk_size=config.residual_chunk_size,
-            input_min_max=self.data.input_min_max, fused_kernel=self.uses_kernels,
-            fused_precision=config.resolved_kernel_precision(),
-            fidelity_is_residual=fidelity_is_residual, mesh=mesh,
-        )
-        self.fused_step_fn = build_value_and_grad_fn(
-            config, self.spec, input_min_max=self.data.input_min_max,
-            fused_kernel=self.uses_kernels,
-            fused_precision=config.resolved_kernel_precision(),
-            fidelity_is_residual=fidelity_is_residual,
-        )
-        self.value_and_grad_fn = self.fused_step_fn or value_and_grad(self.loss_fn)
-        tier = config.resolved_kernel_precision()
-        where = " (CUDA)" if self.device.type == "cuda" else " (plain versions on the CPU)"
-        if self.fused_step_fn:
-            step = f"K1, the one-kernel training step, at {tier}" + where
-        elif self.kernel_plan.fused:
-            bwd = "K4" if kernels_vjp.resolve_impl("auto", tier) == "rebuild" else "K3"
-            step = f"autograd of the loss through K2 forward + {bwd} backward, at {tier}" + where
-        else:
-            step = "autograd of the loss (plain PyTorch)"
-        predict = f"K2 at {tier}" if self.kernel_plan.predict else "plain mlp_apply"
-        where = (f"mesh {mesh.shape['data']}x{mesh.shape['model']} over "
-                 f"{[str(d) for d in mesh.data_devices]}" if mesh is not None
-                 else f"device {self.device}")
-        print(f"Training step: {step}; snapshot/predict: {predict}; {where}")
-        self._prefix_iters, self._prefix_value_and_grad = self._build_schedule(fidelity_is_residual)
-
-        if initial_params is not None:
-            arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
-                      for k, v in initial_params.items()}
-            params = params_from_numpy(arrays, self.device)
-        else:
-            gen = torch.Generator().manual_seed(config.seed)
-            params = init_mlp_params(gen, self.spec, device=self.device)
-        # a copy of its own: Adam updates in place, and a CPU tensor made
-        # from numpy shares the caller's memory
-        params = {k: params[k].detach().clone().contiguous() for k in PARAM_KEYS}
-        self.state = TrainState(params=params, iteration=0)
-        self.optimizer, self.scheduler = make_adam_optimizer(
-            config, [params[k] for k in PARAM_KEYS])
-        self._lbfgs_runner: lbfgs_mod.LBFGSRunner | None = None
-        self._live_lbfgs_state = None       # exported into checkpoints
-        self._pending_lbfgs_resume = None   # raw dict from a restored checkpoint
-        # the f64 polish's counterparts (checkpoint sections lbfgs64, params64)
-        self._lbfgs64_runner: lbfgs_mod.LBFGSRunner | None = None
-        self._live_lbfgs64_state = None
-        self._pending_lbfgs64_resume = None
-        self._pending_params64 = None       # flat f64 iterate of a finished polish
-        self._snapshot_done = False
+            if initial_params is not None:
+                arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                          for k, v in initial_params.items()}
+                params = params_from_numpy(arrays, self.device)
+            else:
+                gen = torch.Generator().manual_seed(config.seed)
+                params = init_mlp_params(gen, self.spec, device=self.device)
+            # a copy of its own: Adam updates in place, and a CPU tensor made
+            # from numpy shares the caller's memory
+            params = {k: params[k].detach().clone().contiguous() for k in PARAM_KEYS}
+            self.state = TrainState(params=params, iteration=0)
+            with tracing.setup_span("trainer#init.optimizer"):
+                self.optimizer, self.scheduler = make_adam_optimizer(
+                    config, [params[k] for k in PARAM_KEYS])
+            self._lbfgs_runner: lbfgs_mod.LBFGSRunner | None = None
+            self._live_lbfgs_state = None       # exported into checkpoints
+            self._pending_lbfgs_resume = None   # raw dict from a restored checkpoint
+            # the f64 polish's counterparts (checkpoint sections lbfgs64, params64)
+            self._lbfgs64_runner: lbfgs_mod.LBFGSRunner | None = None
+            self._live_lbfgs64_state = None
+            self._pending_lbfgs64_resume = None
+            self._pending_params64 = None       # flat f64 iterate of a finished polish
+            self._snapshot_done = False
 
     def _host_batch(self, dtype) -> dict[str, np.ndarray]:
         return {k: np.asarray(getattr(self.data, k), dtype)
@@ -346,8 +360,9 @@ class Trainer:
             losses[i] = torch.stack((fid, res, total))
             for k in PARAM_KEYS:
                 params[k].grad = grads[k]
-            self.optimizer.step()
-            self.scheduler.step()
+            with tracing.span("step#adam"):
+                self.optimizer.step()
+                self.scheduler.step()
         for k in PARAM_KEYS:
             params[k].grad = None
         return losses
@@ -365,7 +380,12 @@ class Trainer:
             if in_prefix:
                 n = min(n, self._prefix_iters - self.state.iteration)
             fn = self._prefix_value_and_grad if in_prefix else self.value_and_grad_fn
-            self._record(self._adam_steps(n, fn).cpu().numpy())
+            with tracing.span("trainer#block"):
+                with tracing.span("trainer#dispatch"):
+                    losses = self._adam_steps(n, fn)
+                with tracing.span("trainer#sync"):  # the host waits for the device
+                    losses = losses.cpu().numpy()
+                self._record(losses)
             remaining -= n
 
     # ---------------------------------------------------------------- L-BFGS
@@ -568,25 +588,27 @@ class Trainer:
         )
 
     def _record(self, losses: np.ndarray) -> None:
-        """Flush a (n, 3) loss block to log.txt, stdout and checkpoints."""
-        start = self.state.iteration
-        rows = [(start + i + 1, *(float(v) for v in losses[i])) for i in range(losses.shape[0])]
-        self.log.append(rows)
-        self.state.iteration = start + losses.shape[0]
-        for epoch, fid, res, total in rows:
-            if self.echo_every and epoch % self.echo_every == 0:
-                LossLog.echo(epoch, fid, res, total)
-        it = self.state.iteration
-        points = ckpt_mod.checkpoint_points(start, it, self.config.kind)
-        # one file per crossed cadence point, each with the block-end state;
-        # only the last carries the L-BFGS history
-        for point in points[:-1]:
-            self.save(f"model_{point}", include_lbfgs=False)
-        for point in points[-1:]:
-            self.save(f"model_{point}")
-        snap = self.config.snapshot_iteration
-        if snap is not None and start < snap <= it:
-            self._maybe_snapshot()
+        """Flush a (n, 3) loss block to log.txt, stdout and checkpoints (the
+        span ``trainer#record``, each save ``trainer#checkpoint``)."""
+        with tracing.span("trainer#record"):
+            start = self.state.iteration
+            rows = [(start + i + 1, *(float(v) for v in losses[i]))
+                    for i in range(losses.shape[0])]
+            self.log.append(rows)
+            self.state.iteration = start + losses.shape[0]
+            for epoch, fid, res, total in rows:
+                if self.echo_every and epoch % self.echo_every == 0:
+                    LossLog.echo(epoch, fid, res, total)
+            it = self.state.iteration
+            points = ckpt_mod.checkpoint_points(start, it, self.config.kind)
+            # one file per crossed cadence point, each with the block-end
+            # state; only the last carries the L-BFGS history
+            for i, point in enumerate(points):
+                with tracing.span("trainer#checkpoint"):
+                    self.save(f"model_{point}", include_lbfgs=i == len(points) - 1)
+            snap = self.config.snapshot_iteration
+            if snap is not None and start < snap <= it:
+                self._maybe_snapshot()
 
     def _snapshot_name(self) -> str:
         snap = self.config.snapshot_iteration
