@@ -15,7 +15,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    at width 20 and of K1's, K3's and K4's walk kernels at every width
    (``cuobjdump -sass``): in every bf16 and f32x3 kernel (the tensor-core
    bodies, ``csrc/mlp_fwd_tangents_mma.cuh``, ``csrc/mlp_bwd_mma.cuh``),
-   in no f32 one;
+   in no f32 one; Adam's update (``csrc/adam_step.cu``) in the same wave;
+2b. Adam's update against ``torch.optim.Adam``'s foreach path on the card:
+   the leaves of the flagship, the CMB net and the legacy net, 100 steps
+   under ``StepLR(30, 0.8)`` from seeded weights and gradients, every
+   parameter and both moments bit for bit, one launch a step; the
+   kernel's device time on the flagship's leaves beside torch's seven
+   foreach kernels and its bound, and the host's time of a step and
+   ``StepLR`` beside torch's;
 3. K2 against its plain PyTorch version on the card: the 2->[20]x100->3
    flagship (xavier, seeded numpy weights) at a ragged N for K=0, K=2 and
    the continuity epilogue; a small leaky-relu net (K=1, K=3); a width-32
@@ -225,7 +232,11 @@ of phase 19's paths, each CLI ``parity`` run of phases 22-23 (K1) and
 each CLI ``test`` of phase 24 (K2, K3, K4), each CLI ``train`` of
 phase 25 (K1, K2, K3, K4), each CLI ``train`` of phases 26 and 27 and each
 sharded Trainer of phase 27 (K1, K2, K3): each kernel must have launched
-on each path that runs it, at the tier that path asks for. The ``kernels`` line holds one
+on each path that runs it, at the tier that path asks for. Adam's kernel
+is counted phase by phase: its launches are set to 0 at each phase's start
+and read at its end, and must equal the steps FusedAdam took on card
+float32 leaves there (a global optimizer step hook counts them); torch's own
+Adam may step on card float32 leaves only in phase 2b. The ``kernels`` line holds one
 entry per kernel and tier (K2, K1, K3, K4 x f32, bf16, f32x3); the
 entries of K2-f32, K2-bf16, K3-f32 and K4-bf16 also carry phase 25's
 launches (``launches_legacy``) and times (``*_legacy*``); K1-f32's carries
@@ -235,7 +246,9 @@ wide-body numbers (``*_w64``, ``*_w128``, ``max_abs_err_wide``) and phase
 29's launches (``launches_wide``: counts set to 0 at the phase's start and
 read after its CLI runs, before its check Trainers; K1-f32, K2-f32,
 K2-bf16, K3-f32 and K4-bf16 run there); K1's and K2's entries also carry
-the padded-against-wide times (``padded_ms_w17``, ``wide_ms_w17``, ...). The last
+the padded-against-wide times (``padded_ms_w17``, ``wide_ms_w17``, ...). A last
+entry, ``adam_step[f32]``, holds phase 2b's numbers and Adam's launches in
+all and by phase (``launches_by_phase``). The last
 two lines are the ``kernels`` JSON object and ``{"ok": true, "device":
 {...}}``.
 """
@@ -261,6 +274,7 @@ K3_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:701"  # packed_mlp_bw
 K3_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd.cu"
 K4_REPLACES = "pinn_depthestimation_tpu/ops/kernels_vjp.py:268"  # _make_bwd_kernel (impl='rebuild')
 K4_SOURCE = "pinn_depthestimation_tpu_torch/csrc/mlp_bwd_rebuild.cu"
+ADAM_SOURCE = "pinn_depthestimation_tpu_torch/csrc/adam_step.cu"
 # the walk kernel's name, for device_ms
 WALK_KERNEL = {"k1": "k1_train_step_kernel", "k3": "cotangent_walk_kernel",
                "k4": "cotangent_walk_kernel"}
@@ -275,6 +289,63 @@ REL_TOL, ABS_TOL = 1e-4, 1e-7
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# Adam's kernel on every path. A global optimizer step hook counts, phase by
+# phase, the steps of FusedAdam and of torch's own Adam on card float32
+# leaves; at each phase's end the kernel's launches (set to 0 at its start)
+# must equal FusedAdam's steps (one launch a step: one group of at most 16
+# leaves on one device), and torch's own Adam may step there only in phase
+# 2b, which holds the kernel to it.
+ADAM_COUNTS: dict[str, dict] = {}
+_adam_now: dict = {"phase": None, "fused": 0, "torch": 0}
+
+
+def adam_step_hook(optimizer, args, kwargs) -> None:
+    import torch
+    from pinn_depthestimation_tpu_torch.optim.adam import FusedAdam
+
+    leaves = [p for g in optimizer.param_groups for p in g["params"]]
+    if isinstance(optimizer, torch.optim.Adam) and all(
+            p.is_cuda and p.dtype == torch.float32 for p in leaves):
+        _adam_now["fused" if isinstance(optimizer, FusedAdam) else "torch"] += 1
+
+
+def close_adam_count() -> None:
+    """The running phase's Adam launches and steps, into ``ADAM_COUNTS``."""
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    name = _adam_now["phase"]
+    if name is None:
+        return
+    _adam_now["phase"] = None
+    launches, fused, plain = adam.fused_adam_update.launches, _adam_now["fused"], _adam_now["torch"]
+    if launches or fused or plain:
+        ADAM_COUNTS[name] = {"launches": launches, "steps": fused}
+        print(f"  Adam in phase {name}: {launches} launches of its kernel, {fused} FusedAdam "
+              f"steps on card float32 leaves" + (f", {plain} of torch.optim.Adam" if plain else ""))
+    if launches != fused:
+        fail(f"phase {name}: Adam's kernel launched {launches} times for {fused} FusedAdam steps")
+    if plain and name != "2b":
+        fail(f"phase {name}: torch.optim.Adam stepped {plain} times on card float32 leaves, "
+             "bypassing Adam's kernel")
+
+
+def phase(title: str) -> None:
+    """Starts a phase: closes the last one's Adam count, prints the title
+    and sets Adam's launches to 0 (the step hook put in place at the
+    first)."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from pinn_depthestimation_tpu_torch.ops import kernels
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    if "hook" not in _adam_now:
+        _adam_now["hook"] = register_optimizer_step_post_hook(adam_step_hook)
+    close_adam_count()
+    print(f"== phase {title}")
+    kernels.reset_launches(adam.fused_adam_update)
+    _adam_now.update(phase=title.split(":")[0], fused=0, torch=0)
 
 
 def nvidia_smi(query: str) -> str:
@@ -764,6 +835,102 @@ def ragged_points(lib, kernel: str, dev) -> list[int]:
     return [1, TILE_STEP - 1, TILE_STEP + 1, 12_516, wave - 1, wave + 1]
 
 
+def adam_phase(dev) -> dict:
+    """Phase 2b; returns Adam's entry of the ``kernels`` line (its
+    launches are filled in at the end, from ``ADAM_COUNTS``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinn_depthestimation_tpu_torch import benchmarks
+    from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    phase("2b: Adam's update (csrc/adam_step.cu) against torch.optim.Adam's foreach path")
+    nets = {"flagship": benchmarks.FLAGSHIP_SIZES, "cmb": (2,) + (10,) * 10 + (6,),
+            "legacy": (5,) + (20,) * 20 + (4,)}
+    steps = 100
+
+    def pair(sizes):
+        init = numpy_params(sizes, "xavier", 8)
+        ours = [torch.as_tensor(init[k]).to(dev) for k in PARAM_KEYS]
+        ref = [p.clone() for p in ours]
+        return ours, ref, adam.FusedAdam(ours, lr=1e-3), torch.optim.Adam(ref, lr=1e-3, foreach=True)
+
+    def kernel_ms(opt, calls: int, match: str, per_call: int):
+        """Device time of ``opt.step`` a call: the own times of the kernels
+        whose names hold ``match``, unless the profiler dropped some."""
+        opt.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                opt.step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and match in e.name]
+        if len(events) != calls * per_call:
+            print(f"  (torch.profiler recorded {len(events)} of {calls * per_call} {match} "
+                  "launches: no device time)")
+            return None
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+
+    def host_us(opt, sched, calls: int = 2000) -> float:
+        """Host time of a step and StepLR, untraced, the card not waited for."""
+        for _ in range(100):
+            opt.step()
+            sched.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            opt.step()
+            sched.step()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    entry = {"name": "adam_step[f32]", "route": "cuda", "source": ADAM_SOURCE, "replaces": None,
+             "library_ms": None, "max_abs_err": 0.0}
+    for name, sizes in nets.items():
+        ours, ref, fused, torch_adam = pair(sizes)
+        scheds = [torch.optim.lr_scheduler.StepLR(o, step_size=30, gamma=0.8)
+                  for o in (fused, torch_adam)]
+        gen = torch.Generator(device=dev).manual_seed(9)
+        before = adam.fused_adam_update.launches
+        for t in range(steps):
+            for p, q in zip(ours, ref):
+                p.grad = torch.randn(p.shape, device=dev, generator=gen) * 10.0 ** (t % 5 - 3)
+                q.grad = p.grad.clone()
+            fused.step()
+            torch_adam.step()
+            for sched in scheds:
+                sched.step()
+        torch.cuda.synchronize()
+        launched = adam.fused_adam_update.launches - before
+        differ = {"p": sum(int((p != q).sum()) for p, q in zip(ours, ref))}
+        for key in ("exp_avg", "exp_avg_sq"):
+            differ[key] = sum(int((fused.state[p][key] != torch_adam.state[q][key]).sum())
+                              for p, q in zip(ours, ref))
+        n = sum(p.numel() for p in ours)
+        print(f"  {name}: {len(ours)} leaves, {n} parameters, {steps} steps under StepLR(30, "
+              f"0.8), {launched} launches; elements unequal to torch's foreach Adam: {differ}")
+        if launched != steps or any(differ.values()):
+            fail(f"Adam's kernel on the {name} leaves is not torch's foreach Adam bit for bit "
+                 f"({launched} launches for {steps} steps, unequal elements {differ})")
+        if name != "flagship":
+            continue
+        entry["parameters"] = n
+        entry["ms"] = kernel_ms(fused, 200, "adam_kernel", 1)
+        entry["plain_ms"] = kernel_ms(torch_adam, 200, "multi_tensor_apply_kernel", 7)
+        entry["bound_ms"] = 28 * n / HBM_BYTES_PER_S * 1e3  # p, g, m, v read; p, m, v written
+        entry["bound_by"] = "bytes"
+        entry["host_us"] = host_us(fused, scheds[0])
+        entry["plain_host_us"] = host_us(torch_adam, scheds[1])
+        print(f"  flagship leaves: device {fmt_ms(entry['ms'])} a step (torch's seven foreach "
+              f"kernels {fmt_ms(entry['plain_ms'])}, bound {entry['bound_ms']:.6f} ms by bytes); "
+              f"host, step and StepLR untraced: {entry['host_us']:.1f} us (torch's "
+              f"{entry['plain_host_us']:.1f} us)")
+    return entry
+
+
 def training_phases(dev, repo: str, bound, keep: str) -> dict:
     """Phases 7-10; returns K1's entry of the ``kernels`` line. Phase 8's
     trained model goes to ``keep`` (:func:`keep_run`)."""
@@ -781,7 +948,7 @@ def training_phases(dev, repo: str, bound, keep: str) -> dict:
     flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
     with tempfile.TemporaryDirectory() as tmp:
         # 7. K1 vs plain ---------------------------------------------------
-        print("== phase 7: K1 against its plain version on the card")
+        phase("7: K1 against its plain version on the card")
         cases, n_grid, flag_params = k1_cases(dev, repo, tmp)
         err_k1 = 0.0
         for name, spec, params, b in cases:
@@ -833,7 +1000,7 @@ def training_phases(dev, repo: str, bound, keep: str) -> dict:
                     fail(f"ragged K1 at N={n}, width {width}: two launches differ")
 
         # 8. the training path ---------------------------------------------
-        print("== phase 8: training path (CLI train, then CLI test on the trained model)")
+        phase("8: training path (CLI train, then CLI test on the trained model)")
         cfg_path = newmethod_config(
             tmp, repo, adam_optimizer={"max_it": 300}, snapshot_iteration=300,
             # tolerances below what 300 Adam steps reach, so L-BFGS runs
@@ -893,7 +1060,7 @@ def training_phases(dev, repo: str, bound, keep: str) -> dict:
         keep_run(keep, "flagship", cfg_path, model)
 
         # 9. iteration-1 equality and a tracked prefix ----------------------
-        print("== phase 9: iteration 1 and a 20-step Adam prefix, K1 against the plain path")
+        phase("9: iteration 1 and a 20-step Adam prefix, K1 against the plain path")
         init = numpy_params(flagship.sizes, "xavier", 6)
         runs = {}
         for mode in ("on", "off"):
@@ -922,7 +1089,7 @@ def training_phases(dev, repo: str, bound, keep: str) -> dict:
             fail("the 20-step Adam prefix of K1 and the plain path diverged")
 
         # 10. training times -------------------------------------------------
-        print("== phase 10: training times")
+        phase("10: training times")
         ms_k1 = cuda_ms(lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship), 7, 20)
         dev_k1 = device_ms(lambda: kernels_step.fused_loss_and_grad(flag_params, flag_batch, flagship),
                            20, "k1_train_step_kernel")
@@ -1108,7 +1275,7 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
         n_res, n_fid = res_pts.shape[0], fid_pts.shape[0]
 
         # 11. K3 vs plain ------------------------------------------------------
-        print("== phase 11: K3 against its plain version on the card")
+        phase("11: K3 against its plain version on the card")
         main_path = ("CMB net, residual grid", "CMB net, fidelity rows")
         inputs, err_k3 = {}, 0.0
         for name, spec, params, x, ybar, dybar, kt in k3_cases(dev, repo, tmp, res_pts, fid_pts):
@@ -1150,7 +1317,7 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
                 fail(f"ragged K3 at N={n}: two launches differ")
 
         # 12. the CMB training path ---------------------------------------------
-        print("== phase 12: CMB training path (CLI synth, train, then test on the trained model)")
+        phase("12: CMB training path (CLI synth, train, then test on the trained model)")
         synth = os.path.join(tmp, "synth")
         if cli.main(["synth", "--out", synth]) != 0:
             fail("synth failed")
@@ -1215,7 +1382,7 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
         keep_run(keep, "cmb", cfg_path, os.path.join(run_dir, "model.npz"))
 
         # iteration 1 and a tracked prefix, K2 + K3 against autograd ----------
-        print("== phase 12b: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
+        phase("12b: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
         init = numpy_params(cmb_net.sizes, "xavier", 6)
         init["b_out"][3] += 1.0  # the eta head shifted, so eta + h stays away from 0
         prefix = {}
@@ -1251,7 +1418,7 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
             fail("the 20-step Adam prefix of K2+K3 and autograd diverged")
 
         # 13. times ---------------------------------------------------------------
-        print("== phase 13: CMB times")
+        phase("13: CMB times")
         times = {}
         for name in ("CMB net, residual grid", "CMB net, fidelity rows", "flagship, train grid"):
             params, x, ybar, dybar, spec, kt = inputs[name]
@@ -1395,7 +1562,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
         n_res = res_pts.shape[0]
 
         # 14. the bf16 tier and K4 against their plain versions -----------------
-        print("== phase 14: K2-bf16, K1-bf16, K3-bf16, K4-f32 and K4-bf16 against their "
+        phase("14: K2-bf16, K1-bf16, K3-bf16, K4-f32 and K4-bf16 against their "
               "plain versions on the card")
         err = {"k2": 0.0, "k1": 0.0, "k3": 0.0, "k4": 0.0, "k4_f32": 0.0}
 
@@ -1524,7 +1691,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
             bwd_inputs[name] = (params, x, ybar, dybar, spec, kt)
 
         # 15. the CMB path at bf16 -------------------------------------------------
-        print("== phase 15: CMB path at bf16 (CLI synth, train, then test on the trained model)")
+        phase("15: CMB path at bf16 (CLI synth, train, then test on the trained model)")
         synth = os.path.join(tmp, "synth")
         if cli.main(["synth", "--out", synth]) != 0:
             fail("synth failed")
@@ -1582,7 +1749,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
               f"{totals[0]:.5e} -> {totals[299]:.5e} (Adam) -> {min(totals[300:]):.5e} (L-BFGS); "
               f"CLI train wall time {train_s:.2f} s")
 
-        print("== phase 15b: iteration 1 at bf16 through K2 + K4 against the plain bf16 functions")
+        phase("15b: iteration 1 at bf16 through K2 + K4 against the plain bf16 functions")
         init = numpy_params(cmb_net.sizes, "xavier", 6)
         init["b_out"][3] += 1.0
         raw = dict(make_cmb_config(csv, mat, 20, 0, interval=1, training_points=200),
@@ -1611,7 +1778,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
                   + [(f"d{k}", gk[k], gb[k], gf[k], g6[k]) for k in gk])
 
         # 16. the flagship under the precision schedule ---------------------------
-        print("== phase 16: flagship under --precision-schedule 150:bf16 (CLI train, resume, test)")
+        phase("16: flagship under --precision-schedule 150:bf16 (CLI train, resume, test)")
         lbfgs = {"max_it": 20, "max_evaluation": 25, "tolerance_grad": 1e-9,
                  "tolerance_change": 1e-12}
         cfg_full = newmethod_config(tmp, repo, adam_optimizer={"max_it": 300},
@@ -1669,7 +1836,7 @@ def bf16_phases(dev, repo: str, bound, bound_bf16, f32_steps: dict) -> dict:
             fail("the resumed run's first row differs from the uninterrupted run's")
 
         # 17. times -------------------------------------------------------------------
-        print("== phase 17: times of the bf16 tier and K4 (CUDA events; median of reps)")
+        phase("17: times of the bf16 tier and K4 (CUDA events; median of reps)")
         times = {}
 
         def timed(key, fn, reps, inner, flops, nbytes, bf16, wg=0.0):
@@ -1917,7 +2084,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
         n_res = res_pts.shape[0]
 
         # 18. the f32x3 tier against its plain version ------------------------
-        print("== phase 18: K2-f32x3, K1-f32x3, K3-f32x3 and K4-f32x3 against the plain "
+        phase("18: K2-f32x3, K1-f32x3, K3-f32x3 and K4-f32x3 against the plain "
               "f32x3 versions on the card")
         with torch.no_grad():
             rng = np.random.RandomState(19)
@@ -2029,7 +2196,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
             fail(f"a kernel shows the f32x3 tier on no output: {shown}")
 
         # 19. the paths at f32x3 ------------------------------------------------
-        print("== phase 19: the paths at f32x3 (CLI train and test, the schedule, the "
+        phase("19: the paths at f32x3 (CLI train and test, the schedule, the "
               "backward picked by the loss)")
         # a. the flagship at f32x3, residual_chunk_size set (dropped on K1)
         cfg_x3 = newmethod_config(tmp, repo, adam_optimizer={"max_it": 300},
@@ -2209,7 +2376,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
                   f"{losses[-1, 2]:.5e}")
 
         # 20. the bench suite ---------------------------------------------------------
-        print("== phase 20: bench --suite (CLI)")
+        phase("20: bench --suite (CLI)")
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2232,7 +2399,7 @@ def f32x3_phases(dev, repo: str, bound, bound_bf16) -> dict:
         print(f"  bench --suite took {suite_s:.1f} s")
 
         # 21. times -----------------------------------------------------------------
-        print("== phase 21: times of the f32x3 tier (CUDA events; median of reps)")
+        phase("21: times of the f32x3 tier (CUDA events; median of reps)")
         times = {}
 
         def timed(key, fn, reps, inner, flops, nbytes):
@@ -2560,7 +2727,7 @@ def parity_phases(dev, repo: str, keep: str) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         # 22. the flagship parity run -------------------------------------------
-        print("== phase 22: flagship parity against the reference's 50,000-step run "
+        phase("22: flagship parity against the reference's 50,000-step run "
               "(CLI parity, .soak/ref_50k.npz)")
         flag = parity_run("22", repo, tmp, "plane")
         if flag["exit"] != 0 or flag["verdict"] != "PASS":
@@ -2571,7 +2738,7 @@ def parity_phases(dev, repo: str, keep: str) -> None:
               "package read 0.08 %, PARITY_FLAGSHIP_50K.md)")
 
         # 23. the same on the structured fields -----------------------------------
-        print("== phase 23: structured-fields parity (CLI parity, .soak/ref_50k_structured.npz)")
+        phase("23: structured-fields parity (CLI parity, .soak/ref_50k_structured.npz)")
         struct = parity_run("23", repo, tmp, "structured")
         print(f"  h RMSE {struct['rmse_truth_frac']:.2%} of the truth scale beside the JAX "
               "package's 1.28 % and the reference's own fork spread of 1.22 % "
@@ -2583,7 +2750,7 @@ def parity_phases(dev, repo: str, keep: str) -> None:
                  "10 % of the truth range)")
 
         # 24. test-time adaptation on the card --------------------------------------
-        print("== phase 24: test-time adaptation (CLI test with perform_optimization)")
+        phase("24: test-time adaptation (CLI test with perform_optimization)")
         counted = {"k2": kernels.mlp_fwd_tangents, "k3": kernels_vjp.packed_mlp_bwd,
                    "k4": kernels_vjp.packed_mlp_bwd_rebuild}
         plain_paths = [(inference, "mlp_apply_with_tangents"), (inference, "mlp_apply"),
@@ -2738,7 +2905,7 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
                    (driver, "mlp_apply"), (kernels, "mlp_fwd_tangents_plain"),
                    (kernels_vjp, "packed_mlp_bwd_plain")]
     with tempfile.TemporaryDirectory() as tmp:
-        print("== phase 25: the legacy pipeline (CLI synth --legacy, the loader; K2, K3 and K4 "
+        phase("25: the legacy pipeline (CLI synth --legacy, the loader; K2, K3 and K4 "
               "at 5->[20]x20->4 against their plain versions)")
         if cli.main(["synth", "--out", tmp, "--legacy", "--nx", "41", "--ny", "31"]) != 0:
             fail("synth --legacy failed")
@@ -2847,7 +3014,7 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
                 fail(f"{label}: training called a plain version")
             return launches, n, wall
 
-        print("== phase 25b: examples/legacy.json uncut through CLI train (500 Adam, L-BFGS "
+        phase("25b: examples/legacy.json uncut through CLI train (500 Adam, L-BFGS "
               "100/125) at f32, then at bf16 with Adam cut to 100")
         launches_f32, evals_f32, wall_f32 = train("legacy_f32", cfg_path, "f32")
         if evals_f32 < 501:
@@ -2857,7 +3024,7 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
                                               adam_optimizer={"max_it": 100}), "bf16")
 
         # 25c. kernel and plain Trainers from the same weights -------------------------
-        print("== phase 25c: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
+        phase("25c: iteration 1 and a 20-step Adam prefix, K2 + K3 against autograd")
         with open(cfg_path) as f:
             raw = json.load(f)
         raw["adam_optimizer"]["max_it"], raw["lbfgs_optimizer"]["max_it"] = 20, 0
@@ -2886,7 +3053,7 @@ def legacy_phases(dev, repo: str, bound, bound_bf16) -> dict:
             fail("the 20-step Adam prefix of K2+K3 and autograd diverged on the legacy net")
 
         # 25d. times ---------------------------------------------------------------------
-        print("== phase 25d: legacy times")
+        phase("25d: legacy times")
         smi = nvidia_smi("name,power.limit")
         steps = {t: benchmarks.run_legacy_step_bench(kernel_precision=t, device=dev)
                  for t in ("f32", "bf16")}
@@ -3056,7 +3223,7 @@ def polish_phase(dev, repo: str, f64_fma_peak: float) -> dict:
                             near_end=near_end)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("== phase 26: examples/deep_f64.json through CLI train: K1 for the f32 phases, "
+        phase("26: examples/deep_f64.json through CLI train: K1 for the f32 phases, "
               f"the float64 polish on the card (cuts: {json.dumps(DEEP_F64_CUTS)})")
         path = example_config(tmp, repo, "deep_f64", **DEEP_F64_CUTS)
         cfg = load_config(path)
@@ -3182,7 +3349,7 @@ def mesh_phase(dev, repo: str) -> dict:
     flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
     n_dev = torch.cuda.device_count()
     with tempfile.TemporaryDirectory() as tmp:
-        print("== phase 27: the data-parallel mesh (CLI --mesh, parallel.data, 4 shards of one "
+        phase("27: the data-parallel mesh (CLI --mesh, parallel.data, 4 shards of one "
               "card)")
         scaled = example_config(tmp, repo, "newmethod_scaled")
         out = io.StringIO()
@@ -3398,7 +3565,7 @@ def wide_phase(dev, repo: str, bound, bound_bf16) -> dict:
     from pinn_depthestimation_tpu_torch.models import MLPSpec, params_from_numpy
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp, wide_plan, widths
 
-    print("== phase 28: K2, K1, K3 and K4 on the shapes the narrow bodies lack, every tier, "
+    phase("28: K2, K1, K3 and K4 on the shapes the narrow bodies lack, every tier, "
           "against their plain versions")
     wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
                 kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
@@ -3750,7 +3917,7 @@ def wide_path_phase(dev, repo: str) -> dict:
     from pinn_depthestimation_tpu_torch.parity import make_cmb_config
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
 
-    print("== phase 29: the flagship at widths 128 and 64 and the CMB net at width 128, "
+    phase("29: the flagship at widths 128 and 64 and the CMB net at width 128, "
           "through CLI train and test on the wide body")
     wrappers = (kernels.mlp_fwd_tangents, kernels.fused_residual_continuity,
                 kernels_step.fused_loss_and_grad, kernels_vjp.packed_mlp_bwd,
@@ -3928,7 +4095,7 @@ def modules_phase(dev, repo: str) -> dict:
     from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step
     from pinn_depthestimation_tpu_torch.training.driver import Trainer
 
-    print("== phase 30: .msgpack weights, train --profile, Trainer(training_data=), plots")
+    phase("30: .msgpack weights, train --profile, Trainer(training_data=), plots")
     fixture = os.path.join(repo, "tests", "data", "jax_state_w20x3")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4046,7 +4213,7 @@ def main() -> None:
     repo = os.path.dirname(os.path.abspath(__file__))
 
     # 1. device -------------------------------------------------------------
-    print("== phase 1: device")
+    phase("1: device")
     smi = nvidia_smi("name,power.limit")
     print(smi)
     props = torch.cuda.get_device_properties(dev)
@@ -4061,7 +4228,7 @@ def main() -> None:
           f"{2 * f64_fma_peak / 1e12:.2f})")
 
     # 2. build --------------------------------------------------------------
-    print("== phase 2: build")
+    phase("2: build")
     t_build = time.perf_counter()
     cuda_build.build_all()  # K1, K2, K3 and K4, narrow and wide bodies, in one wave
     lib = cuda_build.k2_library()
@@ -4101,9 +4268,10 @@ def main() -> None:
         if not sass or not all((n == 0) == (tier == "f32") for n in hmma):
             fail(f"K2-{tier}: expected {'no' if tier == 'f32' else 'an'} HMMA in every kernel")
     walk_sass_report({"k1": lib_k1, "k3": lib_k3, "k4": lib_k4})
+    adam_entry = adam_phase(dev)
 
     # 3. kernel vs plain ----------------------------------------------------
-    print("== phase 3: K2 against its plain version on the card")
+    phase("3: K2 against its plain version on the card")
     flagship = MLPSpec(sizes=benchmarks.FLAGSHIP_SIZES, init_type="xavier")
     with torch.no_grad():
         for spec, params, x, tangent_counts in k2_cases(dev) + k2_ragged_cases(dev):
@@ -4130,7 +4298,7 @@ def main() -> None:
     kernels.reset_launches(kernels.mlp_fwd_tangents)
     kernels.reset_launches(kernels.fused_residual_continuity)
     with tempfile.TemporaryDirectory() as tmp:
-        print("== phase 4: serving path (CLI synth + test --save) on the flagship")
+        phase("4: serving path (CLI synth + test --save) on the flagship")
         if cli.main(["synth", "--out", tmp]) != 0:
             fail("synth failed")
         mat = os.path.join(tmp, "data_synth.mat")
@@ -4165,7 +4333,7 @@ def main() -> None:
         err_pred = compare("served grid vs plain mlp_apply", pred.reshape(-1, 3).to(dev), plain)
         print(f"  CLI test wall time {serve_s:.2f} s for {td.inputs.shape[0]} points")
 
-        print("== phase 5: residual evaluation at 10M points (run_residual_bench)")
+        phase("5: residual evaluation at 10M points (run_residual_bench)")
         bench = benchmarks.run_residual_bench(n_points=10_000_000, device=dev)
         print(json.dumps(bench))
         launches = {
@@ -4196,7 +4364,7 @@ def main() -> None:
         del fc, fc_plain
 
         # 6. times --------------------------------------------------------
-        print("== phase 6: times (CUDA events; median of reps)")
+        phase("6: times (CUDA events; median of reps)")
         n_grid = x_grid.shape[0]
         ms_pred = cuda_ms(lambda: kernels.mlp_fwd_tangents(serve_params, x_grid, flagship, 0), 7, 20)
         plain_pred = cuda_ms(lambda: mlp_apply(serve_params, x_grid, flagship), 7, 5)
@@ -4259,6 +4427,7 @@ def main() -> None:
     wide_path = wide_path_phase(dev, repo)
     t_mod = time.perf_counter()
     modules_phase(dev, repo)
+    close_adam_count()
     t_end = time.perf_counter()
     print(f"  phases 28-30: {t_path - t_wide:.1f} s, {t_mod - t_path:.1f} s, {t_end - t_mod:.1f} s")
     print(f"  total {t_end - t_start:.1f} s (build {build_s:.1f} s)")
@@ -4296,7 +4465,8 @@ def main() -> None:
         {**entry, **wide[key], "source_wide": WIDE_SOURCES[key[0]],
          "launches_wide": wide_path["launches"].get(key, 0)}
         for key, entry in entries.items()
-    ]}
+    ] + [{**adam_entry, "launches": sum(c["launches"] for c in ADAM_COUNTS.values()),
+          "launches_by_phase": {k: c["launches"] for k, c in ADAM_COUNTS.items()}}]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

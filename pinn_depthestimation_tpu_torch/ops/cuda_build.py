@@ -23,6 +23,10 @@ the costliest first, so that none is left running alone at the end:
   so a narrow run never pays for them. Their single :class:`WidthLibrary`
   sits under the key 0. :func:`build_all` builds both sets in one wave.
 
+Adam's update (``csrc/adam_step.cu``, :func:`adam_library`) is one more
+``nvcc`` of the narrow wave: it has no width or tier, and a Trainer on the
+card needs it beside whichever narrow kernel it runs.
+
 ``build.log`` records each variant's compiler output, when it ended and the
 CPU time it took.
 
@@ -58,6 +62,7 @@ K4_SOURCE = "mlp_bwd_rebuild.cu"
 K2_WIDE_SOURCE = "mlp_fwd_tangents_wide.cu"
 K1_WIDE_SOURCE = "continuity_train_step_wide.cu"
 K34_WIDE_SOURCE = "mlp_bwd_wide.cu"  # K3 with -DWIDE_REBUILD=0, K4 with 1
+ADAM_SOURCE = "adam_step.cu"
 # Hidden widths the kernels are compiled for: the repo's configs use 10
 # (CMB) and 20 (flagship); the rest cover the narrow test nets and a wider
 # option.
@@ -146,15 +151,15 @@ def _plan(name: str, source: str, variants: dict[tuple, tuple[str, ...]]) -> dic
 # Relative compile cost, for the order of the build: the walks (K4 holds the
 # forward replay twice) over K2 and K1, f32x3's three FMAs per product over
 # the others, and the unrolled W x W products (measured on the card's host,
-# PERF.md).
-_KERNEL_COST = {"k4": 1.0, "k3": 0.7, "k2": 0.45, "k1": 0.27}
+# PERF.md); Adam's update, a few lines, last.
+_KERNEL_COST = {"k4": 1.0, "k3": 0.7, "k2": 0.45, "k1": 0.27, "adam": 0.001}
 _TIER_COST = {"f32": 1.0, "bf16": 1.2, "f32x3": 3.0}
 _WIDE_COST_WIDTH = 32  # the wide body (no unrolled W x W) ranks as a width-32 build
 
 
 def _cost(name: str, variant: tuple[int, str]) -> float:
     width = variant[0] or _WIDE_COST_WIDTH
-    return _KERNEL_COST[name[:2]] * _TIER_COST[variant[1]] * width ** 2.5
+    return _KERNEL_COST[name.rstrip("w")] * _TIER_COST[variant[1]] * width ** 2.5
 
 
 def _run(jobs: list[dict], t0: float) -> None:
@@ -206,7 +211,8 @@ def _finish(job: dict, bind, seconds: float) -> KernelLibrary:
             )
     bound = {v: bind(ctypes.CDLL(str(p))) for v, p in targets.items()}
     widths = sorted({w for w, _ in targets})
-    libs = {w: WidthLibrary([bound[(w, t)] for t in TIERS]) for w in widths}
+    libs = {w: WidthLibrary([bound[(w, t)] for t in TIERS if (w, t) in bound])
+            for w in widths}
     return KernelLibrary(name=name, libs=libs, build_seconds=seconds, log_path=log_path)
 
 
@@ -285,6 +291,15 @@ def _bind_k34w(name: str):
     return bind
 
 
+def _bind_adam(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Adam's entries: ``adam_step(leaves, grads, steps, lr, beta1, beta2,
+    eps, device, stream)``, the most leaves a launch takes and the size of
+    its argument block (``optim/adam.py``)."""
+    _D = ctypes.c_double
+    return _bind(lib, "adam", {"step": [_P] * 3 + [_D] * 4 + [_I, _P],
+                               "max_leaves": [], "leaves_bytes": []})
+
+
 # name -> (source, variants, binder); the narrow bodies, then the wide one
 _SPECS = {
     "k2": (K2_SOURCE, lambda: _variants("K2_WIDTH", K2_WIDTHS), _bind_k2),
@@ -295,8 +310,9 @@ _SPECS = {
     "k1w": (K1_WIDE_SOURCE, _wide_variants, _bind_k1w),
     "k3w": (K34_WIDE_SOURCE, lambda: _wide_variants("-DWIDE_REBUILD=0"), _bind_k34w("k3w")),
     "k4w": (K34_WIDE_SOURCE, lambda: _wide_variants("-DWIDE_REBUILD=1"), _bind_k34w("k4w")),
+    "adam": (ADAM_SOURCE, lambda: {(0, "f32"): ()}, _bind_adam),
 }
-NARROW = ("k2", "k1", "k3", "k4")
+NARROW = ("k2", "k1", "k3", "k4", "adam")
 WIDE = ("k2w", "k1w", "k3w", "k4w")
 _BUILT: dict[str, KernelLibrary] = {}
 
@@ -359,6 +375,12 @@ def k4_library() -> KernelLibrary:
     """K4 (``csrc/mlp_bwd_rebuild.cu``), one library per width in
     :data:`K4_WIDTHS`, each holding K = 0..3."""
     return _ensure(NARROW)["k4"]
+
+
+def adam_library() -> WidthLibrary:
+    """Adam's update (``csrc/adam_step.cu``), built and loaded with the
+    narrow bodies."""
+    return _ensure(NARROW)["adam"].libs[0]
 
 
 def wide_library(kernel: str) -> WidthLibrary:

@@ -149,12 +149,14 @@ def summary() -> dict[str, dict]:
 
 # ------------------------------------------------------------ launch counts
 
-def count_launch(wrapper, precision: str, spec) -> None:
+def count_launch(wrapper, precision: str, spec=None) -> None:
     """One more launch of ``wrapper``'s kernel at ``precision``, by the body
-    that runs ``spec`` (:func:`ops.widths.body`)."""
+    that runs ``spec`` (:func:`ops.widths.body`; none for a kernel that runs
+    no net, such as Adam's update)."""
     wrapper.launches += 1
     wrapper.launches_by_tier[precision] += 1
-    wrapper.launches_by_body[widths.body(spec)] += 1
+    if spec is not None:
+        wrapper.launches_by_body[widths.body(spec)] += 1
 
 
 def reset_launches(wrapper) -> None:

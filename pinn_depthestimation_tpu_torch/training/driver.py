@@ -5,7 +5,8 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
 
 * Adam is ``torch.optim.Adam`` (its defaults equal optax's) under
   ``StepLR(step_size, gamma)`` stepped once per iteration — optax's
-  staircase ``exponential_decay``;
+  staircase ``exponential_decay``; on the card its update is one kernel
+  launch a step (``optim.adam.FusedAdam``), with every bit of torch's;
 * the L-BFGS phase is ``optim.lbfgs.LBFGSRunner`` (torch semantics plus
   the JAX package's stall restarts and cautious curvature update);
 * every loss evaluation goes through one value-and-gradient function
@@ -79,6 +80,7 @@ from pinn_depthestimation_tpu_torch.models import MLPSpec, init_mlp_params, mlp_
 from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
 from pinn_depthestimation_tpu_torch.ops import kernels, kernels_step, kernels_vjp
 from pinn_depthestimation_tpu_torch.optim import lbfgs as lbfgs_mod
+from pinn_depthestimation_tpu_torch.optim.adam import FusedAdam
 from pinn_depthestimation_tpu_torch.parallel import Mesh, shard_batch
 from pinn_depthestimation_tpu_torch.training import checkpoint as ckpt_mod
 from pinn_depthestimation_tpu_torch.training.logging_utils import LossLog, make_run_dir
@@ -94,11 +96,13 @@ _CHUNK = 1000  # Adam steps per log flush; divides every reference cadence
 
 
 def make_adam_optimizer(config: Config, params: list[torch.Tensor]):
-    """``(torch.optim.Adam, StepLR)``: Adam with torch's defaults (equal to
-    optax's) and ``StepLR(step_size, gamma)`` stepped once per iteration
-    (reference ``train.py:103-113,193``), which is optax's staircase
-    ``exponential_decay`` on the step count."""
-    optimizer = torch.optim.Adam(params, lr=config.adam.learning_rate)
+    """``(FusedAdam, StepLR)``: Adam with torch's defaults (equal to optax's)
+    and ``StepLR(step_size, gamma)`` stepped once per iteration (reference
+    ``train.py:103-113,193``), which is optax's staircase
+    ``exponential_decay`` on the step count. ``optim.adam.FusedAdam`` is a
+    ``torch.optim.Adam`` whose update is one kernel launch on the card and
+    torch's own step on the CPU."""
+    optimizer = FusedAdam(params, lr=config.adam.learning_rate)
     scheduler = torch.optim.lr_scheduler.StepLR(
         optimizer, step_size=config.adam.scheduler_step_size, gamma=config.adam.scheduler_gamma
     )

@@ -1470,3 +1470,204 @@ def test_cuda_wide_walk_at_width_128_matches_plain_and_repeats_its_bits(cuda_dev
                                               plain(f64(params), x.double(), precision), floor,
                                               distinct))
     assert any(real)
+
+
+# ------------------------------------------- Adam's update as one kernel
+
+def torch_foreach_adam(config, params):
+    """``training.driver.make_adam_optimizer`` as the port had it: torch's
+    own Adam, its foreach path, under the same StepLR."""
+    optimizer = torch.optim.Adam(params, lr=config.adam.learning_rate, foreach=True)
+    return optimizer, torch.optim.lr_scheduler.StepLR(
+        optimizer, step_size=config.adam.scheduler_step_size, gamma=config.adam.scheduler_gamma)
+
+
+def adam_run(raw, init, out, device, monkeypatch, fused, steps, restore=None):
+    """A Trainer on the port's Adam (``fused``) or torch's foreach Adam,
+    from ``init`` (or the checkpoint ``restore``) through ``train_adam`` to
+    ``steps``; returns it and the loss rows of every block, as the device
+    gave them."""
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.optim.adam import FusedAdam
+    from pinn_depthestimation_tpu_torch.training import driver
+
+    if not fused:
+        monkeypatch.setattr(driver, "make_adam_optimizer", torch_foreach_adam)
+    raw = dict(raw, adam_optimizer=dict(raw["adam_optimizer"], max_it=steps))
+    trainer = driver.Trainer(parse_config(raw), run_dir=out, echo_every=0,
+                             initial_params=init, device=device)
+    monkeypatch.undo()
+    assert isinstance(trainer.optimizer, FusedAdam) == fused
+    if restore is not None:
+        trainer.restore(restore)
+    rows, record = [], trainer._record
+    trainer._record = lambda losses: (rows.append(np.array(losses, copy=True)), record(losses))
+    trainer.train_adam()
+    return trainer, np.concatenate(rows)
+
+
+def assert_same_adam_state(a, b):
+    from pinn_depthestimation_tpu_torch.models.mlp import PARAM_KEYS
+
+    for k in PARAM_KEYS:
+        pa, pb = a.state.params[k], b.state.params[k]
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        assert torch.equal(pa, pb), k
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"]), k
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"]), k
+        assert float(sa["step"]) == float(sb["step"]), k
+    assert a.optimizer.param_groups[0]["lr"] == b.optimizer.param_groups[0]["lr"]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_equals_torch_foreach_on_odd_leaves(cuda_device):
+    """The kernel alone against torch.optim.Adam's foreach path, 30 steps:
+    leaves of sizes that no quad divides, as views at odd offsets of one
+    buffer (the element-by-element path) and as whole tensors (float4),
+    gradients as views of one flat buffer as K1 gives them, and a learning
+    rate changed between steps. Every parameter and moment bit for bit."""
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    sizes = [(39_600,), (1, 1_983), (7,), (3,), (4, 5), (1,)]
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    total = sum(int(np.prod(s)) for s in sizes) + 1
+    buffer = torch.randn(total, device=cuda_device, generator=gen)
+    ours, off = [], 1
+    for i, s in enumerate(sizes):
+        n = int(np.prod(s))
+        # odd leaves: views at an odd offset of one buffer, not 16-byte aligned
+        ours.append(buffer[off:off + n].view(s) if i % 2
+                    else torch.randn(s, device=cuda_device, generator=gen))
+        off += n
+    ref = [p.clone() for p in ours]
+    fused, torch_adam = adam.FusedAdam(ours, lr=1e-2), torch.optim.Adam(ref, lr=1e-2, foreach=True)
+    launches = adam.fused_adam_update.launches
+    for t in range(30):
+        gflat = torch.randn(total, device=cuda_device, generator=gen) * 10.0 ** (t % 4 - 2)
+        off = t % 2
+        for p, q in zip(ours, ref):
+            n = p.numel()
+            p.grad = gflat[off:off + n].view(p.shape)
+            q.grad = p.grad.clone()
+            off += n
+        for group in (fused.param_groups[0], torch_adam.param_groups[0]):
+            group["lr"] = 1e-2 * 0.9 ** (t // 7)
+        fused.step()
+        torch_adam.step()
+    torch.cuda.synchronize()
+    assert adam.fused_adam_update.launches - launches == 30
+    for p, q in zip(ours, ref):
+        assert torch.equal(p.detach(), q)
+        assert torch.equal(fused.state[p]["exp_avg"], torch_adam.state[q]["exp_avg"])
+        assert torch.equal(fused.state[p]["exp_avg_sq"], torch_adam.state[q]["exp_avg_sq"])
+        assert float(fused.state[p]["step"]) == 30.0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_takes_what_torch_takes(cuda_device):
+    """20 leaves in one group with ``foreach=False``: two launches a step
+    (16 + 4), a transposed gradient through a contiguous copy, and a leaf
+    whose gradient is None on every third step left alone, step count and
+    all. Against torch's foreach Adam given the same gradients made
+    contiguous: every parameter, moment and step count bit for bit."""
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    ours = [torch.randn(3 + 7 * i, 5, device=cuda_device, generator=gen) for i in range(20)]
+    ref = [p.clone() for p in ours]
+    fused = adam.FusedAdam(ours, lr=1e-2, foreach=False)
+    torch_adam = torch.optim.Adam(ref, lr=1e-2, foreach=True)
+    launches = adam.fused_adam_update.launches
+    for t in range(30):
+        for i, (p, q) in enumerate(zip(ours, ref)):
+            if i == 11 and t % 3 == 0:
+                p.grad = q.grad = None
+                continue
+            g = torch.randn(p.shape[::-1], device=cuda_device, generator=gen) * 10.0 ** (t % 4 - 2)
+            p.grad = g.t() if i == 5 else g.t().contiguous()
+            q.grad = p.grad.contiguous()
+        fused.step()
+        torch_adam.step()
+    torch.cuda.synchronize()
+    assert adam.fused_adam_update.launches - launches == 60
+    for p, q in zip(ours, ref):
+        assert torch.equal(p, q)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(fused.state[p][key], torch_adam.state[q][key])
+    assert float(fused.state[ours[11]]["step"]) == 20.0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_equals_torch_foreach_flagship(cuda_device, tmp_path, monkeypatch):
+    """The flagship net (2->[20]x100->3 on K1) trained 1,000 steps from one
+    seed by the port's Adam and by torch's foreach Adam, StepLR every 300
+    steps: every parameter, both moments and every loss row bit for bit,
+    one launch a step; and the same again from a checkpoint at step 500
+    restored into a new Trainer."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.optim import adam
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    mat = str(tmp_path / "d.mat")
+    synthetic.make_newmethod_mat(mat, nx=41, ny=61, nan_fraction=0.05, seed=7)
+    raw = {
+        "layers": {"input_features": 2, "hidden_layers": 100, "hidden_width": 20,
+                   "output_features": 3, "dropout_rate": 0.0, "init_type": "xavier"},
+        "adam_optimizer": {"max_it": 0, "learning_rate": 1e-4,
+                           "scheduler_step_size": 300, "scheduler_gamma": 0.8},
+        "lbfgs_optimizer": {"max_it": 0},
+        "loss": {"weight_fid_loss": 1, "weight_res_loss": 1},
+        "data": {"file": mat, "inputs": {"x": {"requires_grad": ["true"]},
+                                         "y": {"requires_grad": ["true"]}},
+                 "trues": ["U", "V"], "unknowns": ["h"]},
+        "seed": 11,
+    }
+    dirs = {}
+    for name in ("torch", "fused", "half"):
+        dirs[name] = str(tmp_path / name)
+        os.makedirs(dirs[name])
+    ref, ref_rows = adam_run(raw, None, dirs["torch"], cuda_device, monkeypatch, False, 1_000)
+    before = adam.fused_adam_update.launches
+    ours, rows = adam_run(raw, None, dirs["fused"], cuda_device, monkeypatch, True, 1_000)
+    assert adam.fused_adam_update.launches - before == 1_000
+    assert ours.optimizer.param_groups[0]["lr"] == pytest.approx(1e-4 * 0.8**3)
+    assert_same_adam_state(ours, ref)
+    assert rows.shape == (1_000, 3) and np.array_equal(rows, ref_rows)
+
+    half, half_rows = adam_run(raw, None, dirs["half"], cuda_device, monkeypatch, True, 500)
+    path = half.save("model_500")
+    before = adam.fused_adam_update.launches
+    resumed, resumed_rows = adam_run(raw, None, dirs["half"], cuda_device, monkeypatch, True,
+                                     1_000, restore=path)
+    assert adam.fused_adam_update.launches - before == 500
+    assert_same_adam_state(resumed, ref)
+    assert np.array_equal(np.concatenate([half_rows, resumed_rows]), ref_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_equals_torch_foreach_cmb(cuda_device, tmp_path, monkeypatch):
+    """The CMB net (2->[10]x10->6 through K2 + K3 under autograd) on the
+    synthetic CMB pair, 100 steps from the same weights: the port's Adam and
+    torch's foreach Adam agree bit for bit, one launch a step."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.optim import adam
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=41, ny=61, n_csv=120, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, 100, 0, nx=41, ny=61, interval=1, training_points=100)
+    init = numpy_params((2,) + (10,) * 10 + (6,), "xavier", seed=1)
+    init["b_out"][3] += 1.0  # eta + h away from 0
+    runs = {}
+    for fused in (False, True):
+        out = str(tmp_path / str(fused))
+        os.makedirs(out)
+        before = adam.fused_adam_update.launches
+        runs[fused] = adam_run(raw, init, out, cuda_device, monkeypatch, fused, 100)
+        assert runs[fused][0].kernel_plan.fused
+        assert adam.fused_adam_update.launches - before == (100 if fused else 0)
+    assert_same_adam_state(runs[True][0], runs[False][0])
+    assert np.array_equal(runs[True][1], runs[False][1])
