@@ -74,7 +74,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    trained model; the log, the files, the loss trend and the launch counts
    (K3 == 2 x loss evaluations) are checked; then iteration 1 and a
    20-step Adam prefix of a K2+K3 Trainer against an autograd Trainer from
-   the same numpy weights, under parity and parity=false;
+   the same numpy weights, under parity and parity=false; then 10 more
+   replays of the K2+K3 Trainer's step graph under ``torch.profiler``, the
+   K2, K3 and Adam kernels the card ran, by name, equal to the launches
+   the program counted for them;
 13. times: K3 beside its plain version and bound at the CMB and flagship
    shapes, with CUDA events (on the CMB grid they measure the host's launch
    rate; ``tools/k1_refactor_check.py --time`` gives the device time), and
@@ -296,9 +299,14 @@ def fail(msg: str) -> None:
 # leaves; at each phase's end the kernel's launches (set to 0 at its start)
 # must equal FusedAdam's steps (one launch a step: one group of at most 16
 # leaves on one device), and torch's own Adam may step there only in phase
-# 2b, which holds the kernel to it.
+# 2b, which holds the kernel to it. A Trainer that replays its step from a
+# CUDA graph calls the step once, at the capture, which launches nothing
+# (the hook sees the stream capturing); each replay launches once without a
+# call: FusedAdam's steps are the hook's uncaptured ones plus the replays
+# (the program's count ``step#replay``). Phase 12b holds the launches counted
+# a replay to the kernels a profile of the replays records.
 ADAM_COUNTS: dict[str, dict] = {}
-_adam_now: dict = {"phase": None, "fused": 0, "torch": 0}
+_adam_now: dict = {"phase": None, "fused": 0, "torch": 0, "captures": 0, "replays": 0}
 
 
 def adam_step_hook(optimizer, args, kwargs) -> None:
@@ -308,22 +316,30 @@ def adam_step_hook(optimizer, args, kwargs) -> None:
     leaves = [p for g in optimizer.param_groups for p in g["params"]]
     if isinstance(optimizer, torch.optim.Adam) and all(
             p.is_cuda and p.dtype == torch.float32 for p in leaves):
-        _adam_now["fused" if isinstance(optimizer, FusedAdam) else "torch"] += 1
+        if torch.cuda.is_current_stream_capturing():
+            _adam_now["captures"] += 1
+        else:
+            _adam_now["fused" if isinstance(optimizer, FusedAdam) else "torch"] += 1
 
 
 def close_adam_count() -> None:
     """The running phase's Adam launches and steps, into ``ADAM_COUNTS``."""
+    from pinn_depthestimation_tpu_torch import tracing
     from pinn_depthestimation_tpu_torch.optim import adam
 
     name = _adam_now["phase"]
     if name is None:
         return
     _adam_now["phase"] = None
-    launches, fused, plain = adam.fused_adam_update.launches, _adam_now["fused"], _adam_now["torch"]
+    captures = _adam_now["captures"]
+    replays = tracing.counts().get("step#replay", 0) - _adam_now["replays"]
+    launches, plain = adam.fused_adam_update.launches, _adam_now["torch"]
+    fused = _adam_now["fused"] + replays
     if launches or fused or plain:
-        ADAM_COUNTS[name] = {"launches": launches, "steps": fused}
+        ADAM_COUNTS[name] = {"launches": launches, "steps": fused, "replays": replays}
         print(f"  Adam in phase {name}: {launches} launches of its kernel, {fused} FusedAdam "
-              f"steps on card float32 leaves" + (f", {plain} of torch.optim.Adam" if plain else ""))
+              f"steps on card float32 leaves ({replays} of them graph replays, "
+              f"{captures} captures)" + (f", {plain} of torch.optim.Adam" if plain else ""))
     if launches != fused:
         fail(f"phase {name}: Adam's kernel launched {launches} times for {fused} FusedAdam steps")
     if plain and name != "2b":
@@ -337,6 +353,7 @@ def phase(title: str) -> None:
     first)."""
     from torch.optim.optimizer import register_optimizer_step_post_hook
 
+    from pinn_depthestimation_tpu_torch import tracing
     from pinn_depthestimation_tpu_torch.ops import kernels
     from pinn_depthestimation_tpu_torch.optim import adam
 
@@ -345,7 +362,8 @@ def phase(title: str) -> None:
     close_adam_count()
     print(f"== phase {title}")
     kernels.reset_launches(adam.fused_adam_update)
-    _adam_now.update(phase=title.split(":")[0], fused=0, torch=0)
+    _adam_now.update(phase=title.split(":")[0], fused=0, torch=0, captures=0,
+                     replays=tracing.counts().get("step#replay", 0))
 
 
 def nvidia_smi(query: str) -> str:
@@ -1399,6 +1417,8 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
                     fail(f"fused_kernel={mode!r} chose {tr.kernel_plan} on the card")
                 losses = tr._adam_steps(20).cpu().numpy()
                 runs[mode] = (losses, {k: v.clone() for k, v in tr.state.params.items()})
+                if parity and mode == "auto":
+                    graphed = tr
             (l_on, p_on), (l_off, p_off) = runs["auto"], runs["off"]
             rel1 = np.abs(l_on[0] - l_off[0]) / np.abs(l_off[0])
             dp = max(float((p_on[k] - p_off[k]).abs().max()) for k in p_on)
@@ -1416,6 +1436,13 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
         print(f"  prefix tolerance {prefix_tol:.1e}")
         if not max(prefix.values()) <= prefix_tol:
             fail("the 20-step Adam prefix of K2+K3 and autograd diverged")
+        if not graphed.graph_step or graphed._graph is None:
+            fail("the CMB Trainer on the card did not replay its Adam step from a CUDA graph")
+        recorded, counted = replayed_launches(graphed, 10)
+        print(f"  10 more replays of its graph: the card ran {recorded} kernels by name, the "
+              f"program counted {counted} launches")
+        if recorded != counted or recorded != {"k2": 20, "k3": 20, "adam": 10}:
+            fail("the launches counted for the graph's replays are not the kernels they ran")
 
         # 13. times ---------------------------------------------------------------
         phase("13: CMB times")
@@ -1452,6 +1479,47 @@ def cmb_phases(dev, repo: str, bound, keep: str) -> dict:
             "bound_ms_flagship_k2": times["flagship, train grid"][2],
             "cmb_adam_ms_per_iter": step["ms_per_iter"],
             "cmb_prefix_gap": max(prefix.values())}
+
+
+def replayed_launches(trainer, steps: int) -> tuple[dict, dict]:
+    """``(recorded, counted)``: the K2, K3 and Adam kernels that a profile of
+    ``steps`` replays of ``trainer``'s Adam step graph records by name, and
+    the launches the program counted for them (noted at the capture, added
+    a block). The profiler warms up over one replay first: a profile
+    without its warm-up may miss the first kernel it should record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from pinn_depthestimation_tpu_torch import tracing
+    from pinn_depthestimation_tpu_torch.ops import kernels, kernels_vjp
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    kinds = {"k2": (kernels.mlp_fwd_tangents, "k2_f32_kernel"),
+             "k3": (kernels_vjp.packed_mlp_bwd, "cotangent_walk_kernel"),
+             "adam": (adam.fused_adam_update, "adam_kernel")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        trainer._adam_steps(1)
+        torch.cuda.synchronize()
+        prof.step()
+        before = {k: w.launches for k, (w, _) in kinds.items()}
+        replays = tracing.counts().get("step#replay", 0)
+        trainer._adam_steps(steps)
+        torch.cuda.synchronize()
+        prof.step()
+    if tracing.counts().get("step#replay", 0) - replays != steps:
+        fail(f"{steps} Adam steps of a captured CMB Trainer were not {steps} replays")
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    recorded = {k: sum(name in e.name for e in events) for k, (_, name) in kinds.items()}
+    counted = {k: w.launches - before[k] for k, (w, _) in kinds.items()}
+    if recorded != counted:
+        names = [e.name[:60] for e in events]
+        print(f"  the profile's {len(events)} device events: first {names[:4]}, "
+              f"last {names[-4:]}")
+    return recorded, counted
 
 
 def k4_flops(spec, n_points: int, n_tangents: int) -> float:

@@ -31,7 +31,13 @@
 //
 // The host entry adam_step works out the scalars from each leaf's step
 // count (a CPU float32, torch's `step` state) plus one, and writes that count
-// back once the launch succeeded.
+// back once the launch succeeded. The capturable entry adam_step_table leaves
+// the scalars to device memory: the kernel reads step_size and bc2_sqrt from
+// row *counter of a table (two floats a row) that the host filled with the
+// same floats, in double and rounded, for a block of steps ahead, so a CUDA
+// graph can hold the launch and every replay takes the next row. It touches
+// no step count: the host raised them when it filled the table, and the
+// graph advances *counter after the launch.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +64,10 @@ struct Leaves {
   float bc2_sqrt[kMaxLeaves];      // (1 - beta2^t)^0.5
   float w1, beta2, w2, eps;        // 1 - beta1, beta2, 1 - beta2, eps
   int n;
+  // the capturable form's scalars (null in adam_step's launches): row
+  // *counter of `table` is (step_size, bc2_sqrt) for every leaf
+  const float* table;
+  const long long* counter;
 };
 
 __device__ __forceinline__ void update(float& p, float g, float& m, float& v, float w1,
@@ -77,7 +87,12 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(const __grid_constant__ 
   while (q >= a.quad_start[l + 1]) ++l;
   const int e = 4 * (q - a.quad_start[l]);
   const float w1 = a.w1, beta2 = a.beta2, w2 = a.w2, eps = a.eps;
-  const float step_size = a.step_size[l], bc2_sqrt = a.bc2_sqrt[l];
+  float step_size = a.step_size[l], bc2_sqrt = a.bc2_sqrt[l];
+  if (a.table != nullptr) {
+    const float* row = a.table + 2 * *a.counter;
+    step_size = row[0];
+    bc2_sqrt = row[1];
+  }
   float* __restrict__ p = a.p[l] + e;
   const float* __restrict__ g = a.g[l] + e;
   float* __restrict__ m = a.m[l] + e;
@@ -125,25 +140,22 @@ const char* adam_error_string(int err) {
 // ** is) from each leaf's step count *steps[i] plus one, then one launch on
 // `stream`; the raised counts are written back only if the launch succeeded.
 // Returns the launch's CUDA error (0: none).
-int adam_step(void* leaves, const void* const* grads, float* const* steps, double lr,
-              double beta1, double beta2, double eps, int device, void* stream) {
-  Leaves& a = *static_cast<Leaves*>(leaves);
-  float next[kMaxLeaves];
+namespace {
+
+// The gradients' pointers, the alignment flags and the step-independent
+// scalars, then one launch on `stream` (none where every leaf is empty).
+int launch(Leaves& a, const void* const* grads, double beta1, double beta2, double eps,
+           int device, void* stream) {
   for (int i = 0; i < a.n; ++i) {
     a.g[i] = static_cast<const float*>(grads[i]);
     a.vec[i] = aligned16(a.p[i]) && aligned16(a.g[i]) && aligned16(a.m[i]) && aligned16(a.v[i]);
-    const float t = next[i] = *steps[i] + 1.0f;
-    const double bc1 = 1.0 - pow(beta1, static_cast<double>(t));
-    const double bc2 = 1.0 - pow(beta2, static_cast<double>(t));
-    a.step_size[i] = static_cast<float>((lr / bc1) * -1.0);
-    a.bc2_sqrt[i] = static_cast<float>(pow(bc2, 0.5));
   }
   a.w1 = static_cast<float>(1.0 - beta1);
   a.beta2 = static_cast<float>(beta2);
   a.w2 = static_cast<float>(1.0 - beta2);
   a.eps = static_cast<float>(eps);
   int err = 0;
-  if (a.quad_start[a.n] > 0) {  // else every leaf is empty: nothing to launch
+  if (a.quad_start[a.n] > 0) {
     int previous = device;
     cudaGetDevice(&previous);
     if (previous != device) cudaSetDevice(device);
@@ -152,9 +164,39 @@ int adam_step(void* leaves, const void* const* grads, float* const* steps, doubl
     err = static_cast<int>(cudaGetLastError());
     if (previous != device) cudaSetDevice(previous);
   }
+  return err;
+}
+
+}  // namespace
+
+int adam_step(void* leaves, const void* const* grads, float* const* steps, double lr,
+              double beta1, double beta2, double eps, int device, void* stream) {
+  Leaves& a = *static_cast<Leaves*>(leaves);
+  float next[kMaxLeaves];
+  for (int i = 0; i < a.n; ++i) {
+    const float t = next[i] = *steps[i] + 1.0f;
+    const double bc1 = 1.0 - pow(beta1, static_cast<double>(t));
+    const double bc2 = 1.0 - pow(beta2, static_cast<double>(t));
+    a.step_size[i] = static_cast<float>((lr / bc1) * -1.0);
+    a.bc2_sqrt[i] = static_cast<float>(pow(bc2, 0.5));
+  }
+  a.table = nullptr;
+  a.counter = nullptr;
+  const int err = launch(a, grads, beta1, beta2, eps, device, stream);
   if (err == 0)
     for (int i = 0; i < a.n; ++i) *steps[i] = next[i];
   return err;
+}
+
+// The capturable form: adam_step's launch with the scalars read on the
+// device from row *counter of `table`; no step count is read or written.
+int adam_step_table(void* leaves, const void* const* grads, const float* table,
+                    const long long* counter, double beta1, double beta2, double eps,
+                    int device, void* stream) {
+  Leaves& a = *static_cast<Leaves*>(leaves);
+  a.table = table;
+  a.counter = counter;
+  return launch(a, grads, beta1, beta2, eps, device, stream);
 }
 
 }  // extern "C"

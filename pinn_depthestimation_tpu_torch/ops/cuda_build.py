@@ -293,10 +293,13 @@ def _bind_k34w(name: str):
 
 def _bind_adam(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Adam's entries: ``adam_step(leaves, grads, steps, lr, beta1, beta2,
-    eps, device, stream)``, the most leaves a launch takes and the size of
-    its argument block (``optim/adam.py``)."""
+    eps, device, stream)``, its capturable form ``adam_step_table(leaves,
+    grads, table, counter, beta1, beta2, eps, device, stream)``, the most
+    leaves a launch takes and the size of its argument block
+    (``optim/adam.py``)."""
     _D = ctypes.c_double
     return _bind(lib, "adam", {"step": [_P] * 3 + [_D] * 4 + [_I, _P],
+                               "step_table": [_P] * 4 + [_D] * 3 + [_I, _P],
                                "max_leaves": [], "leaves_bytes": []})
 
 

@@ -20,8 +20,21 @@ count too), a non-contiguous gradient through a contiguous copy, ``foreach``
 set or not. It raises, where torch's non-capturable step would run, on a
 tensor ``lr`` or betas, a non-contiguous leaf, a ``step`` count that is not
 a float32 on the CPU (Adam's own under torch's default dtype), a leaf of 2**31
-elements or more, and inside a CUDA graph capture: the kernel's scalars are
-worked out on the host each step.
+elements or more, and inside a CUDA graph capture without a step table.
+
+The capturable form (:class:`StepTable`, :meth:`FusedAdam.attach_table`,
+:meth:`FusedAdam.schedule`): the kernel's step-dependent scalars, which the
+uncaptured launch works out on the host each step, are read on the device
+from row ``counter`` of a table, and the step advances ``counter`` by one
+on the device, so a CUDA graph holds the step and each replay takes the
+next row. :meth:`FusedAdam.schedule` takes the host's side of a block of
+steps at once: it fills the rows with the floats the uncaptured launches
+would work out (each leaf's step count plus one, the learning rate as the
+scheduler leaves it before each step, in double and rounded), steps the
+scheduler as many times and raises the step counts, so parameters, moments,
+step counts and the scheduler end the block with every bit they would have
+had (the card tests). Under a capture ``step`` launches that form (with the
+optimizer's table) and changes nothing on the host.
 
 The host's share of a step is kept small: the leaves' and moments' pointers
 sit in ctypes blocks built once (:class:`AdamLeaves`, the kernel's
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from pinn_depthestimation_tpu_torch.tracing import count_launch, reset_launches
@@ -139,7 +153,8 @@ class AdamLeaves(ctypes.Structure):
                 ("step_size", ctypes.c_float * MAX_LEAVES),
                 ("bc2_sqrt", ctypes.c_float * MAX_LEAVES),
                 ("w1", ctypes.c_float), ("beta2", ctypes.c_float), ("w2", ctypes.c_float),
-                ("eps", ctypes.c_float), ("n", ctypes.c_int)]
+                ("eps", ctypes.c_float), ("n", ctypes.c_int),
+                ("table", ctypes.c_void_p), ("counter", ctypes.c_void_p)]
 
 
 def _quads(p) -> int:
@@ -158,7 +173,7 @@ class _Launch:
         lib = adam_library()
         if lib.adam_leaves_bytes() != ctypes.sizeof(AdamLeaves) or lib.adam_max_leaves() != MAX_LEAVES:
             raise RuntimeError("csrc/adam_step.cu and optim/adam.py disagree on the argument block")
-        self.entry, self.error_string = lib.adam_step, lib.adam_error_string
+        self.library, self.entry, self.error_string = lib, lib.adam_step, lib.adam_error_string
         self.group, self.params = group, params
         self.device_index = params[0].device.index
         self.leaves = AdamLeaves()
@@ -255,15 +270,24 @@ class _Plan:
         return True
 
 
-def fused_adam_update(launch: _Launch) -> None:
+def fused_adam_update(launch: _Launch, table: StepTable | None = None) -> None:
     """One launch of Adam's update over ``launch``'s leaves on the current
-    stream, with the gradients :meth:`_Launch.ready` noted. Every launch
-    counts one in ``fused_adam_update.launches``."""
+    stream, with the gradients :meth:`_Launch.ready` noted; with ``table``,
+    the capturable form (its scalars from the table's row ``counter``, no
+    step count touched). Every launch counts one in
+    ``fused_adam_update.launches``."""
     group = launch.group
     beta1, beta2 = group["betas"]
     index = launch.device_index
-    err = launch.entry(*launch.addresses, group["lr"], beta1, beta2, group["eps"], index,
-                       torch._C._cuda_getCurrentRawStream(index))
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if table is None:
+        err = launch.entry(*launch.addresses, group["lr"], beta1, beta2, group["eps"], index,
+                           stream)
+    else:
+        leaves, grads, _ = launch.addresses
+        err = launch.library.adam_step_table(leaves, grads, table.scalars.data_ptr(),
+                                             table.counter.data_ptr(), beta1, beta2,
+                                             group["eps"], index, stream)
     if err != 0:
         raise RuntimeError(f"Adam's update failed to launch: CUDA error {err} "
                            f"({launch.error_string(err).decode()})")
@@ -271,6 +295,38 @@ def fused_adam_update(launch: _Launch) -> None:
 
 
 reset_launches(fused_adam_update)
+
+
+# ------------------------------------------------------------ step table
+
+class StepTable:
+    """The capturable form's device memory: ``scalars``, ``capacity`` rows
+    of ``(step_size, bc2_sqrt)`` (float32, one row a step), and
+    ``counter``, the row the next launch reads (int64, one element),
+    which the step advances on the device."""
+
+    def __init__(self, capacity: int, device):
+        self.capacity = capacity
+        self.scalars = torch.zeros((capacity, 2), dtype=torch.float32, device=device)
+        self.counter = torch.zeros((1,), dtype=torch.int64, device=device)
+
+
+def table_rows(lr: float, beta1: float, beta2: float, step: float, n: int,
+               scheduler=None) -> tuple[list, float]:
+    """``(rows, step)``: the ``(step_size, bc2_sqrt)`` of the ``n`` steps
+    after the step count ``step``, each from the learning rate in effect
+    before that step (``lr``, then after each ``scheduler.step()``, which
+    runs between two steps on the optimizer of one group), worked out in
+    double as :func:`adam_scalars` does; and the step count after them,
+    counted in float32 as the uncaptured launch counts."""
+    rows, t = [], np.float32(step)
+    for _ in range(n):
+        t = t + np.float32(1.0)
+        rows.append(adam_scalars(lr, beta1, beta2, float(t)))
+        if scheduler is not None:
+            scheduler.step()
+            lr = scheduler.optimizer.param_groups[0]["lr"]
+    return rows, float(t)
 
 
 # ----------------------------------------------------------------- optimizer
@@ -291,10 +347,46 @@ class FusedAdam(torch.optim.Adam):
     card (module docstring)."""
 
     _plan: _Plan | None = None
+    table: StepTable | None = None
+
+    def attach_table(self, capacity: int) -> StepTable:
+        """The capturable form's :class:`StepTable` of ``capacity`` rows on
+        the leaves' device, kept as ``table`` (a new one replaces it, so a
+        graph captured on the old one must be captured again)."""
+        device = self.param_groups[0]["params"][0].device
+        self.table = StepTable(capacity, device)
+        return self.table
+
+    def schedule(self, n: int, scheduler=None) -> None:
+        """The host's side of the next ``n`` steps of the capturable form
+        (module docstring): the table's first ``n`` rows, ``scheduler``
+        stepped ``n`` times, every leaf's step count raised by ``n``, the
+        counter at row 0. It takes one param group whose leaves all hold
+        Adam's state at one step count, as a Trainer's do after its first
+        step."""
+        table = self.table
+        if table is None or not 0 < n <= table.capacity:
+            raise ValueError(f"FusedAdam.schedule needs a step table of at least {n} rows")
+        if len(self.param_groups) != 1:
+            raise ValueError("FusedAdam's capturable form takes one param group")
+        group = self.param_groups[0]
+        _check_scalars(group)
+        states = [self.state.get(p) for p in group["params"]]
+        if not all(states) or len({float(st["step"]) for st in states}) != 1:
+            raise ValueError("FusedAdam's capturable form needs every leaf's state at one "
+                             "step count: take an uncaptured step first")
+        beta1, beta2 = group["betas"]
+        rows, step = table_rows(group["lr"], beta1, beta2, float(states[0]["step"]), n,
+                                scheduler)
+        table.scalars[:n].copy_(torch.tensor(rows, dtype=torch.float32))
+        table.counter.zero_()
+        for st in states:
+            st["step"].fill_(step)
 
     def step(self, closure=None):
         """One Adam step: the kernel where :func:`fused_applicable` holds,
-        else ``torch.optim.Adam.step``."""
+        else ``torch.optim.Adam.step``; under a CUDA graph capture the
+        capturable form on :attr:`table`."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -310,8 +402,13 @@ class FusedAdam(torch.optim.Adam):
                 raise RuntimeError("FusedAdam's launches do not hold their own leaves")
             self._plan = plan
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("FusedAdam's step works out its scalars on the host each step, "
-                               "so a CUDA graph cannot capture it")
+            if self.table is None:
+                raise RuntimeError("FusedAdam under a CUDA graph capture reads its scalars "
+                                   "from a step table: attach_table() first")
+            for launch in plan.launches:
+                fused_adam_update(launch, self.table)
+            self.table.counter.add_(1)
+            return loss
         for launch in plan.launches:
             fused_adam_update(launch)
         return loss

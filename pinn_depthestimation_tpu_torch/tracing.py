@@ -25,7 +25,15 @@ list; :func:`reset` clears it.
 
 The launch counters live here too: :func:`count_launch` raises a kernel
 wrapper's ``.launches``, ``.launches_by_tier`` and ``.launches_by_body``
-by one, :func:`reset_launches` zeroes them.
+by one, :func:`reset_launches` zeroes them. A CUDA graph's capture launches
+nothing: inside :func:`capturing_launches` the launches are noted, not
+counted, and :func:`add_launches` counts the noted launches once for each
+of a block's replays, so ``.launches`` stays the number of launches the card ran.
+
+Counters of events (:func:`count`, :func:`counts`, :func:`reset_counts`)
+always count, traced or not: the Trainer's Adam steps by how they ran
+(``step#replay``: one replay of the step's CUDA graph; ``step#eager``: the
+step issued op by op).
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ class Span(NamedTuple):
 _spans: list[Span] = []
 _open: list[str] = []  # names of the recording spans now open, innermost last
 _enabled = False
+_counts: dict[str, int] = {}
+_noted: list | None = None  # launches noted, not counted, while a graph captures
 
 
 class _Recording:
@@ -147,16 +157,66 @@ def summary() -> dict[str, dict]:
     return out
 
 
+# ------------------------------------------------------------ event counts
+
+def count(name: str, n: int = 1) -> None:
+    """``n`` more events ``name`` (``<layer>#<event>``)."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    """Every event's count since the last :func:`reset_counts`."""
+    return dict(_counts)
+
+
+def reset_counts() -> None:
+    _counts.clear()
+
+
 # ------------------------------------------------------------ launch counts
 
 def count_launch(wrapper, precision: str, spec=None) -> None:
     """One more launch of ``wrapper``'s kernel at ``precision``, by the body
     that runs ``spec`` (:func:`ops.widths.body`; none for a kernel that runs
-    no net, such as Adam's update)."""
+    no net, such as Adam's update). Inside :func:`capturing_launches` the
+    launch is noted, not counted."""
+    body = None if spec is None else widths.body(spec)
+    if _noted is not None:
+        _noted.append((wrapper, precision, body))
+        return
     wrapper.launches += 1
     wrapper.launches_by_tier[precision] += 1
-    if spec is not None:
-        wrapper.launches_by_body[widths.body(spec)] += 1
+    if body is not None:
+        wrapper.launches_by_body[body] += 1
+
+
+class capturing_launches:
+    """``with capturing_launches() as noted:`` around a CUDA graph's
+    capture: each :func:`count_launch` inside appends ``(wrapper, precision,
+    body)`` to ``noted`` and counts nothing, on every thread (the backward
+    of a captured step runs on autograd's)."""
+
+    def __enter__(self) -> list:
+        global _noted
+        if _noted is not None:
+            raise RuntimeError("capturing_launches does not nest")
+        _noted = []
+        return _noted
+
+    def __exit__(self, *exc):
+        global _noted
+        _noted = None
+        return False
+
+
+def add_launches(noted: list, times: int = 1) -> None:
+    """Count the launches ``noted`` by :func:`capturing_launches`, ``times``
+    over: a captured graph's replays."""
+    for wrapper, precision, body in noted:
+        wrapper.launches += times
+        wrapper.launches_by_tier[precision] += times
+        if body is not None:
+            wrapper.launches_by_body[body] += times
 
 
 def reset_launches(wrapper) -> None:

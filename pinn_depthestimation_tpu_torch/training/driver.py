@@ -48,16 +48,33 @@ pipeline (reference ``train.py:46-200``, ``train_newmethod.py:46-209``):
   checkpoints act on the one master copy of the parameters on the mesh's
   first device. K1 (or K2 with K3/K4) launches on every shard.
 
+* the Adam step replayed from one CUDA graph (:meth:`Trainer._adam_steps`):
+  on the card the two-kernel autograd step (K2 forward with tangents, the
+  loss, K3 or K4 backward, Adam's update in its capturable form) is
+  captured once, after an uncaptured step that builds Adam's state, and
+  replayed once a step; each replay writes its loss row into the block's
+  device buffer and takes its Adam scalars from the optimizer's step table,
+  which the host fills for the block (``FusedAdam.schedule``, which also
+  steps ``StepLR``), so parameters, moments, step counts, the scheduler and
+  the loss rows are the uncaptured steps' bit for bit. The one-kernel step
+  (K1), the CPU, a mesh, a tier other than f32, a precision schedule's
+  prefix and plain autograd run op by op; the Trainer says at construction
+  which it does.
+
 The iteration counter counts loss evaluations, as the reference's
 ``self.iter`` does (reference ``train.py:160``).
 
 Spans (:mod:`tracing`): ``trainer#init`` over the construction, with
 ``trainer#init.data``, ``trainer#init.loss`` and ``trainer#init.optimizer``
-(always recorded); while tracing is on, ``trainer#block`` over each Adam
-chunk, with ``trainer#dispatch`` (issuing its steps), ``trainer#sync`` (the
-loss rows' copy to the host) and ``trainer#record`` (the flush, each save
-under it a ``trainer#checkpoint``), and ``step#adam`` over each
-optimizer and scheduler step.
+(always recorded), and ``trainer#capture`` over each capture of the step;
+while tracing is on, ``trainer#block`` over each Adam chunk, with
+``trainer#dispatch`` (issuing its steps), ``trainer#sync`` (the loss rows'
+copy to the host) and ``trainer#record`` (the flush, each save under it a
+``trainer#checkpoint``), ``step#adam`` over each uncaptured optimizer and
+scheduler step and ``step#replay`` over each replay of the graph. Counts
+(:func:`tracing.count`, always on): ``step#replay`` and ``step#eager``, the
+Adam steps by how they ran; the captures are ``trainer#capture``'s count
+in :func:`tracing.summary`.
 """
 
 from __future__ import annotations
@@ -309,6 +326,12 @@ class Trainer:
             self._pending_lbfgs64_resume = None
             self._pending_params64 = None       # flat f64 iterate of a finished polish
             self._snapshot_done = False
+            # the Adam step's CUDA graph: captured at the first step that
+            # finds none (or a stale one), after an uncaptured step
+            self._graph = None
+            self.graph_step, why = self._graph_decision()
+            print("Adam step: " + ("captured once into a CUDA graph and replayed a step"
+                                   if self.graph_step else f"op by op ({why})"))
 
     def _host_batch(self, dtype) -> dict[str, np.ndarray]:
         return {k: np.asarray(getattr(self.data, k), dtype)
@@ -351,11 +374,92 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         return gen.manual_seed(self.config.seed + 1 + iteration)
 
+    def _graph_decision(self) -> tuple[bool, str]:
+        """``(graphed, why not)``: the Adam step is replayed from a CUDA
+        graph where it is the two-kernel autograd step at f32 on one card
+        with every leaf a float32 card tensor (dropout 0 is part of that
+        path)."""
+        if self.device.type != "cuda":
+            return False, f"no CUDA graph on {self.device.type}"
+        if self.fused_step_fn is not None:
+            return False, "the one-kernel step (K1) is not graphed"
+        if not self.kernel_plan.fused:
+            return False, "plain autograd is not graphed"
+        if self.mesh is not None:
+            return False, "a mesh's shards are not graphed"
+        if self.config.resolved_kernel_precision() != "f32":
+            # the card tests hold the replayed step to the uncaptured one bit
+            # for bit at f32 alone
+            return False, "only the f32 step is graphed"
+        if not all(p.is_cuda and p.dtype == torch.float32 for p in self.state.params.values()):
+            return False, "a leaf is not a float32 card tensor"
+        if not isinstance(self.optimizer, FusedAdam):
+            return False, "the optimizer has no capturable form"
+        return True, ""
+
+    def _graph_key(self, value_and_grad_fn) -> tuple:
+        """What a captured graph holds the addresses of: the function, the
+        batch, the leaves, Adam's moments and its step table."""
+        opt = self.optimizer.state
+        return (value_and_grad_fn, id(self.batch), id(self.optimizer.table),
+                *((p.data_ptr(), *(opt[p][k].data_ptr() if p in opt else 0
+                                   for k in ("exp_avg", "exp_avg_sq")))
+                  for p in self.state.params.values()))
+
+    def _capture(self, value_and_grad_fn) -> None:
+        """Capture one Adam step through ``value_and_grad_fn`` into a CUDA
+        graph (span ``trainer#capture``): the loss and its gradients, the
+        loss row into the buffer's row ``counter`` and Adam's capturable
+        update, which advances ``counter``. The launches inside are noted,
+        to be counted once a replay."""
+        with tracing.setup_span("trainer#capture"):
+            self._graph = None
+            table = self.optimizer.table or self.optimizer.attach_table(_CHUNK)
+            rows = torch.zeros((table.capacity, 3), dtype=torch.float32, device=self.device)
+            params = self.state.params
+            graph = torch.cuda.CUDAGraph()
+            with tracing.capturing_launches() as noted, torch.cuda.graph(graph):
+                (total, (fid, res)), grads = value_and_grad_fn(params, self.batch, None)
+                rows.index_copy_(0, table.counter, torch.stack((fid, res, total))[None])
+                for k in PARAM_KEYS:
+                    params[k].grad = grads[k]
+                self.optimizer.step()
+            for k in PARAM_KEYS:
+                params[k].grad = None
+            self._graph = (graph, rows, noted, self._graph_key(value_and_grad_fn))
+
     def _adam_steps(self, n: int, value_and_grad_fn=None) -> torch.Tensor:
         """``n`` Adam steps from the current state through
         ``value_and_grad_fn`` (default: the main one); returns the ``(n, 3)``
-        ``(fid, res, total)`` rows on the device (no host sync)."""
+        ``(fid, res, total)`` rows on the device (no host sync). Where the
+        Trainer graphs the step (:meth:`_graph_decision`) and the function
+        is the main one, the steps are replays of its CUDA graph, captured
+        after one uncaptured step where none is held for the present leaves,
+        moments and batch."""
         value_and_grad_fn = value_and_grad_fn or self.value_and_grad_fn
+        if not self.graph_step or value_and_grad_fn is not self.value_and_grad_fn:
+            return self._eager_steps(n, value_and_grad_fn)
+        losses = torch.empty((n, 3), dtype=torch.float32, device=self.device)
+        done = 0
+        if n and (self._graph is None or self._graph[3] != self._graph_key(value_and_grad_fn)):
+            losses[:1] = self._eager_steps(1, value_and_grad_fn)
+            done = 1
+            self._capture(value_and_grad_fn)
+        graph, rows, noted, _ = self._graph
+        while done < n:
+            m = min(n - done, rows.shape[0])
+            self.optimizer.schedule(m, self.scheduler)
+            for _ in range(m):
+                with tracing.span("step#replay"):
+                    graph.replay()
+            tracing.add_launches(noted, m)
+            tracing.count("step#replay", m)
+            losses[done:done + m] = rows[:m]
+            done += m
+        return losses
+
+    def _eager_steps(self, n: int, value_and_grad_fn) -> torch.Tensor:
+        """:meth:`_adam_steps` op by op."""
         losses = torch.empty((n, 3), dtype=torch.float32, device=self.device)
         params = self.state.params
         for i in range(n):
@@ -369,6 +473,7 @@ class Trainer:
                 self.scheduler.step()
         for k in PARAM_KEYS:
             params[k].grad = None
+        tracing.count("step#eager", n)
         return losses
 
     def train_adam(self) -> None:

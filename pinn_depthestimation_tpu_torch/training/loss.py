@@ -274,10 +274,17 @@ def build_loss_fn(
     if mesh is not None:
         return sharded_loss_fn
 
+    weights_on: dict = {}  # (dtype, device) -> fid_weight_list there, made once
+
     def loss_fn(params, batch, dropout_generator=None):
         res_input = batch["residual_input"]
-        fid_weights = torch.as_tensor(fid_weight_list, dtype=res_input.dtype,
-                                      device=res_input.device)
+        # made once per device: a copy from the host each call would also
+        # keep a CUDA graph from capturing the step
+        where = (res_input.dtype, res_input.device)
+        if where not in weights_on:
+            weights_on[where] = torch.as_tensor(fid_weight_list, dtype=res_input.dtype,
+                                                device=res_input.device)
+        fid_weights = weights_on[where]
 
         def fidelity_from(pred):
             err2 = (batch["fidelity_true"] - pred[..., : len(fid_outputs)]) ** 2

@@ -284,13 +284,15 @@ def test_the_card_path_raises_where_the_kernel_cannot_take_it(fake_card, monkeyp
 def test_the_fused_block_matches_the_kernels_layout():
     """The ctypes argument block: pointers first, 8-byte aligned, in the
     order and size of csrc/adam_step.cu's Leaves (the library reports its
-    size, which the launch compares)."""
+    size, which the launch compares); the capturable form's table and
+    counter pointers last."""
     block = adam.AdamLeaves
     n = adam.MAX_LEAVES
     assert block.p.offset == 0 and block.v.offset == 3 * 8 * n
     assert block.quad_start.offset == 4 * 8 * n + 4 * n
     assert block.n.offset == 4 * 8 * n + 4 * (n + n + 1 + n + n + n) + 4 * 4
-    assert adam.ctypes.sizeof(block) == 856
+    assert block.table.offset == 856 and block.counter.offset == 864
+    assert adam.ctypes.sizeof(block) == 872
 
 
 # ------------------------------------------------------------- on the CPU

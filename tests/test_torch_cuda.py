@@ -1671,3 +1671,154 @@ def test_cuda_fused_adam_equals_torch_foreach_cmb(cuda_device, tmp_path, monkeyp
         assert adam.fused_adam_update.launches - before == (100 if fused else 0)
     assert_same_adam_state(runs[True][0], runs[False][0])
     assert np.array_equal(runs[True][1], runs[False][1])
+
+
+# ------------------------------------------- the Adam step as one CUDA graph
+
+def graph_run(raw, init, out, device, graph, steps, restore=None):
+    """A Trainer that replays its Adam step from a CUDA graph (``graph``)
+    or runs it op by op (its decision made False), from ``init`` (or the
+    checkpoint ``restore``) through ``train_adam`` to ``steps``; returns it,
+    the loss rows of every block as the device gave them, and the program's
+    counts of the run, its captures (``trainer#capture``) from the span
+    summary."""
+    from pinn_depthestimation_tpu_torch import tracing
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.training import driver
+
+    raw = dict(raw, adam_optimizer=dict(raw["adam_optimizer"], max_it=steps))
+    decide = driver.Trainer._graph_decision
+    if not graph:
+        driver.Trainer._graph_decision = lambda self: (False, "the test's op-by-op twin")
+    try:
+        trainer = driver.Trainer(parse_config(raw), run_dir=out, echo_every=0,
+                                 initial_params=init, device=device)
+    finally:
+        driver.Trainer._graph_decision = decide
+    assert trainer.graph_step == graph
+    if restore is not None:
+        trainer.restore(restore)
+    rows, record = [], trainer._record
+    trainer._record = lambda losses: (rows.append(np.array(losses, copy=True)), record(losses))
+    before = dict(tracing.counts(), captures=captures())
+    trainer.train_adam()
+    counts = {k: v - before.get(k, 0) for k, v in tracing.counts().items()}
+    counts["trainer#capture"] = captures() - before["captures"]
+    return trainer, np.concatenate(rows), counts
+
+
+def captures() -> int:
+    """The captures of the Trainers' step graphs so far."""
+    from pinn_depthestimation_tpu_torch import tracing
+
+    return tracing.summary().get("trainer#capture", {}).get("count", 0)
+
+
+def cmb_graph_raw(tmp_path, step_size):
+    from pinn_depthestimation_tpu_torch.parity import make_cmb_config
+    from pinn_depthestimation_tpu_torch.utils import synthetic
+
+    csv, mat = str(tmp_path / "f.csv"), str(tmp_path / "r.mat")
+    synthetic.make_cmb_dataset(csv, mat, nx=81, ny=261, n_csv=400, seed=6, nan_fraction=0.03)
+    raw = make_cmb_config(csv, mat, 0, 0, interval=1, training_points=200)
+    raw["adam_optimizer"]["scheduler_step_size"] = step_size
+    init = numpy_params((2,) + (10,) * 10 + (6,), "xavier", seed=1)
+    init["b_out"][3] += 1.0  # eta + h away from 0
+    return raw, init
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_cmb_step_equals_the_eager_step(cuda_device, tmp_path):
+    """The CMB net on the 20,507-point grid and 200 rows, 1,000 Adam steps
+    with StepLR every 300: replayed from one CUDA graph and op by op, every
+    parameter, both moments, the step counts, the learning rate and every
+    loss row bit for bit; and again from a checkpoint at step 500 restored
+    into a new graphed Trainer (which captures anew after one uncaptured
+    step). One replay a step after the first, K2 and K3 counted twice a
+    step and Adam once."""
+    import os
+
+    from pinn_depthestimation_tpu_torch.optim import adam
+
+    raw, init = cmb_graph_raw(tmp_path, 300)
+    dirs = {name: str(tmp_path / name) for name in ("eager", "graph", "half")}
+    for d in dirs.values():
+        os.makedirs(d)
+    eager, eager_rows, counts = graph_run(raw, init, dirs["eager"], cuda_device, False, 1_000)
+    assert counts.get("step#replay", 0) == 0 and counts["step#eager"] == 1_000
+    launches = [w.launches for w in (kernels.mlp_fwd_tangents, kernels_vjp.packed_mlp_bwd,
+                                     adam.fused_adam_update)]
+    ours, rows, counts = graph_run(raw, init, dirs["graph"], cuda_device, True, 1_000)
+    after = [w.launches for w in (kernels.mlp_fwd_tangents, kernels_vjp.packed_mlp_bwd,
+                                  adam.fused_adam_update)]
+    assert [a - b for a, b in zip(after, launches)] == [2_000, 2_000, 1_000]
+    assert counts["step#replay"] == 999 and counts["step#eager"] == 1
+    assert counts["trainer#capture"] == 1
+    assert ours.optimizer.param_groups[0]["lr"] == pytest.approx(1e-4 * 0.8**3)
+    assert_same_adam_state(ours, eager)
+    assert ours.scheduler.last_epoch == eager.scheduler.last_epoch == 1_000
+    assert rows.shape == (1_000, 3) and np.array_equal(rows, eager_rows)
+
+    half, half_rows, _ = graph_run(raw, init, dirs["half"], cuda_device, True, 500)
+    path = half.save("model_500")
+    resumed, resumed_rows, counts = graph_run(raw, init, dirs["half"], cuda_device, True, 1_000,
+                                              restore=path)
+    assert counts["step#replay"] == 499 and counts["trainer#capture"] == 1
+    assert_same_adam_state(resumed, eager)
+    assert np.array_equal(np.concatenate([half_rows, resumed_rows]), eager_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_legacy_step_equals_the_eager_step(cuda_device, tmp_path):
+    """The legacy net (5->[20]x20->4, K2 at K=3 and K3) 100 Adam steps,
+    StepLR every 30: replayed from one graph and op by op, bit for bit."""
+    import os
+
+    raw = legacy_trainer_raw(tmp_path, 0)
+    raw["adam_optimizer"]["scheduler_step_size"] = 30
+    init = numpy_params(LEGACY_SIZES, "xavier", seed=3)
+    out = {}
+    for graph in (False, True):
+        run = str(tmp_path / str(graph))
+        os.makedirs(run)
+        out[graph] = graph_run(raw, init, run, cuda_device, graph, 100)
+    assert out[True][2]["step#replay"] == 99 and out[True][0].kernel_plan.fused
+    assert_same_adam_state(out[True][0], out[False][0])
+    assert np.array_equal(out[True][1], out[False][1])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_count_their_launches(cuda_device, tmp_path):
+    """``_adam_steps`` in blocks of 7 and 3 steps: one replay a step after
+    the first, K3's launches twice the steps by the per-replay count, Adam's
+    once; the capture recorded once."""
+    import os
+
+    from pinn_depthestimation_tpu_torch import tracing
+    from pinn_depthestimation_tpu_torch.config import parse_config
+    from pinn_depthestimation_tpu_torch.optim import adam
+    from pinn_depthestimation_tpu_torch.training.driver import Trainer
+
+    raw, init = cmb_graph_raw(tmp_path, 10_000)
+    os.makedirs(tmp_path / "run")
+    trainer = Trainer(parse_config(raw), run_dir=str(tmp_path / "run"), echo_every=0,
+                      initial_params=init, device=cuda_device)
+    assert trainer.graph_step
+    k3, a = kernels_vjp.packed_mlp_bwd.launches, adam.fused_adam_update.launches
+    before = tracing.counts()
+    tracing.enable()
+    try:
+        tracing.reset()
+        rows = torch.cat([trainer._adam_steps(7), trainer._adam_steps(3)]).cpu().numpy()
+        spans = tracing.summary()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    counts = {k: v - before.get(k, 0) for k, v in tracing.counts().items()}
+    assert counts["step#replay"] == 9 and counts["step#eager"] == 1
+    assert spans["step#replay"]["count"] == 9 and spans["step#adam"]["count"] == 1
+    assert spans["trainer#capture"]["count"] == 1
+    assert kernels_vjp.packed_mlp_bwd.launches - k3 == 20
+    assert adam.fused_adam_update.launches - a == 10
+    assert np.isfinite(rows).all() and rows.shape == (10, 3)
+    assert len(np.unique(rows[:, 2])) == 10

@@ -27,7 +27,7 @@ PROGRAM_SPANS = {
     "trainer#init", "trainer#init.data", "trainer#init.loss", "trainer#init.optimizer",
     "trainer#block", "trainer#dispatch", "trainer#sync", "trainer#record",
     "trainer#checkpoint", "step#k1", "step#adam", "residual#k2", "library#build",
-    "library#load",
+    "library#load", "trainer#capture", "step#replay",
 }
 BLOCK = ("trainer#block", "trainer#dispatch", "trainer#sync", "trainer#record")
 
@@ -257,3 +257,35 @@ def test_train_profile_writes_the_spans_beside_the_trace(tmp_path, mat, capsys):
     with pytest.raises(SystemExit):
         cli.main(["train", "--help"])
     assert "DIR/spans.json" in " ".join(capsys.readouterr().out.split())
+
+
+def test_a_tiny_trainer_counts_each_step_by_how_it_ran(tmp_path, mat):
+    """The counts are on whether tracing is or not: each Adam step of a CPU
+    Trainer is ``step#eager``, none a replay, no capture; the K1 step says
+    so at construction."""
+    before = tracing.counts()
+    trainer = tiny_trainer(tmp_path, mat)
+    assert not trainer.graph_step and trainer._graph is None
+    assert trainer._graph_decision() == (False, "no CUDA graph on cpu")
+    advance(trainer, 3)
+    advance(trainer, 5)
+    after = tracing.counts()
+    assert after["step#eager"] - before.get("step#eager", 0) == 5
+    assert after.get("step#replay", 0) == before.get("step#replay", 0)
+    assert counts() == {"trainer#init": 1, "trainer#init.data": 1, "trainer#init.loss": 1,
+                        "trainer#init.optimizer": 1}
+
+
+def test_launches_counted_inside_a_capture_are_noted_for_the_replays():
+    spec = MLPSpec(sizes=(2, 8, 8, 3))
+    wrapper = kernels.mlp_fwd_tangents
+    before = (wrapper.launches, dict(wrapper.launches_by_tier), dict(wrapper.launches_by_body))
+    try:
+        with tracing.capturing_launches() as noted:
+            tracing.count_launch(wrapper, "f32", spec)
+        assert wrapper.launches == before[0] and noted == [(wrapper, "f32", "narrow")]
+        tracing.add_launches(noted, 2)
+        assert wrapper.launches == before[0] + 2
+        assert wrapper.launches_by_body["narrow"] == before[2]["narrow"] + 2
+    finally:
+        wrapper.launches, wrapper.launches_by_tier, wrapper.launches_by_body = before
